@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Drives ssnt_tts_tpu_torch at the repo's benchmarked model width
 (vocab 128, mel 80, encoder 256 x 2 layers x 4 heads, decoder 256,
-10 duration classes, bfloat16 compute) with seeded random weights, in
-phases, each reported on its own line:
+joint rank 64, 10 duration classes, bfloat16 compute) with seeded random
+weights, in phases, each reported on its own line:
 
   1. device: torch's name for the card and nvidia-smi's name/power limit;
-  2. build: compile csrc/fused_v2_step.cu with nvcc (ptxas report);
+  2. build: compile csrc/fused_v2_step.cu and csrc/lattice.cu with nvcc,
+     one process each, at once (ptxas report);
   3. step check at B=32, W=8, H=256, D=10, float32 and bfloat16: the
      kernel's class log-probs h and new GRU state against the plain
      PyTorch step (tolerance 1e-4 f32, 3e-2 bf16), and the plain selection
@@ -22,9 +24,25 @@ phases, each reported on its own line:
      and bfloat16: share of utterances whose durations agree;
   6. timings: the fused step against the plain step (CUDA events; device
      time under a CUDA graph, and per eager call), and one request end to
-     end (host clock, split into decode, encode and synthesis).
+     end (host clock, split into decode, encode and synthesis);
+  7. lattice check: each lattice kernel against its plain version on
+     ragged lengths with an il = ol = 1 and a degenerate example: the
+     bidirectional kernel at B=32 T=80 U=400 (alphas, betas, loss, and the
+     gradients after the posterior pass), forward alphas and backward
+     gradients at B=256 in float32 and bfloat16 storage;
+  8. train (the training path): run_training at B=32 for 10 steps (one
+     bidirectional launch each), one no-grad loss (one forward-alphas
+     launch), run_training at B=256 for 2 steps in float32 and 2 in
+     bfloat16 lattice storage (one forward and one backward launch each),
+     and one B=32 step through the plain lattice route from the same
+     weights and batch as a kernel-route step (no launches; loss and
+     grad_norm agree);
+  9. timings: each lattice kernel and its plain version (device time,
+     CUDA graph), both lattice routes at both batch sizes, and the train
+     step at B=32 and B=256 on both routes, split into forward, backward
+     and optimizer (host clock, each part ending in a synchronize).
 
-Then one JSON line describing the kernel, and as the last line
+Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
 no result line). Without a CUDA device it exits 1 before doing anything.
 """
@@ -42,7 +60,21 @@ import numpy as np
 import torch
 
 B, T, U, W = 32, 80, 400, 8
+B_LARGE = 256
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# Lattice kernel vs plain version (same operations in the same order; only
+# the exp/log1p implementations may differ by an ulp): alphas, betas and
+# losses within 1e-5 relative (of max(1, |value|)), float32 gradients
+# (posteriors times g = 1, in [0, 1]) within 1e-5, bfloat16 gradients
+# within one bf16 ulp below 1 (2^-8).
+LAT_REL, GRAD_F32, GRAD_BF16 = 1e-5, 1e-5, 2.0 ** -8
+# Kernel route vs plain route, one bf16 train step from the same weights:
+# the lattice gradients agree to ~1e-6, then the bf16 backward rounds them
+# (a flipped rounding moves a bf16 value by 2^-8 relative).
+ROUTE_LOSS_RTOL, ROUTE_NORM_RTOL = 1e-5, 1e-2
+# Card peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32 (non
+# tensor core) and bf16 tensor-core operations/s.
+HBM_BPS, F32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
 SERVE_CFG = dict(vocab_size=128, mel_dim=80, encoder_dim=256,
                  encoder_layers=2, encoder_heads=4, decoder_dim=256,
                  joint_rank=64)
@@ -50,6 +82,16 @@ SERVE_CFG = dict(vocab_size=128, mel_dim=80, encoder_dim=256,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, ops_rate: float):
+    """(least ms for the work, "bytes" or "operations")."""
+    tb, to = nbytes / HBM_BPS, ops / ops_rate
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
 
 
 def make_model(cfg, tree, dtype: str, dev):
@@ -253,6 +295,324 @@ def eager_ms(fn, n: int = 50) -> float:
     return start.elapsed_time(end) / n
 
 
+def lattice_inputs(rng, Bn: int, dtype, dev):
+    """A (U, B, T) lattice (transition log-probs, Gaussian-like frame
+    log-likelihoods) and ragged lengths: example 0 full, 1 with
+    il = ol = 1, 2 degenerate (ol < il: no path reaches t = il-1)."""
+    le = np.log(rng.uniform(0.1, 0.9, (U, Bn, T)))
+    ls = np.log1p(-np.exp(le))
+    lf = rng.normal(-2.0, 1.0, (U, Bn, T))
+    il = rng.integers(T // 2, T + 1, Bn)
+    ol = np.minimum(U, np.round(il * rng.uniform(4.2, 5.0, Bn)))
+    il[0], ol[0] = T, U
+    il[1], ol[1] = 1, 1
+    il[2], ol[2] = T, T - 1
+    lat = [torch.tensor(x, dtype=torch.float32, device=dev).to(dtype)
+           for x in (le, ls, lf)]
+    lens = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (il, ol)]
+    return lat, lens
+
+
+def lattice_err(got, want, what: str) -> tuple:
+    """(max |got - want|, max |got - want| / max(1, |want|)) over finite
+    cells, the second held to LAT_REL; where want is a masked cell
+    (<= NEG/2), got must be one too."""
+    from ssnt_tts_tpu_torch.ops.lattice import NEG
+
+    masked = want <= NEG / 2
+    if not bool((got[masked] <= NEG / 2).all()):
+        raise AssertionError(f"{what}: a masked cell came out finite")
+    d = (got - want).abs()[~masked]
+    rel = float((d / want.abs()[~masked].clamp(min=1.0)).max())
+    if not rel <= LAT_REL:
+        raise AssertionError(f"{what}: relative error {rel} > {LAT_REL}")
+    return float(d.max()), rel
+
+
+def grad_err(got, want, tol: float, what: str) -> float:
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    if not err <= tol:
+        raise AssertionError(f"{what}: gradient error {err} > {tol}")
+    if any(bool(d[:, 2].float().any()) for d in got):
+        raise AssertionError(f"{what}: degenerate example's gradients "
+                             f"are not exactly 0")
+    return err
+
+
+def check_lattice(rng, dev):
+    """Phase 7. Returns the float32 max errors (bidir, fwd, bwd)."""
+    from ssnt_tts_tpu_torch.ops import lattice as lat
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    (le, ls, lf), (il, ol) = lattice_inputs(rng, B, torch.float32, dev)
+    g = torch.ones(B, device=dev)
+    with torch.no_grad():
+        ka, kb = lk.lattice_bidir(le, ls, lf, il, ol)
+        ra, rb = lk.lattice_bidir_reference(le, ls, lf, il, ol)
+        torch.cuda.synchronize()
+        e_bidir = max(lattice_err(ka, ra, "bidir alphas"),
+                      lattice_err(kb, rb, "bidir betas"))  # (abs, rel)
+        kz = lat.gather_logz(ka, le, il, ol)
+        rz = lat.gather_logz(ra, le, il, ol)
+        lattice_err(kz, rz, "bidir logz")
+        kg = lat.posterior_grads(le, ls, lf, ka, kb, kz, il, ol, g)
+        rg = lat.posterior_grads(le, ls, lf, ra, rb, rz, il, ol, g)
+        e_post = grad_err(kg, rg, GRAD_F32, "bidir + posterior pass")
+    log(f"[7 lattice] bidir B={B} T={T} U={U} f32: alphas/betas max abs "
+        f"err {e_bidir[0]:.3e}, rel err {e_bidir[1]:.3e}, grads after the "
+        f"posterior pass {e_post:.3e} "
+        f"(tol {LAT_REL}, {GRAD_F32}); degenerate grads exactly 0")
+    errs = {}
+    for dtype, gtol in ((torch.float32, GRAD_F32),
+                        (torch.bfloat16, GRAD_BF16)):
+        (le, ls, lf), (il, ol) = lattice_inputs(rng, B_LARGE, dtype, dev)
+        g = torch.ones(B_LARGE, device=dev)
+        with torch.no_grad():
+            ka = lk.lattice_forward_alphas(le, ls, lf)
+            ra = lk.lattice_forward_alphas_reference(le, ls, lf)
+            torch.cuda.synchronize()
+            e_fwd = lattice_err(ka, ra, f"forward alphas {dtype}")
+            z = lat.gather_logz(ra, le, il, ol)
+            kd = lk.lattice_backward_grads(le, ls, lf, ra, il, ol, g, z)
+            rd = lk.lattice_backward_grads_reference(le, ls, lf, ra, il, ol,
+                                                     g, z)
+            torch.cuda.synchronize()
+            if any(d.dtype != dtype for d in kd):
+                raise AssertionError("backward grads not in the input dtype")
+            e_bwd = grad_err(kd, rd, gtol, f"backward grads {dtype}")
+        errs[dtype] = (e_fwd, e_bwd)
+        log(f"[7 lattice] B={B_LARGE} {str(dtype)[6:]} storage: forward "
+            f"alphas max abs err {e_fwd[0]:.3e}, rel err {e_fwd[1]:.3e} "
+            f"(tol {LAT_REL}), backward grads "
+            f"{e_bwd:.3e} (tol {gtol}); degenerate grads exactly 0")
+    (e_fwd, _), e_bwd = errs[torch.float32]
+    return e_bidir[0], e_fwd, e_bwd
+
+
+def to_device(batch, dev):
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+            if k != "alignment"}
+
+
+def split_step_ms(tx, state, batch, reps: int = 3) -> dict:
+    """Host-clock ms of train_step's parts (model.loss, backward, the
+    optimizer), each ending in a synchronize; median of `reps` steps."""
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+
+    parts = []
+    for _ in range(reps):
+        model = state.model
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(*(batch.get(k) for k in train_lib.BATCH_KEYS))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tx.update([p.grad if p.grad is not None else torch.zeros_like(p)
+                   for p in params], state.opt_state,
+                  [p.detach() for p in params])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts.append((t1 - t0, t2 - t1, t3 - t2))
+    fwd, bwd, opt = (1e3 * float(np.median(x)) for x in zip(*parts))
+    return {"forward": fwd, "backward": bwd, "optimizer": opt,
+            "total": fwd + bwd + opt}
+
+
+def train_phases(seed: int, dev, smi: str) -> list:
+    """Phases 7-9; returns the lattice kernels' entries of the JSON line."""
+    import dataclasses as dc
+    from pathlib import Path
+
+    from ssnt_tts_tpu_torch import data as data_lib
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+    from ssnt_tts_tpu_torch.train_loop import run_training
+    from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    rng = np.random.default_rng(seed + 1)
+    # ---- 7. lattice kernels against their plain versions ----
+    e_bidir, e_fwd, e_bwd = check_lattice(rng, dev)
+
+    # ---- 8. train (the main path) ----
+    cfg = ModelConfig(**SERVE_CFG)
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    counts = lambda: tuple(k.launches for k in lk.KERNELS)
+
+    def train_run(name, steps, bsz, mcfg, want):
+        path = out_dir / f"{name}.jsonl"
+        path.unlink(missing_ok=True)
+        before = counts()
+        t0 = time.perf_counter()
+        last = run_training(steps, mcfg, TrainConfig(
+            warmup_steps=2, batch_size=bsz), seed=seed, device=dev,
+            metrics_path=str(path), log_every=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = tuple(a - b for a, b in zip(counts(), before))
+        if got != want:
+            raise AssertionError(f"{name}: launches (bidir, fwd, bwd) "
+                                 f"{got}, not {want}")
+        rows = [json.loads(x) for x in path.read_text().splitlines()]
+        if len(rows) != steps or not all(
+                np.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"{name}: metrics missing or not finite")
+        log(f"[8 train] {name}: {steps} steps B={bsz} T={T} U={U} in "
+            f"{secs:.1f}s, launches (bidir, fwd, bwd) {got}; loss "
+            + " ".join(f"{r['loss']:.4f}" for r in rows)
+            + f"; last grad_norm {last['grad_norm']:.4f}")
+
+    for k in lk.KERNELS:
+        k.launches = 0
+    train_run("b32", 10, B, cfg, (10, 0, 0))
+    train_tcfg = TrainConfig(warmup_steps=2, batch_size=B)
+    ds = data_lib.SyntheticTTSDataset(
+        vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim, seed=seed + 2)
+    batch32 = to_device(ds.batch(B), dev)
+    state_k = train_lib.init_train_state(cfg, train_tcfg, seed=seed,
+                                         device=dev)
+    before = counts()
+    with torch.no_grad():
+        nll = state_k.model(*(batch32[k] for k in train_lib.BATCH_KEYS[:4]))
+    torch.cuda.synchronize()
+    if tuple(a - b for a, b in zip(counts(), before)) != (0, 1, 0):
+        raise AssertionError("no-grad loss: not one forward-alphas launch")
+    if nll.shape != (B,) or not bool(torch.isfinite(nll).all()):
+        raise AssertionError("no-grad loss: not B finite values")
+    log(f"[8 train] no-grad loss B={B}: 1 forward-alphas launch, mean NLL "
+        f"per utterance {float(nll.mean()):.3f}")
+    train_run("b256", 2, B_LARGE, cfg, (0, 2, 2))
+    train_run("b256_bf16_lattice", 2, B_LARGE,
+              dc.replace(cfg, lattice_dtype="bfloat16"), (0, 2, 2))
+    cfg_plain = dc.replace(cfg, lattice_impl="xla")
+    state_p = train_lib.init_train_state(cfg_plain, train_tcfg, seed=seed,
+                                         device=dev)
+    tx = train_lib.make_optimizer(train_tcfg)
+    before = counts()
+    _, mk = train_lib.train_step(tx, state_k, batch32)
+    mid = counts()
+    _, mp = train_lib.train_step(tx, state_p, batch32)
+    torch.cuda.synchronize()
+    if (tuple(a - b for a, b in zip(mid, before)) != (1, 0, 0)
+            or counts() != mid):
+        raise AssertionError("route comparison: unexpected launches")
+    for key, rtol in (("loss", ROUTE_LOSS_RTOL),
+                      ("grad_norm", ROUTE_NORM_RTOL)):
+        a, b = float(mk[key]), float(mp[key])
+        if not abs(a - b) <= rtol * abs(b):
+            raise AssertionError(f"route comparison: {key} kernel {a} vs "
+                                 f"plain {b} (rtol {rtol})")
+    log(f"[8 train] one B={B} step, kernel route vs plain route (same "
+        f"weights and batch): loss {float(mk['loss']):.6f} vs "
+        f"{float(mp['loss']):.6f}, grad_norm {float(mk['grad_norm']):.5f} "
+        f"vs {float(mp['grad_norm']):.5f} (rtol {ROUTE_LOSS_RTOL}, "
+        f"{ROUTE_NORM_RTOL}); the plain step launched no kernel")
+    main_launches = counts()
+    if main_launches != (11, 5, 4):
+        raise AssertionError(f"train phase launches {main_launches}")
+
+    # ---- 9. timings ----
+    lat_rows = []
+    for name, Bn, dtype in (("bidir", B, torch.float32),
+                            ("fwd_bwd", B_LARGE, torch.float32),
+                            ("fwd_bwd", B_LARGE, torch.bfloat16)):
+        (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, dtype, dev)
+        g = torch.ones(Bn, device=dev)
+        with torch.no_grad():
+            if name == "bidir":
+                fns = [("lattice_bidir",
+                        lambda: lk.lattice_bidir(le, ls, lf, il, ol),
+                        lambda: lk.lattice_bidir_reference(le, ls, lf, il,
+                                                           ol),
+                        nbytes(le, ls, lf, il, ol) + 2 * nbytes(le))]
+            else:
+                a = lk.lattice_forward_alphas(le, ls, lf)
+                from ssnt_tts_tpu_torch.ops.lattice import gather_logz
+                z = gather_logz(a, le, il, ol)
+                fns = [
+                    ("lattice_forward_alphas",
+                     lambda: lk.lattice_forward_alphas(le, ls, lf),
+                     lambda: lk.lattice_forward_alphas_reference(le, ls, lf),
+                     nbytes(le, ls, lf, a)),
+                    ("lattice_backward_grads",
+                     lambda: lk.lattice_backward_grads(le, ls, lf, a, il, ol,
+                                                       g, z),
+                     lambda: lk.lattice_backward_grads_reference(
+                         le, ls, lf, a, il, ol, g, z),
+                     nbytes(le, ls, lf, a, il, ol, g, z) + 3 * nbytes(le))]
+            for kname, kfn, pfn, nb in fns:
+                k_ms = graph_ms(kfn, k=20, reps=10)
+                p_ms = graph_ms(pfn, k=1, reps=3)
+                # ~10 float32 operations per cell (adds, max, |.|, exp,
+                # log1p) per walk; twice for the bidirectional pass.
+                ops = 10 * le.numel() * (2 if kname == "lattice_bidir"
+                                         else 1)
+                bd = bound(nb, ops, F32_OPS)
+                lat_rows.append((kname, dtype, k_ms, p_ms, bd))
+                log(f"[9 time] {smi}: {kname} B={Bn} T={T} U={U} "
+                    f"{str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain "
+                    f"{p_ms:.4f} ms (device time, CUDA graph); bound "
+                    f"{bd[0] * 1e3:.2f} us ({bd[1]}, {nb / 1e6:.1f} MB)")
+    for Bn in (B, B_LARGE):
+        (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
+        for variant in ("fused", "plain"):
+            leaves = [x.clone().requires_grad_() for x in (le, ls, lf)]
+
+            def fwd_bwd():
+                lk.ssnt_loss_kernels(*leaves, il, ol, variant=variant,
+                                     layout="ubt").sum().backward()
+
+            ms = eager_ms(fwd_bwd, n=10)
+            route = ("bidir + posterior pass" if variant == "fused"
+                     else "forward alphas + backward grads")
+            log(f"[9 time] {smi}: lattice loss fwd+bwd B={Bn} T={T} U={U} "
+                f"f32, route {variant} ({route}): {ms:.4f} ms per call "
+                f"(CUDA events, eager)")
+    torch.cuda.reset_peak_memory_stats()
+    for Bn in (B, B_LARGE):
+        tcfg = TrainConfig(warmup_steps=2, batch_size=Bn)
+        batch = to_device(data_lib.SyntheticTTSDataset(
+            vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+            seed=seed + 3).batch(Bn), dev)
+        for mcfg, label in ((cfg, "kernel"), (cfg_plain, "plain")):
+            st = train_lib.init_train_state(mcfg, tcfg, seed=seed,
+                                            device=dev)
+            txn = train_lib.make_optimizer(tcfg)
+            train_lib.train_step(txn, st, batch)  # warm
+            ms = split_step_ms(txn, st, batch)
+            log(f"[9 time] {smi}: train step B={Bn} T={T} U={U} bf16, "
+                f"{label} lattice route: {ms['total']:.1f} ms = forward "
+                f"{ms['forward']:.1f} + backward {ms['backward']:.1f} + "
+                f"optimizer {ms['optimizer']:.1f} (host clock)")
+    log(f"[9 time] peak device memory over the train-step timings: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    err = {"lattice_bidir": e_bidir, "lattice_forward_alphas": e_fwd,
+           "lattice_backward_grads": e_bwd}
+    replaces = {"lattice_bidir": "ssnt_tts_tpu/ops/lattice_pallas.py:993",
+                "lattice_forward_alphas":
+                    "ssnt_tts_tpu/ops/lattice_pallas.py:165",
+                "lattice_backward_grads":
+                    "ssnt_tts_tpu/ops/lattice_pallas.py:596"}
+    launched = dict(zip(("lattice_bidir", "lattice_forward_alphas",
+                         "lattice_backward_grads"), main_launches))
+    return [{
+        "name": kname, "route": "cuda",
+        "source": "ssnt_tts_tpu_torch/csrc/lattice.cu",
+        "replaces": replaces[kname], "launches": launched[kname],
+        "max_abs_err": err[kname], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None,
+    } for kname, dtype, k_ms, p_ms, bd in lat_rows
+        if dtype == torch.float32]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -284,13 +644,15 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.time()
-    build_log = _build.build_log("fused_v2_step")
+    _build.build_all(["fused_v2_step", "lattice"])
     _build.fused_v2_library()
-    ptxas = [ln.strip() for ln in build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"[2 build] fused_v2_step.cu built/loaded in {time.time() - t0:.1f}s")
-    for ln in ptxas:
-        log(f"[2 build] ptxas: {ln}")
+    _build.lattice_library()
+    log(f"[2 build] fused_v2_step.cu and lattice.cu built/loaded in "
+        f"{time.time() - t0:.1f}s")
+    for name in ("fused_v2_step", "lattice"):
+        for ln in _build.build_log(name).splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                log(f"[2 build] {name} ptxas: {ln.strip()}")
 
     cfg = ModelConfig(**SERVE_CFG)
     tree = convert.random_flax_tree(cfg, args.seed)
@@ -371,14 +733,28 @@ def main() -> int:
             f"encode) {ms['decode']:.1f} + encode {ms['encode']:.1f} + "
             f"synthesis {ms['synthesis']:.1f}")
 
-    log(json.dumps({"kernels": [{
+    v2_bytes = nbytes(step_args[1][30], step_args[2][30], *step_args[3],
+                      *step_args[4:]) + nbytes(
+        *beam_fused.fused_class_beam_step(*step_args))
+    H = bf.config.decoder_dim
+    D = bf.config.duration_class_size
+    v2_ops = 2 * B * W * H * 3 * H * 2 + 2 * B * W * H * D
+    v2_bound = bound(v2_bytes, v2_ops, BF16_OPS)
+    log(f"[6 time] {smi}: v2 step bound {v2_bound[0] * 1e3:.3f} us "
+        f"({v2_bound[1]}: {v2_bytes / 1e6:.3f} MB, {v2_ops / 1e9:.3f} "
+        f"GFLOP bf16)")
+    kernels = [{
         "name": "fused_v2_step", "route": "cuda",
         "source": "ssnt_tts_tpu_torch/csrc/fused_v2_step.cu",
         "replaces": "ssnt_tts_tpu/ops/beam_fused.py:486",
         "launches": launches,
         "max_abs_err": max(worst[torch.float32]),
         "ms": k_ms, "plain_ms": p_ms,
-    }]}))
+        "bound_ms": v2_bound[0], "bound_by": v2_bound[1],
+        "library_ms": None,
+    }]
+    kernels += train_phases(args.seed, dev, smi)
+    log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

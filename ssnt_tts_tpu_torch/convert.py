@@ -3,8 +3,9 @@
 `flax_to_torch(params, cfg)` takes the tree as nested dicts of numpy arrays
 (what `jax.device_get(params)` gives; the top-level "params" collection may
 be present or not) and returns a state dict for models.ssnt.SSNTModel. It
-maps every leaf the serving path reads, skips the training-only leaves
-by name, and raises on any other leaf.
+maps every leaf, and raises on a missing or unknown one. Every transform
+in the mapping is linear, so a JAX gradient tree carries across the same
+way (the tests compare gradients leaf by leaf through it).
 
 `random_flax_tree(cfg, seed)` makes a numpy tree with exactly the flax
 layout, from a seed: Dense/Conv/attention kernels ~ N(0, 1/fan_in),
@@ -28,9 +29,6 @@ import numpy as np
 import torch
 
 from ssnt_tts_tpu_torch.utils.config import ModelConfig
-
-# Read only by the training loss (TransitionJoint, FrameJoint.log_sigma).
-TRAINING_ONLY_PREFIXES = ("transition/", "frame/log_sigma")
 
 _GRU_IN = ("ir", "iz", "in")
 _GRU_H = ("hr", "hz", "hn")
@@ -105,8 +103,11 @@ def _mapping(cfg: ModelConfig):
     yield from dense("ar_cell.prenet.fc1", "ar_cell/prenet/Dense_0")
     yield from dense("ar_cell.prenet.fc2", "ar_cell/prenet/Dense_1")
     yield from gru("ar_cell.cell", "ar_cell/cell")
+    for name in ("enc_proj", "dec_pre", "dec_proj", "enc_bias", "dec_bias"):
+        yield from dense(f"transition.{name}", f"transition/{name}")
     yield from dense("frame.enc_mel", "frame/enc_mel")
     yield from dense("frame.dec_mel", "frame/dec_mel")
+    yield "frame.log_sigma", ["frame/log_sigma"], ident
     for kind in ("duration", "tone"):
         yield from class_head(f"{kind}_head", f"{kind}_head")
         yield from ar_class(f"{kind}_ar", f"{kind}_ar")
@@ -126,8 +127,7 @@ def flax_to_torch(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         used.update(paths)
         arr = fn(*(flat[p] for p in paths))
         state[key] = torch.tensor(np.asarray(arr, np.float32))
-    unknown = [p for p in flat if p not in used
-               and not p.startswith(TRAINING_ONLY_PREFIXES)]
+    unknown = [p for p in flat if p not in used]
     if unknown:
         raise KeyError(f"unknown flax leaves: {unknown}")
     return state

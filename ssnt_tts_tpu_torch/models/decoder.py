@@ -1,19 +1,34 @@
-"""Mel prenet, AR decoder cell and the frame joint's decode side (PyTorch).
+"""Mel prenet, AR decoder cell and the lattice joints (PyTorch).
 
-Mirrors the serving half of ssnt_tts_tpu/models/decoder.py: the GRU over
-generated mel frames and FrameJoint.predict, the point prediction
-a(enc_t) + b(dec_u) that synthesize_from_alignment emits. The lattice
-side (TransitionJoint, FrameJoint.__call__) belongs to training and is not
-ported yet.
+Mirrors ssnt_tts_tpu/models/decoder.py: the GRU over mel frames, the
+factorized transition joint (emit/shift log-probs) and the Gaussian frame
+joint. The joints emit the time-major (U, B, T) lattice the loss kernels
+consume, normalized in float32 and stored in `lattice_dtype`; each also has
+its decode-side method (FrameJoint.predict, the point prediction
+a(enc_t) + b(dec_u) that synthesis emits).
+
+  transition logits: logit_k[t, u] = <p_k(enc_t), q_k(dec_u)> + b_k(t)
+                                     + b_k(u), normalized over k
+  frame likelihood:  log N(y_u; a(enc_t) + b(dec_u), sigma^2 I), as one
+                     (B, T, M) x (B, U, M) product plus rank-1 terms
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from ssnt_tts_tpu_torch.models.encoder import GRUCell
 from ssnt_tts_tpu_torch.models.layers import Dense
+
+
+def _check_domain(lattice_domain: str) -> None:
+    if lattice_domain != "log":
+        raise NotImplementedError(
+            f"lattice_domain={lattice_domain!r}: the exp-domain lattice "
+            f"kernel is not ported yet (ROADMAP.md, Queue 2 #9)")
 
 
 class MelPrenet(nn.Module):
@@ -39,14 +54,88 @@ class ARDecoderCell(nn.Module):
         return new_carry, new_carry.float()
 
 
-class FrameJoint(nn.Module):
-    """Decode side of the isotropic-Gaussian frame joint."""
+class TransitionJoint(nn.Module):
+    """Factorized emit/shift logits of rank R, normalized per lattice
+    point in float32."""
 
-    def __init__(self, enc_dim: int, dec_dim: int, mel_dim: int, dtype,
+    def __init__(self, enc_dim: int, dec_dim: int, rank: int, dtype,
+                 lattice_dtype=torch.float32, lattice_domain: str = "log",
                  *, device=None):
         super().__init__()
+        _check_domain(lattice_domain)
+        self.rank = rank
+        self.dtype = dtype
+        self.lattice_dtype = lattice_dtype
+        self.enc_proj = Dense(enc_dim, 2 * rank, dtype, device=device)
+        self.dec_pre = Dense(dec_dim, rank, dtype, device=device)
+        self.dec_proj = Dense(rank, 2 * rank, dtype, device=device)
+        self.enc_bias = Dense(enc_dim, 2, torch.float32, device=device)
+        self.dec_bias = Dense(dec_dim, 2, torch.float32, device=device)
+
+    def _factors(self, enc, dec):
+        p = self.enc_proj(enc)  # (..., 2R)
+        q = self.dec_proj(
+            torch.tanh(self.dec_pre(dec).float()).to(self.dtype))
+        return p, q
+
+    def step(self, enc_t, dec_state):
+        """Per-step decode scores: enc_t (..., He) at each beam's source
+        position, dec_state (..., H) -> (..., 2) emit/shift log-probs
+        (the h input of the v1 beam step)."""
+        R = self.rank
+        p, q = self._factors(enc_t, dec_state)
+        logits = (p.reshape(*p.shape[:-1], 2, R)
+                  * q.reshape(*q.shape[:-1], 2, R)).sum(-1).float()
+        logits = logits + self.enc_bias(enc_t) + self.dec_bias(dec_state)
+        return torch.log_softmax(logits, dim=-1)
+
+    def forward(self, enc, dec):
+        """enc (B, T, He) f32, dec (B, U, H) f32 -> (log_emit, log_shift),
+        each (U, B, T) contiguous in lattice_dtype."""
+        R = self.rank
+        p, q = self._factors(enc, dec)  # (B, T, 2R), (B, U, 2R)
+        B, T, U = p.shape[0], p.shape[1], q.shape[1]
+        # Operands in the compute dtype, products accumulated in float32.
+        logits = torch.einsum("btkr,bukr->kubt",
+                              p.float().reshape(B, T, 2, R),
+                              q.float().reshape(B, U, 2, R))
+        logits = (logits + self.enc_bias(enc).permute(2, 0, 1)[:, None]
+                  + self.dec_bias(dec).permute(2, 1, 0)[..., None])
+        le, ls = logits[0], logits[1]
+        norm = torch.logaddexp(le, ls)
+        return tuple((x - norm).to(self.lattice_dtype).contiguous()
+                     for x in (le, ls))
+
+
+class FrameJoint(nn.Module):
+    """Isotropic-Gaussian frame log-likelihood over the full lattice, and
+    the matching decode-time point prediction."""
+
+    def __init__(self, enc_dim: int, dec_dim: int, mel_dim: int, dtype,
+                 lattice_dtype=torch.float32, lattice_domain: str = "log",
+                 *, device=None):
+        super().__init__()
+        _check_domain(lattice_domain)
+        self.lattice_dtype = lattice_dtype
         self.enc_mel = Dense(enc_dim, mel_dim, dtype, device=device)
         self.dec_mel = Dense(dec_dim, mel_dim, dtype, device=device)
+        self.log_sigma = nn.Parameter(torch.empty((), device=device))
+
+    def forward(self, enc, dec, mel_target):
+        """enc (B, T, He), dec (B, U, H), mel_target (B, U, M) ->
+        log p(y_u | t) (U, B, T) contiguous in lattice_dtype."""
+        M = mel_target.shape[-1]
+        a = self.enc_mel(enc).float()  # (B, T, M)
+        b = self.dec_mel(dec).float()  # (B, U, M)
+        c = mel_target.float() - b
+        inv_var = torch.exp(-2.0 * self.log_sigma)
+        cross = torch.einsum("btm,bum->ubt", a, c)
+        sq_c = (c * c).sum(dim=-1).T  # (U, B)
+        sq_a = (a * a).sum(dim=-1)    # (B, T)
+        sq_err = sq_c[:, :, None] - 2.0 * cross + sq_a[None, :, :]
+        const = -0.5 * M * (math.log(2.0 * math.pi) + 2.0 * self.log_sigma)
+        out = -0.5 * inv_var * sq_err + const
+        return out.to(self.lattice_dtype).contiguous()
 
     def predict(self, enc_t, dec_state):
         """Decode-time mel frame: (..., He) and (..., H) -> (..., M) f32."""

@@ -1,14 +1,17 @@
-"""SSNTModel, serving half (PyTorch).
+"""SSNTModel (PyTorch): the training loss and the serving methods.
 
-Mirrors the decode-time methods of ssnt_tts_tpu/models/ssnt.py:
+Mirrors ssnt_tts_tpu/models/ssnt.py:
   encode -> enc (B, T, He) float32
+  decoder_states -> teacher-forced GRU states (B, U, H)
+  lattice_quantities -> (log_emit, log_shift, log_frame), each (U, B, T)
+  forward / loss -> per-example SSNT NLL / total loss + metrics, with the
+    teacher-forced duration and tone AR class heads
   duration_decode_step -> per-beam h (B, W, D) + new AR class state
   synthesize_from_alignment -> mel (B, U, M) through a decoded alignment
 
 The parameter names follow the flax tree's module names (encoder, ar_cell,
-frame, duration_head, duration_ar, tone_head, tone_ar), so
-ssnt_tts_tpu_torch.convert maps leaves one to one. The training-only
-TransitionJoint and FrameJoint.log_sigma are not ported yet.
+transition, frame, duration_head, duration_ar, tone_head, tone_ar), so
+ssnt_tts_tpu_torch.convert maps every leaf one to one.
 """
 
 from __future__ import annotations
@@ -17,37 +20,78 @@ import torch
 from torch import nn
 
 from ssnt_tts_tpu_torch.models import stepmath
-from ssnt_tts_tpu_torch.models.decoder import ARDecoderCell, FrameJoint
+from ssnt_tts_tpu_torch.models.decoder import (
+    ARDecoderCell,
+    FrameJoint,
+    TransitionJoint,
+)
 from ssnt_tts_tpu_torch.models.encoder import (
     ARClassCell,
     ClassHead,
     TextEncoder,
 )
+from ssnt_tts_tpu_torch.models.layers import length_mask
+from ssnt_tts_tpu_torch.ops import lattice, lattice_kernels
 from ssnt_tts_tpu_torch.utils.config import ModelConfig
+from ssnt_tts_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _dtype(name: str, what: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported {what} {name!r}")
+    return _DTYPES[name]
+
+
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
-    if cfg.dtype not in _DTYPES:
-        raise ValueError(f"unsupported compute dtype {cfg.dtype!r}")
-    return _DTYPES[cfg.dtype]
+    return _dtype(cfg.dtype, "compute dtype")
+
+
+def lattice_loss(impl: str, lattice_dtype: str, le, ls, lf, input_length,
+                 output_length):
+    """The lattice NLL (B,) of time-major (U, B, T) quantities.
+
+    impl "auto": the CUDA kernels for CUDA tensors, the plain route
+    (ops/lattice.py) for CPU tensors; "xla": the plain route on any
+    device; "pallas": the kernel route (whose wrappers run their plain
+    versions on CPU tensors). lattice_dtype "bfloat16" selects the kernels'
+    bf16-storage variant; the plain route upcasts to float32."""
+    if impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown lattice_impl {impl!r}")
+    kernels = impl == "pallas" or (impl == "auto" and le.is_cuda)
+    if not kernels:
+        return lattice.ssnt_loss(le, ls, lf, input_length, output_length,
+                                 layout="ubt")
+    variant = "bf16" if lattice_dtype == "bfloat16" else "log"
+    return lattice_kernels.ssnt_loss_kernels(
+        le, ls, lf, input_length, output_length, variant=variant,
+        layout="ubt")
 
 
 class SSNTModel(nn.Module):
     """Parameters are uninitialized until a state dict is loaded
-    (ssnt_tts_tpu_torch.convert.flax_to_torch)."""
+    (ssnt_tts_tpu_torch.convert.flax_to_torch). They are built on the first
+    CUDA device unless `device` names another (the tests pass "cpu")."""
 
     def __init__(self, config: ModelConfig, *, device=None):
         super().__init__()
         cfg = self.config = config
+        if cfg.lattice_tshard_min_cells is not None:
+            raise NotImplementedError(
+                "lattice_tshard_min_cells: the T-sharded lattice is not "
+                "ported yet (ROADMAP.md, Queue 1 slice 5)")
         dt = self.dtype = compute_dtype(cfg)
+        ldt = _dtype(cfg.lattice_dtype, "lattice dtype")
         He, H = cfg.encoder_dim, cfg.decoder_dim
-        kw = dict(device=device)
+        kw = dict(device=resolve_device(device))
         self.encoder = TextEncoder(cfg.vocab_size, He, cfg.encoder_layers,
                                    cfg.encoder_heads, dt, **kw)
         self.ar_cell = ARDecoderCell(cfg.mel_dim, H, dt, **kw)
-        self.frame = FrameJoint(He, H, cfg.mel_dim, dt, **kw)
+        self.transition = TransitionJoint(He, H, cfg.joint_rank, dt, ldt,
+                                          cfg.lattice_domain, **kw)
+        self.frame = FrameJoint(He, H, cfg.mel_dim, dt, ldt,
+                                cfg.lattice_domain, **kw)
         self.duration_head = ClassHead(He, cfg.duration_class_size, He, dt,
                                        **kw)
         self.duration_ar = ARClassCell(He, cfg.duration_class_size, H, dt,
@@ -55,8 +99,152 @@ class SSNTModel(nn.Module):
         self.tone_head = ClassHead(He, cfg.tone_class_size, He, dt, **kw)
         self.tone_ar = ARClassCell(He, cfg.tone_class_size, H, dt, **kw)
 
+    # ------------------------------------------------------------- pieces
+
     def encode(self, tokens, input_length=None):
         return self.encoder(tokens, input_length)
+
+    def decoder_states(self, mel_target):
+        """Teacher-forced AR states: dec[u] summarizes frames < u.
+
+        mel_target (B, U, M) -> (B, U, H) float32; frame 0 sees a zero
+        frame. The prenet and the GRU's input projection do not depend on
+        the carry, so they run once over all U frames; the loop holds the
+        recurrent half only. Autograd keeps every step's activations (the
+        JAX package's chunked remat is a TPU memory measure): about ten
+        (B, H) tensors per frame, 1.0 GB at B=256, U=400, H=256."""
+        B, U, M = mel_target.shape
+        shifted = torch.cat(
+            [torch.zeros_like(mel_target[:, :1]), mel_target[:, :-1]], dim=1)
+        cell = self.ar_cell.cell
+        gi = stepmath.gru_input(cell.wi, cell.bi,
+                                self.ar_cell.prenet(shifted).to(self.dtype))
+        state = torch.zeros(B, self.config.decoder_dim,
+                            device=mel_target.device)
+        outs = []
+        for gi_u in gi.unbind(1):
+            state = stepmath.gru_update(gi_u, cell.wh, cell.bhn, state)
+            outs.append(state)
+        return torch.stack(outs, dim=1)
+
+    def lattice_quantities(self, enc, dec, mel_target):
+        """(log_emit, log_shift, log_frame), each (U, B, T) in the
+        configured lattice dtype."""
+        le, ls = self.transition(enc, dec)
+        return le, ls, self.frame(enc, dec, mel_target)
+
+    def _nll(self, enc, mel_target, input_length, output_length):
+        q = self.lattice_quantities(enc, self.decoder_states(mel_target),
+                                    mel_target)
+        return lattice_loss(self.config.lattice_impl,
+                            self.config.lattice_dtype, *q, input_length,
+                            output_length)
+
+    # ------------------------------------------------------------ training
+
+    def forward(self, tokens, mel_target, input_length=None,
+                output_length=None):
+        """Training forward: per-example SSNT NLL (B,) float32."""
+        enc = self.encode(tokens, input_length)
+        return self._nll(enc, mel_target, input_length, output_length)
+
+    def loss(self, tokens, mel_target, input_length=None, output_length=None,
+             duration_target=None, tone_target=None):
+        """Total training loss (0-d) + metrics dict of 0-d tensors.
+
+        Auxiliary heads train from optional (B, T) int targets, masked by
+        input_length: durations (teacher-forced AR CE, and the duration
+        lattice when config.use_duration_lattice) and tones."""
+        B, U, _ = mel_target.shape
+        T = tokens.shape[1]
+        dev = mel_target.device
+        enc = self.encode(tokens, input_length)
+        nll = self._nll(enc, mel_target, input_length, output_length)
+        if output_length is None:
+            frames = torch.full((B,), float(U), device=dev)
+        else:
+            frames = output_length.float()
+        loss = torch.mean(nll / frames.clamp(min=1.0))
+        metrics = {"nll_per_frame": loss}
+
+        if input_length is not None:
+            tmask = length_mask(input_length, T)
+        else:
+            tmask = torch.ones(B, T, dtype=torch.bool, device=dev)
+        denom = tmask.sum().clamp(min=1)
+
+        def masked_ce(logp, target):
+            nll_t = -torch.gather(logp, -1, target.long()[..., None])[..., 0]
+            return torch.where(tmask, nll_t, 0.0).sum() / denom
+
+        cfg = self.config
+        if duration_target is not None:
+            dur_loss = masked_ce(
+                self.duration_ar_log_probs(enc, duration_target),
+                duration_target)
+            loss = loss + dur_loss
+            metrics["duration_nll"] = dur_loss
+        if cfg.use_duration_lattice and output_length is not None:
+            dur_lat_nll = lattice.ssnt_duration_loss(
+                self._head_log_probs(self.duration_head, enc),
+                cfg.duration_table, input_length, output_length)
+            dur_lat = torch.mean(dur_lat_nll / frames.clamp(min=1.0))
+            loss = loss + cfg.duration_lattice_weight * dur_lat
+            metrics["duration_lattice_nll_per_frame"] = dur_lat
+        if tone_target is not None:
+            tone_loss = masked_ce(self.tone_ar_log_probs(enc, tone_target),
+                                  tone_target)
+            loss = loss + tone_loss
+            metrics["tone_nll"] = tone_loss
+        metrics["loss"] = loss
+        return loss, metrics
+
+    # ------------------------------------------------------------- heads
+
+    @staticmethod
+    def _head_log_probs(head, enc):
+        """ClassHead's per-position log-probs (flax ClassHead.__call__)."""
+        return stepmath.log_softmax(head.out(torch.relu(head.h1(enc))))
+
+    def duration_log_probs(self, tokens, input_length=None):
+        """(B, T, D) per-position log-probs (non-AR)."""
+        return self._head_log_probs(self.duration_head,
+                                    self.encode(tokens, input_length))
+
+    def tone_log_probs(self, tokens, input_length=None):
+        """(B, T, K) per-position log-probs."""
+        return self._head_log_probs(self.tone_head,
+                                    self.encode(tokens, input_length))
+
+    def _ar_class_log_probs(self, head, ar, enc, classes):
+        """Teacher-forced AR class log-probs: (B, T) target ids ->
+        (B, T, D), with the parameters the per-beam decode steps use."""
+        B = enc.shape[0]
+        w = stepmath.extract_class_step_weights(head, ar)
+        xin = stepmath.enc_in_proj(w, enc, self.dtype)  # (B, T, H)
+        base = stepmath.head_base(w, enc, self.dtype)   # (B, T, D)
+        prev = torch.cat([torch.zeros_like(classes[:, :1]), classes[:, :-1]],
+                         dim=1)
+        embed = w.embed.to(self.dtype)
+        state = torch.zeros(B, self.config.decoder_dim, device=enc.device)
+        outs = []
+        for xin_t, base_t, prev_t in zip(xin.unbind(1), base.unbind(1),
+                                         prev.unbind(1)):
+            logp, state = stepmath.class_step_from_paths(
+                embed, w.wi, w.bi, w.wh, w.bhn, w.out_k, w.out_b, xin_t,
+                base_t, state, prev_t)
+            outs.append(logp)
+        return torch.stack(outs, dim=1)
+
+    def duration_ar_log_probs(self, enc, duration_classes):
+        return self._ar_class_log_probs(self.duration_head, self.duration_ar,
+                                        enc, duration_classes)
+
+    def tone_ar_log_probs(self, enc, tone_classes):
+        return self._ar_class_log_probs(self.tone_head, self.tone_ar, enc,
+                                        tone_classes)
+
+    # ------------------------------------------------------------- decode
 
     def duration_step_weights(self) -> stepmath.ClassStepWeights:
         return stepmath.extract_class_step_weights(self.duration_head,

@@ -76,9 +76,19 @@ def gru_step(wi, bi, wh, bhn, state, x):
     (1-z)*n in the compute dtype plus z*state in float32, as flax's
     mixed-precision promotion gives it. Nonlinearities evaluate in float32
     and round back to the compute dtype."""
-    dt = x.dtype
+    return gru_update(gru_input(wi, bi, x), wh, bhn, state)
+
+
+def gru_input(wi, bi, x):
+    """The state-free half of gru_step: x (..., In) -> gi (..., 3H) in x's
+    dtype. A teacher-forced loop computes it for every step at once."""
+    return mm(x, wi, x.dtype) + bi.to(x.dtype)
+
+
+def gru_update(gi, wh, bhn, state):
+    """The recurrent half of gru_step, given gi = gru_input(wi, bi, x)."""
+    dt = gi.dtype
     H = state.shape[-1]
-    gi = mm(x, wi, dt) + bi.to(dt)
     gh = mm(state, wh, dt)
     sig = lambda p: torch.sigmoid(p.float()).to(dt)
     r = sig(gi[..., :H] + gh[..., :H])

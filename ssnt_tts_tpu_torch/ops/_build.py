@@ -7,9 +7,15 @@ lists), and loaded with ctypes. The library's name carries a hash of the
 source and flags, so an edited source is rebuilt. There is no fallback:
 without nvcc, or when the build fails, this raises.
 
+One library per source: csrc/fused_v2_step.cu (the fused v2 decode step)
+and csrc/lattice.cu (the SSNT lattice forward-backward); build_all starts
+one nvcc per source at once.
+
 Flags: -fmad=false keeps every float32 multiply and add separately
 rounded (the beam band edges depend on it; the dot products use explicit
-fused multiply-adds); --use_fast_math is never passed.
+fused multiply-adds; the lattice kernels follow the JAX kernels'
+operation order); --use_fast_math is never passed, so expf/log1pf are
+the accurate ones.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -36,6 +43,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ssnt_fused_v2_step(compute_bf16, B, W, D, H, s, 20 inputs, 12 outputs,
 #                    5 int options, 4 float options, stream)
 FUSED_V2_ARGTYPES = [_I] * 6 + [_P] * 32 + [_I] * 5 + [_F] * 4 + [_P]
+# ssnt_lattice_bidir(B, T, U, le, ls, lf, il, ol, alphas, betas, stream)
+LATTICE_BIDIR_ARGTYPES = [_I] * 3 + [_P] * 8
+# ssnt_lattice_forward_alphas(bf16, B, T, U, le, ls, lf, alphas, stream)
+LATTICE_FWD_ARGTYPES = [_I] * 4 + [_P] * 5
+# ssnt_lattice_backward_grads(bf16, B, T, U, le, ls, lf, alphas, il, ol,
+#                             g, logz, d_le, d_ls, d_lf, stream)
+LATTICE_BWD_ARGTYPES = [_I] * 4 + [_P] * 12
 
 
 def find_nvcc() -> str:
@@ -76,6 +90,13 @@ def build(name: str) -> Path:
     return lib
 
 
+def build_all(names) -> None:
+    """Build several sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for future in [pool.submit(build, n) for n in names]:
+            future.result()
+
+
 def build_log(name: str) -> str:
     """The compiler output kept with the built library of csrc/<name>.cu."""
     return build(name).with_suffix(".log").read_text()
@@ -91,3 +112,28 @@ def fused_v2_library() -> ctypes.CDLL:
         fn.argtypes = []
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def lattice_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build("lattice")))
+    for fn, argtypes in (
+            (lib.ssnt_lattice_bidir, LATTICE_BIDIR_ARGTYPES),
+            (lib.ssnt_lattice_forward_alphas, LATTICE_FWD_ARGTYPES),
+            (lib.ssnt_lattice_backward_grads, LATTICE_BWD_ARGTYPES)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ssnt_lattice_max_t.argtypes = []
+    lib.ssnt_lattice_max_t.restype = ctypes.c_int
+    return lib
+
+
+def check_arg(name, x, dtype, shape, device):
+    """Raise unless x is a contiguous tensor of `dtype` (one dtype or a
+    tuple of them) and `shape` on `device`: what a kernel may be handed."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if x.dtype not in dtypes or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if x.device != device or not x.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous tensor on {device}")

@@ -95,14 +95,6 @@ def fused_class_beam_step_reference(
                   emptied | (nsurv == 0), new_state)
 
 
-def _check(name, x, dtype, shape, device):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    if x.device != device or not x.is_contiguous():
-        raise ValueError(f"{name}: want a contiguous tensor on {device}")
-
-
 def fused_class_beam_step(
     s: int, xin_path, base_path, fw: FusedWeights, prev_class, state,
     log_prob, is_finished, total_duration, t, u, input_length,
@@ -164,11 +156,11 @@ def fused_class_beam_step(
         ("duration_table", duration_table, i32, (D,)),
         ("emptied", emptied, bl, (B,)),
     ):
-        _check(name, x, dt, shape, dev)
+        _build.check_arg(name, x, dt, shape, dev)
     dbg = (None, None)
     if debug_out is not None:
-        _check("debug h", debug_out[0], f32, (B, W, D), dev)
-        _check("debug new_h", debug_out[1], f32, (B, W, H), dev)
+        _build.check_arg("debug h", debug_out[0], f32, (B, W, D), dev)
+        _build.check_arg("debug new_h", debug_out[1], f32, (B, W, H), dev)
         dbg = tuple(x.data_ptr() for x in debug_out)
 
     new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)

@@ -45,7 +45,7 @@ def _models(dtype):
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(toks), mel,
                      jnp.asarray(IL, jnp.int32), jnp.asarray(OL, jnp.int32),
                      dd, dd, method=jm.loss)
-    tm = SSNTModel(tcfg.ModelConfig(**dataclasses.asdict(cfg)))
+    tm = SSNTModel(tcfg.ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
     tm.load_state_dict(convert.flax_to_torch(jax.device_get(params), cfg))
     return cfg, jm, params, toks, tm.eval()
 

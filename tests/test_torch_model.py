@@ -42,7 +42,7 @@ def _flax_setup(dtype="float32", **over):
 
 
 def _torch_model(cfg, params):
-    tm = SSNTModel(tcfg.ModelConfig(**dataclasses.asdict(cfg)))
+    tm = SSNTModel(tcfg.ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
     tm.load_state_dict(convert.flax_to_torch(jax.device_get(params), cfg))
     return tm.eval()
 

@@ -10,8 +10,8 @@ joint rank 64, 10 duration classes, bfloat16 compute) with seeded random
 weights, in phases, each reported on its own line:
 
   1. device: torch's name for the card and nvidia-smi's name/power limit;
-  2. build: compile csrc/fused_v2_step.cu and csrc/lattice.cu with nvcc,
-     one process each, at once (ptxas report);
+  2. build: compile csrc/fused_class_step.cu, csrc/beam_step.cu and
+     csrc/lattice.cu with nvcc, one process each, at once (ptxas report);
   3. step check at B=32, W=8, H=256, D=10, float32 and bfloat16: the
      kernel's class log-probs h and new GRU state against the plain
      PyTorch step (tolerance 1e-4 f32, 3e-2 bf16), and the plain selection
@@ -20,8 +20,9 @@ weights, in phases, each reported on its own line:
   4. serve: 3 requests of B=32 (T=80, U=400, ragged lengths, bf16)
      through encode -> v2_duration_decode -> synthesize_from_alignment,
      counting the fused kernel's launches (T per request);
-  5. the same requests with the plain step (fuse_model=False), float32
-     and bfloat16: share of utterances whose durations agree;
+  5. the same requests on the plain route (fuse_model=False,
+     use_pallas=False), float32 and bfloat16: share of utterances whose
+     durations agree;
   6. timings: the fused step against the plain step (CUDA events; device
      time under a CUDA graph, and per eager call), and one request end to
      end (host clock, split into decode, encode and synthesis);
@@ -40,7 +41,31 @@ weights, in phases, each reported on its own line:
   9. timings: each lattice kernel and its plain version (device time,
      CUDA graph), both lattice routes at both batch sizes, and the train
      step at B=32 and B=256 on both routes, split into forward, backward
-     and optimizer (host clock, each part ending in a synchronize).
+     and optimizer (host clock, each part ending in a synchronize);
+ 10. tone step check at B=32, W=8, K=8, H=256, float32 and bfloat16 (and
+     the first step at W=16): the fused tone kernel's h and new GRU state
+     against the plain step (TOL), and the plain tone selection on the
+     kernel's own h against the kernel's beams and reordered state, bit
+     for bit;
+ 11. beam-only kernel check: the v2 (#12) and tone (#13) beam-only
+     kernels against their plain versions on the same h and state, every
+     output bit for bit, at W=8 and W=16 on ragged lengths; v2 with
+     defaults, the final-feasibility guard, allow_skip and test_mode, and
+     an utterance that empties;
+ 12. tone serve (the tone path): 3 requests of B=32 (T=80, synthetic
+     batches with tone targets, bf16) through encode -> tone_decode on
+     the fused route (T launches of the fused tone kernel each), the
+     beam-only route (T launches of #13 each, none of the fused kernel)
+     and the plain route (no launches; tones equal the beam-only route's
+     bit for bit); the fused route's agreement as a share; the best
+     beam's edit distance to the tone targets (printed, not gated: the
+     weights are random); then one v2 request through
+     v2_duration_decode(fuse_model=False): T launches of #12, durations
+     equal to the plain route's;
+ 13. timings: each new kernel against its plain version (device time
+     under a CUDA graph, and eager), and one tone request end to end
+     (host clock: tone_decode, and apart its encode, its
+     post-processing and the edit distance).
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -75,6 +100,7 @@ ROUTE_LOSS_RTOL, ROUTE_NORM_RTOL = 1e-5, 1e-2
 # Card peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32 (non
 # tensor core) and bf16 tensor-core operations/s.
 HBM_BPS, F32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
+SOURCES = ("fused_class_step", "beam_step", "lattice")
 SERVE_CFG = dict(vocab_size=128, mel_dim=80, encoder_dim=256,
                  encoder_layers=2, encoder_heads=4, decoder_dim=256,
                  joint_rank=64)
@@ -125,7 +151,8 @@ def step_inputs(model, req, s: int, rng, dev):
     with torch.no_grad():
         w = model.duration_step_weights()
         enc = model.encode(toks, il)
-        xin, base = stepmath.class_decode_paths(w, enc, il, model.dtype)
+        xin, base = stepmath.class_decode_paths(w, enc, il, model.dtype,
+                                                kind="v2")
         fw = beam_fused.prepare_fused_weights(w, model.dtype)
     H = model.config.decoder_dim
     D = model.config.duration_class_size
@@ -199,7 +226,8 @@ def check_step(args, opts, dtype) -> tuple:
     return err_h, err_n
 
 
-def serve(model, req, *, config=None, fuse_model=None, times=None):
+def serve(model, req, *, config=None, fuse_model=None, use_pallas=None,
+          times=None):
     """encode -> v2_duration_decode -> synthesize_from_alignment (best
     beam). With a `times` dict, records each stage's host-clock ms (every
     stage ends in a synchronize): decode (with its own encode), encode,
@@ -218,7 +246,8 @@ def serve(model, req, *, config=None, fuse_model=None, times=None):
         stamp()
         out = decode.v2_duration_decode(
             model, toks, il, ol, model.config.duration_table, beam_width=W,
-            max_frames=U, config=config, fuse_model=fuse_model)
+            max_frames=U, config=config, fuse_model=fuse_model,
+            use_pallas=use_pallas)
         stamp()
         enc = model.encode(toks, il)
         stamp()
@@ -613,6 +642,392 @@ def train_phases(seed: int, dev, smi: str) -> list:
         if dtype == torch.float32]
 
 
+def tone_step_inputs(model, tokens, il, s: int, rng, dev, Wn: int = W):
+    """Fused tone step inputs at step s: beams at t = min(s, T_b) (past
+    their length for short utterances), some finished, duplicated beams;
+    at s = 0 the decode's own first step (every beam identical)."""
+    from ssnt_tts_tpu_torch.models import stepmath
+    from ssnt_tts_tpu_torch.ops import beam_fused
+
+    with torch.no_grad():
+        w = model.tone_step_weights()
+        enc = model.encode(tokens, il)
+        xin, base = stepmath.class_decode_paths(w, enc, il, model.dtype,
+                                                kind="tone")
+        fw = beam_fused.prepare_fused_weights(w, model.dtype)
+    H, K = model.config.decoder_dim, model.config.tone_class_size
+    il_n = il.cpu().numpy()
+    t = np.minimum(s, il_n)[:, None].repeat(Wn, 1)
+    fin = rng.random((B, Wn)) < 0.15
+    lp = -rng.gamma(2.0, 2.0 + s / 4, (B, Wn))
+    state = rng.normal(0, 0.5, (B, Wn, H))
+    pc = rng.integers(0, K, (B, Wn))
+    for a in (fin, lp, state, pc):  # beams 0 and 1 identical
+        a[::3, 1] = a[::3, 0]
+    if s == 0:
+        fin[:], lp[:], state[:], pc[:] = False, 0.0, 0.0, 0
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return (s, xin, base, fw, i32(pc),
+            torch.tensor(state, dtype=torch.float32, device=dev),
+            torch.tensor(lp, dtype=torch.float32, device=dev),
+            torch.tensor(fin, device=dev), i32(t), i32(t), il)
+
+
+def check_tone_step(args, empty_tone_id: int, tol: float) -> tuple:
+    """Phase 10 for one input set: returns (max |dh|, max |dnew_h|)."""
+    from ssnt_tts_tpu_torch.ops import beam_fused, tone_latent
+
+    state = args[5]
+    Bn, Wn, _ = state.shape
+    dbg_k = (torch.empty(Bn, Wn, args[2].shape[2], device=state.device),
+             torch.empty_like(state))
+    dbg_r = tuple(torch.empty_like(x) for x in dbg_k)
+    with torch.no_grad():
+        k = beam_fused.fused_tone_step(*args, empty_tone_id=empty_tone_id,
+                                       debug_out=dbg_k)
+        beam_fused.fused_tone_step_reference(
+            *args, empty_tone_id=empty_tone_id, debug_out=dbg_r)
+        torch.cuda.synchronize()
+        err_h = (dbg_k[0] - dbg_r[0]).abs().max().item()
+        err_n = (dbg_k[1] - dbg_r[1]).abs().max().item()
+        if not (err_h <= tol and err_n <= tol):
+            raise AssertionError(f"tone kernel vs plain model step: |dh| "
+                                 f"{err_h} |dnew_h| {err_n} > {tol}")
+        _, _, _, _, _, lp, fin, t, u, il = args[1:]
+        sel = tone_latent.beam_search_step(dbg_k[0], lp, fin, t, u, il,
+                                           empty_tone_id=empty_tone_id)
+        want = list(sel) + [beam_fused.reorder_state(dbg_k[1], sel[5])]
+        for name, a, b in zip(beam_fused.ToneStep._fields, k, want):
+            if not same_bits(a, b):
+                raise AssertionError(f"tone selection differs on {name} "
+                                     f"(step {args[0]}, empty "
+                                     f"{empty_tone_id})")
+    return err_h, err_n
+
+
+def beam_only_inputs(rng, s: int, Wn: int, D: int, K: int, H: int, il, ol,
+                     dev):
+    """h for D duration classes and h_tone for K tone classes (log-softmax
+    of random logits), beam rows around the diagonal at step s (some
+    finished, at their last position or past it, duplicated) and random
+    state rows; utterance 0 overruns at t = 0, so its v2 beam empties
+    outside test_mode."""
+    il_n, ol_n = il.cpu().numpy().copy(), ol.cpu().numpy().copy()
+    ol_n[0] = il_n[0]
+    logp = lambda n: torch.log_softmax(torch.tensor(
+        rng.normal(0, 1.5, (B, Wn, n)), dtype=torch.float32), -1).numpy()
+    h, h_tone = logp(D), logp(K)
+    t = np.minimum(s, il_n)[:, None].repeat(Wn, 1)
+    last = rng.random((B, Wn)) < 0.1
+    t[last] = il_n[np.nonzero(last)[0]] - 1
+    t[0] = 0
+    tot = np.maximum(np.round(ol_n[:, None] / il_n[:, None] * t)
+                     + rng.integers(-6, 6, (B, Wn)), 0)
+    fin = rng.random((B, Wn)) < 0.15
+    fin[0] = False
+    lp = -rng.gamma(2.0, 2.0 + s / 4, (B, Wn))
+    state = rng.normal(0, 0.5, (B, Wn, H))
+    for a in (t, tot, fin, lp, h, h_tone, state):
+        a[::3, 1] = a[::3, 0]
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return dict(h=f32(h), h_tone=f32(h_tone), lp=f32(lp),
+                fin=torch.tensor(fin, device=dev),
+                tot=i32(tot), t=i32(t), u=i32(t), il=il, ol=i32(ol_n),
+                state=f32(state))
+
+
+def check_beam_only(x, dtab, opts: dict, empty_tone_id: int) -> float:
+    """Phase 11 for one input set: both beam-only kernels against their
+    plain versions, every output bit for bit; returns the v2 survivor
+    count of utterance 0."""
+    from ssnt_tts_tpu_torch.ops import beam_kernels as bk
+
+    v2_args = (x["h"], x["lp"], x["fin"], x["tot"], dtab, x["t"], x["u"],
+               x["il"], x["ol"])
+    tone_args = (x["h_tone"], x["lp"], x["fin"], x["t"], x["u"], x["il"])
+    with torch.no_grad():
+        pairs = [
+            ("v2 #12", bk.v2_beam_search_decode(*v2_args, state=x["state"],
+                                                **opts),
+             bk.v2_beam_search_decode_reference(
+                 *v2_args, state=x["state"], **opts)),
+            ("tone #13", bk.tone_beam_search_decode(
+                *tone_args, state=x["state"], empty_tone_id=empty_tone_id),
+             bk.tone_beam_search_decode_reference(
+                 *tone_args, state=x["state"],
+                 empty_tone_id=empty_tone_id)),
+        ]
+        torch.cuda.synchronize()
+    for what, k, r in pairs:
+        for name, a, b in zip(k._fields, k, r):
+            if not same_bits(a, b):
+                raise AssertionError(f"{what} kernel differs on {name} "
+                                     f"({opts}, empty {empty_tone_id})")
+    return int(pairs[0][1].num_survivors[0])
+
+
+def tone_requests(cfg, seed: int, dev, n: int = 3) -> list:
+    """n synthetic batches (data.SyntheticTTSDataset) of B utterances:
+    (tokens, input_length, tone_target) on the card."""
+    from ssnt_tts_tpu_torch import data as data_lib
+
+    ds = data_lib.SyntheticTTSDataset(
+        vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+        max_input_length=T, max_output_length=U,
+        tone_class_size=cfg.tone_class_size, seed=seed + 4)
+    as_t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return [tuple(as_t(b[k]) for k in ("tokens", "input_length",
+                                       "tone_target"))
+            for b in (ds.batch(B) for _ in range(n))]
+
+
+def check_tones(i, out, il, K: int, Wn: int) -> None:
+    tones, lp = out["tones"], out["log_prob"]
+    if tones.shape != (B, Wn, T) or not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"tone request {i}: shape {tuple(tones.shape)}"
+                             f" or log-probs not finite")
+    inside = torch.arange(T, device=il.device)[None, None, :] < il[:, None,
+                                                                  None]
+    if not bool(((tones >= 0) & (tones < K))[inside.expand_as(tones)]
+                .all()) or bool((tones[~inside.expand_as(tones)] != 0)
+                                .any()):
+        raise AssertionError(f"tone request {i}: tones out of range")
+    if not bool((lp[:, 0] == lp.max(dim=1).values).all()):
+        raise AssertionError(f"tone request {i}: slot 0 is not the best")
+
+
+def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
+    """Phases 10-13; returns the new kernels' entries of the JSON line."""
+    from ssnt_tts_tpu_torch.ops import beam_fused
+    from ssnt_tts_tpu_torch.ops import beam_kernels as bk
+    from ssnt_tts_tpu_torch.ops import edit_distance
+    from ssnt_tts_tpu_torch.parallel import decode
+
+    rng = np.random.default_rng(seed + 5)
+    bf = models[torch.bfloat16]
+    cfg = bf.config
+    H, K, D = cfg.decoder_dim, cfg.tone_class_size, cfg.duration_class_size
+    reqs = tone_requests(cfg, seed, dev)
+    mid = min(30, T - 1)
+
+    # ---- 10. fused tone step against the plain step ----
+    worst = {}
+    for dt, model in models.items():
+        errs = []
+        toks, il, _ = reqs[0]
+        for s in (0, mid, T - 1):
+            for empty in (0, 3):
+                inputs = tone_step_inputs(model, toks, il, s, rng, dev)
+                errs.append(check_tone_step(inputs, empty, TOL[dt]))
+        errs.append(check_tone_step(
+            tone_step_inputs(model, toks, il, 0, rng, dev, Wn=16), 3,
+            TOL[dt]))
+        worst[dt] = max(max(e) for e in errs)
+        log(f"[10 tone step] {str(dt)[6:]}: {len(errs)} steps (W={W} at "
+            f"s=0/{mid}/{T - 1} with empty_tone_id 0 and 3, W=16 first step), "
+            f"selection and reorder bit-exact; max |dh|, |dnew_h| "
+            f"{worst[dt]:.3e} (tol {TOL[dt]})")
+
+    # ---- 11. beam-only kernels against their plain versions ----
+    from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
+
+    dtab = torch.tensor(cfg.duration_table, dtype=torch.int32, device=dev)
+    _, il, ol = v2_req
+    n_checks, emptied = 0, 0
+    for Wn in (W, 16):
+        for s in (0, mid, T - 1):
+            x = beam_only_inputs(rng, s, Wn, D, K, H, il, ol, dev)
+            for opts, empty in (
+                    ({}, 0),
+                    ({"config": V2BeamConfig(final_feasible_guard=True)}, 3),
+                    ({"allow_skip": True}, 0), ({"test_mode": True}, 3)):
+                n0 = check_beam_only(x, dtab, opts, empty)
+                emptied += int(n0 == 0 and not opts.get("test_mode"))
+                n_checks += 1
+    if emptied != n_checks * 3 // 4:
+        raise AssertionError(f"the overrun utterance emptied in {emptied} "
+                             f"of {n_checks * 3 // 4} checks")
+    log(f"[11 beam-only] v2 #12 and tone #13 at W={W} and W=16, "
+        f"s=0/{mid}/{T - 1}, 4 option sets each ({n_checks} checks): "
+        f"every output bit-exact against the plain versions; the overrun "
+        f"utterance emptied in all {emptied} non-test_mode v2 checks")
+
+    # ---- 12. tone serve (the tone path) ----
+    counters = (beam_fused.fused_class_beam_step, beam_fused.fused_tone_step,
+                bk.v2_beam_search_decode, bk.tone_beam_search_decode)
+    counts = lambda: tuple(c.launches for c in counters)
+    for c in counters:
+        c.launches = 0
+    agree_best, agree_all, dists = [], [], []
+    for i, (toks, il, target) in enumerate(reqs, 1):
+        routes = {}
+        for name, kw, want in (
+                ("fused", {}, (0, T, 0, 0)),
+                ("beam-only", {"fuse_model": False}, (0, 0, 0, T)),
+                ("plain", {"fuse_model": False, "use_pallas": False},
+                 (0, 0, 0, 0))):
+            before = counts()
+            routes[name] = decode.tone_decode(bf, toks, il, beam_width=W,
+                                              **kw)
+            torch.cuda.synchronize()
+            got = tuple(a - b for a, b in zip(counts(), before))
+            if got != want:
+                raise AssertionError(f"tone request {i} {name}: launches "
+                                     f"(fused v2, fused tone, #12, #13) "
+                                     f"{got}, not {want}")
+            check_tones(i, routes[name], il, K, W)
+        for k in ("tones", "prediction", "beam_branch", "log_prob"):
+            if not same_bits(routes["beam-only"][k], routes["plain"][k]):
+                raise AssertionError(f"tone request {i}: beam-only and plain "
+                                     f"routes differ on {k}")
+        f, p = routes["fused"]["tones"], routes["plain"]["tones"]
+        agree_best.append((f[:, 0] == p[:, 0]).all(1).float().mean().item())
+        agree_all.append((f == p).all(2).all(1).float().mean().item())
+        dist = edit_distance.levenshtein_edit_distance(
+            routes["fused"]["tones"][:, 0], target, il, il)
+        dists.append(float((dist.float() / il.float()).mean()))
+    main_counts = counts()
+    if main_counts != (0, 3 * T, 0, 3 * T):
+        raise AssertionError(f"tone path launches {main_counts}")
+    log(f"[12 tone serve] 3 requests B={B} T={T} W={W} bf16: {3 * T} fused "
+        f"tone launches (fused route), {3 * T} #13 launches (beam-only "
+        f"route), none on the plain route; beam-only tones equal the plain "
+        f"route's bit for bit; fused vs plain, share of utterances whose "
+        f"best-beam tones agree: "
+        + ", ".join(f"{a:.3f}" for a in agree_best)
+        + "; all beams: " + ", ".join(f"{a:.3f}" for a in agree_all)
+        + "; best-beam edit distance per token to the tone targets "
+        "(random weights): " + ", ".join(f"{d:.3f}" for d in dists))
+    for c in counters:
+        c.launches = 0
+    toks, il, ol = v2_req
+    with torch.no_grad():
+        v2_k = decode.v2_duration_decode(
+            bf, toks, il, ol, cfg.duration_table, beam_width=W,
+            max_frames=U, fuse_model=False)
+        torch.cuda.synchronize()
+        v2_counts = counts()
+        v2_p = decode.v2_duration_decode(
+            bf, toks, il, ol, cfg.duration_table, beam_width=W,
+            max_frames=U, fuse_model=False, use_pallas=False)
+        torch.cuda.synchronize()
+    if v2_counts != (0, 0, T, 0) or counts() != v2_counts:
+        raise AssertionError(f"v2 beam-only request launches {v2_counts}, "
+                             f"then {counts()}")
+    for k in ("durations", "beam_branch", "prediction", "log_prob",
+              "beam_emptied"):
+        if not same_bits(v2_k[k], v2_p[k]):
+            raise AssertionError(f"v2 beam-only request differs from the "
+                                 f"plain route on {k}")
+    n_empty = int(v2_k["beam_emptied"].sum())
+    log(f"[12 tone serve] v2 request B={B} T={T} W={W} bf16 through "
+        f"v2_duration_decode(fuse_model=False): {T} #12 launches; "
+        f"durations equal the plain route's bit for bit; emptied "
+        f"{n_empty}/{B}")
+
+    # ---- 13. timings ----
+    toks, il, target = reqs[0]
+    targs = tone_step_inputs(bf, toks, il, mid, rng, dev)
+    _, il2, ol2 = v2_req
+    x = beam_only_inputs(rng, mid, W, D, K, H, il2, ol2, dev)
+    v2_args = (x["h"], x["lp"], x["fin"], x["tot"], dtab, x["t"], x["u"],
+               x["il"], x["ol"])
+    tone_args = (x["h_tone"], x["lp"], x["fin"], x["t"], x["u"], x["il"])
+    fns = {
+        "fused_tone_step": (
+            lambda: beam_fused.fused_tone_step(*targs),
+            lambda: beam_fused.fused_tone_step_reference(*targs)),
+        "v2_beam_step": (
+            lambda: bk.v2_beam_search_decode(*v2_args, state=x["state"]),
+            lambda: bk.v2_beam_search_decode_reference(*v2_args,
+                                                       state=x["state"])),
+        "tone_beam_step": (
+            lambda: bk.tone_beam_search_decode(*tone_args, state=x["state"]),
+            lambda: bk.tone_beam_search_decode_reference(*tone_args,
+                                                         state=x["state"])),
+    }
+    times = {}
+    with torch.no_grad():
+        for name, (kfn, pfn) in fns.items():
+            times[name] = (graph_ms(kfn), graph_ms(pfn), eager_ms(kfn),
+                           eager_ms(pfn))
+            log(f"[13 time] {smi}: {name} B={B} W={W} (bf16 model), device "
+                f"time per step (CUDA graph): kernel {times[name][0]:.4f} "
+                f"ms, plain {times[name][1]:.4f} ms; eager per call: kernel "
+                f"{times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms")
+    for route in ({}, {"fuse_model": False},
+                  {"fuse_model": False, "use_pallas": False}):
+        stamps = []
+
+        def stamp():
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        with torch.no_grad():
+            decode.tone_decode(bf, toks, il, beam_width=W, **route)  # warm
+            stamp()
+            out = decode.tone_decode(bf, toks, il, beam_width=W, **route)
+            stamp()
+            bf.encode(toks, il)
+            stamp()
+            decode.tone_postprocess(out["prediction"], out["beam_branch"],
+                                    il, 0, out["log_prob"])
+            stamp()
+            edit_distance.levenshtein_edit_distance(out["tones"][:, 0],
+                                                    target, il, il)
+            stamp()
+        ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        loop = ms[0] - ms[1] - ms[2]
+        label = ("fused" if not route else "beam-only" if len(route) == 1
+                 else "plain")
+        log(f"[13 time] {smi}: one tone request B={B} T={T} W={W} bf16, "
+            f"{label} route (host clock): tone_decode {ms[0]:.1f} ms, of "
+            f"which encode {ms[1]:.1f} and post-processing {ms[2]:.1f} "
+            f"(each timed alone), so the decode loop {loop:.1f}; edit "
+            f"distance {ms[3]:.1f} ms; request total {ms[0] + ms[3]:.1f} ms")
+
+    # Bounds: inputs read once and outputs written once; the fused step's
+    # GRU (2 matmuls of (W, H) x (H, 3H)) and head in bf16 operations,
+    # the beam-only steps' ranks (2 C^2 compares per utterance) in float32.
+    with torch.no_grad():
+        t_out = beam_fused.fused_tone_step(*targs)
+        v_out = bk.v2_beam_search_decode(*v2_args, state=x["state"])
+        o_out = bk.tone_beam_search_decode(*tone_args, state=x["state"])
+    s30 = targs[0]
+    tone_bytes = nbytes(targs[1][s30], targs[2][s30], *targs[3],
+                        *targs[4:]) + nbytes(*t_out)
+    bounds = {
+        "fused_tone_step": bound(tone_bytes, 2 * B * W * H * 3 * H * 2
+                                 + 2 * B * W * H * K, BF16_OPS),
+        "v2_beam_step": bound(nbytes(*v2_args, x["state"]) + nbytes(*v_out),
+                              2 * B * (W * D) ** 2, F32_OPS),
+        "tone_beam_step": bound(nbytes(*tone_args, x["state"])
+                                + nbytes(*o_out), 2 * B * (W * K) ** 2,
+                                F32_OPS),
+    }
+    for name, bd in bounds.items():
+        log(f"[13 time] {smi}: {name} bound {bd[0] * 1e3:.3f} us "
+            f"({bd[1]})")
+    meta = {
+        "fused_tone_step": ("ssnt_tts_tpu_torch/csrc/fused_class_step.cu",
+                            "ssnt_tts_tpu/ops/beam_fused.py:486",
+                            main_counts[1], worst[torch.float32]),
+        "v2_beam_step": ("ssnt_tts_tpu_torch/csrc/beam_step.cu",
+                         "ssnt_tts_tpu/ops/beam_pallas.py:1055",
+                         v2_counts[2], 0.0),
+        "tone_beam_step": ("ssnt_tts_tpu_torch/csrc/beam_step.cu",
+                           "ssnt_tts_tpu/ops/beam_pallas.py:1202",
+                           main_counts[3], 0.0),
+    }
+    return [{
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": n, "max_abs_err": err, "ms": times[name][0],
+        "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": None,
+    } for name, (src, rep, n, err) in meta.items()]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -644,12 +1059,13 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.time()
-    _build.build_all(["fused_v2_step", "lattice"])
-    _build.fused_v2_library()
+    _build.build_all(list(SOURCES))
+    _build.fused_class_library()
+    _build.beam_step_library()
     _build.lattice_library()
-    log(f"[2 build] fused_v2_step.cu and lattice.cu built/loaded in "
-        f"{time.time() - t0:.1f}s")
-    for name in ("fused_v2_step", "lattice"):
+    log(f"[2 build] {', '.join(f'{n}.cu' for n in SOURCES)} built/loaded "
+        f"in {time.time() - t0:.1f}s")
+    for name in SOURCES:
         for ln in _build.build_log(name).splitlines():
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 log(f"[2 build] {name} ptxas: {ln.strip()}")
@@ -704,7 +1120,8 @@ def main() -> int:
         for i, (req, c) in enumerate(zip(reqs, req_cfgs)):
             fused = served[i] if dt == torch.bfloat16 else serve(
                 model, req, config=c)[0]
-            plain = serve(model, req, config=c, fuse_model=False)[0]
+            plain = serve(model, req, config=c, fuse_model=False,
+                          use_pallas=False)[0]
             agree.append((fused["durations"] == plain["durations"])
                          .all(dim=2).all(dim=1).float().mean().item())
         log(f"[5 path] {str(dt)[6:]}: utterances whose durations agree, "
@@ -725,9 +1142,10 @@ def main() -> int:
         f"(CUDA graph): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; eager "
         f"per call: kernel {k_eager:.4f} ms, plain {p_eager:.4f} ms")
     for fm, label in ((None, "kernel"), (False, "plain")):
-        serve(bf, reqs[0], fuse_model=fm)  # warm
+        route = dict(fuse_model=fm, use_pallas=fm)
+        serve(bf, reqs[0], **route)  # warm
         ms = {}
-        serve(bf, reqs[0], fuse_model=fm, times=ms)
+        serve(bf, reqs[0], times=ms, **route)
         log(f"[6 time] {smi}: one request B={B} T={T} U={U} bf16 end to end "
             f"({label} step): {ms['total']:.1f} ms = decode (with its "
             f"encode) {ms['decode']:.1f} + encode {ms['encode']:.1f} + "
@@ -745,7 +1163,7 @@ def main() -> int:
         f"GFLOP bf16)")
     kernels = [{
         "name": "fused_v2_step", "route": "cuda",
-        "source": "ssnt_tts_tpu_torch/csrc/fused_v2_step.cu",
+        "source": "ssnt_tts_tpu_torch/csrc/fused_class_step.cu",
         "replaces": "ssnt_tts_tpu/ops/beam_fused.py:486",
         "launches": launches,
         "max_abs_err": max(worst[torch.float32]),
@@ -754,6 +1172,7 @@ def main() -> int:
         "library_ms": None,
     }]
     kernels += train_phases(args.seed, dev, smi)
+    kernels += tone_phases(args.seed, dev, smi, models, reqs[0])
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

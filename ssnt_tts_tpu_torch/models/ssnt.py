@@ -6,7 +6,8 @@ Mirrors ssnt_tts_tpu/models/ssnt.py:
   lattice_quantities -> (log_emit, log_shift, log_frame), each (U, B, T)
   forward / loss -> per-example SSNT NLL / total loss + metrics, with the
     teacher-forced duration and tone AR class heads
-  duration_decode_step -> per-beam h (B, W, D) + new AR class state
+  duration_decode_step / tone_decode_step -> per-beam h (B, W, D) + new
+    AR class state
   synthesize_from_alignment -> mel (B, U, M) through a decoded alignment
 
 The parameter names follow the flax tree's module names (encoder, ar_cell,
@@ -250,16 +251,30 @@ class SSNTModel(nn.Module):
         return stepmath.extract_class_step_weights(self.duration_head,
                                                    self.duration_ar)
 
+    def tone_step_weights(self) -> stepmath.ClassStepWeights:
+        return stepmath.extract_class_step_weights(self.tone_head,
+                                                   self.tone_ar)
+
     def duration_decode_step(self, enc, beam_t, state, prev_class):
         """Per-beam v2 conditioning. enc (B, T, He); beam_t (B, W) source
         positions; state (B, W, H); prev_class (B, W).
         Returns (h (B, W, D) log-probs, new_state (B, W, H))."""
+        return self._class_decode_step(self.duration_step_weights(), enc,
+                                       beam_t, state, prev_class)
+
+    def tone_decode_step(self, enc, beam_t, state, prev_class):
+        """Per-beam tone conditioning, as duration_decode_step:
+        (h (B, W, K) log-probs, new_state (B, W, H))."""
+        return self._class_decode_step(self.tone_step_weights(), enc,
+                                       beam_t, state, prev_class)
+
+    def _class_decode_step(self, w, enc, beam_t, state, prev_class):
         T = enc.shape[1]
         idx = beam_t.long().clamp(0, T - 1)
         enc_t = torch.gather(
             enc, 1, idx[..., None].expand(-1, -1, enc.shape[2]))
-        return stepmath.class_step_math(self.duration_step_weights(), enc_t,
-                                        state, prev_class, self.dtype)
+        return stepmath.class_step_math(w, enc_t, state, prev_class,
+                                        self.dtype)
 
     def synthesize_from_alignment(self, enc, source_indexes):
         """Mel frames through a decoded alignment map.

@@ -1,17 +1,19 @@
-"""Extracted-weight AR class-step math: the fused v2 kernel's contract.
+"""Extracted-weight AR class-step math: the fused class kernel's contract.
 
-Mirrors the class-step half of ssnt_tts_tpu/models/stepmath.py. The v2
-decode conditions each beam on its own class history through ARClassCell +
-ClassHead. The fused step kernel (csrc/fused_v2_step.cu) cannot call
-modules, so the step is written here as plain functions over a flat tuple
-of weights, with the rounding points of flax's bfloat16 modules:
+Mirrors the class-step half of ssnt_tts_tpu/models/stepmath.py. The v2 and
+tone decodes condition each beam on its own class history through
+ARClassCell + ClassHead. The fused step kernel (csrc/fused_class_step.cu)
+cannot call modules, so the step is written here as plain functions over a
+flat tuple of weights, with the rounding points of flax's bfloat16
+modules:
 
   - `gru_step` fixes where bfloat16 rounding happens; the kernel
     reproduces it operation for operation;
   - `class_step_from_paths` is the part of the step the kernel runs;
-  - `class_decode_paths` is the enc-side precompute: in the v2 scan every
-    active beam sits at source position min(s, T_b - 1) at step s, so the
-    enc projections hoist out of the step loop into (T, B, .) paths.
+  - `class_decode_paths` is the enc-side precompute: at step s every
+    active beam sits at source position min(s, T_b - 1) in the v2 scan and
+    min(s, T_b) in the tone scan, so the enc projections hoist out of the
+    step loop into (T, B, .) paths.
 """
 
 from __future__ import annotations
@@ -123,18 +125,23 @@ def class_step_math(w: ClassStepWeights, enc_t, state, prev_class, dtype):
         state, prev_class)
 
 
-def class_decode_paths(w: ClassStepWeights, enc, input_length, dtype):
-    """Hoisted enc-side inputs of the v2 decode step.
+def class_decode_paths(w: ClassStepWeights, enc, input_length, dtype, *,
+                       kind: str):
+    """Hoisted enc-side inputs of the fused class decode step.
 
-    enc (B, T, He) f32; input_length (B,) int. Returns
-    (xin_path (T, B, H) compute dtype, base_path (T, B, D) f32): row s
-    holds enc_in / head logits at source position min(s, T_b - 1),
-    clipped to [0, T - 1]."""
+    enc (B, T, He) f32; input_length (B,) int; kind "v2" or "tone".
+    Returns (xin_path (T, B, H) compute dtype, base_path (T, B, D) f32):
+    row s holds enc_in / head logits at source position min(s, T_b - 1)
+    (v2) or min(s, T_b) (tone), clipped to [0, T - 1]. An inactive tone
+    beam runs the cell on the padding position; that touches no output."""
+    if kind not in ("v2", "tone"):
+        raise ValueError(f"unknown class decode kind {kind!r}")
     B, T, _ = enc.shape
     xin_all = enc_in_proj(w, enc, dtype)  # (B, T, H)
     base_all = head_base(w, enc, dtype)   # (B, T, D)
     s = torch.arange(T, device=enc.device)[:, None]
-    idx = torch.minimum(s, input_length.long()[None, :] - 1).clamp(0, T - 1)
+    last = input_length.long()[None, :] - (1 if kind == "v2" else 0)
+    idx = torch.minimum(s, last).clamp(0, T - 1)
     b_idx = torch.arange(B, device=enc.device)[None, :]
     return (xin_all[b_idx, idx].contiguous(),
             base_all[b_idx, idx].contiguous())

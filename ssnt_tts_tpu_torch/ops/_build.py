@@ -7,9 +7,10 @@ lists), and loaded with ctypes. The library's name carries a hash of the
 source and flags, so an edited source is rebuilt. There is no fallback:
 without nvcc, or when the build fails, this raises.
 
-One library per source: csrc/fused_v2_step.cu (the fused v2 decode step)
-and csrc/lattice.cu (the SSNT lattice forward-backward); build_all starts
-one nvcc per source at once.
+One library per source: csrc/fused_class_step.cu (the fused v2 and tone
+decode steps), csrc/beam_step.cu (the beam-only v2 and tone steps; both
+include csrc/beam_select.cuh) and csrc/lattice.cu (the SSNT lattice
+forward-backward); build_all starts one nvcc per source at once.
 
 Flags: -fmad=false keeps every float32 multiply and add separately
 rounded (the beam band edges depend on it; the dot products use explicit
@@ -43,6 +44,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ssnt_fused_v2_step(compute_bf16, B, W, D, H, s, 20 inputs, 12 outputs,
 #                    5 int options, 4 float options, stream)
 FUSED_V2_ARGTYPES = [_I] * 6 + [_P] * 32 + [_I] * 5 + [_F] * 4 + [_P]
+# ssnt_fused_tone_step(compute_bf16, B, W, K, H, s, 16 inputs, 9 outputs,
+#                      empty_tone_id, stream)
+FUSED_TONE_ARGTYPES = [_I] * 6 + [_P] * 25 + [_I] + [_P]
+# ssnt_beam_v2_step(B, W, D, H, 10 inputs, 9 outputs, 5 int options,
+#                   4 float options, stream)
+BEAM_V2_ARGTYPES = [_I] * 4 + [_P] * 19 + [_I] * 5 + [_F] * 4 + [_P]
+# ssnt_beam_tone_step(B, W, K, H, 7 inputs, 7 outputs, empty_tone_id,
+#                     stream)
+BEAM_TONE_ARGTYPES = [_I] * 4 + [_P] * 14 + [_I] + [_P]
 # ssnt_lattice_bidir(B, T, U, le, ls, lf, il, ol, alphas, betas, stream)
 LATTICE_BIDIR_ARGTYPES = [_I] * 3 + [_P] * 8
 # ssnt_lattice_forward_alphas(bf16, B, T, U, le, ls, lf, alphas, stream)
@@ -66,13 +76,16 @@ def find_nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu into BUILD_DIR (once per source+flags hash).
-    The compiler's output, with ptxas's register and spill report, is kept
-    beside the library as <library>.log."""
+    """Compile csrc/<name>.cu into BUILD_DIR (once per hash of the source,
+    the csrc/ headers and the flags). The compiler's output, with ptxas's
+    register and spill report, is kept beside the library as
+    <library>.log."""
     src = CSRC / f"{name}.cu"
     nvcc = find_nvcc()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
@@ -102,30 +115,41 @@ def build_log(name: str) -> str:
     return build(name).with_suffix(".log").read_text()
 
 
-@functools.lru_cache(maxsize=None)
-def fused_v2_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build("fused_v2_step")))
-    lib.ssnt_fused_v2_step.argtypes = FUSED_V2_ARGTYPES
-    lib.ssnt_fused_v2_step.restype = ctypes.c_int
-    for fn in (lib.ssnt_fused_v2_step_max_candidates,
-               lib.ssnt_fused_v2_step_max_beams):
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
+def _load(name: str, entries: dict, limits=()) -> ctypes.CDLL:
+    """Build and load csrc/<name>.cu; declare its C entries (name ->
+    argtypes, returning a cudaError_t) and its int limit queries."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, argtypes in {**entries, **{n: [] for n in limits}}.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def fused_class_library() -> ctypes.CDLL:
+    return _load("fused_class_step",
+                 {"ssnt_fused_v2_step": FUSED_V2_ARGTYPES,
+                  "ssnt_fused_tone_step": FUSED_TONE_ARGTYPES},
+                 ("ssnt_fused_step_max_candidates",
+                  "ssnt_fused_step_max_beams"))
+
+
+@functools.lru_cache(maxsize=None)
+def beam_step_library() -> ctypes.CDLL:
+    return _load("beam_step",
+                 {"ssnt_beam_v2_step": BEAM_V2_ARGTYPES,
+                  "ssnt_beam_tone_step": BEAM_TONE_ARGTYPES},
+                 ("ssnt_beam_step_max_candidates",
+                  "ssnt_beam_step_max_beams"))
 
 
 @functools.lru_cache(maxsize=None)
 def lattice_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build("lattice")))
-    for fn, argtypes in (
-            (lib.ssnt_lattice_bidir, LATTICE_BIDIR_ARGTYPES),
-            (lib.ssnt_lattice_forward_alphas, LATTICE_FWD_ARGTYPES),
-            (lib.ssnt_lattice_backward_grads, LATTICE_BWD_ARGTYPES)):
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.ssnt_lattice_max_t.argtypes = []
-    lib.ssnt_lattice_max_t.restype = ctypes.c_int
-    return lib
+    return _load("lattice",
+                 {"ssnt_lattice_bidir": LATTICE_BIDIR_ARGTYPES,
+                  "ssnt_lattice_forward_alphas": LATTICE_FWD_ARGTYPES,
+                  "ssnt_lattice_backward_grads": LATTICE_BWD_ARGTYPES},
+                 ("ssnt_lattice_max_t",))
 
 
 def check_arg(name, x, dtype, shape, device):

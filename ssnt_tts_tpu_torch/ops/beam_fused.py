@@ -1,17 +1,20 @@
-"""Model-fused v2 decode step: one kernel launch per source step.
+"""Model-fused class decode steps (v2 and tone): one launch per step.
 
-Port of ssnt_tts_tpu/ops/beam_fused.py, kind="v2". One step runs the AR
-class cell (embedding + GRU + correction head + log_softmax) for every
-beam, the v2 candidate grid with every prune, the stable top-W selection
-and the parent-pointer reorder of the GRU state.
+Port of ssnt_tts_tpu/ops/beam_fused.py, kind="v2" and kind="tone". One
+step runs the AR class cell (embedding + GRU + correction head +
+log_softmax) for every beam, the candidate grid (v2: every duration
+prune; tone: none), the stable top-W selection and the parent-pointer
+reorder of the GRU state.
 
-  - `fused_class_beam_step` is the wrapper. For CUDA tensors it launches
-    the hand-written kernel csrc/fused_v2_step.cu (built by ops/_build.py)
-    or raises; it adds one to `fused_class_beam_step.launches` per launch.
-    For CPU tensors it runs the plain version.
-  - `fused_class_beam_step_reference` is the plain version:
-    stepmath.class_step_from_paths, then the plain beam_v2 step, then a
-    gather of the new state by parent pointer.
+  - `fused_class_beam_step` (v2) and `fused_tone_step` are the wrappers.
+    For CUDA tensors they launch the hand-written kernel
+    csrc/fused_class_step.cu (built by ops/_build.py) or raise; each adds
+    one to its own `.launches` per launch. For CPU tensors they run the
+    plain version.
+  - `fused_class_beam_step_reference` and `fused_tone_step_reference` are
+    the plain versions: stepmath.class_step_from_paths, then the plain
+    beam_v2 / tone_latent step, then a gather of the new state by parent
+    pointer.
 
 The TPU kernel's carry layouts ((B, 1, W) lane rows, (B, W, 1) prev_class,
 a kernel-emitted step counter) are dropped: beam state is (B, W), and the
@@ -25,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ssnt_tts_tpu_torch.models import stepmath
-from ssnt_tts_tpu_torch.ops import _build, beam_v2
+from ssnt_tts_tpu_torch.ops import _build, beam_v2, tone_latent
 from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
 
 
@@ -70,6 +73,37 @@ class V2Step(NamedTuple):
     state: torch.Tensor
 
 
+class ToneStep(NamedTuple):
+    """One tone step's outputs. (B, W): prediction (also the next
+    prev_class), log_prob, next_t, next_u, is_finished, branch; state
+    (B, W, H) reordered."""
+
+    prediction: torch.Tensor
+    log_prob: torch.Tensor
+    next_t: torch.Tensor
+    next_u: torch.Tensor
+    is_finished: torch.Tensor
+    branch: torch.Tensor
+    state: torch.Tensor
+
+
+def _model_step(s, xin_path, base_path, fw, prev_class, state, debug_out):
+    """The plain AR class cell on path row s: (h, new_h), copied into
+    debug_out when given."""
+    h, new_h = stepmath.class_step_from_paths(
+        *fw, xin_path[s][:, None], base_path[s][:, None], state, prev_class)
+    if debug_out is not None:
+        debug_out[0].copy_(h)
+        debug_out[1].copy_(new_h)
+    return h, new_h
+
+
+def reorder_state(state, branch):
+    """state (B, W, H) -> state[b, branch[b, j]] (B, W, H)."""
+    return torch.gather(
+        state, 1, branch.long()[..., None].expand(-1, -1, state.shape[-1]))
+
+
 def fused_class_beam_step_reference(
     s: int, xin_path, base_path, fw: FusedWeights, prev_class, state,
     log_prob, is_finished, total_duration, t, u, input_length,
@@ -78,21 +112,56 @@ def fused_class_beam_step_reference(
     test_mode: bool = False, config: Optional[V2BeamConfig] = None,
     debug_out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> V2Step:
-    """Plain PyTorch version of the fused step (any device)."""
-    h, new_h = stepmath.class_step_from_paths(
-        *fw, xin_path[s][:, None], base_path[s][:, None], state, prev_class)
-    if debug_out is not None:
-        debug_out[0].copy_(h)
-        debug_out[1].copy_(new_h)
+    """Plain PyTorch version of the fused v2 step (any device)."""
+    h, new_h = _model_step(s, xin_path, base_path, fw, prev_class, state,
+                           debug_out)
     (pred, lp, nt, nu, fin, tot, branch, nsurv) = beam_v2.beam_search_step(
         h, log_prob, is_finished, total_duration, duration_table, t, u,
         input_length, output_length, zero_duration_id=zero_duration_id,
         allow_skip=allow_skip, test_mode=test_mode, config=config)
-    H = new_h.shape[-1]
-    new_state = torch.gather(
-        new_h, 1, branch.long()[..., None].expand(-1, -1, H))
     return V2Step(pred, lp, nt, nu, fin, tot, branch, nsurv,
-                  emptied | (nsurv == 0), new_state)
+                  emptied | (nsurv == 0), reorder_state(new_h, branch))
+
+
+def _check_model_args(s, xin_path, base_path, fw, prev_class, state,
+                      log_prob, is_finished, t, u, input_length, debug_out):
+    """Raise unless the fused kernel can take these (CUDA) tensors.
+    Returns (library, compute dtype, B, W, D, H, debug pointers)."""
+    dev = state.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused class step runs on cuda or cpu, not {dev}")
+    B, W, H = state.shape
+    T, D = base_path.shape[0], base_path.shape[2]
+    ct = fw.wi.dtype
+    if ct not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {ct} is not float32 or bfloat16")
+    lib = _build.fused_class_library()
+    if W > lib.ssnt_fused_step_max_beams() or (
+            W * D > lib.ssnt_fused_step_max_candidates()):
+        raise ValueError(f"beam width {W} x classes {D} exceeds the kernel")
+    if not 0 <= s < T:
+        raise ValueError(f"step {s} out of range [0, {T})")
+    i32, f32 = torch.int32, torch.float32
+    for name, x, dt, shape in (
+        ("xin_path", xin_path, ct, (T, B, H)),
+        ("base_path", base_path, f32, (T, B, D)),
+        ("embed", fw.embed, ct, (D, H)), ("wi", fw.wi, ct, (H, 3 * H)),
+        ("bi", fw.bi, ct, (3 * H,)), ("wh", fw.wh, ct, (H, 3 * H)),
+        ("bhn", fw.bhn, ct, (H,)), ("out_k", fw.out_k, f32, (H, D)),
+        ("out_b", fw.out_b, f32, (D,)),
+        ("prev_class", prev_class, i32, (B, W)),
+        ("state", state, f32, (B, W, H)), ("log_prob", log_prob, f32, (B, W)),
+        ("is_finished", is_finished, torch.bool, (B, W)),
+        ("t", t, i32, (B, W)), ("u", u, i32, (B, W)),
+        ("input_length", input_length, i32, (B,)),
+    ):
+        _build.check_arg(name, x, dt, shape, dev)
+    dbg = (None, None)
+    if debug_out is not None:
+        _build.check_arg("debug h", debug_out[0], f32, (B, W, D), dev)
+        _build.check_arg("debug new_h", debug_out[1], f32, (B, W, H), dev)
+        dbg = tuple(x.data_ptr() for x in debug_out)
+    return lib, ct, B, W, D, H, dbg
 
 
 def fused_class_beam_step(
@@ -122,47 +191,22 @@ def fused_class_beam_step(
     dev = state.device
     if dev.type == "cpu":
         return fused_class_beam_step_reference(*args, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"fused v2 step runs on cuda or cpu, not {dev}")
-
+    lib, ct, B, W, D, H, dbg = _check_model_args(
+        s, xin_path, base_path, fw, prev_class, state, log_prob,
+        is_finished, t, u, input_length, debug_out)
+    if not 0 <= zero_duration_id < D:
+        raise ValueError(f"zero_duration_id {zero_duration_id} out of range")
     cfg = config if config is not None else V2BeamConfig()
-    B, W, H = state.shape
-    T, D = base_path.shape[0], base_path.shape[2]
-    ct = fw.wi.dtype
-    if ct not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute dtype {ct} is not float32 or bfloat16")
-    lib = _build.fused_v2_library()
-    if W > lib.ssnt_fused_v2_step_max_beams() or (
-            W * D > lib.ssnt_fused_v2_step_max_candidates()):
-        raise ValueError(f"beam width {W} x classes {D} exceeds the kernel")
-    if not 0 <= s < T or not 0 <= zero_duration_id < D:
-        raise ValueError(f"step {s} / zero_duration_id {zero_duration_id} "
-                         f"out of range")
-    i32, f32, bl = torch.int32, torch.float32, torch.bool
+    i32 = torch.int32
     for name, x, dt, shape in (
-        ("xin_path", xin_path, ct, (T, B, H)),
-        ("base_path", base_path, f32, (T, B, D)),
-        ("embed", fw.embed, ct, (D, H)), ("wi", fw.wi, ct, (H, 3 * H)),
-        ("bi", fw.bi, ct, (3 * H,)), ("wh", fw.wh, ct, (H, 3 * H)),
-        ("bhn", fw.bhn, ct, (H,)), ("out_k", fw.out_k, f32, (H, D)),
-        ("out_b", fw.out_b, f32, (D,)),
-        ("prev_class", prev_class, i32, (B, W)),
-        ("state", state, f32, (B, W, H)), ("log_prob", log_prob, f32, (B, W)),
-        ("is_finished", is_finished, bl, (B, W)),
         ("total_duration", total_duration, i32, (B, W)),
-        ("t", t, i32, (B, W)), ("u", u, i32, (B, W)),
-        ("input_length", input_length, i32, (B,)),
         ("output_length", output_length, i32, (B,)),
         ("duration_table", duration_table, i32, (D,)),
-        ("emptied", emptied, bl, (B,)),
+        ("emptied", emptied, torch.bool, (B,)),
     ):
         _build.check_arg(name, x, dt, shape, dev)
-    dbg = (None, None)
-    if debug_out is not None:
-        _build.check_arg("debug h", debug_out[0], f32, (B, W, D), dev)
-        _build.check_arg("debug new_h", debug_out[1], f32, (B, W, H), dev)
-        dbg = tuple(x.data_ptr() for x in debug_out)
 
+    f32, bl = torch.float32, torch.bool
     new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
     out = V2Step(
         prediction=new(i32), log_prob=new(f32), next_t=new(i32),
@@ -193,3 +237,60 @@ def fused_class_beam_step(
 
 
 fused_class_beam_step.launches = 0
+
+
+def fused_tone_step_reference(
+    s: int, xin_path, base_path, fw: FusedWeights, prev_class, state,
+    log_prob, is_finished, t, u, input_length, *, empty_tone_id: int = 0,
+    debug_out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> ToneStep:
+    """Plain PyTorch version of the fused tone step (any device)."""
+    h, new_h = _model_step(s, xin_path, base_path, fw, prev_class, state,
+                           debug_out)
+    (pred, lp, nt, nu, fin, branch) = tone_latent.beam_search_step(
+        h, log_prob, is_finished, t, u, input_length,
+        empty_tone_id=empty_tone_id)
+    return ToneStep(pred, lp, nt, nu, fin, branch,
+                    reorder_state(new_h, branch))
+
+
+def fused_tone_step(
+    s: int, xin_path, base_path, fw: FusedWeights, prev_class, state,
+    log_prob, is_finished, t, u, input_length, *, empty_tone_id: int = 0,
+    debug_out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> ToneStep:
+    """One fused tone decode step.
+
+    Arguments as fused_class_beam_step's, with K tone classes in place of
+    D (xin_path/base_path from stepmath.class_decode_paths(kind="tone"))
+    and no duration state. The padding candidate of an inactive beam
+    predicts empty_tone_id."""
+    args = (s, xin_path, base_path, fw, prev_class, state, log_prob,
+            is_finished, t, u, input_length)
+    dev = state.device
+    if dev.type == "cpu":
+        return fused_tone_step_reference(
+            *args, empty_tone_id=empty_tone_id, debug_out=debug_out)
+    lib, ct, B, W, K, H, dbg = _check_model_args(*args, debug_out)
+    new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
+    i32 = torch.int32
+    out = ToneStep(
+        prediction=new(i32), log_prob=new(torch.float32), next_t=new(i32),
+        next_u=new(i32), is_finished=new(torch.bool), branch=new(i32),
+        state=torch.empty(B, W, H, dtype=torch.float32, device=dev),
+    )
+    ptr = lambda x: x.data_ptr()
+    rc = lib.ssnt_fused_tone_step(
+        int(ct == torch.bfloat16), B, W, K, H, int(s),
+        *map(ptr, (xin_path, base_path, *fw, *args[4:])),
+        *map(ptr, out), *dbg, int(empty_tone_id),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused tone step kernel launch failed: "
+                           f"cudaError {rc}")
+    fused_tone_step.launches += 1
+    return out
+
+
+fused_tone_step.launches = 0

@@ -1,0 +1,209 @@
+"""Beam-only class decode steps: h is given, one launch per step.
+
+Port of the beam-only kernels of ssnt_tts_tpu/ops/beam_pallas.py, with the
+state reorder folded in (their `state=` form, the one the decode loops
+use):
+  - `v2_beam_search_decode` (beam_pallas.v2_beam_search_decode): the v2
+    candidate grid, selection and survivor count, and state[branch];
+  - `tone_beam_search_decode` (beam_pallas.tone_beam_search_decode): the
+    tone step and state[branch].
+For CUDA tensors each launches its hand-written kernel in
+csrc/beam_step.cu (built by ops/_build.py) or raises, and adds one to its
+own `.launches` per launch. For CPU tensors it runs the plain version
+(`*_reference`): the plain beam_v2 / tone_latent step, then the gather of
+the state by parent pointer.
+
+The kernels write max_beam_width == W slots; the wrappers raise for any
+other width (no decode path asks for one).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ssnt_tts_tpu_torch.ops import _build, beam_v2, tone_latent
+from ssnt_tts_tpu_torch.ops.beam_fused import ToneStep, reorder_state
+from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
+
+
+class V2BeamStep(NamedTuple):
+    """(B, W): prediction, log_prob, next_t, next_u, is_finished,
+    total_duration, branch; (B,): num_survivors; state (B, W, H)
+    reordered."""
+
+    prediction: torch.Tensor
+    log_prob: torch.Tensor
+    next_t: torch.Tensor
+    next_u: torch.Tensor
+    is_finished: torch.Tensor
+    total_duration: torch.Tensor
+    branch: torch.Tensor
+    num_survivors: torch.Tensor
+    state: torch.Tensor
+
+
+def _check_width(W: int, max_beam_width: Optional[int]) -> None:
+    if max_beam_width is not None and max_beam_width != W:
+        raise NotImplementedError(
+            f"max_beam_width {max_beam_width} != beam width {W}: the "
+            f"beam-only steps write W slots (ROADMAP.md, Queue 1)")
+
+
+def v2_beam_search_decode_reference(
+    h, log_prob_history, is_finished, total_duration, duration_table, t, u,
+    input_length, output_length, *, state, zero_duration_id: int = 0,
+    allow_skip: bool = False, test_mode: bool = False,
+    config: Optional[V2BeamConfig] = None,
+    max_beam_width: Optional[int] = None,
+) -> V2BeamStep:
+    """Plain PyTorch version of v2_beam_search_decode (any device)."""
+    _check_width(h.shape[1], max_beam_width)
+    out = beam_v2.beam_search_decode(
+        h, log_prob_history, is_finished, total_duration, duration_table, t,
+        u, input_length, output_length, zero_duration_id=zero_duration_id,
+        allow_skip=allow_skip, test_mode=test_mode, config=config)
+    return V2BeamStep(*out, reorder_state(state, out[6]))
+
+
+def v2_beam_search_decode(
+    h, log_prob_history, is_finished, total_duration, duration_table, t, u,
+    input_length, output_length, *, state, zero_duration_id: int = 0,
+    allow_skip: bool = False, test_mode: bool = False,
+    config: Optional[V2BeamConfig] = None,
+    max_beam_width: Optional[int] = None,
+) -> V2BeamStep:
+    """One v2 beam step given h, with the state reorder.
+
+    h (B, W, D) f32 per-beam class log-probs; log_prob_history (B, W) f32;
+    is_finished (B, W) bool; total_duration, t, u (B, W) int32;
+    duration_table (D,) int32; input_length, output_length (B,) int32
+    (zeroed here in test_mode, as the reference wrapper does); state
+    (B, W, H) f32 per-beam rows.
+    """
+    kw = dict(state=state, zero_duration_id=zero_duration_id,
+              allow_skip=allow_skip, test_mode=test_mode, config=config,
+              max_beam_width=max_beam_width)
+    args = (h, log_prob_history, is_finished, total_duration,
+            duration_table, t, u, input_length, output_length)
+    dev = h.device
+    if dev.type == "cpu":
+        return v2_beam_search_decode_reference(*args, **kw)
+    B, W, D = h.shape
+    H = state.shape[-1]
+    lib = _check_common(h, log_prob_history, is_finished, t, u,
+                        input_length, state, max_beam_width)
+    if not 0 <= zero_duration_id < D:
+        raise ValueError(f"zero_duration_id {zero_duration_id} out of range")
+    i32 = torch.int32
+    for name, x, dt, shape in (
+        ("total_duration", total_duration, i32, (B, W)),
+        ("output_length", output_length, i32, (B,)),
+        ("duration_table", duration_table, i32, (D,)),
+    ):
+        _build.check_arg(name, x, dt, shape, dev)
+    if test_mode:
+        output_length = torch.zeros_like(output_length)
+    cfg = config if config is not None else V2BeamConfig()
+    new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
+    out = V2BeamStep(
+        prediction=new(i32), log_prob=new(torch.float32), next_t=new(i32),
+        next_u=new(i32), is_finished=new(torch.bool),
+        total_duration=new(i32), branch=new(i32),
+        num_survivors=torch.empty(B, dtype=i32, device=dev),
+        state=torch.empty(B, W, H, dtype=torch.float32, device=dev),
+    )
+    ptr = lambda x: x.data_ptr()
+    rc = lib.ssnt_beam_v2_step(
+        B, W, D, H,
+        *map(ptr, (h, log_prob_history, is_finished, total_duration, t, u,
+                   input_length, output_length, duration_table, state)),
+        *map(ptr, out),
+        int(zero_duration_id), int(bool(allow_skip)), int(bool(test_mode)),
+        int(cfg.overrun_multiplier), int(bool(cfg.final_feasible_guard)),
+        float(cfg.band_lower_frac), float(cfg.band_upper_frac),
+        float(cfg.diagonal_window[0]), float(cfg.diagonal_window[1]),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"beam-only v2 step kernel launch failed: "
+                           f"cudaError {rc}")
+    v2_beam_search_decode.launches += 1
+    return out
+
+
+v2_beam_search_decode.launches = 0
+
+
+def tone_beam_search_decode_reference(
+    h, log_prob_history, is_finished, t, u, input_length, *, state,
+    empty_tone_id: int = 0, max_beam_width: Optional[int] = None,
+) -> ToneStep:
+    """Plain PyTorch version of tone_beam_search_decode (any device)."""
+    _check_width(h.shape[1], max_beam_width)
+    out = tone_latent.beam_search_step(
+        h, log_prob_history, is_finished, t, u, input_length,
+        empty_tone_id=empty_tone_id)
+    return ToneStep(*out, reorder_state(state, out[5]))
+
+
+def tone_beam_search_decode(
+    h, log_prob_history, is_finished, t, u, input_length, *, state,
+    empty_tone_id: int = 0, max_beam_width: Optional[int] = None,
+) -> ToneStep:
+    """One tone beam step given h (B, W, K) f32, with the state reorder.
+    Other arguments as v2_beam_search_decode's."""
+    args = (h, log_prob_history, is_finished, t, u, input_length)
+    kw = dict(state=state, empty_tone_id=empty_tone_id,
+              max_beam_width=max_beam_width)
+    dev = h.device
+    if dev.type == "cpu":
+        return tone_beam_search_decode_reference(*args, **kw)
+    B, W, K = h.shape
+    H = state.shape[-1]
+    lib = _check_common(*args, state, max_beam_width)
+    i32 = torch.int32
+    new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
+    out = ToneStep(
+        prediction=new(i32), log_prob=new(torch.float32), next_t=new(i32),
+        next_u=new(i32), is_finished=new(torch.bool), branch=new(i32),
+        state=torch.empty(B, W, H, dtype=torch.float32, device=dev),
+    )
+    ptr = lambda x: x.data_ptr()
+    rc = lib.ssnt_beam_tone_step(
+        B, W, K, H, *map(ptr, (*args, state)), *map(ptr, out),
+        int(empty_tone_id), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"beam-only tone step kernel launch failed: "
+                           f"cudaError {rc}")
+    tone_beam_search_decode.launches += 1
+    return out
+
+
+tone_beam_search_decode.launches = 0
+
+
+def _check_common(h, log_prob, is_finished, t, u, input_length, state,
+                  max_beam_width):
+    """Raise unless a beam-only kernel can take these (CUDA) tensors;
+    returns the kernel library."""
+    dev = h.device
+    if dev.type != "cuda":
+        raise ValueError(f"beam-only step runs on cuda or cpu, not {dev}")
+    B, W, D = h.shape
+    _check_width(W, max_beam_width)
+    lib = _build.beam_step_library()
+    if W > lib.ssnt_beam_step_max_beams() or (
+            W * D > lib.ssnt_beam_step_max_candidates()):
+        raise ValueError(f"beam width {W} x classes {D} exceeds the kernel")
+    i32, f32 = torch.int32, torch.float32
+    for name, x, dt, shape in (
+        ("h", h, f32, (B, W, D)), ("log_prob", log_prob, f32, (B, W)),
+        ("is_finished", is_finished, torch.bool, (B, W)),
+        ("t", t, i32, (B, W)), ("u", u, i32, (B, W)),
+        ("input_length", input_length, i32, (B,)),
+        ("state", state, f32, (B, W, state.shape[-1])),
+    ):
+        _build.check_arg(name, x, dt, shape, dev)
+    return lib

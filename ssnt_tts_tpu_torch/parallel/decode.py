@@ -1,17 +1,29 @@
-"""v2 duration decode, the serving path (PyTorch).
+"""Class decodes (v2 duration, tone), the serving and eval paths (PyTorch).
 
 Port of ssnt_tts_tpu/parallel/decode.v2_duration_decode (the reference's
-production path, SURVEY §3.1 + §3.3), its fused step loop and its
-post-processing:
+production path, SURVEY §3.1 + §3.3) and tone_decode, with their step
+loops and post-processing:
 
-  encode -> enc-side paths (stepmath.class_decode_paths) -> T fused v2
-  steps (ops/beam_fused) -> all-beam backtrace (ops/backtrace) -> per-beam
+  v2: encode -> T steps -> all-beam backtrace (ops/backtrace) -> per-beam
   durations -> duration-to-frame upsampling (ops/upsample)
+  tone: encode -> T steps -> all-beam backtrace -> per-beam tones
 
-Outputs keep the JAX layouts: prediction/beam_branch (B, T, W),
+A step is, as in the JAX package, one of three routes:
+  - fused (fuse_model None or True): enc-side paths hoisted
+    (stepmath.class_decode_paths), then one ops/beam_fused step per
+    source position (the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors);
+  - beam-only (fuse_model=False, use_pallas None or True): the model's
+    per-beam decode step gives h, then ops/beam_kernels (the CUDA kernel
+    for CUDA tensors, its plain version for CPU tensors);
+  - plain (fuse_model=False, use_pallas=False): the per-beam decode step,
+    then the plain beam step and state gather on any device.
+
+Outputs keep the JAX layouts. v2: prediction/beam_branch (B, T, W),
 ordered_beam_branch/durations (B, W, T), output_length (B, W),
 source_indexes (B, W, max_frames), log_prob/total_duration/is_finished
-(B, W), beam_emptied (B,).
+(B, W), beam_emptied (B,). Tone: tones (B, W, T), prediction/beam_branch
+(B, T, W), log_prob (B, W).
 """
 
 from __future__ import annotations
@@ -21,24 +33,36 @@ from typing import Dict, Optional
 import torch
 
 from ssnt_tts_tpu_torch.models import stepmath
-from ssnt_tts_tpu_torch.ops import backtrace, beam_fused, upsample
+from ssnt_tts_tpu_torch.ops import backtrace, beam_fused, beam_kernels
+from ssnt_tts_tpu_torch.ops import upsample
 from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
+
+
+def _ordered(preds, branches):
+    """preds/branches (B, T, W) -> (ordered_beam_branch (B, W, T), each
+    beam's class along its ancestry (B, W, T)); all-beam backtrace
+    (src/v2_util.rs:6-36): the final branch of beam w is w."""
+    B, T, W = preds.shape
+    final_branch = torch.arange(W, device=preds.device).expand(B, W)
+    ordered = backtrace.order_beam_branch(final_branch, branches)
+    return ordered, torch.gather(preds.transpose(1, 2), 1, ordered.long())
+
+
+def _within(input_length, T: int):
+    """(B, 1, T) mask of the positions inside each utterance."""
+    t = torch.arange(T, device=input_length.device)
+    return t[None, None, :] < input_length[:, None, None]
 
 
 def v2_postprocess(preds, branches, duration_table, input_length,
                    max_frames: int, lp, tot, fin, emptied
                    ) -> Dict[str, torch.Tensor]:
     """preds/branches (B, T, W) -> alignment outputs (decode.py:233)."""
-    B, T, W = preds.shape
-    dev = preds.device
-    # All-beam backtrace (src/v2_util.rs:6-36): final branch of beam w is w.
-    final_branch = torch.arange(W, device=dev).expand(B, W)
-    ordered = backtrace.order_beam_branch(final_branch, branches)  # (B, W, T)
-    # Each beam's class along its ancestry, mapped to frames.
-    pred_classes = torch.gather(preds.transpose(1, 2), 1, ordered.long())
-    durations = duration_table.to(dev)[pred_classes.long()]
-    tmask = torch.arange(T, device=dev)[None, None, :] < input_length[:, None, None]
-    durations = torch.where(tmask, durations, 0).to(torch.int32)
+    T = preds.shape[1]
+    ordered, pred_classes = _ordered(preds, branches)
+    durations = duration_table.to(preds.device)[pred_classes.long()]
+    durations = torch.where(_within(input_length, T), durations,
+                            0).to(torch.int32)
     out_len = durations.sum(dim=-1, dtype=torch.int32)  # (B, W)
     src = upsample.upsample_source_indexes(durations, out_len, -1,
                                            max_u=max_frames)
@@ -48,6 +72,18 @@ def v2_postprocess(preds, branches, duration_table, input_length,
         "output_length": out_len, "source_indexes": src, "log_prob": lp,
         "total_duration": tot, "is_finished": fin, "beam_emptied": emptied,
     }
+
+
+def tone_postprocess(preds, branches, input_length, empty_tone_id: int,
+                     lp) -> Dict[str, torch.Tensor]:
+    """preds/branches (B, T, W) -> tones (B, W, T) (decode.py:627):
+    each beam's tone along its ancestry, empty_tone_id past the
+    utterance's length."""
+    T = preds.shape[1]
+    _, tones = _ordered(preds, branches)
+    tones = torch.where(_within(input_length, T), tones, empty_tone_id)
+    return {"tones": tones, "prediction": preds, "beam_branch": branches,
+            "log_prob": lp}
 
 
 @torch.no_grad()
@@ -63,17 +99,15 @@ def v2_duration_decode(
     zero_duration_id: int = 0,
     allow_skip: bool = False,
     test_mode: bool = False,
+    use_pallas: Optional[bool] = None,
     fuse_model: Optional[bool] = None,
     config: Optional[V2BeamConfig] = None,
 ) -> Dict[str, torch.Tensor]:
     """T steps of the v2 duration-class beam over per-beam h, then the
-    alignment extraction. `model` is a models.ssnt.SSNTModel.
-
-    fuse_model: None (or True) runs ops/beam_fused.fused_class_beam_step,
-    which launches the CUDA kernel for CUDA tensors and the plain step for
-    CPU tensors; False runs the plain step on any device, to compare the
-    two. beam_emptied (B,) marks utterances where some step kept no
-    candidate, where the reference panics (src/v2.rs:292).
+    alignment extraction. `model` is a models.ssnt.SSNTModel; the route
+    follows fuse_model and use_pallas (module docstring). beam_emptied
+    (B,) marks utterances where some step kept no candidate, where the
+    reference panics (src/v2.rs:292).
     """
     B, T = tokens.shape
     W = beam_width
@@ -85,24 +119,40 @@ def v2_duration_decode(
     if test_mode:
         ol = torch.zeros_like(ol)
     ol = ol.contiguous()
+    kw = dict(zero_duration_id=zero_duration_id, allow_skip=allow_skip,
+              test_mode=test_mode, config=config)
 
     enc = model.encode(tokens, il)
-    w = model.duration_step_weights()
-    xin_path, base_path = stepmath.class_decode_paths(w, enc, il, model.dtype)
-    fw = beam_fused.prepare_fused_weights(w, model.dtype)
-    step = (beam_fused.fused_class_beam_step_reference if fuse_model is False
-            else beam_fused.fused_class_beam_step)
-
     zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
     lp, fin = zeros(torch.float32), zeros(torch.bool)
     tot, t, u, pc = zeros(i32), zeros(i32), zeros(i32), zeros(i32)
     state = torch.zeros(B, W, model.config.decoder_dim, device=dev)
     emptied = torch.zeros(B, dtype=torch.bool, device=dev)
+    if fuse_model is not False:
+        w = model.duration_step_weights()
+        xin_path, base_path = stepmath.class_decode_paths(
+            w, enc, il, model.dtype, kind="v2")
+        fw = beam_fused.prepare_fused_weights(w, model.dtype)
+
+        def step(s):
+            return beam_fused.fused_class_beam_step(
+                s, xin_path, base_path, fw, pc, state, lp, fin, tot, t, u,
+                il, ol, dtab, emptied, **kw)
+    else:
+        beam_step = (beam_kernels.v2_beam_search_decode_reference
+                     if use_pallas is False
+                     else beam_kernels.v2_beam_search_decode)
+
+        def step(s):
+            h, new_h = model.duration_decode_step(enc, t, state, pc)
+            o = beam_step(h, lp, fin, tot, dtab, t, u, il, ol, state=new_h,
+                          **kw)
+            return beam_fused.V2Step(*o[:8], emptied | (o.num_survivors == 0),
+                                     o.state)
+
     preds, branches = [], []
     for s in range(T):
-        o = step(s, xin_path, base_path, fw, pc, state, lp, fin, tot, t, u,
-                 il, ol, dtab, emptied, zero_duration_id=zero_duration_id,
-                 allow_skip=allow_skip, test_mode=test_mode, config=config)
+        o = step(s)
         lp, fin, tot = o.log_prob, o.is_finished, o.total_duration
         t, u, pc, state, emptied = (o.next_t, o.next_u, o.prediction,
                                     o.state, o.emptied)
@@ -110,3 +160,60 @@ def v2_duration_decode(
         branches.append(o.branch)
     return v2_postprocess(torch.stack(preds, 1), torch.stack(branches, 1),
                           dtab, il, max_frames, lp, tot, fin, emptied)
+
+
+@torch.no_grad()
+def tone_decode(
+    model,
+    tokens: torch.Tensor,
+    input_length: torch.Tensor,
+    *,
+    beam_width: int,
+    empty_tone_id: int = 0,
+    use_pallas: Optional[bool] = None,
+    fuse_model: Optional[bool] = None,
+) -> Dict[str, torch.Tensor]:
+    """Tone-latent beam decode over T source positions with per-beam AR
+    conditioning (each beam's h follows its own tone history); the eval
+    pairs it with ops/edit_distance. The route follows fuse_model and
+    use_pallas (module docstring)."""
+    B, T = tokens.shape
+    W = beam_width
+    dev = tokens.device
+    i32 = torch.int32
+    il = input_length.to(device=dev, dtype=i32).contiguous()
+
+    enc = model.encode(tokens, il)
+    zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
+    lp, fin = zeros(torch.float32), zeros(torch.bool)
+    t, u, pc = zeros(i32), zeros(i32), zeros(i32)
+    state = torch.zeros(B, W, model.config.decoder_dim, device=dev)
+    if fuse_model is not False:
+        w = model.tone_step_weights()
+        xin_path, base_path = stepmath.class_decode_paths(
+            w, enc, il, model.dtype, kind="tone")
+        fw = beam_fused.prepare_fused_weights(w, model.dtype)
+
+        def step(s):
+            return beam_fused.fused_tone_step(
+                s, xin_path, base_path, fw, pc, state, lp, fin, t, u, il,
+                empty_tone_id=empty_tone_id)
+    else:
+        beam_step = (beam_kernels.tone_beam_search_decode_reference
+                     if use_pallas is False
+                     else beam_kernels.tone_beam_search_decode)
+
+        def step(s):
+            h, new_h = model.tone_decode_step(enc, t, state, pc)
+            return beam_step(h, lp, fin, t, u, il, state=new_h,
+                             empty_tone_id=empty_tone_id)
+
+    preds, branches = [], []
+    for s in range(T):
+        o = step(s)
+        lp, fin, t, u = o.log_prob, o.is_finished, o.next_t, o.next_u
+        pc, state = o.prediction, o.state
+        preds.append(o.prediction)
+        branches.append(o.branch)
+    return tone_postprocess(torch.stack(preds, 1), torch.stack(branches, 1),
+                            il, empty_tone_id, lp)

@@ -255,7 +255,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
-    _build.fused_v2_library.cache_clear()
+    _build.fused_class_library.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.fused_v2_library()
-    _build.fused_v2_library.cache_clear()
+        _build.fused_class_library()
+    _build.fused_class_library.cache_clear()

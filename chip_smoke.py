@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one
-NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training, tone and v1 paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,8 +10,9 @@ joint rank 64, 10 duration classes, bfloat16 compute) with seeded random
 weights, in phases, each reported on its own line:
 
   1. device: torch's name for the card and nvidia-smi's name/power limit;
-  2. build: compile csrc/fused_class_step.cu, csrc/beam_step.cu and
-     csrc/lattice.cu with nvcc, one process each, at once (ptxas report);
+  2. build: compile csrc/fused_class_step.cu, csrc/fused_v1_step.cu,
+     csrc/beam_step.cu and csrc/lattice.cu with nvcc, one process each, at
+     once (ptxas report);
   3. step check at B=32, W=8, H=256, D=10, float32 and bfloat16: the
      kernel's class log-probs h and new GRU state against the plain
      PyTorch step (tolerance 1e-4 f32, 3e-2 bf16), and the plain selection
@@ -65,7 +66,28 @@ weights, in phases, each reported on its own line:
  13. timings: each new kernel against its plain version (device time
      under a CUDA graph, and eager), and one tone request end to end
      (host clock: tone_decode, and apart its encode, its
-     post-processing and the edit distance).
+     post-processing and the edit distance);
+ 14. fused v1 step check at B=32, W=8, H=256, M=80, R=64, float32 and
+     bfloat16, on a request's own carry at frames 0/100/399 (and W=1,
+     W=16 at 0/100), each later frame also with beams moved onto and past
+     their last frame and more finished: the kernel's h, new GRU state and
+     mel against the plain step (TOL), and the plain selection, reorder
+     and finished-beam mel keep on the kernel's own h, state and mel
+     against the kernel's outputs, bit for bit;
+ 15. beam-only v1 check: #11 with the decode's F = H + 2M + 2 = 418-wide
+     rows and #10 without rows against their plain versions, every output
+     bit for bit, at W=1, 8 and 16 on ragged lengths;
+ 16. v1 serve (the v1 path): 3 requests of B=32 (T=80, max_frames=400,
+     bf16) through encode -> beam_decode on the fused route (400 #15
+     launches each), the beam-only route (400 #11 each; outputs equal the
+     plain route's bit for bit) and the plain route (none), and
+     greedy_decode on each route (400 #15; 400 #11 on the beam-only
+     route: #10 has no decode caller, as in JAX); gates: alignment steps 0 or 1 inside each utterance,
+     num_frames <= 400, mel finite, slot 0 the best beam;
+ 17. timings: #15, #11 and #10 against their plain versions (device time
+     under a CUDA graph, and eager), and one v1 request per route end to
+     end (host clock: beam_decode, and apart its encode and its backtrace
+     + mel gather; audio-seconds per second, B*400*0.0125 s / latency).
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -100,7 +122,7 @@ ROUTE_LOSS_RTOL, ROUTE_NORM_RTOL = 1e-5, 1e-2
 # Card peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32 (non
 # tensor core) and bf16 tensor-core operations/s.
 HBM_BPS, F32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
-SOURCES = ("fused_class_step", "beam_step", "lattice")
+SOURCES = ("fused_class_step", "fused_v1_step", "beam_step", "lattice")
 SERVE_CFG = dict(vocab_size=128, mel_dim=80, encoder_dim=256,
                  encoder_layers=2, encoder_heads=4, decoder_dim=256,
                  joint_rank=64)
@@ -1028,6 +1050,396 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
     } for name, (src, rep, n, err) in meta.items()]
 
 
+def v1_carries(model, toks, il, frames, Wn: int, dev):
+    """Drive the fused v1 step (the kernel) from the decode's zero carry
+    and keep the step's inputs at each frame in `frames`. Returns
+    (enc_pack, fused weights, {frame: carry})."""
+    from ssnt_tts_tpu_torch.models import stepmath
+    from ssnt_tts_tpu_torch.ops import beam_fused
+
+    cfg = model.config
+    with torch.no_grad():
+        w = model.v1_step_weights()
+        fw = beam_fused.prepare_v1_fused_weights(w, model.dtype)
+        pack = stepmath.v1_enc_pack(w, model.encode(toks, il),
+                                    model.dtype).contiguous()
+        z = lambda dt: torch.zeros(B, Wn, dtype=dt, device=dev)
+        c = dict(t=z(torch.int32), u=z(torch.int32), lp=z(torch.float32),
+                 fin=z(torch.bool),
+                 pm=torch.zeros(B, Wn, cfg.mel_dim, device=dev),
+                 state=torch.zeros(B, Wn, cfg.decoder_dim, device=dev))
+        kept = {}
+        for f in range(max(frames) + 1):
+            if f in frames:
+                kept[f] = {k: v.clone() for k, v in c.items()}
+            if f == max(frames):
+                break
+            o = beam_fused.fused_v1_beam_step(pack, c["t"], c["u"], c["lp"],
+                                              c["fin"], il, c["pm"],
+                                              c["state"], fw)
+            c = dict(t=o.next_t, u=o.next_u, lp=o.log_prob,
+                     fin=o.is_finished, pm=o.mel, state=o.state)
+    return pack, fw, kept
+
+
+def v1_perturb(c, il, rng, dev):
+    """A carry with ~10% of beams moved onto their last frame, ~5% past
+    it (rows clipped to T-1 where t >= T; inactive) and ~10% more
+    finished."""
+    Bn, Wn = c["t"].shape
+    r = rng.random((Bn, Wn))
+    il_n = il.cpu().numpy()[:, None]
+    t = c["t"].cpu().numpy()
+    t = np.where(r < 0.1, il_n - 1, t)
+    t = np.where((r >= 0.1) & (r < 0.15),
+                 il_n + rng.integers(0, 3, (Bn, Wn)), t)
+    out = dict(c)
+    out["t"] = torch.tensor(t, dtype=torch.int32, device=dev)
+    out["fin"] = c["fin"] | torch.tensor((r >= 0.15) & (r < 0.25),
+                                         device=dev)
+    return out
+
+
+def check_v1_step(pack, fw, c, il, tol: float) -> float:
+    """Phase 14 for one carry: the fused v1 kernel's h, new_h and mel
+    against the plain step (within tol), then the plain selection on the
+    kernel's own h, with the reorder and finished-beam keep on the
+    kernel's own new_h and mel, against the kernel's outputs, bit for
+    bit. Returns the largest error."""
+    from ssnt_tts_tpu_torch.ops import beam_fused, beam_v1
+
+    Bn, Wn, H = c["state"].shape
+    M = c["pm"].shape[2]
+    dev = c["state"].device
+    dbg_k = tuple(torch.empty(Bn, Wn, n, device=dev) for n in (2, H, M))
+    dbg_r = tuple(torch.empty_like(x) for x in dbg_k)
+    args = (pack, c["t"], c["u"], c["lp"], c["fin"], il, c["pm"], c["state"])
+    with torch.no_grad():
+        k = beam_fused.fused_v1_beam_step(*args, fw, debug_out=dbg_k)
+        beam_fused.fused_v1_beam_step_reference(*args, fw, debug_out=dbg_r)
+        torch.cuda.synchronize()
+        errs = [(a - b).abs().max().item() for a, b in zip(dbg_k, dbg_r)]
+        if not max(errs) <= tol:
+            raise AssertionError(f"fused v1 kernel vs plain step: |dh|, "
+                                 f"|dnew_h|, |dmel| {errs} > {tol}")
+        sel = beam_v1.beam_search_step(dbg_k[0], c["lp"], c["fin"], c["t"],
+                                       c["u"], il)
+        br = sel[5]
+        fin_prev = torch.gather(c["fin"], 1, br.long())
+        want = list(sel) + [
+            torch.gather(c["t"], 1, br.long()),
+            beam_fused.keep_finished_mel(
+                beam_fused.reorder_state(dbg_k[2], br),
+                beam_fused.reorder_state(c["pm"], br), sel[4], fin_prev),
+            beam_fused.reorder_state(dbg_k[1], br)]
+        for name, a, b in zip(beam_fused.V1FusedStep._fields, k, want):
+            if not same_bits(a, b):
+                raise AssertionError(f"fused v1 selection differs on {name} "
+                                     f"(W={Wn})")
+    return max(errs)
+
+
+def v1_beam_only_inputs(rng, s: int, Wn: int, il, F: int, dev):
+    """h (B, Wn, 2) emit/shift log-probs (dyadic in every other utterance,
+    so ties and duplicate candidates occur), beams around step s (some on
+    their last frame, past it, at t = -1 or finished; beams 0 and 1
+    identical in every third utterance) and F-wide state rows with -0.0
+    lanes."""
+    il_n = il.cpu().numpy()
+    h = torch.log_softmax(torch.tensor(rng.normal(0, 1.5, (B, Wn, 2)),
+                                       dtype=torch.float32), -1).numpy()
+    h[::2] = -rng.integers(0, 8, (B, Wn, 2))[::2] / 8.0
+    t = np.minimum(s, il_n - 1)[:, None] - rng.integers(0, 3, (B, Wn))
+    r = rng.random((B, Wn))
+    t = np.where(r < 0.1, il_n[:, None] - 1, t)
+    t = np.where((r >= 0.1) & (r < 0.15), il_n[:, None] + 1, t)
+    t = np.where((r >= 0.15) & (r < 0.18), -1, t)
+    u = np.maximum(t, 0) + rng.integers(0, 4, (B, Wn))
+    fin = rng.random((B, Wn)) < 0.15
+    lp = -rng.integers(0, 40, (B, Wn)) / 8.0
+    state = rng.normal(0, 0.5, (B, Wn, F))
+    state[:, :, ::7] = -0.0
+    if Wn > 1:
+        for a in (h, t, u, fin, lp):
+            a[::3, 1] = a[::3, 0]
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return dict(h=f32(h), lp=f32(lp), fin=torch.tensor(fin, device=dev),
+                t=i32(t), u=i32(u), il=il, state=f32(state))
+
+
+def check_v1_beam_only(x) -> None:
+    """Phase 15 for one input set: #11 and #10 against their plain
+    versions, every output bit for bit."""
+    from ssnt_tts_tpu_torch.ops import beam_kernels as bk
+
+    args = (x["h"], x["lp"], x["fin"], x["t"], x["u"], x["il"])
+    with torch.no_grad():
+        pairs = [
+            ("#11", bk.beam_search_step_reorder(*args, x["state"]),
+             bk.beam_search_step_reorder_reference(*args, x["state"])),
+            ("#10", bk.beam_search_step_batched(*args),
+             bk.beam_search_step_batched_reference(*args)),
+        ]
+        torch.cuda.synchronize()
+    for what, k, r in pairs:
+        for name, a, b in zip(k._fields, k, r):
+            if (a is None) != (b is None) or (
+                    a is not None and not same_bits(a, b)):
+                raise AssertionError(f"{what} kernel differs on {name} "
+                                     f"(W={x['h'].shape[1]})")
+
+
+def check_v1_request(what: str, out, il, Wn: int) -> int:
+    """Phase 16 gates for one decode; returns how many best beams
+    finished (num_frames < U)."""
+    M = SERVE_CFG["mel_dim"]
+    mel, al, lp, n = (out["mel"], out["alignment"], out["log_prob"],
+                      out["num_frames"])
+    if mel.shape != (B, U, M) or not bool(torch.isfinite(mel).all()):
+        raise AssertionError(f"{what}: mel {tuple(mel.shape)} or not finite")
+    steps = al[:, 1:] - al[:, :-1]
+    if not bool(((steps == 0) | (steps == 1)).all()) or not bool(
+            ((al >= 0) & (al < il[:, None])).all()):
+        raise AssertionError(f"{what}: alignment steps not 0/1 or outside "
+                             f"the utterance")
+    if not bool((n <= U).all()) or out["beam_branch"].shape != (B, U, Wn):
+        raise AssertionError(f"{what}: num_frames > {U} or branch shape")
+    if not bool((lp[:, 0] == lp.max(dim=1).values).all()):
+        raise AssertionError(f"{what}: slot 0 is not the best beam")
+    return int((n < U).sum())
+
+
+def v1_phases(seed: int, dev, smi: str, models) -> list:
+    """Phases 14-17; returns the v1 kernels' entries of the JSON line."""
+    from ssnt_tts_tpu_torch.ops import beam_fused
+    from ssnt_tts_tpu_torch.ops import beam_kernels as bk
+    from ssnt_tts_tpu_torch.parallel import decode
+
+    rng = np.random.default_rng(seed + 6)
+    bf = models[torch.bfloat16]
+    cfg = bf.config
+    H, M = cfg.decoder_dim, cfg.mel_dim
+    F = H + 2 * M + 2
+    reqs = [make_request(rng, cfg.vocab_size, dev)[:2] for _ in range(3)]
+    toks, il = reqs[0]
+
+    # ---- 14. fused v1 step against the plain step ----
+    worst, n_checks = {}, 0
+    carry100 = None
+    for dt, model in models.items():
+        errs = []
+        for Wn, frames in ((W, (0, 100, U - 1)), (1, (0, 100)),
+                           (16, (0, 100))):
+            pack, fw, kept = v1_carries(model, toks, il, frames, Wn, dev)
+            for f, c in kept.items():
+                errs.append(check_v1_step(pack, fw, c, il, TOL[dt]))
+                if f > 0:
+                    errs.append(check_v1_step(pack, fw,
+                                              v1_perturb(c, il, rng, dev),
+                                              il, TOL[dt]))
+            if dt == torch.bfloat16 and Wn == W:
+                carry100 = (pack, fw, kept[100])
+        worst[dt] = max(errs)
+        n_checks += len(errs)
+        log(f"[14 v1 step] {str(dt)[6:]}: {len(errs)} steps (W={W} at "
+            f"frames 0/100/{U - 1} of a request's carry, W=1 and W=16 at "
+            f"0/100, each later frame also with beams moved onto and past "
+            f"their last frame and more finished), selection, reorder and "
+            f"mel keep bit-exact; max |dh|, |dnew_h|, |dmel| "
+            f"{worst[dt]:.3e} (tol {TOL[dt]})")
+
+    # ---- 15. beam-only v1 kernels against their plain versions ----
+    n15 = 0
+    for Wn in (1, W, 16):
+        for s in (0, 40, T - 1):
+            check_v1_beam_only(v1_beam_only_inputs(rng, s, Wn, il, F, dev))
+            n15 += 1
+    log(f"[15 v1 beam-only] #11 (F={F} rows) and #10 (no rows) at W=1, "
+        f"{W}, 16, s=0/40/{T - 1} on ragged lengths ({n15} checks each): "
+        f"every output bit-exact against the plain versions")
+
+    # ---- 16. v1 serve (the v1 path) ----
+    counters = (beam_fused.fused_v1_beam_step, bk.beam_search_step_reorder,
+                bk.beam_search_step_batched)
+    counts = lambda: tuple(c.launches for c in counters)
+    for c in counters:
+        c.launches = 0
+    agree, finished = [], []
+    routes_kw = (("fused", {}), ("beam-only", {"fuse_model": False}),
+                 ("plain", {"fuse_model": False, "use_pallas": False}))
+
+    def run(i, fn, Wn, name, kw, want):
+        before = counts()
+        out = fn(bf, *reqs[i], max_frames=U, **kw)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(counts(), before))
+        if got != want:
+            raise AssertionError(f"v1 request {i + 1} {name}: launches "
+                                 f"(#15, #11, #10) {got}, not {want}")
+        return out, check_v1_request(f"v1 request {i + 1} {name}", out,
+                                     reqs[i][1], Wn)
+
+    keys = ("alignment", "beam_branch", "t_history", "prediction",
+            "num_frames", "log_prob", "mel")
+    with torch.no_grad():
+        for i in range(3):
+            outs = {}
+            for name, kw in routes_kw:
+                want = {"fused": (U, 0, 0), "beam-only": (0, U, 0),
+                        "plain": (0, 0, 0)}[name]
+                outs[name], nf = run(
+                    i, lambda *a, **k: decode.beam_decode(*a, beam_width=W,
+                                                          **k),
+                    W, name, kw, want)
+                if name == "fused":
+                    finished.append(nf)
+            for k in keys:
+                if not same_bits(outs["beam-only"][k], outs["plain"][k]):
+                    raise AssertionError(f"v1 request {i + 1}: beam-only and "
+                                         f"plain routes differ on {k}")
+            agree.append((outs["fused"]["alignment"]
+                          == outs["plain"]["alignment"]).all(1)
+                         .float().mean().item())
+        greedy = {}
+        for name, kw in routes_kw:
+            want = {"fused": (U, 0, 0), "beam-only": (0, U, 0),
+                    "plain": (0, 0, 0)}[name]
+            greedy[name], nf = run(0, decode.greedy_decode, 1,
+                                   f"greedy {name}", kw, want)
+            if name == "fused":
+                g_fin = nf
+        for k in keys:
+            if not same_bits(greedy["beam-only"][k], greedy["plain"][k]):
+                raise AssertionError(f"greedy: beam-only and plain routes "
+                                     f"differ on {k}")
+    main_counts = counts()
+    if main_counts != (4 * U, 4 * U, 0):
+        raise AssertionError(f"v1 path launches {main_counts}")
+    g_agree = (greedy["fused"]["alignment"] == greedy["plain"]["alignment"]
+               ).all(1).float().mean().item()
+    log(f"[16 v1 serve] 3 requests B={B} T={T} max_frames={U} W={W} bf16 "
+        f"through encode -> beam_decode: {U} #15 launches per request on "
+        f"the fused route, {U} #11 per request on the beam-only route, none "
+        f"on the plain route; beam-only outputs equal the plain route's bit "
+        f"for bit; greedy_decode (W=1): {U} #15 (fused), {U} #11 "
+        f"(beam-only), beam-only equal to plain; #10 has no decode caller. Gates passed (alignment "
+        f"steps 0/1 inside each utterance, num_frames <= {U}, mel finite, "
+        f"slot 0 best). Not gated (random weights): fused vs plain, share "
+        f"of utterances whose alignment agrees: "
+        + ", ".join(f"{a:.3f}" for a in agree)
+        + f" (greedy {g_agree:.3f}); best beams finished before frame {U}: "
+        + ", ".join(f"{n}/{B}" for n in finished)
+        + f" (greedy {g_fin}/{B})")
+
+    # ---- 17. timings ----
+    pack, fw, c = carry100
+    fargs = (pack, c["t"], c["u"], c["lp"], c["fin"], il, c["pm"],
+             c["state"])
+    x = v1_beam_only_inputs(rng, 40, W, il, F, dev)
+    bargs = (x["h"], x["lp"], x["fin"], x["t"], x["u"], x["il"])
+    fns = {
+        "fused_v1_step": (
+            lambda: beam_fused.fused_v1_beam_step(*fargs, fw),
+            lambda: beam_fused.fused_v1_beam_step_reference(*fargs, fw)),
+        "beam_v1_step_reorder": (
+            lambda: bk.beam_search_step_reorder(*bargs, x["state"]),
+            lambda: bk.beam_search_step_reorder_reference(*bargs,
+                                                          x["state"])),
+        "beam_v1_step": (
+            lambda: bk.beam_search_step_batched(*bargs),
+            lambda: bk.beam_search_step_batched_reference(*bargs)),
+    }
+    times = {}
+    with torch.no_grad():
+        for name, (kfn, pfn) in fns.items():
+            times[name] = (graph_ms(kfn), graph_ms(pfn), eager_ms(kfn),
+                           eager_ms(pfn))
+            alone = (" (no decode caller: a standalone check at the "
+                     "beam-only route's shape)" if name == "beam_v1_step"
+                     else "")
+            log(f"[17 time] {smi}: {name}{alone} B={B} W={W} (bf16 "
+                f"model), device time per step (CUDA graph): kernel {times[name][0]:.4f} "
+                f"ms, plain {times[name][1]:.4f} ms; eager per call: kernel "
+                f"{times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms")
+    for label, kw in routes_kw:
+        stamps = []
+
+        def stamp():
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        with torch.no_grad():
+            decode.beam_decode(bf, toks, il, max_frames=U, beam_width=W,
+                               **kw)  # warm
+            stamp()
+            out = decode.beam_decode(bf, toks, il, max_frames=U,
+                                     beam_width=W, **kw)
+            stamp()
+            bf.encode(toks, il)
+            stamp()
+            decode.v1_postprocess(
+                out["beam_branch"], out["t_history"],
+                torch.empty(B, U, W, M, device=dev), out["prediction"],
+                out["log_prob"], out["num_frames"][:, None])
+            stamp()
+        ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        loop = ms[0] - ms[1] - ms[2]
+        audio = B * U * 0.0125 / (ms[0] / 1e3)
+        log(f"[17 time] {smi}: one v1 request B={B} T={T} max_frames={U} "
+            f"W={W} bf16, {label} route (host clock): beam_decode "
+            f"{ms[0]:.1f} ms, of which encode {ms[1]:.1f} and backtrace + "
+            f"mel gather {ms[2]:.1f} (each timed alone), so the frame loop "
+            f"{loop:.1f}; {audio:.1f} audio-seconds per second "
+            f"(B*{U}*0.0125 s / latency)")
+
+    # Bounds: inputs read once and outputs written once (for #15 the
+    # gathered enc_pack rows, not the whole pack; the weights once); the
+    # fused step's dots (prenet, GRU, joints: ~526k MAC per beam) in bf16
+    # operations, the beam-only steps' ranks (2 C^2 compares per
+    # utterance) in float32.
+    with torch.no_grad():
+        f_out = beam_fused.fused_v1_beam_step(*fargs, fw)
+        r_out = bk.beam_search_step_reorder(*bargs, x["state"])
+        b_out = bk.beam_search_step_batched(*bargs)
+    R = cfg.joint_rank
+    P = pack.shape[2]
+    macs = M * H + H * H + 2 * H * 3 * H + H * R + R * 2 * R + H * M + 2 * H
+    f_bytes = (nbytes(*fw) + B * W * P * 4 + nbytes(*fargs[1:])
+               + nbytes(*f_out))
+    C = 2 * W
+    bounds = {
+        "fused_v1_step": bound(f_bytes, 2 * B * W * macs, BF16_OPS),
+        "beam_v1_step_reorder": bound(
+            nbytes(*bargs, x["state"]) + nbytes(*r_out), 2 * B * C * C,
+            F32_OPS),
+        "beam_v1_step": bound(nbytes(*bargs) + nbytes(*b_out[:6]),
+                              2 * B * C * C, F32_OPS),
+    }
+    for name, bd in bounds.items():
+        log(f"[17 time] {smi}: {name} bound {bd[0] * 1e3:.3f} us "
+            f"({bd[1]})")
+    log(f"[17 time] fused_v1_step moves {f_bytes / 1e6:.3f} MB and does "
+        f"{2 * B * W * macs / 1e9:.3f} GFLOP per frame")
+    meta = {
+        "fused_v1_step": ("ssnt_tts_tpu_torch/csrc/fused_v1_step.cu",
+                          "ssnt_tts_tpu/ops/beam_fused.py:695",
+                          main_counts[0], worst[torch.float32]),
+        "beam_v1_step_reorder": ("ssnt_tts_tpu_torch/csrc/beam_step.cu",
+                                 "ssnt_tts_tpu/ops/beam_pallas.py:728",
+                                 main_counts[1], 0.0),
+        "beam_v1_step": ("ssnt_tts_tpu_torch/csrc/beam_step.cu",
+                         "ssnt_tts_tpu/ops/beam_pallas.py:674",
+                         main_counts[2], 0.0),
+    }
+    return [{
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": n, "max_abs_err": err, "ms": times[name][0],
+        "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": None,
+    } for name, (src, rep, n, err) in meta.items()]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1061,6 +1473,7 @@ def main() -> int:
     t0 = time.time()
     _build.build_all(list(SOURCES))
     _build.fused_class_library()
+    _build.fused_v1_library()
     _build.beam_step_library()
     _build.lattice_library()
     log(f"[2 build] {', '.join(f'{n}.cu' for n in SOURCES)} built/loaded "
@@ -1173,6 +1586,7 @@ def main() -> int:
     }]
     kernels += train_phases(args.seed, dev, smi)
     kernels += tone_phases(args.seed, dev, smi, models, reqs[0])
+    kernels += v1_phases(args.seed, dev, smi, models)
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

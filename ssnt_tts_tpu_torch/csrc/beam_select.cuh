@@ -1,14 +1,17 @@
-// Beam-step pieces shared by the fused class step (fused_class_step.cu) and
-// the beam-only steps (beam_step.cu), so that the two cannot drift:
-//   - the v2 candidate (duration-class prunes, padding, on-diagonal flag)
-//     and the tone candidate (no prunes, padding with empty_tone_id);
+// Beam-step pieces shared by the fused steps (fused_class_step.cu,
+// fused_v1_step.cu) and the beam-only steps (beam_step.cu), so that they
+// cannot drift:
+//   - the v2 candidate (duration-class prunes, padding, on-diagonal flag),
+//     the tone candidate (no prunes, padding with empty_tone_id) and the
+//     v1 emit/shift candidate;
 //   - the stable top-W selection with adjacent dedup, pad by repetition
 //     and the v2 diagonal re-injection;
 //   - the parent-pointer reorder of per-beam state rows.
 //
 // Candidates are in generation order c = w*D + d (beam-major, class-minor),
 // one thread per candidate, with the semantics of ops/beam_v2.py,
-// ops/tone_latent.py and ops/beam_common.select_beams (not those of the TPU
+// ops/tone_latent.py, ops/beam_v1.py and ops/beam_common.select_beams
+// (not those of the TPU
 // kernels' _select_bitonic: a valid score at or below its sentinel is
 // kept, as the XLA path keeps it).
 //
@@ -110,6 +113,32 @@ __device__ __forceinline__ Cand tone_candidate(
   if (!active && k == 0) {
     c.pred = empty_id; c.lp = hist; c.nt = tw; c.nu = uw; c.fin = true;
     c.valid = true;
+  }
+  return c;
+}
+
+// The v1 candidate for class k (0 emit, 1 shift) of a beam at (tw, uw)
+// with history hist, in an utterance of T source frames (src/lib.rs
+// :149-230; ops/beam_v1.py): an emit keeps t and moves u on, and finishes
+// at the last frame; a shift moves both on, and at the last frame becomes
+// a finishing emit that keeps the log-prob; an inactive beam (t < 0,
+// t >= T or finished) gives one padding emit (log-prob kept, finished)
+// and no shift. D = 2, tot = 0.
+__device__ __forceinline__ Cand v1_candidate(int k, float hval, float hist,
+                                             bool fin_in, int tw, int uw,
+                                             int T) {
+  const bool active = tw >= 0 && tw < T && !fin_in;
+  const bool last = tw == T - 1;
+  const bool grow = active && !last;
+  Cand c;
+  c.tot = 0; c.diag = false;
+  if (k == 0) {
+    c.pred = 0; c.lp = active ? __fadd_rn(hist, hval) : hist;
+    c.nt = tw; c.nu = grow ? uw + 1 : uw; c.fin = !grow; c.valid = true;
+  } else {
+    c.pred = last ? 0 : 1; c.lp = last ? hist : __fadd_rn(hist, hval);
+    c.nt = last ? tw : tw + 1; c.nu = last ? uw : uw + 1; c.fin = last;
+    c.valid = active;
   }
   return c;
 }

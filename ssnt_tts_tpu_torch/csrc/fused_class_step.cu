@@ -1,4 +1,5 @@
 // Fused class decode beam step (v2 duration or tone) for Hopper (sm_90a).
+// The GRU cell comes from gru_step.cuh, shared with fused_v1_step.cu.
 //
 // Replaces the TPU kernel ssnt_tts_tpu/ops/beam_fused.py:
 // fused_class_beam_step (pallas_call at :486, kernel body
@@ -45,32 +46,14 @@
 #include <stdint.h>
 
 #include "beam_select.cuh"
+#include "gru_step.cuh"
 
 namespace {
 
 using namespace ssnt_beam;
+using namespace ssnt_gru;
 
 enum Kind { kV2 = 0, kTone = 1 };
-
-template <typename CT> __device__ __forceinline__ float ld(const CT* p, size_t i);
-template <> __device__ __forceinline__ float ld<float>(const float* p, size_t i) {
-  return p[i];
-}
-template <> __device__ __forceinline__ float ld<__nv_bfloat16>(
-    const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// Round a float32 value to the compute dtype (identity for float32).
-template <typename CT> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
 
 struct StepArgs {
   int B, W, D, H, s;
@@ -88,11 +71,15 @@ struct StepArgs {
   int empty_id;  // tone only
 };
 
+// One block per utterance, so one block per SM is all a launch needs:
+// saying so (minBlocks 1) lets ptxas keep the 6*WMAX GRU accumulators in
+// registers (without it the WMAX=16 variants were held to 128 registers
+// and spilled, and the W=8 step ran 4% slower on an H100).
 template <int KIND, typename CT, int WMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fused_class_step_kernel(StepArgs a) {
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int B = a.B, W = a.W, D = a.D, H = a.H, C = W * D, H3 = 3 * H;
+  const int B = a.B, W = a.W, D = a.D, H = a.H, C = W * D;
   const CT* xin = static_cast<const CT*>(a.xin_path);
   const CT* embed = static_cast<const CT*>(a.embed);
   const CT* wi = static_cast<const CT*>(a.wi);
@@ -118,53 +105,9 @@ fused_class_step_kernel(StepArgs a) {
   }
   __syncthreads();
 
-  for (int k = tid; k < H; k += kThreads) {
-    float air[WMAX], aiz[WMAX], ain[WMAX], ahr[WMAX], ahz[WMAX], ahn[WMAX];
-#pragma unroll
-    for (int w = 0; w < WMAX; ++w) {
-      air[w] = aiz[w] = ain[w] = ahr[w] = ahz[w] = ahn[w] = 0.0f;
-    }
-    for (int i = 0; i < H; ++i) {
-      const size_t row = (size_t)i * H3 + k;
-      const float wir = ld(wi, row), wiz = ld(wi, row + H),
-                  win = ld(wi, row + 2 * H);
-      const float whr = ld(wh, row), whz = ld(wh, row + H),
-                  whn = ld(wh, row + 2 * H);
-#pragma unroll
-      for (int w = 0; w < WMAX; ++w) {
-        if (w < W) {
-          const float xv = x_s[w * H + i], hv = hb_s[w * H + i];
-          air[w] = __fmaf_rn(xv, wir, air[w]);
-          aiz[w] = __fmaf_rn(xv, wiz, aiz[w]);
-          ain[w] = __fmaf_rn(xv, win, ain[w]);
-          ahr[w] = __fmaf_rn(hv, whr, ahr[w]);
-          ahz[w] = __fmaf_rn(hv, whz, ahz[w]);
-          ahn[w] = __fmaf_rn(hv, whn, ahn[w]);
-        }
-      }
-    }
-    const float bir = ld(bi, k), biz = ld(bi, H + k), bin = ld(bi, 2 * H + k);
-    const float bn = ld(bhn, k);
-#pragma unroll
-    for (int w = 0; w < WMAX; ++w) {
-      if (w < W) {
-        const float gir = rnd<CT>(__fadd_rn(rnd<CT>(air[w]), bir));
-        const float giz = rnd<CT>(__fadd_rn(rnd<CT>(aiz[w]), biz));
-        const float gin = rnd<CT>(__fadd_rn(rnd<CT>(ain[w]), bin));
-        const float ghr = rnd<CT>(ahr[w]), ghz = rnd<CT>(ahz[w]),
-                    ghn = rnd<CT>(ahn[w]);
-        const float r = rnd<CT>(sigmoid_f32(rnd<CT>(__fadd_rn(gir, ghr))));
-        const float z = rnd<CT>(sigmoid_f32(rnd<CT>(__fadd_rn(giz, ghz))));
-        const float rn = rnd<CT>(__fmul_rn(r, rnd<CT>(__fadd_rn(ghn, bn))));
-        const float n = rnd<CT>(tanhf(rnd<CT>(__fadd_rn(gin, rn))));
-        const float st = a.state[((size_t)b * W + w) * H + k];
-        const float keep_n = rnd<CT>(__fmul_rn(rnd<CT>(__fsub_rn(1.0f, z)), n));
-        const float nh = __fadd_rn(keep_n, __fmul_rn(z, st));
-        nh_s[w * H + k] = nh;
-        if (a.dbg_newh) a.dbg_newh[((size_t)b * W + w) * H + k] = nh;
-      }
-    }
-  }
+  gru_columns<CT, WMAX>(x_s, hb_s, a.state + (size_t)b * W * H, wi, bi, wh,
+                        bhn, W, H, nh_s,
+                        a.dbg_newh ? a.dbg_newh + (size_t)b * W * H : nullptr);
   __syncthreads();
 
   // Correction head + per-position base logits (float32).

@@ -20,6 +20,7 @@ import math
 import torch
 from torch import nn
 
+from ssnt_tts_tpu_torch.models import stepmath
 from ssnt_tts_tpu_torch.models.encoder import GRUCell
 from ssnt_tts_tpu_torch.models.layers import Dense
 
@@ -87,7 +88,8 @@ class TransitionJoint(nn.Module):
         logits = (p.reshape(*p.shape[:-1], 2, R)
                   * q.reshape(*q.shape[:-1], 2, R)).sum(-1).float()
         logits = logits + self.enc_bias(enc_t) + self.dec_bias(dec_state)
-        return torch.log_softmax(logits, dim=-1)
+        # flax's association (nn.log_softmax), as the fused v1 step has it.
+        return stepmath.log_softmax(logits)
 
     def forward(self, enc, dec):
         """enc (B, T, He) f32, dec (B, U, H) f32 -> (log_emit, log_shift),

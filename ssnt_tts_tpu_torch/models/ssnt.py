@@ -8,6 +8,8 @@ Mirrors ssnt_tts_tpu/models/ssnt.py:
     teacher-forced duration and tone AR class heads
   duration_decode_step / tone_decode_step -> per-beam h (B, W, D) + new
     AR class state
+  decode_step -> the v1 step: per-beam emit/shift h (B, W, 2), new GRU
+    state and mel frame
   synthesize_from_alignment -> mel (B, U, M) through a decoded alignment
 
 The parameter names follow the flax tree's module names (encoder, ar_cell,
@@ -275,6 +277,30 @@ class SSNTModel(nn.Module):
             enc, 1, idx[..., None].expand(-1, -1, enc.shape[2]))
         return stepmath.class_step_math(w, enc_t, state, prev_class,
                                         self.dtype)
+
+    def v1_step_weights(self) -> stepmath.V1StepWeights:
+        return stepmath.extract_v1_step_weights(self.ar_cell,
+                                                self.transition, self.frame)
+
+    def decode_step(self, enc, beam_t, dec_state, prev_mel):
+        """One v1 decode step for every beam of every utterance.
+
+        enc (B, T, He); beam_t (B, W) source positions (clipped to
+        [0, T - 1]); dec_state (B, W, H) GRU carries; prev_mel (B, W, M).
+        Returns (h (B, W, 2) emit/shift log-probs, new dec_state
+        (B, W, H), mel (B, W, M)): the ar_cell step, then
+        transition.step and frame.predict at each beam's enc row."""
+        T = enc.shape[1]
+        idx = beam_t.long().clamp(0, T - 1)
+        enc_t = torch.gather(
+            enc, 1, idx[..., None].expand(-1, -1, enc.shape[2]))
+        B, W, H = dec_state.shape
+        new_state, dec_out = self.ar_cell(dec_state.reshape(B * W, H),
+                                          prev_mel.reshape(B * W, -1))
+        dec_out = dec_out.reshape(B, W, H)
+        return (self.transition.step(enc_t, dec_out),
+                new_state.reshape(B, W, H),
+                self.frame.predict(enc_t, dec_out))
 
     def synthesize_from_alignment(self, enc, source_indexes):
         """Mel frames through a decoded alignment map.

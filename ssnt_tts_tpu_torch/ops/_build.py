@@ -8,8 +8,10 @@ source and flags, so an edited source is rebuilt. There is no fallback:
 without nvcc, or when the build fails, this raises.
 
 One library per source: csrc/fused_class_step.cu (the fused v2 and tone
-decode steps), csrc/beam_step.cu (the beam-only v2 and tone steps; both
-include csrc/beam_select.cuh) and csrc/lattice.cu (the SSNT lattice
+decode steps), csrc/fused_v1_step.cu (the fused v1 decode step; both
+fused sources include csrc/gru_step.cuh), csrc/beam_step.cu (the
+beam-only v2, tone and v1 steps; the three beam sources include
+csrc/beam_select.cuh) and csrc/lattice.cu (the SSNT lattice
 forward-backward); build_all starts one nvcc per source at once.
 
 Flags: -fmad=false keeps every float32 multiply and add separately
@@ -53,6 +55,12 @@ BEAM_V2_ARGTYPES = [_I] * 4 + [_P] * 19 + [_I] * 5 + [_F] * 4 + [_P]
 # ssnt_beam_tone_step(B, W, K, H, 7 inputs, 7 outputs, empty_tone_id,
 #                     stream)
 BEAM_TONE_ARGTYPES = [_I] * 4 + [_P] * 14 + [_I] + [_P]
+# ssnt_beam_v1_step(B, W, F, 7 inputs, 7 outputs, stream); the state row
+# pointers may be null (F = 0)
+BEAM_V1_ARGTYPES = [_I] * 3 + [_P] * 14 + [_P]
+# ssnt_fused_v1_step(compute_bf16, B, W, T, H, M, R, 24 inputs, 9 outputs,
+#                    3 debug outputs, stream)
+FUSED_V1_ARGTYPES = [_I] * 7 + [_P] * 36 + [_P]
 # ssnt_lattice_bidir(B, T, U, le, ls, lf, il, ol, alphas, betas, stream)
 LATTICE_BIDIR_ARGTYPES = [_I] * 3 + [_P] * 8
 # ssnt_lattice_forward_alphas(bf16, B, T, U, le, ls, lf, alphas, stream)
@@ -135,10 +143,18 @@ def fused_class_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def fused_v1_library() -> ctypes.CDLL:
+    return _load("fused_v1_step",
+                 {"ssnt_fused_v1_step": FUSED_V1_ARGTYPES},
+                 ("ssnt_fused_v1_max_beams",))
+
+
+@functools.lru_cache(maxsize=None)
 def beam_step_library() -> ctypes.CDLL:
     return _load("beam_step",
                  {"ssnt_beam_v2_step": BEAM_V2_ARGTYPES,
-                  "ssnt_beam_tone_step": BEAM_TONE_ARGTYPES},
+                  "ssnt_beam_tone_step": BEAM_TONE_ARGTYPES,
+                  "ssnt_beam_v1_step": BEAM_V1_ARGTYPES},
                  ("ssnt_beam_step_max_candidates",
                   "ssnt_beam_step_max_beams"))
 

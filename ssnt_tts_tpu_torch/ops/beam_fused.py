@@ -1,20 +1,23 @@
-"""Model-fused class decode steps (v2 and tone): one launch per step.
+"""Model-fused decode steps (v2, tone and v1): one launch per step.
 
-Port of ssnt_tts_tpu/ops/beam_fused.py, kind="v2" and kind="tone". One
-step runs the AR class cell (embedding + GRU + correction head +
+Port of ssnt_tts_tpu/ops/beam_fused.py. A class step (kind="v2" or
+"tone") runs the AR class cell (embedding + GRU + correction head +
 log_softmax) for every beam, the candidate grid (v2: every duration
 prune; tone: none), the stable top-W selection and the parent-pointer
-reorder of the GRU state.
+reorder of the GRU state. The v1 step runs the mel prenet, the GRU and
+the transition and frame joints at each beam's source row, the
+emit/shift candidates, the selection, and the reorder of the GRU state
+and the mel frames.
 
-  - `fused_class_beam_step` (v2) and `fused_tone_step` are the wrappers.
-    For CUDA tensors they launch the hand-written kernel
-    csrc/fused_class_step.cu (built by ops/_build.py) or raise; each adds
-    one to its own `.launches` per launch. For CPU tensors they run the
-    plain version.
-  - `fused_class_beam_step_reference` and `fused_tone_step_reference` are
-    the plain versions: stepmath.class_step_from_paths, then the plain
-    beam_v2 / tone_latent step, then a gather of the new state by parent
-    pointer.
+  - `fused_class_beam_step` (v2), `fused_tone_step` and
+    `fused_v1_beam_step` are the wrappers. For CUDA tensors they launch
+    the hand-written kernels csrc/fused_class_step.cu and
+    csrc/fused_v1_step.cu (built by ops/_build.py) or raise; each adds one
+    to its own `.launches` per launch. For CPU tensors they run the plain
+    version.
+  - The `*_reference` functions are the plain versions: the stepmath
+    step (class_step_from_paths, v1_step_math), then the plain beam_v2 /
+    tone_latent / beam_v1 step, then gathers by parent pointer.
 
 The TPU kernel's carry layouts ((B, 1, W) lane rows, (B, W, 1) prev_class,
 a kernel-emitted step counter) are dropped: beam state is (B, W), and the
@@ -28,7 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ssnt_tts_tpu_torch.models import stepmath
-from ssnt_tts_tpu_torch.ops import _build, beam_v2, tone_latent
+from ssnt_tts_tpu_torch.ops import _build, beam_v1, beam_v2, tone_latent
 from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
 
 
@@ -294,3 +297,155 @@ def fused_tone_step(
 
 
 fused_tone_step.launches = 0
+
+
+# ------------------------------------------------------------------- v1
+
+# Kernel-ready v1 decode-step weights, cast once per decode: the compute
+# dtype except dec_bias (float32), contiguous, on the decode's device. The
+# fields are stepmath.V1StepWeights' decode side, in its order (the
+# kernel's argument order), so stepmath.v1_step_math takes either.
+V1FusedWeights = NamedTuple("V1FusedWeights", [
+    (k, torch.Tensor) for k in stepmath.V1StepWeights._fields
+    if not k.startswith("enc_")])
+
+
+def prepare_v1_fused_weights(w: stepmath.V1StepWeights,
+                             dtype) -> V1FusedWeights:
+    f32 = ("dec_bias_k", "dec_bias_b")
+    return V1FusedWeights(**{
+        k: getattr(w, k).detach().to(torch.float32 if k in f32 else dtype)
+        .contiguous() for k in V1FusedWeights._fields})
+
+
+class V1FusedStep(NamedTuple):
+    """One fused v1 step's outputs. (B, W): prediction, log_prob, next_t,
+    next_u, is_finished, branch, t_history (the parent's source position:
+    the frame's alignment); mel (B, W, M) f32 reordered, a finished beam
+    keeping its last frame (also the next prev_mel); state (B, W, H)
+    reordered."""
+
+    prediction: torch.Tensor
+    log_prob: torch.Tensor
+    next_t: torch.Tensor
+    next_u: torch.Tensor
+    is_finished: torch.Tensor
+    branch: torch.Tensor
+    t_history: torch.Tensor
+    mel: torch.Tensor
+    state: torch.Tensor
+
+
+def keep_finished_mel(mel, prev_mel, is_finished, fin_prev):
+    """A beam that was finished and stays finished emits no new frame: it
+    keeps its last one (JAX beam_decode's post-step where)."""
+    return torch.where((is_finished & fin_prev)[..., None], prev_mel, mel)
+
+
+def fused_v1_beam_step_reference(
+    enc_pack, t, u, log_prob, is_finished, input_length, prev_mel, state,
+    fw: V1FusedWeights, *,
+    debug_out: Optional[Tuple[torch.Tensor, ...]] = None,
+) -> V1FusedStep:
+    """Plain PyTorch version of fused_v1_beam_step (any device)."""
+    B, T, P = enc_pack.shape
+    idx = t.long().clamp(0, T - 1)
+    gath = torch.gather(enc_pack, 1, idx[..., None].expand(-1, -1, P))
+    h, mel, new_h = stepmath.v1_step_math(fw, gath, state, prev_mel,
+                                          fw.wi.dtype)
+    if debug_out is not None:
+        for dst, src in zip(debug_out, (h, new_h, mel)):
+            dst.copy_(src)
+    pred, lp, nt, nu, fin, branch = beam_v1.beam_search_step(
+        h, log_prob, is_finished, t, u, input_length)
+    bl = branch.long()
+    return V1FusedStep(
+        pred, lp, nt, nu, fin, branch, torch.gather(t, 1, bl),
+        keep_finished_mel(reorder_state(mel, branch),
+                          reorder_state(prev_mel, branch), fin,
+                          torch.gather(is_finished, 1, bl)),
+        reorder_state(new_h, branch))
+
+
+def fused_v1_beam_step(
+    enc_pack, t, u, log_prob, is_finished, input_length, prev_mel, state,
+    fw: V1FusedWeights, *,
+    debug_out: Optional[Tuple[torch.Tensor, ...]] = None,
+) -> V1FusedStep:
+    """One fused v1 decode step: the v1 model step (stepmath.v1_step_math)
+    at each beam's enc_pack row, the emit/shift candidates, the stable
+    top-W selection, and the reorder of state and mel by parent.
+
+    enc_pack (B, T, 2R+2+M) f32 from stepmath.v1_enc_pack (each beam's
+    row is read at clip(t, 0, T - 1)); t, u (B, W) int32; log_prob (B, W)
+    f32; is_finished (B, W) bool; input_length (B,) int32; prev_mel
+    (B, W, M) f32; state (B, W, H) f32. debug_out: optional float32
+    (h (B, W, 2), new_h (B, W, H), mel (B, W, M)) that receive the step's
+    log-probs, state and frame before the reorder.
+    """
+    args = (enc_pack, t, u, log_prob, is_finished, input_length, prev_mel,
+            state)
+    dev = state.device
+    if dev.type == "cpu":
+        return fused_v1_beam_step_reference(*args, fw, debug_out=debug_out)
+    if dev.type != "cuda":
+        raise ValueError(f"fused v1 step runs on cuda or cpu, not {dev}")
+    B, W, H = state.shape
+    T, P = enc_pack.shape[1], enc_pack.shape[2]
+    M = prev_mel.shape[2]
+    R = fw.dec_pre_k.shape[1]
+    ct = fw.wi.dtype
+    if ct not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {ct} is not float32 or bfloat16")
+    lib = _build.fused_v1_library()
+    if W > lib.ssnt_fused_v1_max_beams() or P != 2 * R + 2 + M:
+        raise ValueError(f"beam width {W} or row width {P} does not fit "
+                         f"the kernel")
+    i32, f32 = torch.int32, torch.float32
+    shapes = {"prenet_w1": (M, H), "prenet_b1": (H,), "prenet_w2": (H, H),
+              "prenet_b2": (H,), "wi": (H, 3 * H), "bi": (3 * H,),
+              "wh": (H, 3 * H), "bhn": (H,), "dec_pre_k": (H, R),
+              "dec_pre_b": (R,), "dec_proj_k": (R, 2 * R),
+              "dec_proj_b": (2 * R,), "dec_bias_k": (H, 2),
+              "dec_bias_b": (2,), "dec_mel_k": (H, M), "dec_mel_b": (M,)}
+    for name, x in fw._asdict().items():
+        _build.check_arg(name, x, f32 if name.startswith("dec_bias") else ct,
+                         shapes[name], dev)
+    for name, x, dt, shape in (
+        ("enc_pack", enc_pack, f32, (B, T, P)), ("t", t, i32, (B, W)),
+        ("u", u, i32, (B, W)), ("log_prob", log_prob, f32, (B, W)),
+        ("is_finished", is_finished, torch.bool, (B, W)),
+        ("input_length", input_length, i32, (B,)),
+        ("prev_mel", prev_mel, f32, (B, W, M)),
+        ("state", state, f32, (B, W, H)),
+    ):
+        _build.check_arg(name, x, dt, shape, dev)
+    dbg = (None, None, None)
+    if debug_out is not None:
+        for name, x, shape in zip(("debug h", "debug new_h", "debug mel"),
+                                  debug_out, ((B, W, 2), (B, W, H),
+                                              (B, W, M))):
+            _build.check_arg(name, x, f32, shape, dev)
+        dbg = tuple(x.data_ptr() for x in debug_out)
+    new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
+    out = V1FusedStep(
+        prediction=new(i32), log_prob=new(f32), next_t=new(i32),
+        next_u=new(i32), is_finished=new(torch.bool), branch=new(i32),
+        t_history=new(i32),
+        mel=torch.empty(B, W, M, dtype=f32, device=dev),
+        state=torch.empty(B, W, H, dtype=f32, device=dev),
+    )
+    ptr = lambda x: x.data_ptr()
+    rc = lib.ssnt_fused_v1_step(
+        int(ct == torch.bfloat16), B, W, T, H, M, R,
+        *map(ptr, (*args, *fw)), *map(ptr, out), *dbg,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused v1 step kernel launch failed: "
+                           f"cudaError {rc}")
+    fused_v1_beam_step.launches += 1
+    return out
+
+
+fused_v1_beam_step.launches = 0

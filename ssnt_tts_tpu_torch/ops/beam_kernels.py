@@ -1,17 +1,21 @@
-"""Beam-only class decode steps: h is given, one launch per step.
+"""Beam-only decode steps: h is given, one launch per step.
 
 Port of the beam-only kernels of ssnt_tts_tpu/ops/beam_pallas.py, with the
-state reorder folded in (their `state=` form, the one the decode loops
-use):
-  - `v2_beam_search_decode` (beam_pallas.v2_beam_search_decode): the v2
-    candidate grid, selection and survivor count, and state[branch];
-  - `tone_beam_search_decode` (beam_pallas.tone_beam_search_decode): the
-    tone step and state[branch].
+state reorder folded in (the form the decode loops use):
+  - `v2_beam_search_decode` (beam_pallas.v2_beam_search_decode, state=):
+    the v2 candidate grid, selection and survivor count, and
+    state[branch];
+  - `tone_beam_search_decode` (beam_pallas.tone_beam_search_decode,
+    state=): the tone step and state[branch];
+  - `beam_search_step_reorder` (beam_pallas.beam_search_step_reorder): the
+    v1 emit/shift step and the reorder of (B, W, F) rows, and
+    `beam_search_step_batched` (beam_pallas.beam_search_step_batched), the
+    same kernel without rows.
 For CUDA tensors each launches its hand-written kernel in
 csrc/beam_step.cu (built by ops/_build.py) or raises, and adds one to its
 own `.launches` per launch. For CPU tensors it runs the plain version
-(`*_reference`): the plain beam_v2 / tone_latent step, then the gather of
-the state by parent pointer.
+(`*_reference`): the plain beam_v2 / tone_latent / beam_v1 step, then the
+gather of the rows by parent pointer.
 
 The kernels write max_beam_width == W slots; the wrappers raise for any
 other width (no decode path asks for one).
@@ -23,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ssnt_tts_tpu_torch.ops import _build, beam_v2, tone_latent
+from ssnt_tts_tpu_torch.ops import _build, beam_v1, beam_v2, tone_latent
 from ssnt_tts_tpu_torch.ops.beam_fused import ToneStep, reorder_state
 from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
 
@@ -184,10 +188,108 @@ def tone_beam_search_decode(
 tone_beam_search_decode.launches = 0
 
 
+class V1BeamStep(NamedTuple):
+    """(B, W): prediction, log_prob, next_t, next_u, is_finished, branch;
+    state (B, W, F) reordered rows, None for the step without state."""
+
+    prediction: torch.Tensor
+    log_prob: torch.Tensor
+    next_t: torch.Tensor
+    next_u: torch.Tensor
+    is_finished: torch.Tensor
+    branch: torch.Tensor
+    state: Optional[torch.Tensor]
+
+
+def beam_search_step_reorder_reference(
+    h, log_prob_history, is_finished, t, u, input_length, state,
+    *, max_beam_width: Optional[int] = None,
+) -> V1BeamStep:
+    """Plain PyTorch version of beam_search_step_reorder (any device)."""
+    _check_width(h.shape[1], max_beam_width)
+    out = beam_v1.beam_search_step(h, log_prob_history, is_finished, t, u,
+                                   input_length)
+    return V1BeamStep(*out, reorder_state(state, out[5]))
+
+
+def beam_search_step_batched_reference(
+    h, log_prob_history, is_finished, t, u, input_length,
+    *, max_beam_width: Optional[int] = None,
+) -> V1BeamStep:
+    """Plain PyTorch version of beam_search_step_batched (any device)."""
+    _check_width(h.shape[1], max_beam_width)
+    return V1BeamStep(*beam_v1.beam_search_step(
+        h, log_prob_history, is_finished, t, u, input_length), None)
+
+
+def _v1_step(args, state, max_beam_width) -> V1BeamStep:
+    """Launch the v1 kernel on CUDA tensors (state None: no reorder)."""
+    h = args[0]
+    dev = h.device
+    B, W, _ = h.shape
+    lib = _check_common(*args, state, max_beam_width)
+    i32 = torch.int32
+    new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
+    out = V1BeamStep(
+        prediction=new(i32), log_prob=new(torch.float32), next_t=new(i32),
+        next_u=new(i32), is_finished=new(torch.bool), branch=new(i32),
+        state=None if state is None else torch.empty_like(state),
+    )
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = lib.ssnt_beam_v1_step(
+        B, W, 0 if state is None else state.shape[-1],
+        *map(ptr, (*args, state)), *map(ptr, out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"beam-only v1 step kernel launch failed: "
+                           f"cudaError {rc}")
+    return out
+
+
+def beam_search_step_reorder(
+    h, log_prob_history, is_finished, t, u, input_length, state,
+    *, max_beam_width: Optional[int] = None,
+) -> V1BeamStep:
+    """One v1 beam step given h, with the reorder of per-beam rows.
+
+    h (B, W, 2) f32 emit/shift log-probs; log_prob_history (B, W) f32;
+    is_finished (B, W) bool; t, u (B, W) int32; input_length (B,) int32;
+    state (B, W, F) f32: any per-beam rows (the v1 decode packs its GRU
+    state, mel, previous mel, fin and t there)."""
+    args = (h, log_prob_history, is_finished, t, u, input_length)
+    if h.device.type == "cpu":
+        return beam_search_step_reorder_reference(
+            *args, state, max_beam_width=max_beam_width)
+    out = _v1_step(args, state, max_beam_width)
+    beam_search_step_reorder.launches += 1
+    return out
+
+
+beam_search_step_reorder.launches = 0
+
+
+def beam_search_step_batched(
+    h, log_prob_history, is_finished, t, u, input_length,
+    *, max_beam_width: Optional[int] = None,
+) -> V1BeamStep:
+    """beam_search_step_reorder without state rows (its `state` is None);
+    the same kernel."""
+    args = (h, log_prob_history, is_finished, t, u, input_length)
+    if h.device.type == "cpu":
+        return beam_search_step_batched_reference(
+            *args, max_beam_width=max_beam_width)
+    out = _v1_step(args, None, max_beam_width)
+    beam_search_step_batched.launches += 1
+    return out
+
+
+beam_search_step_batched.launches = 0
+
+
 def _check_common(h, log_prob, is_finished, t, u, input_length, state,
                   max_beam_width):
-    """Raise unless a beam-only kernel can take these (CUDA) tensors;
-    returns the kernel library."""
+    """Raise unless a beam-only kernel can take these (CUDA) tensors
+    (state may be None); returns the kernel library."""
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"beam-only step runs on cuda or cpu, not {dev}")
@@ -203,7 +305,8 @@ def _check_common(h, log_prob, is_finished, t, u, input_length, state,
         ("is_finished", is_finished, torch.bool, (B, W)),
         ("t", t, i32, (B, W)), ("u", u, i32, (B, W)),
         ("input_length", input_length, i32, (B,)),
-        ("state", state, f32, (B, W, state.shape[-1])),
     ):
         _build.check_arg(name, x, dt, shape, dev)
+    if state is not None:
+        _build.check_arg("state", state, f32, (B, W, state.shape[-1]), dev)
     return lib

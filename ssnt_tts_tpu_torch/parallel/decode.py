@@ -1,18 +1,21 @@
-"""Class decodes (v2 duration, tone), the serving and eval paths (PyTorch).
+"""Beam decodes (v2 duration, tone, v1 emit/shift), PyTorch.
 
-Port of ssnt_tts_tpu/parallel/decode.v2_duration_decode (the reference's
-production path, SURVEY §3.1 + §3.3) and tone_decode, with their step
-loops and post-processing:
+Port of ssnt_tts_tpu/parallel/decode: v2_duration_decode (the reference's
+production path, SURVEY §3.1 + §3.3), tone_decode and beam_decode /
+greedy_decode (the v1 decode), with their step loops and post-processing:
 
   v2: encode -> T steps -> all-beam backtrace (ops/backtrace) -> per-beam
   durations -> duration-to-frame upsampling (ops/upsample)
   tone: encode -> T steps -> all-beam backtrace -> per-beam tones
+  v1: encode -> max_frames steps (each beam's source position t is its
+  own, moved by its emit/shift choices) -> best-path backtrace
+  (backtrace.extract_best_beam_branch) -> its mel frames
 
 A step is, as in the JAX package, one of three routes:
-  - fused (fuse_model None or True): enc-side paths hoisted
-    (stepmath.class_decode_paths), then one ops/beam_fused step per
-    source position (the CUDA kernel for CUDA tensors, its plain version
-    for CPU tensors);
+  - fused (fuse_model None or True): enc-side projections hoisted
+    (stepmath.class_decode_paths, stepmath.v1_enc_pack), then one
+    ops/beam_fused step per step (the CUDA kernel for CUDA tensors, its
+    plain version for CPU tensors);
   - beam-only (fuse_model=False, use_pallas None or True): the model's
     per-beam decode step gives h, then ops/beam_kernels (the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors);
@@ -23,7 +26,7 @@ Outputs keep the JAX layouts. v2: prediction/beam_branch (B, T, W),
 ordered_beam_branch/durations (B, W, T), output_length (B, W),
 source_indexes (B, W, max_frames), log_prob/total_duration/is_finished
 (B, W), beam_emptied (B,). Tone: tones (B, W, T), prediction/beam_branch
-(B, T, W), log_prob (B, W).
+(B, T, W), log_prob (B, W). v1: see beam_decode.
 """
 
 from __future__ import annotations
@@ -217,3 +220,105 @@ def tone_decode(
         branches.append(o.branch)
     return tone_postprocess(torch.stack(preds, 1), torch.stack(branches, 1),
                             il, empty_tone_id, lp)
+
+
+def v1_postprocess(branches, t_hists, mels, preds, lp, u
+                   ) -> Dict[str, torch.Tensor]:
+    """branches/t_hists/preds (B, U, W), mels (B, U, W, M) -> the v1
+    outputs (decode.py:196): the backtrace from beam 0 (beams stay sorted,
+    slot 0 the best) and its mel frames."""
+    B, U, W, M = mels.shape
+    best_final = torch.zeros(B, dtype=torch.int32, device=mels.device)
+    best_branch, best_t = backtrace.extract_best_beam_branch(
+        best_final, branches, t_hists)
+    idx = best_branch.long()[:, :, None, None].expand(B, U, 1, M)
+    return {
+        "mel": torch.gather(mels, 2, idx)[:, :, 0], "alignment": best_t,
+        "beam_branch": branches, "t_history": t_hists, "prediction": preds,
+        "log_prob": lp, "num_frames": u[:, 0],
+    }
+
+
+@torch.no_grad()
+def beam_decode(
+    model,
+    tokens: torch.Tensor,
+    input_length: torch.Tensor,
+    *,
+    max_frames: int,
+    beam_width: int,
+    use_pallas: Optional[bool] = None,
+    fuse_model: Optional[bool] = None,
+) -> Dict[str, torch.Tensor]:
+    """The v1 emit/shift beam decode: max_frames frames, each moving every
+    beam by emit (t, u+1) or shift (t+1, u+1) and predicting a mel frame,
+    then the best-path backtrace. The route follows fuse_model and
+    use_pallas (module docstring); the non-fused routes carry
+    [state | mel | prev_mel | fin | t] as one (B, W, H + 2M + 2) float32
+    row per beam through the reorder (t is exact in float32 below 2^24).
+
+    Returns mel (B, max_frames, M) best-path frames, alignment
+    (B, max_frames) best-path source positions, beam_branch / t_history /
+    prediction (B, max_frames, W), log_prob (B, W) final cumulative
+    log-probs (slot 0 the best), num_frames (B,) frames of the best beam.
+    """
+    B, T = tokens.shape
+    W = beam_width
+    dev = tokens.device
+    cfg = model.config
+    H, M = cfg.decoder_dim, cfg.mel_dim
+    i32 = torch.int32
+    il = input_length.to(device=dev, dtype=i32).contiguous()
+
+    enc = model.encode(tokens, il)
+    zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
+    t, u, lp, fin = zeros(i32), zeros(i32), zeros(torch.float32), zeros(
+        torch.bool)
+    state = torch.zeros(B, W, H, device=dev)
+    prev_mel = torch.zeros(B, W, M, device=dev)
+    if fuse_model is not False:
+        w = model.v1_step_weights()
+        fw = beam_fused.prepare_v1_fused_weights(w, model.dtype)
+        enc_pack = stepmath.v1_enc_pack(w, enc, model.dtype).contiguous()
+
+        def step():
+            return beam_fused.fused_v1_beam_step(
+                enc_pack, t, u, lp, fin, il, prev_mel, state, fw)
+    else:
+        beam_step = (beam_kernels.beam_search_step_reorder_reference
+                     if use_pallas is False
+                     else beam_kernels.beam_search_step_reorder)
+
+        def step():
+            h, new_state, mel = model.decode_step(enc, t, state, prev_mel)
+            rows = torch.cat([new_state, mel, prev_mel, fin.float()[..., None],
+                              t.float()[..., None]], dim=-1)
+            o = beam_step(h, lp, fin, t, u, il, rows)
+            r = o.state
+            return beam_fused.V1FusedStep(
+                *o[:6], r[..., -1].to(i32),
+                beam_fused.keep_finished_mel(
+                    r[..., H:H + M], r[..., H + M:-2], o.is_finished,
+                    r[..., -2] != 0),
+                r[..., :H].contiguous())
+
+    branches, t_hists, mels, preds = [], [], [], []
+    for _ in range(max_frames):
+        o = step()
+        t, u, lp, fin = o.next_t, o.next_u, o.log_prob, o.is_finished
+        state, prev_mel = o.state, o.mel
+        branches.append(o.branch)
+        t_hists.append(o.t_history)
+        mels.append(o.mel)
+        preds.append(o.prediction)
+    return v1_postprocess(torch.stack(branches, 1), torch.stack(t_hists, 1),
+                          torch.stack(mels, 1), torch.stack(preds, 1), lp, u)
+
+
+def greedy_decode(model, tokens, input_length, *, max_frames: int,
+                  use_pallas: Optional[bool] = None,
+                  fuse_model: Optional[bool] = None):
+    """Greedy decode: beam_decode at beam width 1, on the same routes."""
+    return beam_decode(model, tokens, input_length, max_frames=max_frames,
+                       beam_width=1, use_pallas=use_pallas,
+                       fuse_model=fuse_model)

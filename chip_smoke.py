@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training, tone and v1 paths on
-one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training (log and exp
+domains), tone and v1 paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -87,7 +87,26 @@ weights, in phases, each reported on its own line:
  17. timings: #15, #11 and #10 against their plain versions (device time
      under a CUDA graph, and eager), and one v1 request per route end to
      end (host clock: beam_decode, and apart its encode and its backtrace
-     + mel gather; audio-seconds per second, B*400*0.0125 s / latency).
+     + mel gather; audio-seconds per second, B*400*0.0125 s / latency);
+ 18. exp-domain lattice check on the same ragged lengths (and an example
+     whose emit probability is 0 everywhere): the exp-native pass (#9)
+     and the exp-domain bidirectional pass (#4) at B=32 and B=256, the
+     betas-only pass (#3) at B=32 (bit for bit lattice_bidir's betas),
+     each against its plain version (LAT_REL; -inf cells equal), and the
+     gradients after the plain backward (GRAD_F32; degenerate examples'
+     exactly 0);
+ 19. exp-domain training (the exp path, lattice_domain="exp", frame
+     log_sigma EXP_LOG_SIGMA): run_training at B=32 for 10 steps (one #9
+     launch each), one no-grad loss (one), run_training at B=256 for 2
+     steps (two); one B=32 step in the exp domain against one in the log
+     domain from the same weights and batch (loss rtol 1e-4, gradient
+     cosine > 0.999); ssnt_loss_kernels(variant="exp") forward and
+     backward at B=32 and B=256 (one #4 launch each; loss within 5e-4 of
+     variant="log", the degenerate example +inf);
+ 20. timings: #9, #4 and #3 against their plain versions (device time
+     under a CUDA graph), the lattice loss fwd+bwd for variant "exp",
+     "fused" and "plain", and the exp-domain train step at B=32 and B=256
+     split into forward, backward and optimizer (host clock).
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -97,6 +116,7 @@ no result line). Without a CUDA device it exits 1 before doing anything.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import subprocess
@@ -119,10 +139,27 @@ LAT_REL, GRAD_F32, GRAD_BF16 = 1e-5, 1e-5, 2.0 ** -8
 # the lattice gradients agree to ~1e-6, then the bf16 backward rounds them
 # (a flipped rounding moves a bf16 value by 2^-8 relative).
 ROUTE_LOSS_RTOL, ROUTE_NORM_RTOL = 1e-5, 1e-2
+# Exp domain against log domain, one train step from the same weights
+# (JAX's own tolerance, tests/test_model.py::test_exp_domain_lattice_
+# training), and variant="exp" against variant="log" on one lattice
+# (tests/test_lattice_pallas.py::test_exp_variant_loss_and_grads_match).
+EXP_LOSS_RTOL, EXP_GRAD_COS, EXP_VARIANT_RTOL = 1e-4, 0.999, 5e-4
+# The exp-domain training runs (phase 19): the frame joint's log_sigma and
+# the warmup. The exp domain flushes a cell more than ~87 nats below its
+# column's best to 0 (in JAX as here): at the random tree's log_sigma 0
+# most utterances, and at 1 some, lose every path and give the 1e30
+# sentinel; and one Adam step at full learning rate saturates the random
+# transition joint, after which every utterance does. At log_sigma 2 with TrainConfig's default warmup (1000
+# steps) none does.
+EXP_LOG_SIGMA, EXP_WARMUP = 2.0, 1000
+# A train loss at or above this holds an utterance at the 1e30 sentinel.
+SENTINEL_LOSS = 1e20
 # Card peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32 (non
 # tensor core) and bf16 tensor-core operations/s.
 HBM_BPS, F32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
 SOURCES = ("fused_class_step", "fused_v1_step", "beam_step", "lattice")
+# The lattice kernels' launch counts, in lattice_kernels.KERNELS' order.
+LAUNCH_NAMES = "(bidir, fwd, bwd, betas, bidir_exp, expin)"
 SERVE_CFG = dict(vocab_size=128, mel_dim=80, encoder_dim=256,
                  encoder_layers=2, encoder_heads=4, decoder_dim=256,
                  joint_rank=64)
@@ -476,15 +513,58 @@ def split_step_ms(tx, state, batch, reps: int = 3) -> dict:
             "total": fwd + bwd + opt}
 
 
+def train_run(tag, name, steps, bsz, mcfg, want, seed, dev, params=None,
+              warmup_steps=2, gate_sentinel=True):
+    """run_training for `steps` steps at batch `bsz` (from `params` when
+    given); the lattice kernels' launches over the run must equal `want`,
+    the metrics finite and (with gate_sentinel) no utterance at the 1e30
+    sentinel."""
+    from pathlib import Path
+
+    from ssnt_tts_tpu_torch.train_loop import run_training
+    from ssnt_tts_tpu_torch.utils.config import TrainConfig
+
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{name}.jsonl"
+    path.unlink(missing_ok=True)
+    before = lattice_counts()
+    t0 = time.perf_counter()
+    last = run_training(steps, mcfg, TrainConfig(
+        warmup_steps=warmup_steps, batch_size=bsz), seed=seed, device=dev,
+        metrics_path=str(path), log_every=1, params=params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = tuple(a - b for a, b in zip(lattice_counts(), before))
+    if got != want:
+        raise AssertionError(f"{name}: launches {LAUNCH_NAMES} "
+                             f"{got}, not {want}")
+    rows = [json.loads(x) for x in path.read_text().splitlines()]
+    if len(rows) != steps or not all(
+            np.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"{name}: metrics missing or not finite")
+    # One utterance at the NLL sentinel lifts the mean loss above 1e24.
+    if gate_sentinel and not all(r["loss"] < SENTINEL_LOSS for r in rows):
+        raise AssertionError(f"{name}: an utterance's NLL is the sentinel")
+    log(f"[{tag}] {name}: {steps} steps B={bsz} T={T} U={U} in "
+        f"{secs:.1f}s, launches {LAUNCH_NAMES} {got}; loss "
+        + " ".join(f"{r['loss']:.4f}" for r in rows)
+        + f"; last grad_norm {last['grad_norm']:.4f}")
+
+
+def lattice_counts() -> tuple:
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    return tuple(k.launches for k in lk.KERNELS)
+
+
 def train_phases(seed: int, dev, smi: str) -> list:
     """Phases 7-9; returns the lattice kernels' entries of the JSON line."""
     import dataclasses as dc
-    from pathlib import Path
 
     from ssnt_tts_tpu_torch import data as data_lib
     from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
     from ssnt_tts_tpu_torch.parallel import train as train_lib
-    from ssnt_tts_tpu_torch.train_loop import run_training
     from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
 
     rng = np.random.default_rng(seed + 1)
@@ -493,36 +573,12 @@ def train_phases(seed: int, dev, smi: str) -> list:
 
     # ---- 8. train (the main path) ----
     cfg = ModelConfig(**SERVE_CFG)
-    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    counts = lambda: tuple(k.launches for k in lk.KERNELS)
-
-    def train_run(name, steps, bsz, mcfg, want):
-        path = out_dir / f"{name}.jsonl"
-        path.unlink(missing_ok=True)
-        before = counts()
-        t0 = time.perf_counter()
-        last = run_training(steps, mcfg, TrainConfig(
-            warmup_steps=2, batch_size=bsz), seed=seed, device=dev,
-            metrics_path=str(path), log_every=1)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = tuple(a - b for a, b in zip(counts(), before))
-        if got != want:
-            raise AssertionError(f"{name}: launches (bidir, fwd, bwd) "
-                                 f"{got}, not {want}")
-        rows = [json.loads(x) for x in path.read_text().splitlines()]
-        if len(rows) != steps or not all(
-                np.isfinite(v) for r in rows for v in r.values()):
-            raise AssertionError(f"{name}: metrics missing or not finite")
-        log(f"[8 train] {name}: {steps} steps B={bsz} T={T} U={U} in "
-            f"{secs:.1f}s, launches (bidir, fwd, bwd) {got}; loss "
-            + " ".join(f"{r['loss']:.4f}" for r in rows)
-            + f"; last grad_norm {last['grad_norm']:.4f}")
+    counts = lattice_counts
+    train = lambda *a: train_run("8 train", *a, seed, dev)
 
     for k in lk.KERNELS:
         k.launches = 0
-    train_run("b32", 10, B, cfg, (10, 0, 0))
+    train("b32", 10, B, cfg, (10, 0, 0, 0, 0, 0))
     train_tcfg = TrainConfig(warmup_steps=2, batch_size=B)
     ds = data_lib.SyntheticTTSDataset(
         vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim, seed=seed + 2)
@@ -533,15 +589,15 @@ def train_phases(seed: int, dev, smi: str) -> list:
     with torch.no_grad():
         nll = state_k.model(*(batch32[k] for k in train_lib.BATCH_KEYS[:4]))
     torch.cuda.synchronize()
-    if tuple(a - b for a, b in zip(counts(), before)) != (0, 1, 0):
+    if tuple(a - b for a, b in zip(counts(), before)) != (0, 1, 0, 0, 0, 0):
         raise AssertionError("no-grad loss: not one forward-alphas launch")
     if nll.shape != (B,) or not bool(torch.isfinite(nll).all()):
         raise AssertionError("no-grad loss: not B finite values")
     log(f"[8 train] no-grad loss B={B}: 1 forward-alphas launch, mean NLL "
         f"per utterance {float(nll.mean()):.3f}")
-    train_run("b256", 2, B_LARGE, cfg, (0, 2, 2))
-    train_run("b256_bf16_lattice", 2, B_LARGE,
-              dc.replace(cfg, lattice_dtype="bfloat16"), (0, 2, 2))
+    train("b256", 2, B_LARGE, cfg, (0, 2, 2, 0, 0, 0))
+    train("b256_bf16_lattice", 2, B_LARGE,
+          dc.replace(cfg, lattice_dtype="bfloat16"), (0, 2, 2, 0, 0, 0))
     cfg_plain = dc.replace(cfg, lattice_impl="xla")
     state_p = train_lib.init_train_state(cfg_plain, train_tcfg, seed=seed,
                                          device=dev)
@@ -551,7 +607,7 @@ def train_phases(seed: int, dev, smi: str) -> list:
     mid = counts()
     _, mp = train_lib.train_step(tx, state_p, batch32)
     torch.cuda.synchronize()
-    if (tuple(a - b for a, b in zip(mid, before)) != (1, 0, 0)
+    if (tuple(a - b for a, b in zip(mid, before)) != (1, 0, 0, 0, 0, 0)
             or counts() != mid):
         raise AssertionError("route comparison: unexpected launches")
     for key, rtol in (("loss", ROUTE_LOSS_RTOL),
@@ -566,7 +622,7 @@ def train_phases(seed: int, dev, smi: str) -> list:
         f"vs {float(mp['grad_norm']):.5f} (rtol {ROUTE_LOSS_RTOL}, "
         f"{ROUTE_NORM_RTOL}); the plain step launched no kernel")
     main_launches = counts()
-    if main_launches != (11, 5, 4):
+    if main_launches != (11, 5, 4, 0, 0, 0):
         raise AssertionError(f"train phase launches {main_launches}")
 
     # ---- 9. timings ----
@@ -662,6 +718,324 @@ def train_phases(seed: int, dev, smi: str) -> list:
         "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None,
     } for kname, dtype, k_ms, p_ms, bd in lat_rows
         if dtype == torch.float32]
+
+
+def exp_lattice_inputs(rng, Bn: int, dev):
+    """lattice_inputs' lattice and lengths, and its exp-domain quadruple
+    (E, S, F, mcol) as the joints emit it: mcol the max of lf over valid
+    t, F = exp(lf - mcol) and 0 past the input length; example 3's emit
+    probability is 0 everywhere (no valid path, as JAX's
+    test_expin_degenerate_path_zero_grads)."""
+    (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
+    E, S = le.exp(), ls.exp()
+    E[:, 3], S[:, 3] = 0.0, 1.0
+    tmask = torch.arange(T, device=dev)[None, None, :] < il[None, :, None]
+    mcol = torch.where(tmask, lf, -1e30).amax(dim=2)
+    F = torch.exp(torch.where(tmask, lf - mcol[:, :, None], -torch.inf))
+    return (E, S, F, mcol), (le, ls, lf), (il, ol)
+
+
+def check_exp_lattice(rng, dev) -> dict:
+    """Phase 18: #9 and #4 at B=32 and B=256, #3 at B=32, each against
+    its plain version. Returns each kernel's max abs error."""
+    from ssnt_tts_tpu_torch.ops import lattice as lat
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    err = dict.fromkeys(("lattice_expin", "lattice_bidir_exp",
+                         "lattice_backward_betas"), 0.0)
+    for Bn in (B, B_LARGE):
+        x, logs, (il, ol) = exp_lattice_inputs(rng, Bn, dev)
+        g = torch.ones(Bn, device=dev)
+        with torch.no_grad():
+            k = lk.lattice_expin(*x, il, ol)
+            r = lk.lattice_expin_reference(*x, il, ol)
+            torch.cuda.synchronize()
+            e_in = max(lattice_err(a, b, f"expin {n} B={Bn}") for a, b, n in
+                       zip(k, r, ("qn", "bn", "M", "N")))
+            kz = lk.expin_logz(x[0], x[2], k[0], k[2], il, ol)
+            rz = lk.expin_logz(x[0], x[2], r[0], r[2], il, ol)
+            lattice_err(kz, rz, f"expin logz B={Bn}")
+            if not bool((kz[2:4] == lat.NEG).all()):
+                raise AssertionError("expin: a degenerate example's logz "
+                                     "is not the NEG sentinel")
+            kg = lk.expin_grads(*x, *k, kz, il, ol, g)
+            rg = lk.expin_grads(*x, *r, rz, il, ol, g)
+            e_gin = grad_err(kg, rg, GRAD_F32, f"expin grads B={Bn}")
+            if any(bool(d[:, 3].any()) for d in kg):
+                raise AssertionError("expin: the E = 0 example's gradients "
+                                     "are not exactly 0")
+
+            ka, kb = lk.lattice_bidir_exp(*logs, il, ol)
+            ra, rb = lk.lattice_bidir_exp_reference(*logs, il, ol)
+            torch.cuda.synchronize()
+            for a, b, n in ((ka, ra, "alphas"), (kb, rb, "betas")):
+                if not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+                    raise AssertionError(f"bidir_exp {n} B={Bn}: -inf "
+                                         f"cells differ")
+            e_ex = max(lattice_err(ka, ra, f"bidir_exp alphas B={Bn}"),
+                       lattice_err(kb, rb, f"bidir_exp betas B={Bn}"))
+            kz = lat.gather_logz(ka, logs[0], il, ol)
+            rz = lat.gather_logz(ra, logs[0], il, ol)
+            lattice_err(kz, rz, f"bidir_exp logz B={Bn}")
+            if not (bool(torch.isneginf(kz[2])) and bool(
+                    torch.isneginf(rz[2]))):
+                raise AssertionError("bidir_exp: the degenerate example's "
+                                     "logz is not -inf")
+            kg = lat.posterior_grads(*logs, ka, kb, kz, il, ol, g)
+            rg = lat.posterior_grads(*logs, ra, rb, rz, il, ol, g)
+            e_gex = grad_err(kg, rg, GRAD_F32, f"bidir_exp grads B={Bn}")
+            n_inf = (int(torch.isneginf(ka).sum()),
+                     int(torch.isneginf(kb).sum()))
+        err["lattice_expin"] = max(err["lattice_expin"], e_in[0])
+        err["lattice_bidir_exp"] = max(err["lattice_bidir_exp"], e_ex[0])
+        log(f"[18 exp lattice] B={Bn} T={T} U={U} f32: expin qn/bn/M/N max "
+            f"abs err {e_in[0]:.3e}, rel err {e_in[1]:.3e}, grads after the "
+            f"plain backward {e_gin:.3e}; bidir_exp alphas/betas max abs "
+            f"err {e_ex[0]:.3e}, rel err {e_ex[1]:.3e}, -inf cells equal "
+            f"({n_inf[0]} alphas, {n_inf[1]} betas), grads after the "
+            f"posterior pass {e_gex:.3e} (tol {LAT_REL}, {GRAD_F32}); "
+            f"degenerate examples' grads exactly 0")
+        if Bn != B:
+            continue
+        le, ls, lf = logs
+        with torch.no_grad():
+            kb = lk.lattice_backward_betas(le, ls, lf, il, ol)
+            ra, rb = lk.lattice_bidir_reference(le, ls, lf, il, ol)
+            _, bidir_b = lk.lattice_bidir(le, ls, lf, il, ol)
+            torch.cuda.synchronize()
+            if not same_bits(kb, bidir_b):
+                raise AssertionError("backward_betas: not lattice_bidir's "
+                                     "betas bit for bit")
+            e_b = lattice_err(kb, rb, "backward_betas")
+            rz = lat.gather_logz(ra, le, il, ol)
+            e_gb = grad_err(
+                lat.posterior_grads(le, ls, lf, ra, kb, rz, il, ol, g),
+                lat.posterior_grads(le, ls, lf, ra, rb, rz, il, ol, g),
+                GRAD_F32, "backward_betas grads")
+        err["lattice_backward_betas"] = e_b[0]
+        log(f"[18 exp lattice] backward_betas B={B} f32: bit for bit "
+            f"lattice_bidir's betas; max abs err {e_b[0]:.3e}, rel err "
+            f"{e_b[1]:.3e} against the plain version, grads after the "
+            f"posterior pass {e_gb:.3e}; degenerate grads exactly 0")
+    return err
+
+
+def exp_phases(seed: int, dev, smi: str) -> list:
+    """Phases 18-20; returns the exp-domain kernels' entries of the JSON
+    line."""
+    import dataclasses as dc
+
+    from ssnt_tts_tpu_torch import data as data_lib
+    from ssnt_tts_tpu_torch.ops import lattice as lat
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+    from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    rng = np.random.default_rng(seed + 5)
+    # ---- 18. exp-domain kernels against their plain versions ----
+    err = check_exp_lattice(rng, dev)
+
+    # ---- 19. exp-domain training (the main path) ----
+    # From the random tree with a wider frame sigma, at TrainConfig's
+    # default warmup (EXP_LOG_SIGMA).
+    from ssnt_tts_tpu_torch import convert
+
+    cfg_log = ModelConfig(**SERVE_CFG)
+    cfg = dc.replace(cfg_log, lattice_domain="exp")
+    tree = convert.random_flax_tree(cfg, seed)
+    wide = copy.deepcopy(tree)
+    wide["params"]["frame"]["log_sigma"] = np.float32(EXP_LOG_SIGMA)
+    train = lambda *a: train_run("19 exp train", *a, seed, dev, wide,
+                                 EXP_WARMUP)
+
+    def delta(fn, want, what):
+        before = lattice_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(lattice_counts(), before))
+        if got != want:
+            raise AssertionError(f"{what}: launches {LAUNCH_NAMES} {got}, "
+                                 f"not {want}")
+        return out
+
+    for k in lk.KERNELS:
+        k.launches = 0
+    train("exp_b32", 10, B, cfg, (0, 0, 0, 0, 0, 10))
+    tcfg = TrainConfig(warmup_steps=EXP_WARMUP, batch_size=B)
+    batch32 = to_device(data_lib.SyntheticTTSDataset(
+        vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+        seed=seed + 2).batch(B), dev)
+    args = [batch32[k] for k in train_lib.BATCH_KEYS]
+    state = lambda c, t: train_lib.init_train_state(c, tcfg, params=t,
+                                                    device=dev)
+    state_e = state(cfg, wide)
+    with torch.no_grad():
+        nll = delta(lambda: state_e.model(*args[:4]), (0, 0, 0, 0, 0, 1),
+                    "exp no-grad loss")
+    if nll.shape != (B,) or not bool((nll < -lat.NEG / 2).all()):
+        raise AssertionError("exp no-grad loss: not B finite values below "
+                             "the sentinel")
+    log(f"[19 exp train] no-grad loss B={B}: 1 expin launch, mean NLL per "
+        f"utterance {float(nll.mean()):.3f}")
+    train("exp_b256", 2, B_LARGE, cfg, (0, 0, 0, 0, 0, 2))
+
+    # One step's loss and gradients, exp domain against log domain, from
+    # the same weights and batch.
+    steps = {}
+    for name, st, want in (("exp", state_e, (0, 0, 0, 0, 0, 1)),
+                           ("log", state(cfg_log, wide),
+                            (1, 0, 0, 0, 0, 0))):
+        model = st.model
+        model.zero_grad(set_to_none=True)
+
+        def step():
+            loss, _ = model.loss(*args)
+            loss.backward()
+            return loss.detach()
+
+        loss = float(delta(step, want, f"{name}-domain step"))
+        grads = torch.cat([p.grad.double().ravel() if p.grad is not None
+                           else torch.zeros(p.numel(), device=dev,
+                                            dtype=torch.float64)
+                           for p in model.parameters()])
+        model.zero_grad(set_to_none=True)
+        steps[name] = (loss, grads)
+    (le_, ge), (ll_, gl) = steps["exp"], steps["log"]
+    cos = float(ge @ gl / (ge.norm() * gl.norm()))
+    if not (abs(le_ - ll_) <= EXP_LOSS_RTOL * abs(ll_)
+            and cos > EXP_GRAD_COS):
+        raise AssertionError(f"exp vs log step: loss {le_} vs {ll_} (rtol "
+                             f"{EXP_LOSS_RTOL}), gradient cosine {cos}")
+    log(f"[19 exp train] one B={B} step, exp domain vs log domain (same "
+        f"weights, log_sigma {EXP_LOG_SIGMA}, and batch): loss {le_:.6f} vs "
+        f"{ll_:.6f} (rtol {EXP_LOSS_RTOL}), gradient cosine {cos:.7f} (> "
+        f"{EXP_GRAD_COS}); 1 expin launch, 1 bidir launch")
+    # Not gated: the same comparison at the random tree's log_sigma 0.
+    with torch.no_grad():
+        at0 = [delta(lambda: state(c, tree).model(*args[:4]), want, what)
+               for c, want, what in (
+                   (cfg, (0, 0, 0, 0, 0, 1), "exp at log_sigma 0"),
+                   (cfg_log, (0, 1, 0, 0, 0, 0), "log at log_sigma 0"))]
+    off = ((at0[0] - at0[1]).abs() / at0[1].abs()) > EXP_LOSS_RTOL
+    log(f"[19 exp train] not gated: at the random tree's log_sigma 0, "
+        f"{int(off.sum())}/{B} utterances' exp-domain NLL is off the log "
+        f"domain's by more than {EXP_LOSS_RTOL} relative, "
+        f"{int((at0[0] >= 1e29).sum())} collapsed to the 1e30 sentinel; "
+        f"mean NLL {float(at0[1].mean()):.1f} (log), largest relative "
+        f"gap {float(((at0[0] - at0[1]).abs() / at0[1].abs()).max()):.3e}")
+    # Not gated: phase 8's warmup of 2 steps; the first step at full
+    # learning rate saturates the transition joint.
+    train_run("19 exp train", "exp_b32_warmup2", 3, B, cfg,
+              (0, 0, 0, 0, 0, 3), seed, dev, wide, 2, gate_sentinel=False)
+
+    # variant="exp": one forward and backward, one #4 launch each.
+    for Bn in (B, B_LARGE):
+        (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
+        leaves = [x.clone().requires_grad_() for x in (le, ls, lf)]
+
+        def fwd_bwd():
+            loss = lk.ssnt_loss_kernels(*leaves, il, ol, variant="exp",
+                                        layout="ubt")
+            loss.sum().backward()
+            return loss.detach()
+
+        loss = delta(fwd_bwd, (0, 0, 0, 0, 1, 0), f"variant=exp B={Bn}")
+        with torch.no_grad():
+            ref = delta(lambda: lk.ssnt_loss_kernels(
+                le, ls, lf, il, ol, variant="log", layout="ubt"),
+                (0, 1, 0, 0, 0, 0), f"variant=log B={Bn}")
+            ra, _ = lk.lattice_bidir_exp_reference(le, ls, lf, il, ol)
+            plain = -lat.gather_logz(ra, le, il, ol)
+        live = torch.arange(Bn, device=dev) != 2
+        rel = float(((loss - ref).abs() / ref.abs())[live].max())
+        if not rel <= EXP_VARIANT_RTOL:
+            raise AssertionError(f"variant=exp B={Bn}: loss off the log "
+                                 f"route by {rel} relative")
+        if not (loss[2] == np.inf and plain[2] == np.inf):
+            raise AssertionError(f"variant=exp B={Bn}: the degenerate "
+                                 f"example's loss is not +inf")
+        if not all(bool(torch.isfinite(x.grad).all())
+                   and not bool(x.grad[:, 2].any()) for x in leaves):
+            raise AssertionError(f"variant=exp B={Bn}: gradients not "
+                                 f"finite, or the degenerate example's "
+                                 f"not 0")
+        log(f"[19 exp train] variant=exp fwd+bwd B={Bn}: 1 bidir_exp "
+            f"launch; loss within {rel:.2e} relative of variant=log (tol "
+            f"{EXP_VARIANT_RTOL}); degenerate example +inf in the kernel "
+            f"and plain routes, gradients finite, its own exactly 0")
+    main = lattice_counts()
+    if main != (1, 3, 0, 0, 2, 18):
+        raise AssertionError(f"exp phase launches {main}")
+
+    # ---- 20. timings ----
+    rows = {}
+    for Bn in (B, B_LARGE):
+        x, logs, (il, ol) = exp_lattice_inputs(rng, Bn, dev)
+        cells = logs[0].numel()
+        with torch.no_grad():
+            outs = lk.lattice_expin(*x, il, ol)
+            fns = [
+                ("lattice_expin", lambda: lk.lattice_expin(*x, il, ol),
+                 lambda: lk.lattice_expin_reference(*x, il, ol),
+                 nbytes(*x, il, ol, *outs), 10 * cells),
+                ("lattice_bidir_exp",
+                 lambda: lk.lattice_bidir_exp(*logs, il, ol),
+                 lambda: lk.lattice_bidir_exp_reference(*logs, il, ol),
+                 nbytes(*logs, il, ol) + 2 * nbytes(logs[0]), 20 * cells),
+                ("lattice_backward_betas",
+                 lambda: lk.lattice_backward_betas(*logs, il, ol),
+                 lambda: lk.lattice_backward_betas_reference(*logs, il, ol),
+                 nbytes(*logs, il, ol) + nbytes(logs[0]), 10 * cells),
+            ]
+            for name, kfn, pfn, nb, ops in fns:
+                k_ms = graph_ms(kfn, k=20, reps=10)
+                p_ms = graph_ms(pfn, k=1, reps=3)
+                bd = bound(nb, ops, F32_OPS)
+                if Bn == B:
+                    rows[name] = (k_ms, p_ms, bd)
+                log(f"[20 time] {smi}: {name} B={Bn} T={T} U={U} f32: "
+                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (device "
+                    f"time, CUDA graph); bound {bd[0] * 1e3:.2f} us "
+                    f"({bd[1]}, {nb / 1e6:.1f} MB)")
+    for Bn in (B, B_LARGE):
+        (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
+        for variant in ("exp", "fused", "plain"):
+            leaves = [x.clone().requires_grad_() for x in (le, ls, lf)]
+
+            def fwd_bwd():
+                lk.ssnt_loss_kernels(*leaves, il, ol, variant=variant,
+                                     layout="ubt").sum().backward()
+
+            ms = eager_ms(fwd_bwd, n=10)
+            log(f"[20 time] {smi}: lattice loss fwd+bwd B={Bn} T={T} U={U} "
+                f"f32, variant {variant}: {ms:.4f} ms per call (CUDA "
+                f"events, eager)")
+    for Bn in (B, B_LARGE):
+        tc = TrainConfig(warmup_steps=EXP_WARMUP, batch_size=Bn)
+        batch = to_device(data_lib.SyntheticTTSDataset(
+            vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+            seed=seed + 3).batch(Bn), dev)
+        st = train_lib.init_train_state(cfg, tc, params=wide, device=dev)
+        txn = train_lib.make_optimizer(tc)
+        train_lib.train_step(txn, st, batch)  # warm
+        ms = split_step_ms(txn, st, batch)
+        log(f"[20 time] {smi}: train step B={Bn} T={T} U={U} bf16, "
+            f"lattice_domain=exp (kernel route): {ms['total']:.1f} ms = "
+            f"forward {ms['forward']:.1f} + backward {ms['backward']:.1f} "
+            f"+ optimizer {ms['optimizer']:.1f} (host clock)")
+
+    replaces = {"lattice_expin": 1459, "lattice_bidir_exp": 480,
+                "lattice_backward_betas": 348}
+    launched = dict(zip(("lattice_backward_betas", "lattice_bidir_exp",
+                         "lattice_expin"), main[3:]))
+    return [{
+        "name": name, "route": "cuda",
+        "source": "ssnt_tts_tpu_torch/csrc/lattice.cu",
+        "replaces": f"ssnt_tts_tpu/ops/lattice_pallas.py:{replaces[name]}",
+        "launches": launched[name], "max_abs_err": err[name], "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": bd[0], "bound_by": bd[1],
+        "library_ms": None,
+    } for name, (k_ms, p_ms, bd) in rows.items()]
 
 
 def tone_step_inputs(model, tokens, il, s: int, rng, dev, Wn: int = W):
@@ -1587,6 +1961,7 @@ def main() -> int:
     kernels += train_phases(args.seed, dev, smi)
     kernels += tone_phases(args.seed, dev, smi, models, reqs[0])
     kernels += v1_phases(args.seed, dev, smi, models)
+    kernels += exp_phases(args.seed, dev, smi)
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 // SSNT lattice forward-backward kernels for Hopper (sm_90a).
 //
 // Replace the TPU kernels of ssnt_tts_tpu/ops/lattice_pallas.py that the
-// training loss runs (the log-domain path):
+// training loss runs, in the log domain:
 //
 //   lattice_bidir           fused_alphas_betas_pallas (pallas_call :817,
 //                           _bidir_kernel :746) and its lane-packed twin
@@ -14,6 +14,16 @@
 //                           :508): the reverse beta walk that writes
 //                           d_le/d_ls/d_lf in the lattice's dtype; betas
 //                           never reach device memory.
+//   lattice_backward_betas  backward_betas_pallas (:348, _bwd_kernel :306):
+//                           lattice_bidir's beta walk alone.
+//
+// and in the exp domain:
+//
+//   lattice_bidir_exp       fused_alphas_betas_pallas_exp (:480,
+//                           _bidir_kernel_exp :386): variant="exp".
+//   lattice_expin           fused_expin_pallas (:1459, _bidir_kernel_expin
+//                           :1336): the exp-native pass of ssnt_loss_expin
+//                           (lattice_domain="exp").
 //
 // The recursions (ops/lattice.py; per example, column u of T values):
 //   alpha_0[t] = t == 0 ? lf_0[t] : NEG
@@ -29,26 +39,46 @@
 // ever forms. Out-of-range t (t >= T_b) are computed and stored like the
 // TPU kernels do; the consumers mask them.
 //
+// The exp-domain kernels walk the same recursions on probabilities: each
+// column is a few multiply-adds per cell and a neighbour exchange whose
+// edge fills with 0 (not NEG), and a block-wide row max renormalizes the
+// field (lattice_bidir_exp: every column, dividing, with the running log
+// normalizer added to the stored logs, log 0 = -inf; lattice_expin: after
+// forward column u when (u + 1) % 4 == 0 and at backward column u when
+// u % 4 == 0, scaling by the correctly rounded reciprocal, and storing the
+// fields qn, bn with their per-column log scalars M, N). lattice_expin
+// renormalizes by global column, where the TPU kernel counts columns
+// inside its U-chunk and never renormalizes at a chunk below 4.
+//
 // Layout: every lattice tensor is (U, B, T) row-major, so one column of
-// one example is T contiguous values. Lengths, g and logz are (B,).
+// one example is T contiguous values. Lengths, g and logz are (B,); M, N
+// and mcol are (U, B).
 //
 // What bounds them on an H100: the dependency chain, not the card. The
 // bytes bound (each input read once, each output written once, 3.35 TB/s)
 // is 6.1 us for the bidirectional pass at B=32 T=80 U=400 and 39/68 us for
 // forward/backward at B=256 (f32), but every column waits for the one
 // before it: U dependent steps of a few adds, one exp and one log1p, and
-// a neighbour exchange. Design: one thread block per example (per example
-// and direction for lattice_bidir: the alpha and beta walks run on
-// different SMs at once), one thread per source position t, the t-1 / t+1
-// neighbour through a double-buffered shared-memory row with one barrier
-// per column, and the next kAhead columns' inputs loaded into registers
-// while the current ones are computed, so global-memory latency is off
-// the chain. At B=32 this occupies 64 of 132 SMs with 3 warps each: it is
-// latency-bound by construction, and a faster design (more columns per
-// step, a packed or split walk) is later work. Measured by chip_smoke.py
-// (device time, NVIDIA H100 80GB HBM3, 700 W power limit): lattice_bidir
-// B=32 0.081 ms; forward alphas B=256 0.073 ms (bf16 0.070); backward
-// gradients B=256 0.147 ms (bf16 0.174): 0.18-0.37 us per column.
+// a neighbour exchange (the exp-domain walks: a multiply-add, and a row
+// max with a second barrier). Design: one thread block per example (per
+// example and direction for the bidirectional kernels: the alpha and beta
+// walks run on different SMs at once), one thread per source position t,
+// the t-1 / t+1 neighbour through a double-buffered shared-memory row with
+// one barrier per column, the row max by warp shuffles and one more
+// barrier over a shared word per warp, and the next kAhead columns' inputs
+// loaded into registers while the current ones are computed, so
+// global-memory latency is off the chain. At B=32 this occupies 64 of 132
+// SMs with 3 warps each: it is latency-bound by construction, and a
+// faster design (more columns per step, a packed or split walk) is later
+// work. Measured by chip_smoke.py (device time, NVIDIA H100 80GB HBM3,
+// 700 W power limit): lattice_bidir B=32 0.081 ms; forward alphas B=256
+// 0.073 ms (bf16 0.070); backward gradients B=256 0.147 ms (bf16 0.174):
+// 0.18-0.37 us per column. The exp-domain walks are slower per column
+// than the log-domain ones, not faster as on the TPU: the block-wide row
+// max (shuffles, a barrier, a serial read of one word per warp) sits on
+// the chain where the log walk has only its neighbour exchange;
+// lattice_expin B=32 0.116 ms, lattice_bidir_exp 0.305 ms (a max, a
+// division and two logs every column), lattice_backward_betas 0.081 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,8 +87,10 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kMaxT = 1024;  // one thread per source position
-constexpr int kAhead = 8;    // columns loaded ahead of the chain
+constexpr float kTiny = 1e-30f;  // floor of an exp-domain normalizer
+constexpr int kRenorm = 4;       // lattice_expin renormalizes every 4th
+constexpr int kMaxT = 1024;      // one thread per source position
+constexpr int kAhead = 8;        // columns loaded ahead of the chain
 
 // Inputs are prefetched in their storage type and converted where they are
 // used: a conversion right after the load would wait for the load there.
@@ -189,6 +221,251 @@ __device__ void beta_walk(int B, int T, int U, const float* __restrict__ le,
   }
 }
 
+// The max over the block of v >= 0 (threads past T pass 0): warp shuffles,
+// one word per warp in red, one barrier. The max of non-negative values
+// does not depend on the order. red may be reused after the caller's next
+// barrier.
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+// lattice_bidir_exp's alpha walk, _bidir_kernel_exp's forward column:
+//   q = p * exp(le_{u-1}) + shift0_down(p * exp(ls_{u-1}))
+//   p_raw = (u == 0 ? [t == 0] : q) * exp(lf_u);  s = max(rowmax, TINY)
+//   alpha_u = log(p_raw) + m;  p = p_raw / s;  m += log(s)
+// sh: 2 x (kMaxT + 1) floats, sh[.][0] = 0.
+__device__ void exp_alpha_walk(int B, int T, int U,
+                               const float* __restrict__ le,
+                               const float* __restrict__ ls,
+                               const float* __restrict__ lf,
+                               float* __restrict__ alphas,
+                               float (*sh)[kMaxT + 1], float* red) {
+  const int b = blockIdx.x, t = threadIdx.x;
+  const bool live = t < T;
+  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
+  float cle[kAhead], cls[kAhead], clf[kAhead];
+  float nle[kAhead], nls[kAhead], nlf[kAhead];
+  load_cols(le, cle, 0, 1, U, col, off, live);
+  load_cols(ls, cls, 0, 1, U, col, off, live);
+  load_cols(lf, clf, 0, 1, U, col, off, live);
+  const float first_t = t == 0 ? 1.0f : 0.0f;
+  float p = 0.0f, m = 0.0f, e_le_prev = 0.0f, e_ls_prev = 0.0f;
+  for (int u0 = 0; u0 < U; u0 += kAhead) {
+    load_cols(le, nle, u0 + kAhead, 1, U, col, off, live);
+    load_cols(ls, nls, u0 + kAhead, 1, U, col, off, live);
+    load_cols(lf, nlf, u0 + kAhead, 1, U, col, off, live);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int u = u0 + k;
+      if (u >= U) continue;  // uniform across the block
+      float q = 0.0f;
+      if (u > 0) {
+        float* s = sh[u & 1];
+        if (live) s[t + 1] = p * e_ls_prev;
+        __syncthreads();
+        q = p * e_le_prev + s[t];  // s[0] = 0: nothing shifts into t = 0
+      }
+      const float p_raw = (u == 0 ? first_t : q) * expf(clf[k]);
+      const float norm = fmaxf(block_max(live ? p_raw : 0.0f, red), kTiny);
+      if (live) alphas[(size_t)u * col + off] = logf(p_raw) + m;
+      p = p_raw / norm;
+      m = m + logf(norm);
+      e_le_prev = expf(cle[k]);
+      e_ls_prev = expf(cls[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      cle[k] = nle[k];
+      cls[k] = nls[k];
+      clf[k] = nlf[k];
+    }
+  }
+}
+
+// lattice_bidir_exp's beta walk, _bidir_kernel_exp's backward column:
+//   c = b * exp(lf_{u+1});  b_raw = exp(le_u) * c + exp(ls_u) * shift0_up(c)
+//   at u == U_b-1: b_raw = [t == T_b-1] exp(le_u), n = 0
+//   beta_u = log(b_raw) + n;  b = b_raw / s;  n += log(s)
+// sh: 2 x (kMaxT + 1) floats, sh[.][T] = 0.
+__device__ void exp_beta_walk(int B, int T, int U,
+                              const float* __restrict__ le,
+                              const float* __restrict__ ls,
+                              const float* __restrict__ lf, int in_len,
+                              int out_len, float* __restrict__ betas,
+                              float (*sh)[kMaxT + 1], float* red) {
+  const int b = blockIdx.x, t = threadIdx.x;
+  const bool live = t < T;
+  const bool is_last_t = t == in_len - 1;
+  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
+  float cle[kAhead], cls[kAhead], clf[kAhead];
+  float nle[kAhead], nls[kAhead], nlf[kAhead];
+  load_cols(le, cle, U - 1, -1, U, col, off, live);
+  load_cols(ls, cls, U - 1, -1, U, col, off, live);
+  load_cols(lf, clf, U - 1, -1, U, col, off, live);
+  float field = 0.0f, n = 0.0f, e_lf_next = 0.0f;
+  for (int u0 = U - 1; u0 >= 0; u0 -= kAhead) {
+    load_cols(le, nle, u0 - kAhead, -1, U, col, off, live);
+    load_cols(ls, nls, u0 - kAhead, -1, U, col, off, live);
+    load_cols(lf, nlf, u0 - kAhead, -1, U, col, off, live);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int u = u0 - k;
+      if (u < 0) continue;  // uniform across the block
+      const float e_le = expf(cle[k]);
+      const float c = field * e_lf_next;
+      float* s = sh[u & 1];
+      if (live) s[t] = c;
+      __syncthreads();
+      // s[T] = 0: nothing shifts into T-1
+      float b_raw = e_le * c + expf(cls[k]) * s[t + 1];
+      if (u == out_len - 1) {  // uniform across the block
+        b_raw = is_last_t ? e_le : 0.0f;
+        n = 0.0f;
+      }
+      const float norm = fmaxf(block_max(live ? b_raw : 0.0f, red), kTiny);
+      if (live) betas[(size_t)u * col + off] = logf(b_raw) + n;
+      field = b_raw / norm;
+      n = n + logf(norm);
+      e_lf_next = expf(clf[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      cle[k] = nle[k];
+      cls[k] = nls[k];
+      clf[k] = nlf[k];
+    }
+  }
+}
+
+// lattice_expin's alpha walk, _bidir_kernel_expin's forward column, from
+// p = [t == 0], E_prev = 1, S_prev = 0:
+//   q = p * E_{u-1} + shift0_down(p * S_{u-1})
+//   if (u + 1) % 4 == 0: s = max(rowmax(q), TINY); q *= 1/s; m += log(s)
+//   qn_u = q;  m += mcol_u;  M_u = m;  p = q * F_u
+__device__ void expin_alpha_walk(int B, int T, int U,
+                                 const float* __restrict__ E,
+                                 const float* __restrict__ S,
+                                 const float* __restrict__ F,
+                                 const float* __restrict__ mcol,
+                                 float* __restrict__ qn,
+                                 float* __restrict__ M,
+                                 float (*sh)[kMaxT + 1], float* red) {
+  const int b = blockIdx.x, t = threadIdx.x;
+  const bool live = t < T;
+  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
+  float cE[kAhead], cS[kAhead], cF[kAhead], cm[kAhead];
+  float nE[kAhead], nS[kAhead], nF[kAhead], nm[kAhead];
+  load_cols(E, cE, 0, 1, U, col, off, live);
+  load_cols(S, cS, 0, 1, U, col, off, live);
+  load_cols(F, cF, 0, 1, U, col, off, live);
+  load_cols(mcol, cm, 0, 1, U, (size_t)B, (size_t)b, true);
+  float p = t == 0 ? 1.0f : 0.0f, m = 0.0f, e_prev = 1.0f, s_prev = 0.0f;
+  for (int u0 = 0; u0 < U; u0 += kAhead) {
+    load_cols(E, nE, u0 + kAhead, 1, U, col, off, live);
+    load_cols(S, nS, u0 + kAhead, 1, U, col, off, live);
+    load_cols(F, nF, u0 + kAhead, 1, U, col, off, live);
+    load_cols(mcol, nm, u0 + kAhead, 1, U, (size_t)B, (size_t)b, true);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int u = u0 + k;
+      if (u >= U) continue;  // uniform across the block
+      float* s = sh[u & 1];
+      if (live) s[t + 1] = p * s_prev;
+      __syncthreads();
+      float q = p * e_prev + s[t];  // s[0] = 0: nothing shifts into t = 0
+      if ((u + 1) % kRenorm == 0) {  // uniform across the block
+        const float norm = fmaxf(block_max(live ? q : 0.0f, red), kTiny);
+        q = q * __frcp_rn(norm);
+        m = m + logf(norm);
+      }
+      if (live) qn[(size_t)u * col + off] = q;
+      m = m + cm[k];
+      if (t == 0) M[(size_t)u * B + b] = m;
+      p = q * cF[k];
+      e_prev = cE[k];
+      s_prev = cS[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      cE[k] = nE[k];
+      cS[k] = nS[k];
+      cF[k] = nF[k];
+      cm[k] = nm[k];
+    }
+  }
+}
+
+// lattice_expin's beta walk, _bidir_kernel_expin's backward column, from
+// c = 0, n = 0:
+//   b_raw = E_u * c + S_u * shift0_up(c)
+//   at u == U_b-1: b_raw = [t == T_b-1] E_u, n = 0
+//   if u % 4 == 0: s = max(rowmax(b_raw), TINY); b_raw *= 1/s; n += log(s)
+//   bn_u = b_raw;  N_u = n;  c = F_u * bn_u;  n += mcol_u
+__device__ void expin_beta_walk(int B, int T, int U,
+                                const float* __restrict__ E,
+                                const float* __restrict__ S,
+                                const float* __restrict__ F,
+                                const float* __restrict__ mcol, int in_len,
+                                int out_len, float* __restrict__ bn,
+                                float* __restrict__ N,
+                                float (*sh)[kMaxT + 1], float* red) {
+  const int b = blockIdx.x, t = threadIdx.x;
+  const bool live = t < T;
+  const bool is_last_t = t == in_len - 1;
+  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
+  float cE[kAhead], cS[kAhead], cF[kAhead], cm[kAhead];
+  float nE[kAhead], nS[kAhead], nF[kAhead], nm[kAhead];
+  load_cols(E, cE, U - 1, -1, U, col, off, live);
+  load_cols(S, cS, U - 1, -1, U, col, off, live);
+  load_cols(F, cF, U - 1, -1, U, col, off, live);
+  load_cols(mcol, cm, U - 1, -1, U, (size_t)B, (size_t)b, true);
+  float c = 0.0f, n = 0.0f;
+  for (int u0 = U - 1; u0 >= 0; u0 -= kAhead) {
+    load_cols(E, nE, u0 - kAhead, -1, U, col, off, live);
+    load_cols(S, nS, u0 - kAhead, -1, U, col, off, live);
+    load_cols(F, nF, u0 - kAhead, -1, U, col, off, live);
+    load_cols(mcol, nm, u0 - kAhead, -1, U, (size_t)B, (size_t)b, true);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int u = u0 - k;
+      if (u < 0) continue;  // uniform across the block
+      float* s = sh[u & 1];
+      if (live) s[t] = c;
+      __syncthreads();
+      // s[T] = 0: nothing shifts into T-1
+      float b_raw = cE[k] * c + cS[k] * s[t + 1];
+      if (u == out_len - 1) {  // uniform across the block
+        b_raw = is_last_t ? cE[k] : 0.0f;
+        n = 0.0f;
+      }
+      if (u % kRenorm == 0) {  // uniform across the block
+        const float norm = fmaxf(block_max(live ? b_raw : 0.0f, red),
+                                 kTiny);
+        b_raw = b_raw * __frcp_rn(norm);
+        n = n + logf(norm);
+      }
+      if (live) bn[(size_t)u * col + off] = b_raw;
+      if (t == 0) N[(size_t)u * B + b] = n;
+      c = cF[k] * b_raw;
+      n = n + cm[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      cE[k] = nE[k];
+      cS[k] = nS[k];
+      cF[k] = nF[k];
+      cm[k] = nm[k];
+    }
+  }
+}
+
 __global__ void bidir_kernel(int B, int T, int U, const float* __restrict__ le,
                              const float* __restrict__ ls,
                              const float* __restrict__ lf,
@@ -207,6 +484,68 @@ __global__ void bidir_kernel(int B, int T, int U, const float* __restrict__ le,
   } else {
     const int b = blockIdx.x;
     beta_walk(B, T, U, le, ls, lf, il[b], ol[b], betas, sh);
+  }
+}
+
+__global__ void backward_betas_kernel(int B, int T, int U,
+                                      const float* __restrict__ le,
+                                      const float* __restrict__ ls,
+                                      const float* __restrict__ lf,
+                                      const int* __restrict__ il,
+                                      const int* __restrict__ ol,
+                                      float* __restrict__ betas) {
+  __shared__ float sh[2][kMaxT + 1];
+  if (threadIdx.x == 0) sh[0][T] = sh[1][T] = kNeg;
+  __syncthreads();
+  const int b = blockIdx.x;
+  beta_walk(B, T, U, le, ls, lf, il[b], ol[b], betas, sh);
+}
+
+// The exp-domain kernels' shared rows carry 0 at both edges: the shifts
+// fill with 0, not NEG.
+__global__ void bidir_exp_kernel(int B, int T, int U,
+                                 const float* __restrict__ le,
+                                 const float* __restrict__ ls,
+                                 const float* __restrict__ lf,
+                                 const int* __restrict__ il,
+                                 const int* __restrict__ ol,
+                                 float* __restrict__ alphas,
+                                 float* __restrict__ betas) {
+  __shared__ float sh[2][kMaxT + 1];
+  __shared__ float red[32];
+  if (threadIdx.x == 0) {
+    sh[0][0] = sh[1][0] = 0.0f;
+    sh[0][T] = sh[1][T] = 0.0f;
+  }
+  __syncthreads();
+  if (blockIdx.y == 0) {
+    exp_alpha_walk(B, T, U, le, ls, lf, alphas, sh, red);
+  } else {
+    const int b = blockIdx.x;
+    exp_beta_walk(B, T, U, le, ls, lf, il[b], ol[b], betas, sh, red);
+  }
+}
+
+__global__ void expin_kernel(int B, int T, int U, const float* __restrict__ E,
+                             const float* __restrict__ S,
+                             const float* __restrict__ F,
+                             const float* __restrict__ mcol,
+                             const int* __restrict__ il,
+                             const int* __restrict__ ol,
+                             float* __restrict__ qn, float* __restrict__ bn,
+                             float* __restrict__ M, float* __restrict__ N) {
+  __shared__ float sh[2][kMaxT + 1];
+  __shared__ float red[32];
+  if (threadIdx.x == 0) {
+    sh[0][0] = sh[1][0] = 0.0f;
+    sh[0][T] = sh[1][T] = 0.0f;
+  }
+  __syncthreads();
+  if (blockIdx.y == 0) {
+    expin_alpha_walk(B, T, U, E, S, F, mcol, qn, M, sh, red);
+  } else {
+    const int b = blockIdx.x;
+    expin_beta_walk(B, T, U, E, S, F, mcol, il[b], ol[b], bn, N, sh, red);
   }
 }
 
@@ -360,6 +699,43 @@ int ssnt_lattice_backward_grads(int bf16, int B, int T, int U, const void* le,
         B, T, U, (const float*)le, (const float*)ls, (const float*)lf, al,
         in_len, out_len, gg, lz, (float*)d_le, (float*)d_ls, (float*)d_lf);
   }
+  return (int)cudaGetLastError();
+}
+
+int ssnt_lattice_backward_betas(int B, int T, int U, const void* le,
+                                const void* ls, const void* lf,
+                                const void* il, const void* ol, void* betas,
+                                void* stream) {
+  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || U == 0) return 0;
+  backward_betas_kernel<<<B, threads_for(T), 0, (cudaStream_t)stream>>>(
+      B, T, U, (const float*)le, (const float*)ls, (const float*)lf,
+      (const int*)il, (const int*)ol, (float*)betas);
+  return (int)cudaGetLastError();
+}
+
+int ssnt_lattice_bidir_exp(int B, int T, int U, const void* le,
+                           const void* ls, const void* lf, const void* il,
+                           const void* ol, void* alphas, void* betas,
+                           void* stream) {
+  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || U == 0) return 0;
+  bidir_exp_kernel<<<dim3(B, 2), threads_for(T), 0, (cudaStream_t)stream>>>(
+      B, T, U, (const float*)le, (const float*)ls, (const float*)lf,
+      (const int*)il, (const int*)ol, (float*)alphas, (float*)betas);
+  return (int)cudaGetLastError();
+}
+
+int ssnt_lattice_expin(int B, int T, int U, const void* E, const void* S,
+                       const void* F, const void* mcol, const void* il,
+                       const void* ol, void* qn, void* bn, void* M, void* N,
+                       void* stream) {
+  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || U == 0) return 0;
+  expin_kernel<<<dim3(B, 2), threads_for(T), 0, (cudaStream_t)stream>>>(
+      B, T, U, (const float*)E, (const float*)S, (const float*)F,
+      (const float*)mcol, (const int*)il, (const int*)ol, (float*)qn,
+      (float*)bn, (float*)M, (float*)N);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,9 @@ factorized transition joint (emit/shift log-probs) and the Gaussian frame
 joint. The joints emit the time-major (U, B, T) lattice the loss kernels
 consume, normalized in float32 and stored in `lattice_dtype`; each also has
 its decode-side method (FrameJoint.predict, the point prediction
-a(enc_t) + b(dec_u) that synthesis emits).
+a(enc_t) + b(dec_u) that synthesis emits). With lattice_domain="exp" they
+emit probabilities instead (E, S and the column-max normalized F with its
+column scalars mcol), the quadruple the exp-native loss consumes.
 
   transition logits: logit_k[t, u] = <p_k(enc_t), q_k(dec_u)> + b_k(t)
                                      + b_k(u), normalized over k
@@ -26,10 +28,8 @@ from ssnt_tts_tpu_torch.models.layers import Dense
 
 
 def _check_domain(lattice_domain: str) -> None:
-    if lattice_domain != "log":
-        raise NotImplementedError(
-            f"lattice_domain={lattice_domain!r}: the exp-domain lattice "
-            f"kernel is not ported yet (ROADMAP.md, Queue 2 #9)")
+    if lattice_domain not in ("log", "exp"):
+        raise ValueError(f"unknown lattice_domain {lattice_domain!r}")
 
 
 class MelPrenet(nn.Module):
@@ -64,6 +64,7 @@ class TransitionJoint(nn.Module):
                  *, device=None):
         super().__init__()
         _check_domain(lattice_domain)
+        self.lattice_domain = lattice_domain
         self.rank = rank
         self.dtype = dtype
         self.lattice_dtype = lattice_dtype
@@ -93,7 +94,9 @@ class TransitionJoint(nn.Module):
 
     def forward(self, enc, dec):
         """enc (B, T, He) f32, dec (B, U, H) f32 -> (log_emit, log_shift),
-        each (U, B, T) contiguous in lattice_dtype."""
+        each (U, B, T) contiguous in lattice_dtype; in the exp domain the
+        probabilities (E, S) = exp of those, the softmax without its
+        final log."""
         R = self.rank
         p, q = self._factors(enc, dec)  # (B, T, 2R), (B, U, 2R)
         B, T, U = p.shape[0], p.shape[1], q.shape[1]
@@ -105,6 +108,9 @@ class TransitionJoint(nn.Module):
                   + self.dec_bias(dec).permute(2, 1, 0)[..., None])
         le, ls = logits[0], logits[1]
         norm = torch.logaddexp(le, ls)
+        if self.lattice_domain == "exp":
+            return tuple(torch.exp(x - norm).to(self.lattice_dtype)
+                         .contiguous() for x in (le, ls))
         return tuple((x - norm).to(self.lattice_dtype).contiguous()
                      for x in (le, ls))
 
@@ -118,14 +124,21 @@ class FrameJoint(nn.Module):
                  *, device=None):
         super().__init__()
         _check_domain(lattice_domain)
+        self.lattice_domain = lattice_domain
         self.lattice_dtype = lattice_dtype
         self.enc_mel = Dense(enc_dim, mel_dim, dtype, device=device)
         self.dec_mel = Dense(dec_dim, mel_dim, dtype, device=device)
         self.log_sigma = nn.Parameter(torch.empty((), device=device))
 
-    def forward(self, enc, dec, mel_target):
+    def forward(self, enc, dec, mel_target, input_length=None):
         """enc (B, T, He), dec (B, U, H), mel_target (B, U, M) ->
-        log p(y_u | t) (U, B, T) contiguous in lattice_dtype."""
+        log p(y_u | t) (U, B, T) contiguous in lattice_dtype.
+
+        In the exp domain: (F, mcol), mcol (U, B) f32 the max over valid
+        t < input_length (all t without lengths) of log p, F = exp(log p -
+        mcol) (U, B, T) in lattice_dtype and 0 at t >= input_length. A
+        padded position's likelihood above every valid one would otherwise
+        flush the valid F to 0 and make the example degenerate."""
         M = mel_target.shape[-1]
         a = self.enc_mel(enc).float()  # (B, T, M)
         b = self.dec_mel(dec).float()  # (B, U, M)
@@ -137,6 +150,20 @@ class FrameJoint(nn.Module):
         sq_err = sq_c[:, :, None] - 2.0 * cross + sq_a[None, :, :]
         const = -0.5 * M * (math.log(2.0 * math.pi) + 2.0 * self.log_sigma)
         out = -0.5 * inv_var * sq_err + const
+        if self.lattice_domain == "exp":
+            if input_length is None:
+                mcol = out.amax(dim=2)
+                F = torch.exp(out - mcol[:, :, None])
+            else:
+                T = out.shape[2]
+                tmask = (torch.arange(T, device=out.device)[None, None, :]
+                         < input_length[None, :, None])
+                mcol = torch.where(tmask, out, -1e30).amax(dim=2)
+                # exp(-inf) = 0 where masked: a padded cell above mcol
+                # never overflows, in the values or in their gradient.
+                F = torch.exp(torch.where(tmask, out - mcol[:, :, None],
+                                          -torch.inf))
+            return F.to(self.lattice_dtype).contiguous(), mcol.float()
         return out.to(self.lattice_dtype).contiguous()
 
     def predict(self, enc_t, dec_state):

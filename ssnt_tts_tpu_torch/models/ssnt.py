@@ -3,7 +3,8 @@
 Mirrors ssnt_tts_tpu/models/ssnt.py:
   encode -> enc (B, T, He) float32
   decoder_states -> teacher-forced GRU states (B, U, H)
-  lattice_quantities -> (log_emit, log_shift, log_frame), each (U, B, T)
+  lattice_quantities -> (log_emit, log_shift, log_frame), each (U, B, T),
+    or in the exp domain (E, S, F, mcol)
   forward / loss -> per-example SSNT NLL / total loss + metrics, with the
     teacher-forced duration and tone AR class heads
   duration_decode_step / tone_decode_step -> per-beam h (B, W, D) + new
@@ -51,24 +52,40 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return _dtype(cfg.dtype, "compute dtype")
 
 
-def lattice_loss(impl: str, lattice_dtype: str, le, ls, lf, input_length,
-                 output_length):
-    """The lattice NLL (B,) of time-major (U, B, T) quantities.
+def lattice_loss(impl: str, lattice_dtype: str, quantities, input_length,
+                 output_length, lattice_domain: str = "log"):
+    """The lattice NLL (B,) of time-major (U, B, T) quantities: (le, ls,
+    lf), or (E, S, F, mcol) in the exp domain.
 
     impl "auto": the CUDA kernels for CUDA tensors, the plain route
     (ops/lattice.py) for CPU tensors; "xla": the plain route on any
     device; "pallas": the kernel route (whose wrappers run their plain
     versions on CPU tensors). lattice_dtype "bfloat16" selects the kernels'
-    bf16-storage variant; the plain route upcasts to float32."""
+    bf16-storage variant; the plain route upcasts to float32. The exp
+    domain's kernel route is the exp-native loss (lattice_expin); its plain
+    route takes logs, log(max(x, 1e-38)) with lf = log(max(F, 1e-38)) +
+    mcol, and runs the plain log-domain loss, as JAX's dispatch_exp
+    does off the TPU."""
     if impl not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown lattice_impl {impl!r}")
-    kernels = impl == "pallas" or (impl == "auto" and le.is_cuda)
+    kernels = impl == "pallas" or (impl == "auto"
+                                   and quantities[0].is_cuda)
+    if lattice_domain == "exp":
+        if kernels:
+            return lattice_kernels.ssnt_loss_expin_kernels(
+                *quantities, input_length, output_length)
+        E, S, F, mcol = quantities
+        logs = [torch.log(torch.clamp(x.float(), min=1e-38))
+                for x in (E, S, F)]
+        logs[2] = logs[2] + mcol[:, :, None]
+        return lattice.ssnt_loss(*logs, input_length, output_length,
+                                 layout="ubt")
     if not kernels:
-        return lattice.ssnt_loss(le, ls, lf, input_length, output_length,
+        return lattice.ssnt_loss(*quantities, input_length, output_length,
                                  layout="ubt")
     variant = "bf16" if lattice_dtype == "bfloat16" else "log"
     return lattice_kernels.ssnt_loss_kernels(
-        le, ls, lf, input_length, output_length, variant=variant,
+        *quantities, input_length, output_length, variant=variant,
         layout="ubt")
 
 
@@ -130,18 +147,20 @@ class SSNTModel(nn.Module):
             outs.append(state)
         return torch.stack(outs, dim=1)
 
-    def lattice_quantities(self, enc, dec, mel_target):
+    def lattice_quantities(self, enc, dec, mel_target, input_length=None):
         """(log_emit, log_shift, log_frame), each (U, B, T) in the
-        configured lattice dtype."""
-        le, ls = self.transition(enc, dec)
-        return le, ls, self.frame(enc, dec, mel_target)
+        configured lattice dtype; in the exp domain (E, S, F, mcol), where
+        input_length restricts the column max to valid t."""
+        a, b = self.transition(enc, dec)
+        f = self.frame(enc, dec, mel_target, input_length)
+        return (a, b) + (f if self.config.lattice_domain == "exp" else (f,))
 
     def _nll(self, enc, mel_target, input_length, output_length):
+        cfg = self.config
         q = self.lattice_quantities(enc, self.decoder_states(mel_target),
-                                    mel_target)
-        return lattice_loss(self.config.lattice_impl,
-                            self.config.lattice_dtype, *q, input_length,
-                            output_length)
+                                    mel_target, input_length)
+        return lattice_loss(cfg.lattice_impl, cfg.lattice_dtype, q,
+                            input_length, output_length, cfg.lattice_domain)
 
     # ------------------------------------------------------------ training
 

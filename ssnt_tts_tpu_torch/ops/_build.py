@@ -12,7 +12,8 @@ decode steps), csrc/fused_v1_step.cu (the fused v1 decode step; both
 fused sources include csrc/gru_step.cuh), csrc/beam_step.cu (the
 beam-only v2, tone and v1 steps; the three beam sources include
 csrc/beam_select.cuh) and csrc/lattice.cu (the SSNT lattice
-forward-backward); build_all starts one nvcc per source at once.
+forward-backward, log and exp domains); build_all starts one nvcc per
+source at once.
 
 Flags: -fmad=false keeps every float32 multiply and add separately
 rounded (the beam band edges depend on it; the dot products use explicit
@@ -68,6 +69,11 @@ LATTICE_FWD_ARGTYPES = [_I] * 4 + [_P] * 5
 # ssnt_lattice_backward_grads(bf16, B, T, U, le, ls, lf, alphas, il, ol,
 #                             g, logz, d_le, d_ls, d_lf, stream)
 LATTICE_BWD_ARGTYPES = [_I] * 4 + [_P] * 12
+# ssnt_lattice_backward_betas(B, T, U, le, ls, lf, il, ol, betas, stream)
+LATTICE_BETAS_ARGTYPES = [_I] * 3 + [_P] * 7
+# ssnt_lattice_bidir_exp takes lattice_bidir's arguments.
+# ssnt_lattice_expin(B, T, U, E, S, F, mcol, il, ol, qn, bn, M, N, stream)
+LATTICE_EXPIN_ARGTYPES = [_I] * 3 + [_P] * 11
 
 
 def find_nvcc() -> str:
@@ -164,7 +170,10 @@ def lattice_library() -> ctypes.CDLL:
     return _load("lattice",
                  {"ssnt_lattice_bidir": LATTICE_BIDIR_ARGTYPES,
                   "ssnt_lattice_forward_alphas": LATTICE_FWD_ARGTYPES,
-                  "ssnt_lattice_backward_grads": LATTICE_BWD_ARGTYPES},
+                  "ssnt_lattice_backward_grads": LATTICE_BWD_ARGTYPES,
+                  "ssnt_lattice_backward_betas": LATTICE_BETAS_ARGTYPES,
+                  "ssnt_lattice_bidir_exp": LATTICE_BIDIR_ARGTYPES,
+                  "ssnt_lattice_expin": LATTICE_EXPIN_ARGTYPES},
                  ("ssnt_lattice_max_t",))
 
 

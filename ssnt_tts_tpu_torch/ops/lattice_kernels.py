@@ -1,8 +1,7 @@
 """SSNT lattice loss on hand-written CUDA kernels.
 
-Port of ssnt_tts_tpu/ops/lattice_pallas.py's default (log-domain) path.
-Three kernels in csrc/lattice.cu (built by ops/_build.py) replace the four
-TPU kernels the training loss runs:
+Port of ssnt_tts_tpu/ops/lattice_pallas.py. Six kernels in csrc/lattice.cu
+(built by ops/_build.py) replace seven of its TPU kernels:
 
   lattice_bidir           fused_alphas_betas_pallas (:817) and its
                           lane-packed twin fused_alphas_betas_pallas_packed
@@ -10,6 +9,15 @@ TPU kernels the training loss runs:
   lattice_forward_alphas  forward_alphas_pallas (:165)
   lattice_backward_grads  backward_grads_pallas (:596): the reverse beta
                           walk writing d_le/d_ls/d_lf, betas never stored
+  lattice_backward_betas  backward_betas_pallas (:348): lattice_bidir's
+                          beta walk alone (JAX calls it from tests only)
+  lattice_bidir_exp       fused_alphas_betas_pallas_exp (:480): the
+                          variant="exp" pass, probability-domain walks
+                          renormalized every column, log-domain outputs
+                          (-inf for a cell of probability 0)
+  lattice_expin           fused_expin_pallas (:1459): the exp-native pass
+                          of ssnt_loss_expin (lattice_domain="exp"), on
+                          probabilities, renormalized every 4th column
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and adds one
 to its `launches` count per launch; for CPU tensors it runs its plain
@@ -24,7 +32,21 @@ elementwise work in the JAX package); larger columns (B=256) and the
 bfloat16-storage variant take forward alphas plus the backward-gradients
 kernel. Without gradients only forward alphas run. The 8192 threshold was
 measured on a TPU; it is kept so that the same shapes take the same
-kernels as in JAX, not because it is right for an H100.
+kernels as in JAX, not because it is right for an H100. variant="exp"
+runs lattice_bidir_exp with and without gradients (as
+lattice_pallas._loss_fwd_impl does), then the same posterior pass.
+
+`ssnt_loss_expin_kernels` is lattice_pallas.ssnt_loss_expin: the loss of
+the probability-domain quadruple (E, S, F, mcol) on lattice_expin, its
+backward the plain-PyTorch form of _expin_bwd.
+
+One deliberate difference from the JAX kernel: fused_expin_pallas
+renormalizes at column index j of its U-chunk ((j + 1) % 4 == 0), so at
+a chunk below 4 (_auto_chunk gives 2 once B * pad128(T) > 39321) it never
+renormalizes, the fields underflow and every loss is the 1e30 sentinel.
+The port renormalizes by global column: forward after column u when
+(u + 1) % 4 == 0, backward at column u when u % 4 == 0, which is JAX's
+schedule at every chunk that is a multiple of 4.
 """
 
 from __future__ import annotations
@@ -39,12 +61,15 @@ from ssnt_tts_tpu_torch.ops.lattice import (
     gather_logz,
     logaddexp,
     posterior_grads,
+    shift_down_t,
     shift_up_t,
     to_ubt,
 )
 
 _FUSED_MAX_COLUMN_ELEMS = 8192
-_QUEUED = ("exp", "scan", "banded")  # kernels still to port (ROADMAP.md)
+_QUEUED = ("scan", "banded")  # kernels still to port (ROADMAP.md)
+_TINY = 1e-30  # floor of an exp-domain normalizer (lattice_pallas._TINY)
+_RENORM = 4    # lattice_expin renormalizes every 4th column
 
 
 def _t_pad(T: int) -> int:
@@ -52,14 +77,17 @@ def _t_pad(T: int) -> int:
 
 
 def grad_mode(variant: str, B: int, T: int) -> str:
-    """"fused" (bidirectional kernel + posterior pass) or "plain" (forward
-    alphas + backward gradients), as lattice_pallas._grad_mode routes it.
+    """"fused" (bidirectional kernel + posterior pass), "plain" (forward
+    alphas + backward gradients) or "exp" (exp-domain bidirectional kernel
+    + posterior pass), as lattice_pallas._grad_mode routes it.
     variant: "log" (auto), "fused"/"fusedpack" (both the bidirectional
-    kernel here), "plain", "bf16" (plain, bfloat16 storage)."""
+    kernel here), "plain", "bf16" (plain, bfloat16 storage), "exp"."""
     if variant in ("plain", "bf16"):
         return "plain"
     if variant in ("fused", "fusedpack"):
         return "fused"
+    if variant == "exp":
+        return "exp"
     if variant.startswith(_QUEUED):
         raise NotImplementedError(
             f"lattice variant {variant!r}: its kernel is not ported yet "
@@ -71,16 +99,16 @@ def grad_mode(variant: str, B: int, T: int) -> str:
 
 # ------------------------------------------------------- plain versions
 
-def lattice_bidir_reference(le, ls, lf, input_length, output_length):
-    """Alphas and betas (U, B, T) f32, in the bidirectional kernel's
-    operation order (the beta continuation is le + (lf_next + beta))."""
+def lattice_backward_betas_reference(le, ls, lf, input_length,
+                                     output_length):
+    """Betas (U, B, T) f32 in the bidirectional kernel's operation order
+    (the continuation is le + (lf_next + beta))."""
     U, B, T = le.shape
-    alphas = _forward_alphas(le, ls, lf)
     t_idx = torch.arange(T, device=le.device)[None, :]
     is_last_t = t_idx == input_length.long()[:, None] - 1
     last_u = output_length.long()[:, None] - 1
     neg = torch.full((B, T), NEG, device=le.device)
-    betas = torch.empty_like(alphas)
+    betas = torch.empty((U, B, T), device=le.device)
     beta, lf_next = neg, neg
     for u in range(U - 1, -1, -1):
         cont = lf_next + beta
@@ -89,7 +117,131 @@ def lattice_bidir_reference(le, ls, lf, input_length, output_length):
                            rec)
         betas[u] = beta
         lf_next = lf[u]
+    return betas
+
+
+def lattice_bidir_reference(le, ls, lf, input_length, output_length):
+    """Alphas and betas (U, B, T) f32, in the bidirectional kernel's
+    operation order."""
+    return (_forward_alphas(le, ls, lf),
+            lattice_backward_betas_reference(le, ls, lf, input_length,
+                                             output_length))
+
+
+def _row_max(x):
+    """An exp-domain normalizer: the (B, T) field's max over T, at least
+    _TINY, as (B, 1)."""
+    return torch.clamp(x.amax(dim=1, keepdim=True), min=_TINY)
+
+
+def _exp_setup(x, input_length, output_length):
+    """(t == 0 as 0/1 f32, t == T_b - 1, u_last (B, 1), zeros (B, T),
+    zeros (B, 1)) for the exp-domain walks of a (U, B, T) lattice."""
+    _, B, T = x.shape
+    dev = x.device
+    t_idx = torch.arange(T, device=dev)[None, :]
+    first_t = (t_idx == 0).float().expand(B, T)
+    is_last_t = t_idx == input_length.long()[:, None] - 1
+    last_u = output_length.long()[:, None] - 1
+    return (first_t, is_last_t, last_u, torch.zeros((B, T), device=dev),
+            torch.zeros((B, 1), device=dev))
+
+
+def lattice_bidir_exp_reference(le, ls, lf, input_length, output_length):
+    """#4 in its kernel's operation order: alphas and betas (U, B, T) f32,
+    the logs of probability-domain walks divided by their row max in every
+    column (plus the running log normalizer); -inf where a cell's
+    probability is 0.
+
+      forward:  q = p * exp(le_{u-1}) + shift0_down(p * exp(ls_{u-1}))
+                p_raw = (u == 0 ? onehot(t == 0) : q) * exp(lf_u)
+                alpha_u = log(p_raw) + m;  s = rowmax;  p = p_raw / s
+                m += log(s)
+      backward: c = b * exp(lf_{u+1})
+                b_raw = exp(le_u) * c + exp(ls_u) * shift0_up(c),
+                reset to (t == T_b-1 ? exp(le_u) : 0) and n = 0 at
+                u == U_b-1;  beta_u = log(b_raw) + n;  b = b_raw / s
+                n += log(s)"""
+    U, B, T = le.shape
+    first_t, is_last_t, last_u, zeros, zcol = _exp_setup(
+        le, input_length, output_length)
+    alphas = torch.empty((U, B, T), device=le.device)
+    betas = torch.empty_like(alphas)
+    p, m, e_le_prev, e_ls_prev = zeros, zcol, zeros, zeros
+    for u in range(U):
+        q = p * e_le_prev + shift_down_t(p * e_ls_prev, 0.0)
+        p_raw = (first_t if u == 0 else q) * torch.exp(lf[u])
+        s = _row_max(p_raw)
+        alphas[u] = torch.log(p_raw) + m
+        p = p_raw / s
+        m = m + torch.log(s)
+        e_le_prev, e_ls_prev = torch.exp(le[u]), torch.exp(ls[u])
+    b, n, e_lf_next = zeros, zcol, zeros
+    for u in range(U - 1, -1, -1):
+        e_le = torch.exp(le[u])
+        c = b * e_lf_next
+        b_raw = e_le * c + torch.exp(ls[u]) * shift_up_t(c, 0.0)
+        init = last_u == u
+        b_raw = torch.where(init, torch.where(is_last_t, e_le, 0.0), b_raw)
+        n = torch.where(init, 0.0, n)
+        s = _row_max(b_raw)
+        betas[u] = torch.log(b_raw) + n
+        b = b_raw / s
+        n = n + torch.log(s)
+        e_lf_next = torch.exp(lf[u])
     return alphas, betas
+
+
+def lattice_expin_reference(E, S, F, mcol, input_length, output_length):
+    """#9 in its kernel's operation order: (qn, bn) (U, B, T) and (M, N)
+    (U, B), f32, from probabilities E, S, F (U, B, T) and the column
+    scalars mcol (U, B); alpha_u = log(qn_u * F_u) + M_u, beta_u =
+    log(bn_u) + N_u. A normalizer s scales by its correctly rounded
+    reciprocal (q * (1/s)), forward after column u when (u + 1) % 4 == 0,
+    backward at column u when u % 4 == 0.
+
+      forward:  q = p * E_{u-1} + shift0_down(p * S_{u-1}) (p = onehot(t
+                == 0), E_{-1} = 1, S_{-1} = 0 before column 0);
+                [q *= 1/s, m += log(s)];  qn_u = q;  m += mcol_u;
+                M_u = m;  p = qn_u * F_u
+      backward: b_raw = E_u * c + S_u * shift0_up(c), reset to (t ==
+                T_b-1 ? E_u : 0) and n = 0 at u == U_b-1;  [b_raw *= 1/s,
+                n += log(s)];  bn_u = b_raw;  N_u = n;  c = F_u * bn_u;
+                n += mcol_u"""
+    U, B, T = E.shape
+    first_t, is_last_t, last_u, zeros, zcol = _exp_setup(
+        E, input_length, output_length)
+    qn = torch.empty((U, B, T), device=E.device)
+    bn = torch.empty_like(qn)
+    M = torch.empty((U, B), device=E.device)
+    N = torch.empty_like(M)
+    p, m, e_prev, s_prev = first_t, zcol, torch.ones_like(zeros), zeros
+    for u in range(U):
+        q = p * e_prev + shift_down_t(p * s_prev, 0.0)
+        if (u + 1) % _RENORM == 0:
+            s = _row_max(q)
+            q = q * torch.reciprocal(s)
+            m = m + torch.log(s)
+        qn[u] = q
+        m = m + mcol[u][:, None]
+        M[u] = m[:, 0]
+        p = q * F[u]
+        e_prev, s_prev = E[u], S[u]
+    c, n = zeros, zcol
+    for u in range(U - 1, -1, -1):
+        init = last_u == u
+        b_raw = E[u] * c + S[u] * shift_up_t(c, 0.0)
+        b_raw = torch.where(init, torch.where(is_last_t, E[u], 0.0), b_raw)
+        n = torch.where(init, 0.0, n)
+        if u % _RENORM == 0:
+            s = _row_max(b_raw)
+            b_raw = b_raw * torch.reciprocal(s)
+            n = n + torch.log(s)
+        bn[u] = b_raw
+        N[u] = n[:, 0]
+        c = F[u] * b_raw
+        n = n + mcol[u][:, None]
+    return qn, bn, M, N
 
 
 def lattice_forward_alphas_reference(le, ls, lf):
@@ -163,6 +315,12 @@ def _cuda_args(le, ls, lf, dtypes):
     return lib, U, B, T, dev
 
 
+def _check_lengths(B, dev, input_length, output_length) -> None:
+    for name, x in (("input_length", input_length),
+                    ("output_length", output_length)):
+        _build.check_arg(name, x, torch.int32, (B,), dev)
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -179,9 +337,7 @@ def lattice_bidir(le, ls, lf, input_length, output_length):
         return lattice_bidir_reference(le, ls, lf, input_length,
                                        output_length)
     lib, U, B, T, dev = _cuda_args(le, ls, lf, torch.float32)
-    for name, x in (("input_length", input_length),
-                    ("output_length", output_length)):
-        _build.check_arg(name, x, torch.int32, (B,), dev)
+    _check_lengths(B, dev, input_length, output_length)
     alphas = torch.empty((U, B, T), device=dev)
     betas = torch.empty((U, B, T), device=dev)
     _raise_on(lib.ssnt_lattice_bidir(
@@ -232,24 +388,86 @@ def lattice_backward_grads(le, ls, lf, alphas, input_length, output_length,
     return tuple(d)
 
 
-lattice_bidir.launches = 0
-lattice_forward_alphas.launches = 0
-lattice_backward_grads.launches = 0
-KERNELS = (lattice_bidir, lattice_forward_alphas, lattice_backward_grads)
+def lattice_backward_betas(le, ls, lf, input_length, output_length):
+    """(U, B, T) f32 lattice + (B,) int32 lengths -> betas (U, B, T) f32,
+    bit for bit lattice_bidir's betas."""
+    if le.device.type == "cpu":
+        return lattice_backward_betas_reference(le, ls, lf, input_length,
+                                                output_length)
+    lib, U, B, T, dev = _cuda_args(le, ls, lf, torch.float32)
+    _check_lengths(B, dev, input_length, output_length)
+    betas = torch.empty((U, B, T), device=dev)
+    _raise_on(lib.ssnt_lattice_backward_betas(
+        B, T, U, le.data_ptr(), ls.data_ptr(), lf.data_ptr(),
+        input_length.data_ptr(), output_length.data_ptr(), betas.data_ptr(),
+        _stream(dev)), "lattice_backward_betas")
+    lattice_backward_betas.launches += 1
+    return betas
+
+
+def lattice_bidir_exp(le, ls, lf, input_length, output_length):
+    """(U, B, T) f32 lattice + (B,) int32 lengths -> (alphas, betas)
+    (U, B, T) f32 by the exp-domain walks; -inf for a cell of
+    probability 0."""
+    if le.device.type == "cpu":
+        return lattice_bidir_exp_reference(le, ls, lf, input_length,
+                                           output_length)
+    lib, U, B, T, dev = _cuda_args(le, ls, lf, torch.float32)
+    _check_lengths(B, dev, input_length, output_length)
+    alphas = torch.empty((U, B, T), device=dev)
+    betas = torch.empty((U, B, T), device=dev)
+    _raise_on(lib.ssnt_lattice_bidir_exp(
+        B, T, U, le.data_ptr(), ls.data_ptr(), lf.data_ptr(),
+        input_length.data_ptr(), output_length.data_ptr(),
+        alphas.data_ptr(), betas.data_ptr(), _stream(dev)),
+        "lattice_bidir_exp")
+    lattice_bidir_exp.launches += 1
+    return alphas, betas
+
+
+def lattice_expin(E, S, F, mcol, input_length, output_length):
+    """(U, B, T) f32 probabilities E, S, F, (U, B) f32 mcol and (B,) int32
+    lengths -> (qn, bn (U, B, T), M, N (U, B)) f32."""
+    if E.device.type == "cpu":
+        return lattice_expin_reference(E, S, F, mcol, input_length,
+                                       output_length)
+    lib, U, B, T, dev = _cuda_args(E, S, F, torch.float32)
+    _build.check_arg("mcol", mcol, torch.float32, (U, B), dev)
+    _check_lengths(B, dev, input_length, output_length)
+    qn = torch.empty((U, B, T), device=dev)
+    bn = torch.empty((U, B, T), device=dev)
+    M = torch.empty((U, B), device=dev)
+    N = torch.empty((U, B), device=dev)
+    _raise_on(lib.ssnt_lattice_expin(
+        B, T, U, *(x.data_ptr() for x in (E, S, F, mcol, input_length,
+                                          output_length, qn, bn, M, N)),
+        _stream(dev)), "lattice_expin")
+    lattice_expin.launches += 1
+    return qn, bn, M, N
+
+
+KERNELS = (lattice_bidir, lattice_forward_alphas, lattice_backward_grads,
+           lattice_backward_betas, lattice_bidir_exp, lattice_expin)
+for _k in KERNELS:
+    _k.launches = 0
 
 
 # ---------------------------------------------------------- the loss
 
 class _KernelLoss(torch.autograd.Function):
     """Time-major core, as lattice_pallas._core: (U, B, T) -> (B,) loss.
-    The forward runs the bidirectional kernel when gradients are needed on
-    the fused route, and forward alphas alone otherwise."""
+    The forward runs the exp-domain bidirectional kernel on the exp route
+    (with gradients and without), the bidirectional kernel when gradients
+    are needed on the fused route, and forward alphas alone otherwise."""
 
     @staticmethod
     def forward(ctx, le, ls, lf, input_length, output_length, mode,
                 need_grad):
         betas = None
-        if need_grad and mode == "fused":
+        if mode == "exp":
+            alphas, betas = lattice_bidir_exp(le, ls, lf, input_length,
+                                              output_length)
+        elif need_grad and mode == "fused":
             alphas, betas = lattice_bidir(le, ls, lf, input_length,
                                           output_length)
         else:
@@ -275,9 +493,11 @@ def ssnt_loss_kernels(log_emit, log_shift, log_frame=None,
                       variant: str = "log", layout: str = "btu"):
     """ops.lattice.ssnt_loss on the lattice kernels (same semantics and
     gradients). variant "bf16" stores the lattice in bfloat16 (f32 compute
-    in the kernels, f32 alphas, bf16 gradients); see grad_mode for the
-    others. layout "btu" (B, T, U) or "ubt" (time-major, what the model's
-    joints emit). Returns the (B,) float32 per-example NLL."""
+    in the kernels, f32 alphas, bf16 gradients); variant "exp" gives +inf,
+    not 1e30, for an example with no valid path (its gradients are 0), as
+    the JAX kernel does; see grad_mode for the others. layout "btu"
+    (B, T, U) or "ubt" (time-major, what the model's joints emit).
+    Returns the (B,) float32 per-example NLL."""
     store = torch.bfloat16 if variant == "bf16" else torch.float32
     args = canonicalize(log_emit, log_shift, log_frame, input_length,
                         output_length, layout, dtype=store)
@@ -289,3 +509,108 @@ def ssnt_loss_kernels(log_emit, log_shift, log_frame=None,
     return _KernelLoss.apply(le.contiguous(), ls.contiguous(),
                              lf.contiguous(), il.contiguous(),
                              ol.contiguous(), mode, need_grad)
+
+
+# The exp-native loss forms its final cell and its posteriors from the logs
+# of the fields, not from their products as JAX does: between
+# renormalizations (up to 3 columns) qn and bn fall far below 1, so JAX's
+# scalar exponents (M + N - logz etc., clamped at 30, the log path's clamp
+# on a whole posterior exponent) pass 30 and cut the posteriors, and its
+# final cell qn * F * E can fall under its 1e-30 floor. Here the clamp
+# applies to the whole exponent, as in the log path; where JAX's clamp
+# does not bind, the two agree to rounding.
+
+def expin_logz(E, F, qn, M, input_length, output_length):
+    """logZ (B,) = alpha + le at the final cell = log(qn F E) + M there;
+    NEG for an example whose final cell has probability 0."""
+    U, B, T = E.shape
+    b_idx = torch.arange(B, device=E.device)
+    u_last = (output_length.long() - 1).clamp(0, U - 1)
+    t_last = (input_length.long() - 1).clamp(0, T - 1)
+    cell = [x[u_last, b_idx, t_last] for x in (qn, F, E)]
+    live = (cell[0] > 0) & (cell[1] > 0) & (cell[2] > 0)
+    return torch.where(live, sum(torch.log(x) for x in cell)
+                       + M[u_last, b_idx], NEG)
+
+
+def expin_grads(E, S, F, mcol, qn, bn, M, N, logz, input_length,
+                output_length, g):
+    """lattice_pallas._expin_bwd: d loss / d (E, S, F, mcol) from the
+    exp-native pass's fields, times the upstream cotangent g (B,), zero
+    outside the valid region and for an example with no valid path:
+      d_E = -g exp(alpha + cont_emit - logz)   (u < U_b-1)
+          = -g exp(alpha - logz) at t = T_b-1  (u = U_b-1)
+      d_S = -g exp(alpha + shift_up(cont) - logz)
+      d_F = -g exp(alpha + beta - logz) / F,  d_mcol = sum_t F d_F
+    with alpha = log(qn F) + M, beta = log(bn) + N and cont = log(F bn)
+    + mcol + N at u+1, each exponent clamped at 30."""
+    U, B, T = E.shape
+    dev = E.device
+    u_idx = torch.arange(U, device=dev)[:, None, None]
+    t_idx = torch.arange(T, device=dev)[None, None, :]
+    in_len = input_length.long()[None, :, None]
+    out_len = output_length.long()[None, :, None]
+    valid = (t_idx < in_len) & (u_idx < out_len)
+    is_last_u = u_idx == out_len - 1
+    is_last_t = t_idx == in_len - 1
+    degenerate = logz[None, :, None] <= NEG / 2
+    gB = torch.where(degenerate | ~valid, 0.0, -g.float()[None, :, None])
+
+    def post(x):  # exp of an exponent clamped at 30
+        return torch.exp(torch.clamp(x, max=30.0))
+
+    log_qn, log_F, log_bn = torch.log(qn), torch.log(F), torch.log(bn)
+    sa = log_qn + log_F + (M - logz[None, :])[:, :, None]  # alpha - logz
+    # The continuation at u+1: field log(F bn), scalar mcol + N (NEG past
+    # the last column).
+    log_c = log_F + log_bn
+    c_next = torch.cat([log_c[1:], torch.full_like(log_c[:1], -torch.inf)],
+                       dim=0)
+    cs_next = torch.cat([(mcol + N)[1:], torch.full_like(mcol[:1], NEG)],
+                        dim=0)[:, :, None]
+    d_E = gB * torch.where(is_last_u, torch.where(is_last_t, post(sa), 0.0),
+                           post(sa + c_next + cs_next))
+    d_S = gB * torch.where(
+        is_last_u, 0.0, post(sa + shift_up_t(c_next, -torch.inf) + cs_next))
+    d_F = gB * post(log_qn + log_bn + (M + N - logz[None, :])[:, :, None])
+    return d_E, d_S, d_F, (d_F * F).sum(dim=2)
+
+
+class _ExpinLoss(torch.autograd.Function):
+    """lattice_pallas._expin_core: (E, S, F, mcol) -> (B,) loss; gradients
+    with respect to the probabilities themselves."""
+
+    @staticmethod
+    def forward(ctx, E, S, F, mcol, input_length, output_length):
+        qn, bn, M, N = lattice_expin(E, S, F, mcol, input_length,
+                                     output_length)
+        logz = expin_logz(E, F, qn, M, input_length, output_length)
+        ctx.save_for_backward(E, S, F, mcol, qn, bn, M, N, logz,
+                              input_length, output_length)
+        return -logz
+
+    @staticmethod
+    def backward(ctx, g):
+        return expin_grads(*ctx.saved_tensors, g) + (None, None)
+
+
+def ssnt_loss_expin_kernels(E, S, F, mcol, input_length=None,
+                            output_length=None):
+    """lattice_pallas.ssnt_loss_expin on the exp-native kernel: the (B,)
+    NLL of ssnt_loss(log E, log S, log F + mcol) from time-major
+    probabilities E, S (U, B, T) (E + S = 1 per cell), column-max
+    normalized frame likelihoods F (U, B, T) in [0, 1] and mcol (U, B).
+    Inputs are upcast to float32 (a bf16 lattice gets bf16 gradients);
+    gradients are with respect to (E, S, F, mcol). An example with no
+    valid path gives the 1e30 sentinel and zero gradients."""
+    U, B, T = E.shape
+    dev = E.device
+    if input_length is None:
+        input_length = torch.full((B,), T, dtype=torch.int32)
+    if output_length is None:
+        output_length = torch.full((B,), U, dtype=torch.int32)
+    lens = lambda x: torch.as_tensor(x).to(device=dev,
+                                           dtype=torch.int32).contiguous()
+    return _ExpinLoss.apply(
+        *(x.float().contiguous() for x in (E, S, F, mcol)),
+        lens(input_length), lens(output_length))

@@ -78,15 +78,16 @@ def layer_split(state, batch) -> dict:
     with torch.no_grad():
         enc0 = model.encode(toks, il)
         dec0 = model.decoder_states(mel)
-        q0 = model.lattice_quantities(enc0, dec0, mel)
+        q0 = model.lattice_quantities(enc0, dec0, mel, il)
     leaf = lambda x: x.detach().clone().requires_grad_()
     parts = {
         "encoder": lambda: model.encode(toks, il),
         "decoder_gru_loop": lambda: model.decoder_states(mel),
         "joints": lambda: model.lattice_quantities(leaf(enc0), leaf(dec0),
-                                                   mel),
+                                                   mel, il),
         "lattice_loss": lambda: lattice_loss(
-            cfg.lattice_impl, cfg.lattice_dtype, *map(leaf, q0), il, ol),
+            cfg.lattice_impl, cfg.lattice_dtype, tuple(map(leaf, q0)), il,
+            ol, cfg.lattice_domain),
         "duration_and_tone_heads": lambda: (
             model.duration_ar_log_probs(leaf(enc0),
                                         batch["duration_target"]),

@@ -24,14 +24,17 @@ def run_training(num_steps: int,
                  train_config: Optional[TrainConfig] = None,
                  seed: int = 0, device=None,
                  metrics_path: Optional[str] = None,
-                 log_every: int = 50) -> Dict[str, float]:
-    """Train for num_steps from seeded random weights
-    (convert.random_flax_tree) on seeded synthetic batches. Logs metrics
-    every log_every steps and at the last one (JSON lines to metrics_path,
-    or stdout); returns the last logged metrics."""
+                 log_every: int = 50,
+                 params: Optional[dict] = None) -> Dict[str, float]:
+    """Train for num_steps from `params` (a flax tree of numpy arrays) or,
+    by default, seeded random weights (convert.random_flax_tree) on seeded
+    synthetic batches. Logs metrics every log_every steps and at the last
+    one (JSON lines to metrics_path, or stdout); returns the last logged
+    metrics."""
     cfg = model_config or ModelConfig()
     tcfg = train_config or TrainConfig()
-    state = train_lib.init_train_state(cfg, tcfg, seed=seed, device=device)
+    state = train_lib.init_train_state(cfg, tcfg, params=params, seed=seed,
+                                       device=device)
     tx = train_lib.make_optimizer(tcfg)
     ds = data_lib.SyntheticTTSDataset(
         vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,

@@ -254,16 +254,17 @@ def test_kernel_route_matches_plain_route(variant):
 @pytest.mark.parametrize("variant,B,T", [
     ("log", 32, 80), ("log", 64, 128), ("log", 65, 128), ("log", 256, 80),
     ("log", 3, 7), ("plain", 32, 80), ("fused", 256, 80),
-    ("fusedpack", 32, 80), ("bf16", 32, 80),
+    ("fusedpack", 32, 80), ("bf16", 32, 80), ("exp", 32, 80),
 ])
 def test_grad_mode_routes_like_jax(variant, B, T):
     mode, _ = jpal._grad_mode(variant, B, T)
-    want = "fused" if mode in ("fused", "fusedpack") else "plain"
+    want = {"fused": "fused", "fusedpack": "fused", "exp": "exp"}.get(
+        mode, "plain")
     assert tk.grad_mode(variant, B, T) == want
 
 
 def test_queued_variants_raise():
-    for v in ("exp", "scan", "banded", "banded4"):
+    for v in ("scan", "banded", "banded4"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tk.grad_mode(v, 32, 80)
     with pytest.raises(ValueError):

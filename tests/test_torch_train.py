@@ -327,8 +327,5 @@ def test_entry_points_default_to_the_card():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SSNTModel(tcfg.tiny_model_config(lattice_domain="exp"),
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         SSNTModel(tcfg.tiny_model_config(lattice_tshard_min_cells=10),
                   device="cpu")

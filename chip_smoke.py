@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training (log and exp
-domains), tone and v1 paths on one NVIDIA GPU.
+domains), tone and v1 paths and the banded lattice loss on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -106,7 +107,23 @@ weights, in phases, each reported on its own line:
  20. timings: #9, #4 and #3 against their plain versions (device time
      under a CUDA graph), the lattice loss fwd+bwd for variant "exp",
      "fused" and "plain", and the exp-domain train step at B=32 and B=256
-     split into forward, backward and optimizer (host clock).
+     split into forward, backward and optimizer (host clock);
+ 21. banded check on the same ragged lengths, at B=32 and B=256 and each
+     K in BANDS: the banded forward (#2) and backward-gradients (#6)
+     kernels against their plain versions, every output bit for bit, the
+     degenerate example's gradients exactly 0;
+ 22. the banded path: ssnt_loss_kernels(variant=f"banded{K}") forward and
+     backward and one no-grad forward at each K, B=32 and B=256 (exactly
+     one #2 and one #6 launch per fwd+bwd, one #2 per no-grad call, equal
+     to the grad forward bit for bit), and variant="scan" fwd+bwd at B=32
+     (no launch); each loss within BANDED_LOSS_RTOL and its gradients
+     within BANDED_GRAD_RTOL / BANDED_GRAD_ATOL of variant="log";
+ 23. timings: #2 and #6 at each K and batch against their plain versions
+     (device time under a CUDA graph) with their byte and operation
+     bounds and the composition tree's exp + log count, and the lattice
+     loss fwd+bwd for variant "banded2".."banded16", "fused", "plain"
+     and "scan" at B=32 and B=256 (eager, and device time under a CUDA
+     graph).
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -154,12 +171,25 @@ EXP_LOSS_RTOL, EXP_GRAD_COS, EXP_VARIANT_RTOL = 1e-4, 0.999, 5e-4
 EXP_LOG_SIGMA, EXP_WARMUP = 2.0, 1000
 # A train loss at or above this holds an utterance at the 1e30 sentinel.
 SENTINEL_LOSS = 1e20
+# The banded kernels' K, and variant="bandedN" / "scan" against
+# variant="log" on one lattice: JAX's own tolerances
+# (tests/test_lattice_pallas.py::test_banded_k_variants_match_xla: loss
+# rtol 1e-5, gradients rtol 1e-4 / atol 1e-5), with the gradients' rtol
+# widened per example to GRAD_ULPS float32 epsilons of |logZ|: a gradient
+# is exp(alpha + beta - logZ), whose terms are sums of |logZ|'s size (~1e3
+# at U=400, where JAX's test has ~50) accumulated in another order by each
+# route, so k ulps there are a relative error of k eps |logZ| in the
+# gradient (one ulp of 1100 is 1.2e-4, past JAX's rtol).
+BANDS = (2, 4, 8, 16)
+BANDED_LOSS_RTOL, BANDED_GRAD_RTOL, BANDED_GRAD_ATOL = 1e-5, 1e-4, 1e-5
+GRAD_ULPS = 32
 # Card peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32 (non
 # tensor core) and bf16 tensor-core operations/s.
 HBM_BPS, F32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
 SOURCES = ("fused_class_step", "fused_v1_step", "beam_step", "lattice")
 # The lattice kernels' launch counts, in lattice_kernels.KERNELS' order.
-LAUNCH_NAMES = "(bidir, fwd, bwd, betas, bidir_exp, expin)"
+LAUNCH_NAMES = ("(bidir, fwd, bwd, betas, bidir_exp, expin, "
+                "fwd_banded, bwd_banded)")
 SERVE_CFG = dict(vocab_size=128, mel_dim=80, encoder_dim=256,
                  encoder_layers=2, encoder_heads=4, decoder_dim=256,
                  joint_rank=64)
@@ -578,7 +608,7 @@ def train_phases(seed: int, dev, smi: str) -> list:
 
     for k in lk.KERNELS:
         k.launches = 0
-    train("b32", 10, B, cfg, (10, 0, 0, 0, 0, 0))
+    train("b32", 10, B, cfg, (10, 0, 0, 0, 0, 0, 0, 0))
     train_tcfg = TrainConfig(warmup_steps=2, batch_size=B)
     ds = data_lib.SyntheticTTSDataset(
         vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim, seed=seed + 2)
@@ -589,15 +619,17 @@ def train_phases(seed: int, dev, smi: str) -> list:
     with torch.no_grad():
         nll = state_k.model(*(batch32[k] for k in train_lib.BATCH_KEYS[:4]))
     torch.cuda.synchronize()
-    if tuple(a - b for a, b in zip(counts(), before)) != (0, 1, 0, 0, 0, 0):
+    if tuple(a - b for a, b in zip(counts(), before)) != (
+            0, 1, 0, 0, 0, 0, 0, 0):
         raise AssertionError("no-grad loss: not one forward-alphas launch")
     if nll.shape != (B,) or not bool(torch.isfinite(nll).all()):
         raise AssertionError("no-grad loss: not B finite values")
     log(f"[8 train] no-grad loss B={B}: 1 forward-alphas launch, mean NLL "
         f"per utterance {float(nll.mean()):.3f}")
-    train("b256", 2, B_LARGE, cfg, (0, 2, 2, 0, 0, 0))
+    train("b256", 2, B_LARGE, cfg, (0, 2, 2, 0, 0, 0, 0, 0))
     train("b256_bf16_lattice", 2, B_LARGE,
-          dc.replace(cfg, lattice_dtype="bfloat16"), (0, 2, 2, 0, 0, 0))
+          dc.replace(cfg, lattice_dtype="bfloat16"),
+          (0, 2, 2, 0, 0, 0, 0, 0))
     cfg_plain = dc.replace(cfg, lattice_impl="xla")
     state_p = train_lib.init_train_state(cfg_plain, train_tcfg, seed=seed,
                                          device=dev)
@@ -607,7 +639,7 @@ def train_phases(seed: int, dev, smi: str) -> list:
     mid = counts()
     _, mp = train_lib.train_step(tx, state_p, batch32)
     torch.cuda.synchronize()
-    if (tuple(a - b for a, b in zip(mid, before)) != (1, 0, 0, 0, 0, 0)
+    if (tuple(a - b for a, b in zip(mid, before)) != (1, 0, 0, 0, 0, 0, 0, 0)
             or counts() != mid):
         raise AssertionError("route comparison: unexpected launches")
     for key, rtol in (("loss", ROUTE_LOSS_RTOL),
@@ -622,7 +654,7 @@ def train_phases(seed: int, dev, smi: str) -> list:
         f"vs {float(mp['grad_norm']):.5f} (rtol {ROUTE_LOSS_RTOL}, "
         f"{ROUTE_NORM_RTOL}); the plain step launched no kernel")
     main_launches = counts()
-    if main_launches != (11, 5, 4, 0, 0, 0):
+    if main_launches != (11, 5, 4, 0, 0, 0, 0, 0):
         raise AssertionError(f"train phase launches {main_launches}")
 
     # ---- 9. timings ----
@@ -860,7 +892,7 @@ def exp_phases(seed: int, dev, smi: str) -> list:
 
     for k in lk.KERNELS:
         k.launches = 0
-    train("exp_b32", 10, B, cfg, (0, 0, 0, 0, 0, 10))
+    train("exp_b32", 10, B, cfg, (0, 0, 0, 0, 0, 10, 0, 0))
     tcfg = TrainConfig(warmup_steps=EXP_WARMUP, batch_size=B)
     batch32 = to_device(data_lib.SyntheticTTSDataset(
         vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
@@ -870,21 +902,21 @@ def exp_phases(seed: int, dev, smi: str) -> list:
                                                     device=dev)
     state_e = state(cfg, wide)
     with torch.no_grad():
-        nll = delta(lambda: state_e.model(*args[:4]), (0, 0, 0, 0, 0, 1),
-                    "exp no-grad loss")
+        nll = delta(lambda: state_e.model(*args[:4]),
+                    (0, 0, 0, 0, 0, 1, 0, 0), "exp no-grad loss")
     if nll.shape != (B,) or not bool((nll < -lat.NEG / 2).all()):
         raise AssertionError("exp no-grad loss: not B finite values below "
                              "the sentinel")
     log(f"[19 exp train] no-grad loss B={B}: 1 expin launch, mean NLL per "
         f"utterance {float(nll.mean()):.3f}")
-    train("exp_b256", 2, B_LARGE, cfg, (0, 0, 0, 0, 0, 2))
+    train("exp_b256", 2, B_LARGE, cfg, (0, 0, 0, 0, 0, 2, 0, 0))
 
     # One step's loss and gradients, exp domain against log domain, from
     # the same weights and batch.
     steps = {}
-    for name, st, want in (("exp", state_e, (0, 0, 0, 0, 0, 1)),
+    for name, st, want in (("exp", state_e, (0, 0, 0, 0, 0, 1, 0, 0)),
                            ("log", state(cfg_log, wide),
-                            (1, 0, 0, 0, 0, 0))):
+                            (1, 0, 0, 0, 0, 0, 0, 0))):
         model = st.model
         model.zero_grad(set_to_none=True)
 
@@ -914,8 +946,8 @@ def exp_phases(seed: int, dev, smi: str) -> list:
     with torch.no_grad():
         at0 = [delta(lambda: state(c, tree).model(*args[:4]), want, what)
                for c, want, what in (
-                   (cfg, (0, 0, 0, 0, 0, 1), "exp at log_sigma 0"),
-                   (cfg_log, (0, 1, 0, 0, 0, 0), "log at log_sigma 0"))]
+                   (cfg, (0, 0, 0, 0, 0, 1, 0, 0), "exp at log_sigma 0"),
+                   (cfg_log, (0, 1, 0, 0, 0, 0, 0, 0), "log at log_sigma 0"))]
     off = ((at0[0] - at0[1]).abs() / at0[1].abs()) > EXP_LOSS_RTOL
     log(f"[19 exp train] not gated: at the random tree's log_sigma 0, "
         f"{int(off.sum())}/{B} utterances' exp-domain NLL is off the log "
@@ -926,7 +958,8 @@ def exp_phases(seed: int, dev, smi: str) -> list:
     # Not gated: phase 8's warmup of 2 steps; the first step at full
     # learning rate saturates the transition joint.
     train_run("19 exp train", "exp_b32_warmup2", 3, B, cfg,
-              (0, 0, 0, 0, 0, 3), seed, dev, wide, 2, gate_sentinel=False)
+              (0, 0, 0, 0, 0, 3, 0, 0), seed, dev, wide, 2,
+              gate_sentinel=False)
 
     # variant="exp": one forward and backward, one #4 launch each.
     for Bn in (B, B_LARGE):
@@ -939,11 +972,12 @@ def exp_phases(seed: int, dev, smi: str) -> list:
             loss.sum().backward()
             return loss.detach()
 
-        loss = delta(fwd_bwd, (0, 0, 0, 0, 1, 0), f"variant=exp B={Bn}")
+        loss = delta(fwd_bwd, (0, 0, 0, 0, 1, 0, 0, 0),
+                     f"variant=exp B={Bn}")
         with torch.no_grad():
             ref = delta(lambda: lk.ssnt_loss_kernels(
                 le, ls, lf, il, ol, variant="log", layout="ubt"),
-                (0, 1, 0, 0, 0, 0), f"variant=log B={Bn}")
+                (0, 1, 0, 0, 0, 0, 0, 0), f"variant=log B={Bn}")
             ra, _ = lk.lattice_bidir_exp_reference(le, ls, lf, il, ol)
             plain = -lat.gather_logz(ra, le, il, ol)
         live = torch.arange(Bn, device=dev) != 2
@@ -964,7 +998,7 @@ def exp_phases(seed: int, dev, smi: str) -> list:
             f"{EXP_VARIANT_RTOL}); degenerate example +inf in the kernel "
             f"and plain routes, gradients finite, its own exactly 0")
     main = lattice_counts()
-    if main != (1, 3, 0, 0, 2, 18):
+    if main != (1, 3, 0, 0, 2, 18, 0, 0):
         raise AssertionError(f"exp phase launches {main}")
 
     # ---- 20. timings ----
@@ -1027,7 +1061,7 @@ def exp_phases(seed: int, dev, smi: str) -> list:
     replaces = {"lattice_expin": 1459, "lattice_bidir_exp": 480,
                 "lattice_backward_betas": 348}
     launched = dict(zip(("lattice_backward_betas", "lattice_bidir_exp",
-                         "lattice_expin"), main[3:]))
+                         "lattice_expin"), main[3:6]))
     return [{
         "name": name, "route": "cuda",
         "source": "ssnt_tts_tpu_torch/csrc/lattice.cu",
@@ -1036,6 +1070,233 @@ def exp_phases(seed: int, dev, smi: str) -> list:
         "plain_ms": p_ms, "bound_ms": bd[0], "bound_by": bd[1],
         "library_ms": None,
     } for name, (k_ms, p_ms, bd) in rows.items()]
+
+
+def lse_cost(m: int) -> tuple:
+    """(exp + log, float operations) of an _lse of m terms: m - 1 max, m
+    subtractions and exps, m - 1 adds, a log and an add; 0 for one."""
+    return (0, 0) if m == 1 else (m + 1, 4 * m)
+
+
+def banded_costs(K: int, backward: bool) -> tuple:
+    """Per (b, t) cell and K-group of a banded walk: (the composition
+    tree's exp + log, the whole group's exp + log, its float operations):
+    2 adds per column operator, the tree (a term is one add), the chain's
+    K+1 terms, K-1 interior columns of 2 terms; the backward adds its
+    three posteriors per column (3 exps, 14 other operations)."""
+    tree_t = tree_o = 0
+    w, n = 2, K
+    while n > 1:
+        for k in range(2 * w - 1):
+            m = min(k, 2 * w - 2 - k, w - 1) + 1
+            tt, to = lse_cost(m)
+            tree_t += n // 2 * tt
+            tree_o += n // 2 * (m + to)
+        w, n = 2 * w - 1, n // 2
+    chain_t, chain_o = lse_cost(K + 1)
+    step_t, step_o = lse_cost(2)
+    trans = tree_t + chain_t + (K - 1) * step_t
+    ops = 2 * K + tree_o + K + 1 + chain_o + (K - 1) * (2 + step_o)
+    if backward:
+        trans, ops = trans + 3 * K, ops + 17 * K
+    return tree_t, trans, ops
+
+
+def check_banded(rng, dev) -> dict:
+    """Phase 21: #2 and #6 at each K against their plain versions at B=32
+    and B=256, every output bit for bit; returns each kernel's max abs
+    error."""
+    from ssnt_tts_tpu_torch.ops import lattice as lat
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    err = dict.fromkeys(("lattice_forward_alphas_banded",
+                         "lattice_backward_grads_banded"), 0.0)
+    for Bn in (B, B_LARGE):
+        (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
+        g = torch.tensor(rng.uniform(0.5, 2.0, Bn), dtype=torch.float32,
+                         device=dev)
+        for K in BANDS:
+            with torch.no_grad():
+                ka = lk.lattice_forward_alphas_banded(le, ls, lf, K)
+                ra = lk.lattice_forward_alphas_banded_reference(le, ls, lf,
+                                                                K)
+                z = lat.gather_logz(ra, le, il, ol)
+                kd = lk.lattice_backward_grads_banded(le, ls, lf, ra, il, ol,
+                                                      g, z, K)
+                rd = lk.lattice_backward_grads_banded_reference(
+                    le, ls, lf, ra, il, ol, g, z, K)
+                torch.cuda.synchronize()
+            what = f"banded K={K} B={Bn}"
+            if not (same_bits(ka, ra) and bool(torch.isfinite(ka).all())):
+                raise AssertionError(f"{what}: alphas not the plain "
+                                     f"version's bit for bit, or not finite")
+            if not all(same_bits(a, b) for a, b in zip(kd, rd)):
+                raise AssertionError(f"{what}: gradients not the plain "
+                                     f"version's bit for bit")
+            if any(bool(d[:, 2].any()) for d in kd):
+                raise AssertionError(f"{what}: degenerate example's "
+                                     f"gradients are not exactly 0")
+            e_a = float((ka - ra).abs().max())
+            e_d = max(float((a - b).abs().max()) for a, b in zip(kd, rd))
+            err["lattice_forward_alphas_banded"] = max(
+                err["lattice_forward_alphas_banded"], e_a)
+            err["lattice_backward_grads_banded"] = max(
+                err["lattice_backward_grads_banded"], e_d)
+        log(f"[21 banded] B={Bn} T={T} U={U} f32, K in {BANDS}: forward "
+            f"alphas (#2) and backward gradients (#6) equal their plain "
+            f"versions bit for bit; degenerate grads exactly 0")
+    return err
+
+
+def banded_phases(seed: int, dev, smi: str) -> list:
+    """Phases 21-23; returns #2's and #6's entries of the JSON line (the
+    K=2 instance, bare "banded"'s, at B=32)."""
+    from ssnt_tts_tpu_torch.ops import lattice as lat
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    rng = np.random.default_rng(seed + 6)
+    # ---- 21. banded kernels against their plain versions ----
+    err = check_banded(rng, dev)
+
+    # ---- 22. the banded path ----
+    def fwd_bwd(x, variant):
+        (le, ls, lf), (il, ol) = x
+        leaves = [a.clone().requires_grad_() for a in (le, ls, lf)]
+        loss = lk.ssnt_loss_kernels(*leaves, il, ol, variant=variant,
+                                    layout="ubt")
+        loss.sum().backward()
+        return loss.detach(), [a.grad for a in leaves]
+
+    inputs = {Bn: lattice_inputs(rng, Bn, torch.float32, dev)
+              for Bn in (B, B_LARGE)}
+    refs = {Bn: fwd_bwd(x, "log") for Bn, x in inputs.items()}
+    torch.cuda.synchronize()
+    for k in lk.KERNELS:
+        k.launches = 0
+    runs = {}
+    for Bn, x in inputs.items():
+        for K in BANDS:
+            before = lattice_counts()
+            loss, grads = fwd_bwd(x, f"banded{K}")
+            with torch.no_grad():
+                nograd = lk.ssnt_loss_kernels(*x[0], *x[1],
+                                              variant=f"banded{K}",
+                                              layout="ubt")
+            torch.cuda.synchronize()
+            got = tuple(a - b for a, b in zip(lattice_counts(), before))
+            if got != (0, 0, 0, 0, 0, 0, 2, 1):
+                raise AssertionError(f"banded{K} B={Bn}: launches "
+                                     f"{LAUNCH_NAMES} {got}, not one #2 + "
+                                     f"one #6 and one #2 without grad")
+            if not same_bits(nograd, loss):
+                raise AssertionError(f"banded{K} B={Bn}: the no-grad "
+                                     f"forward differs from the grad one")
+            runs[f"banded{K}", Bn] = (loss, grads)
+    before = lattice_counts()
+    runs["scan", B] = fwd_bwd(inputs[B], "scan")
+    torch.cuda.synchronize()
+    if lattice_counts() != before:
+        raise AssertionError("variant=scan launched a lattice kernel")
+    main = lattice_counts()
+    n_runs = 2 * len(BANDS)
+    if main != (0, 0, 0, 0, 0, 0, 2 * n_runs, n_runs):
+        raise AssertionError(f"banded phase launches {main}")
+    for (variant, Bn), (loss, grads) in runs.items():
+        ref_loss, ref_grads = refs[Bn]
+        live = torch.arange(Bn, device=dev) != 2
+        rel = float(((loss - ref_loss).abs() / ref_loss.abs())[live].max())
+        eps_z = (torch.finfo(torch.float32).eps
+                 * ref_loss.abs())[None, :, None]  # eps |logZ| per example
+        rtol = (GRAD_ULPS * eps_z).clamp(min=BANDED_GRAD_RTOL)
+        # max(|d| - rtol |ref|), held to atol; the largest relative
+        # difference (where |ref| > 1e-3) in units of eps |logZ|
+        gerr = max(float(((a - b).abs() - rtol * b.abs()).max())
+                   for a, b in zip(grads, ref_grads))
+        ulps = max(float(((a - b).abs() / (b.abs() * eps_z))[
+            b.abs() > 1e-3].max()) for a, b in zip(grads, ref_grads))
+        if not (rel <= BANDED_LOSS_RTOL and gerr <= BANDED_GRAD_ATOL):
+            raise AssertionError(f"{variant} B={Bn}: loss {rel} relative, "
+                                 f"gradients {gerr} past the tolerance of "
+                                 f"variant=log ({ulps:.1f} eps |logZ|)")
+        if not (bool(loss[2] >= -lat.NEG / 2) and all(
+                bool(torch.isfinite(x).all()) and not bool(x[:, 2].any())
+                for x in grads)):
+            raise AssertionError(f"{variant} B={Bn}: the degenerate "
+                                 f"example's loss is not the sentinel, or "
+                                 f"gradients not finite or its own not 0")
+        log(f"[22 banded path] variant={variant} fwd+bwd B={Bn} T={T} "
+            f"U={U}: loss within {rel:.2e} relative of variant=log (tol "
+            f"{BANDED_LOSS_RTOL}), gradients within {ulps:.2f} eps |logZ| "
+            f"relative (tol max({BANDED_GRAD_RTOL}, {GRAD_ULPS} eps |logZ|) "
+            f"+ {BANDED_GRAD_ATOL}; |logZ| up to "
+            f"{float(ref_loss[live].abs().max()):.1f}); degenerate example "
+            f"at the sentinel, its gradients exactly 0")
+    log(f"[22 banded path] launches {LAUNCH_NAMES} {main}: one #2 + one #6 "
+        f"per banded fwd+bwd and one #2 per no-grad forward, at each K and "
+        f"B; variant=scan none")
+
+    # ---- 23. timings ----
+    rows = {}
+    for Bn in (B, B_LARGE):
+        (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
+        g = torch.ones(Bn, device=dev)
+        with torch.no_grad():
+            for K in BANDS:
+                a = lk.lattice_forward_alphas_banded(le, ls, lf, K)
+                z = lat.gather_logz(a, le, il, ol)
+                groups = -(-U // K)
+                fns = [
+                    ("lattice_forward_alphas_banded", False,
+                     lambda: lk.lattice_forward_alphas_banded(le, ls, lf, K),
+                     lambda: lk.lattice_forward_alphas_banded_reference(
+                         le, ls, lf, K),
+                     nbytes(le, ls, lf, a)),
+                    ("lattice_backward_grads_banded", True,
+                     lambda: lk.lattice_backward_grads_banded(
+                         le, ls, lf, a, il, ol, g, z, K),
+                     lambda: lk.lattice_backward_grads_banded_reference(
+                         le, ls, lf, a, il, ol, g, z, K),
+                     nbytes(le, ls, lf, a, il, ol, g, z) + 3 * nbytes(le)),
+                ]
+                for name, bwd, kfn, pfn, nb in fns:
+                    k_ms = graph_ms(kfn, k=20, reps=10)
+                    p_ms = graph_ms(pfn, k=1, reps=2)
+                    tree_t, trans, ops = banded_costs(K, bwd)
+                    cells = groups * Bn * T
+                    bd = bound(nb, ops * cells, F32_OPS)
+                    rows[name, Bn, K] = (k_ms, p_ms, bd)
+                    log(f"[23 time] {smi}: {name} K={K} B={Bn} T={T} U={U} "
+                        f"f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+                        f"(device time, CUDA graph); bound "
+                        f"{bd[0] * 1e3:.2f} us ({bd[1]}, {nb / 1e6:.1f} MB, "
+                        f"{ops * cells / 1e6:.1f} M operations); per cell "
+                        f"and group: tree {tree_t} exp+log, walk {trans} "
+                        f"exp+log, {ops} operations")
+    for Bn in (B, B_LARGE):
+        x = lattice_inputs(rng, Bn, torch.float32, dev)
+        for variant in [f"banded{K}" for K in BANDS] + ["fused", "plain",
+                                                         "scan"]:
+            ms = eager_ms(lambda: fwd_bwd(x, variant), n=10)
+            # The route's device time: forward and backward under a graph.
+            scan = variant == "scan"
+            dev_ms = graph_ms(lambda: fwd_bwd(x, variant), k=1 if scan else 5,
+                              reps=2 if scan else 5)
+            log(f"[23 time] {smi}: lattice loss fwd+bwd B={Bn} T={T} U={U} "
+                f"f32, variant {variant}: {ms:.4f} ms per call (CUDA "
+                f"events, eager); device time {dev_ms:.4f} ms (CUDA graph)")
+
+    replaces = {"lattice_forward_alphas_banded": 289,
+                "lattice_backward_grads_banded": 726}
+    launched = dict(zip(replaces, main[6:]))
+    return [{
+        "name": name, "route": "cuda",
+        "source": "ssnt_tts_tpu_torch/csrc/lattice.cu",
+        "replaces": f"ssnt_tts_tpu/ops/lattice_pallas.py:{replaces[name]}",
+        "launches": launched[name], "max_abs_err": err[name],
+        "ms": rows[name, B, 2][0], "plain_ms": rows[name, B, 2][1],
+        "bound_ms": rows[name, B, 2][2][0],
+        "bound_by": rows[name, B, 2][2][1], "library_ms": None,
+    } for name in replaces]
 
 
 def tone_step_inputs(model, tokens, il, s: int, rng, dev, Wn: int = W):
@@ -1962,6 +2223,7 @@ def main() -> int:
     kernels += tone_phases(args.seed, dev, smi, models, reqs[0])
     kernels += v1_phases(args.seed, dev, smi, models)
     kernels += exp_phases(args.seed, dev, smi)
+    kernels += banded_phases(args.seed, dev, smi)
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,11 @@
 //                           never reach device memory.
 //   lattice_backward_betas  backward_betas_pallas (:348, _bwd_kernel :306):
 //                           lattice_bidir's beta walk alone.
+//   lattice_forward_alphas_banded, lattice_backward_grads_banded
+//                           forward_alphas_pallas_banded (:289) and
+//                           backward_grads_pallas_banded (:726): the
+//                           variant="bandedN" walks, K columns composed into
+//                           one step of the chain (see "banded" below).
 //
 // and in the exp domain:
 //
@@ -634,7 +639,383 @@ __global__ void backward_grads_kernel(
   }
 }
 
+// ------------------------------------------------------------------ banded
+//
+// lattice_forward_alphas_banded and lattice_backward_grads_banded: the
+// K-banded walks of forward_alphas_pallas_banded (pallas_call :289,
+// _fwd_kernel_banded :236) and backward_grads_pallas_banded (:726,
+// _bwdgrad_kernel_banded :626), K in {2, 4, 8, 16} a template parameter.
+// Column u's step is a 2-band operator over the (logsumexp, +) semiring;
+// the K columns of a group (global columns gK .. gK+K-1, U padded with NEG
+// to a multiple of K, as JAX's chunk padding does) compose by a pairwise
+// tree into one (K+1)-band operator, and the chain applies U/K of them.
+// The interior columns are replayed from each group's start value.
+// Everything follows the TPU kernel's operation order, so that the plain
+// versions in ops/lattice_kernels.py equal the kernels bit for bit:
+//   - lse of n terms (_lse :76): the max, then sum exp(x - max) left to
+//     right, then max + log(sum); one term is itself;
+//   - a composed entry k of A o B (B applied first) sums A[i] + B[k-i]
+//     read at t - i (forward) or t + i (backward) over ascending i, NEG
+//     where that leaves [0, T) (_compose_down/_compose_up :202-220);
+//   - the tree composes ops[2p+1] o ops[2p] level by level (_tree_compose
+//     :223); the backward's list is its columns from the top down.
+// The forward starts from a virtual carry (alpha = [t == 0] as 0/NEG,
+// le_prev = 0, ls_prev = NEG). The backward uniformizes its columns (le,
+// lf -> 0 for u >= U_b, ls -> NEG for u >= U_b - 1) and starts from one
+// virtual init at the padded top (beta = [t == T_b - 1] as 0/NEG, lf =
+// 0), then writes the three posteriors per column as
+// lattice_backward_grads does.
+//
+// Design: one block per example, one thread per t, as the other lattice
+// kernels. A group's column operators are computed in registers from
+// global memory (the t -+ 1 neighbours of ls and lf are read from global
+// memory too); each tree level writes its first-applied operands' band
+// entries to shared memory (two alternating buffers of K rows of T), one
+// barrier; the chain writes the group's start value to one of two
+// alternating shared rows, one barrier, and reads its t -+ k neighbours;
+// each interior column after the first is one more row and barrier. So a
+// group of K columns costs log2(K) + K - 1 (forward) or log2(K) + K
+// (backward) barriers, where the plain walks pay one a column, and the
+// group's loads are issued at its start, their latency on the chain once
+// a group. What bounds it: the barriers and the serial work of one thread
+// per t, not the bytes (bound 4.9 us for the forward at B=32, T=80,
+// U=400). Measured by chip_smoke.py phase 23 (device time, NVIDIA H100
+// 80GB HBM3, 700 W): forward 0.136 ms at K=2 and 0.299 ms at K=16,
+// backward 0.216 and 0.351 ms, at B=32; 0.27-0.51 ms at B=256: slower
+// than the plain walks at every K, as on the TPU. Registers: 39-128
+// (forward) and 40-214 (backward) from K=2 to K=16, no spills; at the
+// larger K they cap a block below kMaxT threads, which the wrapper asks
+// through ssnt_lattice_banded_max_t.
+
+// A band entry of row `row` read at t - i (kUp false) or t + i (kUp true);
+// NEG where that leaves [0, T).
+template <bool kUp>
+__device__ __forceinline__ float shifted(const float* row, int t, int i,
+                                         int T, bool live) {
+  const int s = kUp ? t + i : t - i;
+  return (live && s >= 0 && s < T) ? row[s] : kNeg;
+}
+
+// _lse of the first n of x, in order.
+template <int NMAX>
+__device__ __forceinline__ float lse_terms(const float (&x)[NMAX], int n) {
+  if (n == 1) return x[0];
+  float m = x[0];
+#pragma unroll
+  for (int i = 1; i < NMAX; ++i)
+    if (i < n) m = fmaxf(m, x[i]);
+  float acc = expf(x[0] - m);
+#pragma unroll
+  for (int i = 1; i < NMAX; ++i)
+    if (i < n) acc = acc + expf(x[i] - m);
+  return m + logf(acc);
+}
+
+// One level of the tree: out[p] = ops[2p+1] o ops[2p] for each of the N/2
+// pairs (W-band operands, 2W-1-band results). buf: N/2 * W rows of T.
+template <bool kUp, int N, int W>
+__device__ __forceinline__ void compose_level(const float (&ops)[N][W],
+                                              float (&out)[N / 2][2 * W - 1],
+                                              float* buf, int T, int t,
+                                              bool live) {
+  if (live) {
+#pragma unroll
+    for (int p = 0; p < N / 2; ++p)
+#pragma unroll
+      for (int j = 0; j < W; ++j) buf[(p * W + j) * T + t] = ops[2 * p][j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < N / 2; ++p) {
+#pragma unroll
+    for (int k = 0; k < 2 * W - 1; ++k) {
+      const int lo = k > W - 1 ? k - (W - 1) : 0;
+      const int hi = k < W - 1 ? k : W - 1;
+      float x[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        if (i >= lo && i <= hi)
+          x[i - lo] = ops[2 * p + 1][i] +
+                      shifted<kUp>(buf + (p * W + k - i) * T, t, i, T, live);
+      }
+      out[p][k] = lse_terms(x, hi - lo + 1);
+    }
+  }
+}
+
+// The whole tree: N W-band operators -> P, the (KB)-band composition.
+// Level l uses the buffer tb + (l & 1) * (KB - 1) * T.
+template <bool kUp, int KB, int N, int W>
+__device__ __forceinline__ void compose_tree(const float (&ops)[N][W],
+                                             float (&P)[KB], float* tb,
+                                             int T, int t, bool live,
+                                             int level) {
+  if constexpr (N == 1) {
+    static_assert(W == KB, "the tree ends in one (K+1)-band operator");
+#pragma unroll
+    for (int k = 0; k < KB; ++k) P[k] = ops[0][k];
+  } else {
+    float nxt[N / 2][2 * W - 1];
+    compose_level<kUp, N, W>(ops, nxt, tb + (level & 1) * (KB - 1) * T, T,
+                             t, live);
+    compose_tree<kUp, KB, N / 2, 2 * W - 1>(nxt, P, tb, T, t, live,
+                                            level + 1);
+  }
+}
+
+template <int K>
+__global__ void forward_alphas_banded_kernel(int B, int T, int U,
+                                             const float* __restrict__ le,
+                                             const float* __restrict__ ls,
+                                             const float* __restrict__ lf,
+                                             float* __restrict__ alphas) {
+  extern __shared__ float smem[];
+  float* tb = smem;                  // tree operands: 2 x K rows of T
+  float* rows = smem + 2 * K * T;    // chain and replay: 2 rows of T
+  const int b = blockIdx.x, t = threadIdx.x;
+  const bool live = t < T;
+  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
+  const int groups = (U + K - 1) / K;
+  float alpha = t == 0 ? 0.0f : kNeg;  // the virtual alpha_{-1}
+  int r = 0;
+  for (int g = 0; g < groups; ++g) {
+    const int base = g * K;
+    // Column u: [lf_u + le_{u-1}, lf_u + ls_{u-1}(t-1)], NEG past U.
+    float M[K][2];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int u = base + j;
+      float lf_u = kNeg, le_p = u == 0 ? 0.0f : kNeg, ls_p = kNeg;
+      if (live) {
+        if (u < U) lf_u = ld(lf, (size_t)u * col + off);
+        if (u >= 1 && u <= U) {
+          le_p = ld(le, (size_t)(u - 1) * col + off);
+          if (t >= 1) ls_p = ld(ls, (size_t)(u - 1) * col + off - 1);
+        }
+      }
+      M[j][0] = lf_u + le_p;
+      M[j][1] = lf_u + ls_p;
+    }
+    float P[K + 1];
+    compose_tree<false, K + 1, K, 2>(M, P, tb, T, t, live, 0);
+    // The chain: alpha at base + K - 1 from alpha at base - 1.
+    float* s = rows + r * T;
+    r ^= 1;
+    if (live) s[t] = alpha;
+    __syncthreads();
+    float x[K + 1];
+#pragma unroll
+    for (int k = 0; k <= K; ++k)
+      x[k] = P[k] + shifted<false>(s, t, k, T, live);
+    const float next = lse_terms(x, K + 1);
+    // The interior: columns base .. base + K - 2 from alpha at base - 1.
+    float a = alpha;
+#pragma unroll
+    for (int j = 0; j < K - 1; ++j) {
+      const float y[2] = {M[j][0] + a,
+                          M[j][1] + shifted<false>(s, t, 1, T, live)};
+      a = lse_terms(y, 2);
+      if (live && base + j < U) alphas[(size_t)(base + j) * col + off] = a;
+      if (j < K - 2) {
+        s = rows + r * T;
+        r ^= 1;
+        if (live) s[t] = a;
+        __syncthreads();
+      }
+    }
+    alpha = next;
+    if (live && base + K - 1 < U)
+      alphas[(size_t)(base + K - 1) * col + off] = alpha;
+  }
+}
+
+// grads_at of _bwdgrad_kernel_banded for column u, given beta at u + 1
+// (bnext, and bnext_up at t + 1) and at u (bu).
+__device__ __forceinline__ void banded_grads(
+    int u, int U, int T, int t, bool live, int out_len, bool is_last_t,
+    bool t_valid, float neg_g, float lz, float al, float leu, float ls_u,
+    float lfa, float lfa_up, float bnext, float bnext_up, float bu,
+    size_t i, float* __restrict__ d_le, float* __restrict__ d_ls,
+    float* __restrict__ d_lf) {
+  const bool is_last_u = u == out_len - 1;
+  const float a = u < out_len ? al - lz : kNeg;
+  const float cont = lfa + bnext;
+  const float cont_emit = is_last_u ? (is_last_t ? 0.0f : kNeg) : cont;
+  const float cont_up = t + 1 < T ? lfa_up + bnext_up : kNeg;
+  const float cont_shift = is_last_u ? kNeg : cont_up;
+  const float p_le = t_valid ? expf(fminf(a + leu + cont_emit, 30.0f)) : 0.0f;
+  const float p_ls = t_valid ? expf(fminf(a + ls_u + cont_shift, 30.0f))
+                             : 0.0f;
+  const float p_lf = t_valid ? expf(fminf(a + bu, 30.0f)) : 0.0f;
+  if (live && u < U) {
+    d_le[i] = neg_g * p_le;
+    d_ls[i] = neg_g * p_ls;
+    d_lf[i] = neg_g * p_lf;
+  }
+}
+
+template <int K>
+__global__ void backward_grads_banded_kernel(
+    int B, int T, int U, const float* __restrict__ le,
+    const float* __restrict__ ls, const float* __restrict__ lf,
+    const float* __restrict__ alphas, const int* __restrict__ il,
+    const int* __restrict__ ol, const float* __restrict__ g,
+    const float* __restrict__ logz, float* __restrict__ d_le,
+    float* __restrict__ d_ls, float* __restrict__ d_lf) {
+  extern __shared__ float smem[];
+  float* tb = smem;                  // tree operands: 2 x K rows of T
+  float* rows = smem + 2 * K * T;    // chain and replay: 2 rows of T
+  const int b = blockIdx.x, t = threadIdx.x;
+  const bool live = t < T;
+  const int in_len = il[b], out_len = ol[b];
+  const float lz = logz[b];
+  const float neg_g = lz <= kNeg / 2 ? 0.0f : -g[b];
+  const bool is_last_t = t == in_len - 1, t_valid = t < in_len;
+  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
+  const int groups = (U + K - 1) / K, Up = groups * K;
+  float beta = is_last_t ? 0.0f : kNeg;  // the virtual init at the top
+  int r = 0;
+  for (int gi = groups - 1; gi >= 0; --gi) {
+    const int base = gi * K;
+    // Uniformized column u (NEG past U, as JAX's padding): leu, ls, the
+    // uniformized lf above it (lfa; lfa_up at t + 1, NEG at T - 1; 0 at the
+    // padded top), alpha, and its operator [leu + lfa, lsu + lfa_up].
+    float leu[K], lsr[K], lfa[K], lfa_up[K], al[K], N[K][2];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int u = base + j;
+      float le_u = kNeg, ls_u = kNeg, al_u = kNeg, f = 0.0f, f_up = kNeg;
+      if (live && u < U) {
+        le_u = ld(le, (size_t)u * col + off);
+        ls_u = ld(ls, (size_t)u * col + off);
+        al_u = ld(alphas, (size_t)u * col + off);
+      }
+      if (u + 1 < Up && u + 1 < out_len) {
+        f = kNeg;
+        if (live && u + 1 < U) {
+          f = ld(lf, (size_t)(u + 1) * col + off);
+          if (t + 1 < T) f_up = ld(lf, (size_t)(u + 1) * col + off + 1);
+        }
+      } else if (t + 1 < T) {
+        f_up = 0.0f;
+      }
+      leu[j] = u < out_len ? le_u : 0.0f;
+      lsr[j] = ls_u;
+      lfa[j] = f;
+      lfa_up[j] = f_up;
+      al[j] = al_u;
+      N[j][0] = leu[j] + f;
+      N[j][1] = (u < out_len - 1 ? ls_u : kNeg) + f_up;
+    }
+    // The tree composes the columns from the top down.
+    float Nr[K][2];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      Nr[j][0] = N[K - 1 - j][0];
+      Nr[j][1] = N[K - 1 - j][1];
+    }
+    float P[K + 1];
+    compose_tree<true, K + 1, K, 2>(Nr, P, tb, T, t, live, 0);
+    // The chain: beta at base from beta at base + K.
+    float* s = rows + r * T;
+    r ^= 1;
+    if (live) s[t] = beta;
+    __syncthreads();
+    float x[K + 1];
+#pragma unroll
+    for (int k = 0; k <= K; ++k) x[k] = P[k] + shifted<true>(s, t, k, T, live);
+    const float bottom = lse_terms(x, K + 1);
+    // The interior: columns base + K - 1 .. base + 1, then the gradients of
+    // each column (base with the chain's value).
+    float bnext = beta;
+#pragma unroll
+    for (int j = K - 1; j >= 0; --j) {
+      const float up = shifted<true>(s, t, 1, T, live);
+      float bu = bottom;
+      if (j > 0) {
+        const float y[2] = {N[j][0] + bnext, N[j][1] + up};
+        bu = lse_terms(y, 2);
+      }
+      banded_grads(base + j, U, T, t, live, out_len, is_last_t, t_valid,
+                   neg_g, lz, al[j], leu[j], lsr[j], lfa[j], lfa_up[j],
+                   bnext, up, bu, (size_t)(base + j) * col + off, d_le, d_ls,
+                   d_lf);
+      if (j > 0) {
+        s = rows + r * T;
+        r ^= 1;
+        if (live) s[t] = bu;
+        __syncthreads();
+        bnext = bu;
+      }
+    }
+    beta = bottom;
+  }
+}
+
+size_t banded_smem(int K, int T) {
+  return sizeof(float) * (2 * (size_t)K + 2) * T;
+}
+
+// Opts a kernel into `smem` bytes of dynamic shared memory past the 48 KB
+// default, once per size (not inside a CUDA graph capture after the first
+// call).
+template <typename Kern>
+cudaError_t opt_in(Kern kern, size_t smem, size_t* opted) {
+  if (smem <= 48 * 1024 || smem <= *opted) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) *opted = smem;
+  return e;
+}
+
 int threads_for(int T) { return ((T + 31) / 32) * 32; }
+
+template <int K>
+cudaError_t launch_forward_banded(int B, int T, int U, const float* le,
+                                  const float* ls, const float* lf,
+                                  float* alphas, cudaStream_t s) {
+  static size_t opted = 0;
+  const size_t smem = banded_smem(K, T);
+  cudaError_t e = opt_in(forward_alphas_banded_kernel<K>, smem, &opted);
+  if (e != cudaSuccess) return e;
+  forward_alphas_banded_kernel<K><<<B, threads_for(T), smem, s>>>(
+      B, T, U, le, ls, lf, alphas);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_backward_banded(int B, int T, int U, const float* le,
+                                   const float* ls, const float* lf,
+                                   const float* alphas, const int* il,
+                                   const int* ol, const float* g,
+                                   const float* logz, float* d_le,
+                                   float* d_ls, float* d_lf,
+                                   cudaStream_t s) {
+  static size_t opted = 0;
+  const size_t smem = banded_smem(K, T);
+  cudaError_t e = opt_in(backward_grads_banded_kernel<K>, smem, &opted);
+  if (e != cudaSuccess) return e;
+  backward_grads_banded_kernel<K><<<B, threads_for(T), smem, s>>>(
+      B, T, U, le, ls, lf, alphas, il, ol, g, logz, d_le, d_ls, d_lf);
+  return cudaGetLastError();
+}
+
+// The most threads a block of the K-banded kernel may have (its registers
+// may allow fewer than kMaxT), rounded down to whole warps; 0 for a K
+// without an instance.
+template <typename Kern>
+int max_threads(Kern kern) {
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, kern) != cudaSuccess) return 0;
+  const int n = a.maxThreadsPerBlock < kMaxT ? a.maxThreadsPerBlock : kMaxT;
+  return n / 32 * 32;
+}
+
+template <int K>
+int banded_max_t(int backward) {
+  return backward ? max_threads(backward_grads_banded_kernel<K>)
+                  : max_threads(forward_alphas_banded_kernel<K>);
+}
 
 bool bad_shape(int B, int T, int U) {
   return B < 0 || U < 0 || T < 1 || T > kMaxT;
@@ -737,6 +1118,63 @@ int ssnt_lattice_expin(int B, int T, int U, const void* E, const void* S,
       (const float*)mcol, (const int*)il, (const int*)ol, (float*)qn,
       (float*)bn, (float*)M, (float*)N);
   return (int)cudaGetLastError();
+}
+
+int ssnt_lattice_banded_max_t(int K, int backward) {
+  switch (K) {
+    case 2: return banded_max_t<2>(backward);
+    case 4: return banded_max_t<4>(backward);
+    case 8: return banded_max_t<8>(backward);
+    case 16: return banded_max_t<16>(backward);
+    default: return 0;
+  }
+}
+
+int ssnt_lattice_forward_alphas_banded(int K, int B, int T, int U,
+                                       const void* le, const void* ls,
+                                       const void* lf, void* alphas,
+                                       void* stream) {
+  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || U == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *e = (const float*)le, *h = (const float*)ls,
+              *f = (const float*)lf;
+  float* a = (float*)alphas;
+  switch (K) {
+    case 2: return (int)launch_forward_banded<2>(B, T, U, e, h, f, a, s);
+    case 4: return (int)launch_forward_banded<4>(B, T, U, e, h, f, a, s);
+    case 8: return (int)launch_forward_banded<8>(B, T, U, e, h, f, a, s);
+    case 16: return (int)launch_forward_banded<16>(B, T, U, e, h, f, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int ssnt_lattice_backward_grads_banded(int K, int B, int T, int U,
+                                       const void* le, const void* ls,
+                                       const void* lf, const void* alphas,
+                                       const void* il, const void* ol,
+                                       const void* g, const void* logz,
+                                       void* d_le, void* d_ls, void* d_lf,
+                                       void* stream) {
+  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || U == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *e = (const float*)le, *h = (const float*)ls,
+              *f = (const float*)lf, *a = (const float*)alphas,
+              *gg = (const float*)g, *lz = (const float*)logz;
+  const int *in_len = (const int*)il, *out_len = (const int*)ol;
+  float *de = (float*)d_le, *dh = (float*)d_ls, *df = (float*)d_lf;
+  switch (K) {
+    case 2: return (int)launch_backward_banded<2>(
+        B, T, U, e, h, f, a, in_len, out_len, gg, lz, de, dh, df, s);
+    case 4: return (int)launch_backward_banded<4>(
+        B, T, U, e, h, f, a, in_len, out_len, gg, lz, de, dh, df, s);
+    case 8: return (int)launch_backward_banded<8>(
+        B, T, U, e, h, f, a, in_len, out_len, gg, lz, de, dh, df, s);
+    case 16: return (int)launch_backward_banded<16>(
+        B, T, U, e, h, f, a, in_len, out_len, gg, lz, de, dh, df, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -100,7 +100,7 @@ class SSNTModel(nn.Module):
         if cfg.lattice_tshard_min_cells is not None:
             raise NotImplementedError(
                 "lattice_tshard_min_cells: the T-sharded lattice is not "
-                "ported yet (ROADMAP.md, Queue 1 slice 5)")
+                "ported yet (ROADMAP.md, Queue 1: the distribution slice)")
         dt = self.dtype = compute_dtype(cfg)
         ldt = _dtype(cfg.lattice_dtype, "lattice dtype")
         He, H = cfg.encoder_dim, cfg.decoder_dim

@@ -12,8 +12,8 @@ decode steps), csrc/fused_v1_step.cu (the fused v1 decode step; both
 fused sources include csrc/gru_step.cuh), csrc/beam_step.cu (the
 beam-only v2, tone and v1 steps; the three beam sources include
 csrc/beam_select.cuh) and csrc/lattice.cu (the SSNT lattice
-forward-backward, log and exp domains); build_all starts one nvcc per
-source at once.
+forward-backward, log and exp domains, and the K-banded walks); build_all
+starts one nvcc per source at once.
 
 Flags: -fmad=false keeps every float32 multiply and add separately
 rounded (the beam band edges depend on it; the dot products use explicit
@@ -74,6 +74,9 @@ LATTICE_BETAS_ARGTYPES = [_I] * 3 + [_P] * 7
 # ssnt_lattice_bidir_exp takes lattice_bidir's arguments.
 # ssnt_lattice_expin(B, T, U, E, S, F, mcol, il, ol, qn, bn, M, N, stream)
 LATTICE_EXPIN_ARGTYPES = [_I] * 3 + [_P] * 11
+# ssnt_lattice_forward_alphas_banded and ssnt_lattice_backward_grads_banded
+# take the arguments of the forward and backward kernels, with K in place
+# of the bf16 flag; ssnt_lattice_banded_max_t(K, backward).
 
 
 def find_nvcc() -> str:
@@ -173,7 +176,10 @@ def lattice_library() -> ctypes.CDLL:
                   "ssnt_lattice_backward_grads": LATTICE_BWD_ARGTYPES,
                   "ssnt_lattice_backward_betas": LATTICE_BETAS_ARGTYPES,
                   "ssnt_lattice_bidir_exp": LATTICE_BIDIR_ARGTYPES,
-                  "ssnt_lattice_expin": LATTICE_EXPIN_ARGTYPES},
+                  "ssnt_lattice_expin": LATTICE_EXPIN_ARGTYPES,
+                  "ssnt_lattice_forward_alphas_banded": LATTICE_FWD_ARGTYPES,
+                  "ssnt_lattice_backward_grads_banded": LATTICE_BWD_ARGTYPES,
+                  "ssnt_lattice_banded_max_t": [_I, _I]},
                  ("ssnt_lattice_max_t",))
 
 

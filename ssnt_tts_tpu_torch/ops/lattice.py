@@ -39,14 +39,24 @@ def logaddexp(a, b):
     return m + torch.log1p(torch.exp(-torch.abs(a - b)))
 
 
-def shift_down_t(x, fill=NEG):
-    """x[..., t] -> x[..., t-1] along the last (T) axis; t = 0 filled."""
-    return torch.cat([torch.full_like(x[..., :1], fill), x[..., :-1]], dim=-1)
+def shift_down_t(x, fill=NEG, k=1):
+    """x[..., t] -> x[..., t-k] along the last (T) axis; t < k filled (all
+    of it for k >= T)."""
+    if k == 0:
+        return x
+    if k >= x.shape[-1]:
+        return torch.full_like(x, fill)
+    return torch.cat([torch.full_like(x[..., :k], fill), x[..., :-k]], dim=-1)
 
 
-def shift_up_t(x, fill=NEG):
-    """x[..., t] -> x[..., t+1] along the last (T) axis; t = T-1 filled."""
-    return torch.cat([x[..., 1:], torch.full_like(x[..., :1], fill)], dim=-1)
+def shift_up_t(x, fill=NEG, k=1):
+    """x[..., t] -> x[..., t+k] along the last (T) axis; t >= T-k filled
+    (all of it for k >= T)."""
+    if k == 0:
+        return x
+    if k >= x.shape[-1]:
+        return torch.full_like(x, fill)
+    return torch.cat([x[..., k:], torch.full_like(x[..., :k], fill)], dim=-1)
 
 
 def _forward_alphas(le, ls, lf):

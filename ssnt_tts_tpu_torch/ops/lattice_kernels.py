@@ -1,7 +1,7 @@
 """SSNT lattice loss on hand-written CUDA kernels.
 
-Port of ssnt_tts_tpu/ops/lattice_pallas.py. Six kernels in csrc/lattice.cu
-(built by ops/_build.py) replace seven of its TPU kernels:
+Port of ssnt_tts_tpu/ops/lattice_pallas.py. Eight kernels in csrc/lattice.cu
+(built by ops/_build.py) replace its nine TPU kernels:
 
   lattice_bidir           fused_alphas_betas_pallas (:817) and its
                           lane-packed twin fused_alphas_betas_pallas_packed
@@ -18,6 +18,12 @@ Port of ssnt_tts_tpu/ops/lattice_pallas.py. Six kernels in csrc/lattice.cu
   lattice_expin           fused_expin_pallas (:1459): the exp-native pass
                           of ssnt_loss_expin (lattice_domain="exp"), on
                           probabilities, renormalized every 4th column
+  lattice_forward_alphas_banded
+                          forward_alphas_pallas_banded (:289): alphas by
+                          K-banded chains (variant="bandedN")
+  lattice_backward_grads_banded
+                          backward_grads_pallas_banded (:726): the
+                          backward-gradients walk on the same banding
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and adds one
 to its `launches` count per launch; for CPU tensors it runs its plain
@@ -35,6 +41,17 @@ measured on a TPU; it is kept so that the same shapes take the same
 kernels as in JAX, not because it is right for an H100. variant="exp"
 runs lattice_bidir_exp with and without gradients (as
 lattice_pallas._loss_fwd_impl does), then the same posterior pass.
+variant="banded" (K = 2) and "banded2|4|8|16" run the banded forward with
+and without gradients and the banded backward (float32 only; no route
+picks them unasked, as in JAX); variant="scan" is ops/lattice_scan.py, in
+plain PyTorch.
+
+The banded walks group columns by global index: U is padded with NEG to a
+multiple of K, where JAX pads to its U-chunk (a multiple of K), so the
+K-groups are the same. The forward's alphas on [0, U) do not depend on the
+padding. In the backward a taller padded top changes only cells that are
+sums of NEG, which are masked or exp to 0: the port matches JAX to
+rounding, and its kernels match their plain versions bit for bit.
 
 `ssnt_loss_expin_kernels` is lattice_pallas.ssnt_loss_expin: the loss of
 the probability-domain quadruple (E, S, F, mcol) on lattice_expin, its
@@ -51,9 +68,11 @@ schedule at every chunk that is a multiple of 4.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ssnt_tts_tpu_torch.ops import _build
+from ssnt_tts_tpu_torch.ops import _build, lattice_scan
 from ssnt_tts_tpu_torch.ops.lattice import (
     NEG,
     _forward_alphas,
@@ -67,7 +86,8 @@ from ssnt_tts_tpu_torch.ops.lattice import (
 )
 
 _FUSED_MAX_COLUMN_ELEMS = 8192
-_QUEUED = ("scan", "banded")  # kernels still to port (ROADMAP.md)
+_BANDS = (2, 4, 8, 16)  # the banded kernels' K (lattice_pallas's probes)
+_AUTO_BANDED_K = 2      # bare variant="banded"
 _TINY = 1e-30  # floor of an exp-domain normalizer (lattice_pallas._TINY)
 _RENORM = 4    # lattice_expin renormalizes every 4th column
 
@@ -76,25 +96,33 @@ def _t_pad(T: int) -> int:
     return ((T + 127) // 128) * 128
 
 
-def grad_mode(variant: str, B: int, T: int) -> str:
-    """"fused" (bidirectional kernel + posterior pass), "plain" (forward
-    alphas + backward gradients) or "exp" (exp-domain bidirectional kernel
-    + posterior pass), as lattice_pallas._grad_mode routes it.
+def grad_mode(variant: str, B: int, T: int) -> tuple:
+    """(mode, K) as lattice_pallas._grad_mode routes it: mode "fused"
+    (bidirectional kernel + posterior pass), "plain" (forward alphas +
+    backward gradients), "exp" (exp-domain bidirectional kernel +
+    posterior pass) or "banded" (the K-banded forward and backward); K is
+    0 but for "banded".
     variant: "log" (auto), "fused"/"fusedpack" (both the bidirectional
-    kernel here), "plain", "bf16" (plain, bfloat16 storage), "exp"."""
+    kernel here), "plain", "bf16" (plain, bfloat16 storage), "exp",
+    "banded" (K = 2) or "banded2", "banded4", "banded8", "banded16". Any
+    other K raises ValueError, where JAX asserts a power of two: "banded32"
+    passes JAX's assert, but JAX documents and tests only these four."""
     if variant in ("plain", "bf16"):
-        return "plain"
+        return "plain", 0
     if variant in ("fused", "fusedpack"):
-        return "fused"
+        return "fused", 0
     if variant == "exp":
-        return "exp"
-    if variant.startswith(_QUEUED):
-        raise NotImplementedError(
-            f"lattice variant {variant!r}: its kernel is not ported yet "
-            f"(ROADMAP.md, Queue 2)")
+        return "exp", 0
+    if variant.startswith("banded"):
+        suffix = variant[len("banded"):] or str(_AUTO_BANDED_K)
+        if not suffix.isdigit() or int(suffix) not in _BANDS:
+            raise ValueError(f"lattice variant {variant!r}: K must be one "
+                             f"of {_BANDS}")
+        return "banded", int(suffix)
     if variant != "log":
         raise ValueError(f"unknown lattice variant {variant!r}")
-    return "fused" if B * _t_pad(T) <= _FUSED_MAX_COLUMN_ELEMS else "plain"
+    fused = B * _t_pad(T) <= _FUSED_MAX_COLUMN_ELEMS
+    return ("fused" if fused else "plain"), 0
 
 
 # ------------------------------------------------------- plain versions
@@ -293,6 +321,140 @@ def lattice_backward_grads_reference(le, ls, lf, alphas, input_length,
     return tuple(x.to(le.dtype) for x in d)
 
 
+# The banded walks' algebra (lattice_pallas.py:76-105, :202-233): a band
+# operator is a list of (..., T) coefficients, entry k acting on t -+ k;
+# a shift by k >= T is all NEG.
+
+def _lse(*terms):
+    """logsumexp of the terms in the TPU kernels' order: the max, the sum of
+    exp(term - max) left to right, then max + log(sum)."""
+    m = terms[0]
+    for x in terms[1:]:
+        m = torch.maximum(m, x)
+    acc = torch.exp(terms[0] - m)
+    for x in terms[1:]:
+        acc = acc + torch.exp(x - m)
+    return m + torch.log(acc)
+
+
+def _compose(A, Bop, shift):
+    """A o Bop (Bop applied first): entry k is the _lse over ascending i of
+    A[i] + shift(Bop[k-i], k=i); an entry of one term is that term."""
+    out = [[] for _ in range(len(A) + len(Bop) - 1)]
+    for i, a in enumerate(A):
+        for j, b in enumerate(Bop):
+            out[i + j].append(a + shift(b, k=i))
+    return [x[0] if len(x) == 1 else _lse(*x) for x in out]
+
+
+def _tree_compose(ops, shift):
+    """ops[-1] o ... o ops[0] for K (a power of two) operators, pairwise:
+    [M0, M1, M2, M3] -> [M1 o M0, M3 o M2] -> [(M3 o M2) o (M1 o M0)]."""
+    while len(ops) > 1:
+        ops = [_compose(ops[i + 1], ops[i], shift)
+               for i in range(0, len(ops), 2)]
+    return ops[0]
+
+
+def _pad_u(x, K: int):
+    """(U, B, T) -> (U', B, T), U' the next multiple of K, padded with NEG."""
+    pad = -x.shape[0] % K
+    if not pad:
+        return x
+    return torch.cat([x, torch.full_like(x[:1], NEG).expand(pad, -1, -1)])
+
+
+def lattice_forward_alphas_banded_reference(le, ls, lf, K: int):
+    """#2 in its kernel's operation order: alphas (U, B, T) f32 from a f32
+    lattice. Column u's operator [lf_u + le_{u-1}, lf_u + ls_{u-1}(t-1)]
+    (le_{-1} = 0, ls_{-1} = NEG, alpha_{-1} = [t == 0] as 0/NEG); the K
+    columns of each group compose by _tree_compose, the chain applies the
+    composed band (the group's last column), and the other columns are
+    replayed from the group's start value."""
+    U, B, T = le.shape
+    le, ls, lf = (_pad_u(x, K) for x in (le, ls, lf))
+    G = le.shape[0] // K
+    le_prev = torch.cat([torch.zeros_like(le[:1]), le[:-1]])
+    ls_prev = torch.cat([torch.full_like(ls[:1], NEG), ls[:-1]])
+    diag = (lf + le_prev).view(G, K, B, T)
+    sub = (lf + shift_down_t(ls_prev)).view(G, K, B, T)
+    P = _tree_compose([[diag[:, j], sub[:, j]] for j in range(K)],
+                      shift_down_t)
+    alphas = torch.empty((G, K, B, T), device=le.device)
+    starts = torch.empty((G, B, T), device=le.device)
+    t_idx = torch.arange(T, device=le.device)
+    alpha = torch.where(t_idx == 0, 0.0, NEG).expand(B, T)
+    for g in range(G):
+        starts[g] = alpha
+        alpha = _lse(*[P[k][g] + shift_down_t(alpha, k=k)
+                       for k in range(K + 1)])
+        alphas[g, K - 1] = alpha
+    a = starts  # the interiors of all groups at once
+    for j in range(K - 1):
+        a = _lse(diag[:, j] + a, sub[:, j] + shift_down_t(a))
+        alphas[:, j] = a
+    return alphas.view(G * K, B, T)[:U]
+
+
+def lattice_backward_grads_banded_reference(le, ls, lf, alphas,
+                                            input_length, output_length,
+                                            g, logz, K: int):
+    """#6 in its kernel's operation order: (d_le, d_ls, d_lf) f32. The
+    columns are uniformized (le, lf -> 0 for u >= U_b, ls -> NEG for
+    u >= U_b - 1; lf above the padded top 0), column u's operator is
+    [leu_u + lf_{u+1}, lsu_u + lf_{u+1}(t+1)], the beta chain starts from
+    [t == T_b - 1] as 0/NEG at the padded top and applies each group's
+    composed band (columns from the top down); the posteriors are
+    lattice_backward_grads_reference's."""
+    U, B, T = le.shape
+    dev = le.device
+    le, ls, lf, alphas = (_pad_u(x, K) for x in (le, ls, lf, alphas))
+    Up = le.shape[0]
+    G = Up // K
+    u_idx = torch.arange(Up, device=dev)[:, None, None]
+    out_len = output_length.long()[None, :, None]
+    t_idx = torch.arange(T, device=dev)[None, :]
+    in_len = input_length.long()[:, None]
+    is_last_t = t_idx == in_len - 1
+    leu = torch.where(u_idx < out_len, le, 0.0)
+    lsu = torch.where(u_idx < out_len - 1, ls, NEG)
+    lfc = torch.where(u_idx < out_len, lf, 0.0)
+    lf_above = torch.cat([lfc[1:], torch.zeros_like(lfc[:1])])
+    diag = (leu + lf_above).view(G, K, B, T)
+    sup = (lsu + shift_up_t(lf_above)).view(G, K, B, T)
+    P = _tree_compose([[diag[:, j], sup[:, j]] for j in range(K - 1, -1, -1)],
+                      shift_up_t)
+    top = torch.empty((G, B, T), device=dev)
+    bottom = torch.empty((G, B, T), device=dev)
+    beta = torch.where(is_last_t, 0.0, NEG)
+    for gi in range(G - 1, -1, -1):
+        top[gi] = beta
+        beta = _lse(*[P[k][gi] + shift_up_t(beta, k=k) for k in range(K + 1)])
+        bottom[gi] = beta
+    bs = [bottom] + [None] * (K - 1) + [top]  # beta at base + j, all groups
+    for j in range(K - 1, 0, -1):
+        bs[j] = _lse(diag[:, j] + bs[j + 1],
+                     sup[:, j] + shift_up_t(bs[j + 1]))
+    betas = torch.stack(bs[:K], dim=1).view(Up, B, T)
+    beta_next = torch.stack(bs[1:], dim=1).view(Up, B, T)
+
+    is_last_u = u_idx == out_len - 1
+    alpha = torch.where(u_idx < out_len, alphas - logz[None, :, None], NEG)
+    cont = lf_above + beta_next
+    cont_emit = torch.where(is_last_u, torch.where(is_last_t, 0.0, NEG),
+                            cont)
+    cont_shift = torch.where(is_last_u, NEG, shift_up_t(cont))
+    neg_g = torch.where(logz <= NEG / 2, 0.0, -g)[None, :, None]
+    t_valid = t_idx < in_len
+
+    def post(score):
+        return neg_g * torch.where(
+            t_valid, torch.exp(torch.clamp(score, max=30.0)), 0.0)
+
+    return (post(alpha + leu + cont_emit)[:U],
+            post(alpha + ls + cont_shift)[:U], post(alpha + betas)[:U])
+
+
 # ------------------------------------------------------------- wrappers
 
 _STORE = (torch.float32, torch.bfloat16)
@@ -446,8 +608,69 @@ def lattice_expin(E, S, F, mcol, input_length, output_length):
     return qn, bn, M, N
 
 
+@functools.lru_cache(maxsize=None)
+def _banded_max_t(K: int, backward: int) -> int:
+    return _build.lattice_library().ssnt_lattice_banded_max_t(K, backward)
+
+
+def _banded_args(le, ls, lf, K: int, backward: int):
+    """_cuda_args for a K-banded kernel, whose registers may cap T below
+    the other kernels' limit (asked once per K and direction)."""
+    lib, U, B, T, dev = _cuda_args(le, ls, lf, torch.float32)
+    if T > _banded_max_t(K, backward):
+        raise ValueError(f"lattice T={T} exceeds the K={K} banded kernel")
+    return lib, U, B, T, dev
+
+
+def _check_band(K: int) -> None:
+    if K not in _BANDS:
+        raise ValueError(f"banded lattice K={K}: want one of {_BANDS}")
+
+
+def lattice_forward_alphas_banded(le, ls, lf, K: int):
+    """(U, B, T) f32 lattice -> alphas (U, B, T) f32 by K-banded chains,
+    K in (2, 4, 8, 16)."""
+    _check_band(K)
+    if le.device.type == "cpu":
+        return lattice_forward_alphas_banded_reference(le, ls, lf, K)
+    lib, U, B, T, dev = _banded_args(le, ls, lf, K, 0)
+    alphas = torch.empty((U, B, T), device=dev)
+    _raise_on(lib.ssnt_lattice_forward_alphas_banded(
+        K, B, T, U, le.data_ptr(), ls.data_ptr(), lf.data_ptr(),
+        alphas.data_ptr(), _stream(dev)), "lattice_forward_alphas_banded")
+    lattice_forward_alphas_banded.launches += 1
+    return alphas
+
+
+def lattice_backward_grads_banded(le, ls, lf, alphas, input_length,
+                                  output_length, g, logz, K: int):
+    """(U, B, T) f32 lattice and alphas, (B,) int32 lengths, (B,) f32
+    upstream cotangent g and logz -> (d_le, d_ls, d_lf) f32 by K-banded
+    beta chains."""
+    _check_band(K)
+    if le.device.type == "cpu":
+        return lattice_backward_grads_banded_reference(
+            le, ls, lf, alphas, input_length, output_length, g, logz, K)
+    lib, U, B, T, dev = _banded_args(le, ls, lf, K, 1)
+    _build.check_arg("alphas", alphas, torch.float32, (U, B, T), dev)
+    for name, x, dt in (("input_length", input_length, torch.int32),
+                        ("output_length", output_length, torch.int32),
+                        ("g", g, torch.float32),
+                        ("logz", logz, torch.float32)):
+        _build.check_arg(name, x, dt, (B,), dev)
+    d = [torch.empty((U, B, T), device=dev) for _ in range(3)]
+    _raise_on(lib.ssnt_lattice_backward_grads_banded(
+        K, B, T, U,
+        *(x.data_ptr() for x in (le, ls, lf, alphas, input_length,
+                                 output_length, g, logz, *d)),
+        _stream(dev)), "lattice_backward_grads_banded")
+    lattice_backward_grads_banded.launches += 1
+    return tuple(d)
+
+
 KERNELS = (lattice_bidir, lattice_forward_alphas, lattice_backward_grads,
-           lattice_backward_betas, lattice_bidir_exp, lattice_expin)
+           lattice_backward_betas, lattice_bidir_exp, lattice_expin,
+           lattice_forward_alphas_banded, lattice_backward_grads_banded)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -457,16 +680,19 @@ for _k in KERNELS:
 class _KernelLoss(torch.autograd.Function):
     """Time-major core, as lattice_pallas._core: (U, B, T) -> (B,) loss.
     The forward runs the exp-domain bidirectional kernel on the exp route
-    (with gradients and without), the bidirectional kernel when gradients
-    are needed on the fused route, and forward alphas alone otherwise."""
+    and the banded forward on the banded route (with gradients and
+    without), the bidirectional kernel when gradients are needed on the
+    fused route, and forward alphas alone otherwise."""
 
     @staticmethod
-    def forward(ctx, le, ls, lf, input_length, output_length, mode,
+    def forward(ctx, le, ls, lf, input_length, output_length, mode, K,
                 need_grad):
         betas = None
         if mode == "exp":
             alphas, betas = lattice_bidir_exp(le, ls, lf, input_length,
                                               output_length)
+        elif mode == "banded":
+            alphas = lattice_forward_alphas_banded(le, ls, lf, K)
         elif need_grad and mode == "fused":
             alphas, betas = lattice_bidir(le, ls, lf, input_length,
                                           output_length)
@@ -475,17 +701,21 @@ class _KernelLoss(torch.autograd.Function):
         logz = gather_logz(alphas, le, input_length, output_length)
         ctx.save_for_backward(le, ls, lf, alphas, betas, logz, input_length,
                               output_length)
+        ctx.K = K
         return -logz
 
     @staticmethod
     def backward(ctx, g):
         le, ls, lf, alphas, betas, logz, il, ol = ctx.saved_tensors
         g = g.float().contiguous()
-        if betas is None:
+        if ctx.K:
+            d = lattice_backward_grads_banded(le, ls, lf, alphas, il, ol, g,
+                                              logz, ctx.K)
+        elif betas is None:
             d = lattice_backward_grads(le, ls, lf, alphas, il, ol, g, logz)
         else:
             d = posterior_grads(le, ls, lf, alphas, betas, logz, il, ol, g)
-        return tuple(d) + (None,) * 4
+        return tuple(d) + (None,) * 5
 
 
 def ssnt_loss_kernels(log_emit, log_shift, log_frame=None,
@@ -495,20 +725,23 @@ def ssnt_loss_kernels(log_emit, log_shift, log_frame=None,
     gradients). variant "bf16" stores the lattice in bfloat16 (f32 compute
     in the kernels, f32 alphas, bf16 gradients); variant "exp" gives +inf,
     not 1e30, for an example with no valid path (its gradients are 0), as
-    the JAX kernel does; see grad_mode for the others. layout "btu"
+    the JAX kernel does; variant "scan" is lattice_scan.ssnt_loss_scan
+    (plain PyTorch, no kernel); see grad_mode for the others. layout "btu"
     (B, T, U) or "ubt" (time-major, what the model's joints emit).
     Returns the (B,) float32 per-example NLL."""
     store = torch.bfloat16 if variant == "bf16" else torch.float32
     args = canonicalize(log_emit, log_shift, log_frame, input_length,
                         output_length, layout, dtype=store)
     le, ls, lf, il, ol = to_ubt(args, layout)
+    if variant == "scan":
+        return lattice_scan.ssnt_loss_scan(le, ls, lf, il, ol, layout="ubt")
     U, B, T = le.shape
-    mode = grad_mode(variant, B, T)
+    mode, K = grad_mode(variant, B, T)
     need_grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (le, ls, lf))
     return _KernelLoss.apply(le.contiguous(), ls.contiguous(),
                              lf.contiguous(), il.contiguous(),
-                             ol.contiguous(), mode, need_grad)
+                             ol.contiguous(), mode, K, need_grad)
 
 
 # The exp-native loss forms its final cell and its posteriors from the logs

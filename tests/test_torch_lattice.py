@@ -255,27 +255,45 @@ def test_kernel_route_matches_plain_route(variant):
     ("log", 32, 80), ("log", 64, 128), ("log", 65, 128), ("log", 256, 80),
     ("log", 3, 7), ("plain", 32, 80), ("fused", 256, 80),
     ("fusedpack", 32, 80), ("bf16", 32, 80), ("exp", 32, 80),
+    ("banded", 32, 80), ("banded4", 256, 80), ("banded16", 3, 7),
 ])
 def test_grad_mode_routes_like_jax(variant, B, T):
-    mode, _ = jpal._grad_mode(variant, B, T)
-    want = {"fused": "fused", "fusedpack": "fused", "exp": "exp"}.get(
-        mode, "plain")
-    assert tk.grad_mode(variant, B, T) == want
+    mode, K = jpal._grad_mode(variant, B, T)
+    want = {"fused": "fused", "fusedpack": "fused", "exp": "exp",
+            "banded": "banded"}.get(mode, "plain")
+    assert tk.grad_mode(variant, B, T) == (want, K)
 
 
 def test_queued_variants_raise():
-    for v in ("scan", "banded", "banded4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """No variant is queued any more: a K outside (2, 4, 8, 16) raises
+    ValueError (JAX asserts a power of two, so it admits "banded32" but
+    never names it), as does an unknown variant."""
+    for v in ("banded3", "banded32", "bandedx", "nonsense"):
+        with pytest.raises(ValueError):
             tk.grad_mode(v, 32, 80)
-    with pytest.raises(ValueError):
-        tk.grad_mode("nonsense", 32, 80)
 
 
 def test_wrappers_take_cpu_or_cuda_only():
     x = [torch.zeros(4, 2, 3, device="meta") for _ in range(3)]
+    lens = [torch.ones(2, dtype=torch.int32, device="meta")] * 2
     before = [k.launches for k in tk.KERNELS]
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tk.lattice_forward_alphas(*x)
+    calls = {
+        tk.lattice_forward_alphas: lambda *a: tk.lattice_forward_alphas(*a),
+        tk.lattice_forward_alphas_banded:
+            lambda *a: tk.lattice_forward_alphas_banded(*a, 2),
+        tk.lattice_backward_grads_banded:
+            lambda le, ls, lf: tk.lattice_backward_grads_banded(
+                le, ls, lf, le, *lens, le[0, :, 0], le[0, :, 0], 4),
+    }
+    assert set(calls) <= set(tk.KERNELS)
+    for call in calls.values():
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call(*x)
     tk.lattice_forward_alphas(*(torch.zeros(4, 2, 3) for _ in range(3)))
+    tk.lattice_forward_alphas_banded(*(torch.zeros(4, 2, 3)
+                                       for _ in range(3)), 4)
+    with pytest.raises(ValueError, match="K=3"):
+        tk.lattice_forward_alphas_banded(*(torch.zeros(4, 2, 3)
+                                           for _ in range(3)), 3)
     # The plain versions on CPU tensors are not kernel launches.
     assert [k.launches for k in tk.KERNELS] == before

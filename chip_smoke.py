@@ -13,7 +13,9 @@ weights, in phases, each reported on its own line:
   1. device: torch's name for the card and nvidia-smi's name/power limit;
   2. build: compile csrc/fused_class_step.cu, csrc/fused_v1_step.cu,
      csrc/beam_step.cu and csrc/lattice.cu with nvcc, one process each, at
-     once (ptxas report);
+     once (ptxas report: registers, spills, static shared memory per
+     instance), and the fused steps' cluster shape and dynamic shared
+     memory per block at W=1, 8, 16 in both dtypes;
   3. step check at B=32, W=8, H=256, D=10, float32 and bfloat16: the
      kernel's class log-probs h and new GRU state against the plain
      PyTorch step (tolerance 1e-4 f32, 3e-2 bf16), and the plain selection
@@ -26,8 +28,9 @@ weights, in phases, each reported on its own line:
      use_pallas=False), float32 and bfloat16: share of utterances whose
      durations agree;
   6. timings: the fused step against the plain step (CUDA events; device
-     time under a CUDA graph, and per eager call), and one request end to
-     end (host clock, split into decode, encode and synthesis);
+     time under a CUDA graph, and per eager call), the wrapper's host time
+     per call (no synchronize), and one request end to end (host clock,
+     split into decode, encode and synthesis);
   7. lattice check: each lattice kernel against its plain version on
      ragged lengths with an il = ol = 1 and a degenerate example: the
      bidirectional kernel at B=32 T=80 U=400 (alphas, betas, loss, and the
@@ -65,7 +68,8 @@ weights, in phases, each reported on its own line:
      v2_duration_decode(fuse_model=False): T launches of #12, durations
      equal to the plain route's;
  13. timings: each new kernel against its plain version (device time
-     under a CUDA graph, and eager), and one tone request end to end
+     under a CUDA graph, and eager; host time per kernel call), and one
+     tone request end to end
      (host clock: tone_decode, and apart its encode, its
      post-processing and the edit distance);
  14. fused v1 step check at B=32, W=8, H=256, M=80, R=64, float32 and
@@ -86,7 +90,8 @@ weights, in phases, each reported on its own line:
      route: #10 has no decode caller, as in JAX); gates: alignment steps 0 or 1 inside each utterance,
      num_frames <= 400, mel finite, slot 0 the best beam;
  17. timings: #15, #11 and #10 against their plain versions (device time
-     under a CUDA graph, and eager), and one v1 request per route end to
+     under a CUDA graph, and eager; host time per kernel call), #15 also at
+     W=1 and W=16, and one v1 request per route end to
      end (host clock: beam_decode, and apart its encode and its backtrace
      + mel gather; audio-seconds per second, B*400*0.0125 s / latency);
  18. exp-domain lattice check on the same ragged lengths (and an example
@@ -1456,6 +1461,7 @@ def check_tones(i, out, il, K: int, Wn: int) -> None:
 
 def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
     """Phases 10-13; returns the new kernels' entries of the JSON line."""
+    from ssnt_tts_tpu_torch.bench_fused import host_us
     from ssnt_tts_tpu_torch.ops import beam_fused
     from ssnt_tts_tpu_torch.ops import beam_kernels as bk
     from ssnt_tts_tpu_torch.ops import edit_distance
@@ -1608,11 +1614,13 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
     with torch.no_grad():
         for name, (kfn, pfn) in fns.items():
             times[name] = (graph_ms(kfn), graph_ms(pfn), eager_ms(kfn),
-                           eager_ms(pfn))
+                           eager_ms(pfn), host_us(kfn))
             log(f"[13 time] {smi}: {name} B={B} W={W} (bf16 model), device "
                 f"time per step (CUDA graph): kernel {times[name][0]:.4f} "
                 f"ms, plain {times[name][1]:.4f} ms; eager per call: kernel "
-                f"{times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms")
+                f"{times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms; "
+                f"host time per kernel call (no synchronize) "
+                f"{times[name][4]:.1f} us")
     for route in ({}, {"fuse_model": False},
                   {"fuse_model": False, "use_pallas": False}):
         stamps = []
@@ -1847,6 +1855,7 @@ def check_v1_request(what: str, out, il, Wn: int) -> int:
 
 def v1_phases(seed: int, dev, smi: str, models) -> list:
     """Phases 14-17; returns the v1 kernels' entries of the JSON line."""
+    from ssnt_tts_tpu_torch.bench_fused import host_us
     from ssnt_tts_tpu_torch.ops import beam_fused
     from ssnt_tts_tpu_torch.ops import beam_kernels as bk
     from ssnt_tts_tpu_torch.parallel import decode
@@ -1989,14 +1998,25 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
     with torch.no_grad():
         for name, (kfn, pfn) in fns.items():
             times[name] = (graph_ms(kfn), graph_ms(pfn), eager_ms(kfn),
-                           eager_ms(pfn))
+                           eager_ms(pfn), host_us(kfn))
             alone = (" (no decode caller: a standalone check at the "
                      "beam-only route's shape)" if name == "beam_v1_step"
                      else "")
             log(f"[17 time] {smi}: {name}{alone} B={B} W={W} (bf16 "
                 f"model), device time per step (CUDA graph): kernel {times[name][0]:.4f} "
                 f"ms, plain {times[name][1]:.4f} ms; eager per call: kernel "
-                f"{times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms")
+                f"{times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms; "
+                f"host time per kernel call (no synchronize) "
+                f"{times[name][4]:.1f} us")
+        for Wn in (1, 16):
+            pk, fwn, kept = v1_carries(bf, toks, il, (100,), Wn, dev)
+            cn = kept[100]
+            fn = (lambda a=(pk, cn["t"], cn["u"], cn["lp"], cn["fin"], il,
+                            cn["pm"], cn["state"], fwn):
+                  beam_fused.fused_v1_beam_step(*a))
+            log(f"[17 time] {smi}: fused_v1_step B={B} W={Wn} (bf16 model), "
+                f"device time per step (CUDA graph): kernel "
+                f"{graph_ms(fn):.4f} ms")
     for label, kw in routes_kw:
         stamps = []
 
@@ -2084,6 +2104,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from ssnt_tts_tpu_torch import convert
+    from ssnt_tts_tpu_torch.bench_fused import host_us
     from ssnt_tts_tpu_torch.ops import _build, beam_fused
     from ssnt_tts_tpu_torch.utils.config import ModelConfig, V2BeamConfig
 
@@ -2115,8 +2136,19 @@ def main() -> int:
         f"in {time.time() - t0:.1f}s")
     for name in SOURCES:
         for ln in _build.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            if ("registers" in ln or "spill" in ln or "Compiling" in ln
+                    or "smem" in ln):
                 log(f"[2 build] {name} ptxas: {ln.strip()}")
+    lib_c, lib_v1 = _build.fused_class_library(), _build.fused_v1_library()
+    for bf16 in (0, 1):
+        for Wn in (1, W, 16):
+            log(f"[2 build] fused steps {('f32', 'bf16')[bf16]} W={Wn}: "
+                f"cluster of {lib_c.ssnt_fused_cluster_blocks()} blocks per "
+                f"utterance ({B * lib_c.ssnt_fused_cluster_blocks()} blocks "
+                f"at B={B}), 256 threads, dynamic shared memory per block: "
+                f"class {lib_c.ssnt_fused_class_smem_bytes(bf16, Wn, 10, 256)}"
+                f" B, v1 {lib_v1.ssnt_fused_v1_smem_bytes(bf16, Wn, 256, 80, 64)}"
+                f" B (16 KB weight-ring slots included)")
 
     cfg = ModelConfig(**SERVE_CFG)
     tree = convert.random_flax_tree(cfg, args.seed)
@@ -2186,9 +2218,11 @@ def main() -> int:
             lambda: beam_fused.fused_class_beam_step(*step_args))
         p_eager = eager_ms(
             lambda: beam_fused.fused_class_beam_step_reference(*step_args))
+        k_host = host_us(lambda: beam_fused.fused_class_beam_step(*step_args))
     log(f"[6 time] {smi}: v2 step B={B} W={W} bf16, device time per step "
         f"(CUDA graph): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; eager "
-        f"per call: kernel {k_eager:.4f} ms, plain {p_eager:.4f} ms")
+        f"per call: kernel {k_eager:.4f} ms, plain {p_eager:.4f} ms; host "
+        f"time per kernel call (no synchronize) {k_host:.1f} us")
     for fm, label in ((None, "kernel"), (False, "plain")):
         route = dict(fuse_model=fm, use_pallas=fm)
         serve(bf, reqs[0], **route)  # warm

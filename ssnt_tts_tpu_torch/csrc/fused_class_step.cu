@@ -24,17 +24,41 @@
 //      the survivor count and the emptied flag);
 //   4. the parent-pointer reorder of the GRU state.
 //
-// What bounds it on an H100: latency. One block per utterance, so at the
-// serving batch (B=32) 32 of 132 SMs are busy, and a step is a few MFLOP
-// (2*W*H*6H for the GRU at W=8, H=256) over ~0.8 MB of bfloat16 weights
-// that stay resident in the 50 MB L2 across blocks and steps. What the
-// design does about that: nothing yet. It is the simple first version;
-// splitting the gate columns over several blocks per utterance, tensor
-// core products and a persistent multi-step launch are later work.
+// What bounds it on an H100: latency, not bytes or operations. A step is
+// ~0.2 GFLOP at B=32, W=8, H=256 over ~0.8 MB of bfloat16 GRU weights that
+// stay in the 50 MB L2 (bound 0.4 us). The first version ran one block per
+// utterance (32 of 132 SMs at B=32), one thread per GRU column walking 256
+// inputs serially with a global load each (0.151 ms). This design:
+//   - a cluster of kCL = 2 blocks per utterance (64 blocks at B=32), block
+//     r computing the GRU for hidden units [128 r, 128 r + 128) (its r, z
+//     and n gate columns on both sides, so the gate math stays local).
+//     Clusters of 4 ran in two waves on an H100 (32 clusters of 4
+//     one-block-per-SM blocks do not all fit in its GPCs at once);
+//   - the GRU's dots on tensor cores in bfloat16 (mma.sync m16n8k16, the
+//     beams as the n = 8 side; float32 as FMAs over the same tiles), the
+//     eight warps taking six 16-column tiles each;
+//   - the rank's 384 KB of packed weight tiles streamed into a ring of
+//     16 or 32 KB shared-memory slots by TMA bulk copies issued at the
+//     step's start and refilled as each slot is consumed (by thread 0 after
+//     the block's barrier that closes the slot: a producer warp would have
+//     to join the cluster barrier while it waits on the ring);
+//   - the correction head split into per-rank partial sums (each over the
+//     rank's units, spread over the block's threads), exchanged through
+//     distributed shared memory behind one cluster barrier and added in
+//     rank order, so both blocks hold the same log-probs and run the same
+//     selection; block 0 writes the beam outputs, each block reorders its
+//     own state columns.
+// What holds it now (ssnt_tts_tpu_torch/probe_fused.py; numbers in
+// PERF.md): the weight stream, at the rate one SM pulls from L2 into
+// shared memory; the prologue's loads; the selection; and the code that
+// runs once per launch, which fetches its instructions from L2 (the kernel
+// is ~10k instructions; unrolling more made it slower).
 //
 // Layouts (row-major, contiguous): xin_path (T, B, H) compute dtype;
-// base_path (T, B, D) f32; embed (D, H), wi/wh (H, 3H), bi (3H), bhn (H)
-// compute dtype; out_k (H, D), out_b (D) f32; prev_class/t/u (B, W) i32;
+// base_path (T, B, D) f32; embed (D, H), bi (3H), bhn (H) compute dtype;
+// wpack (kCL, tiles x 256) compute dtype: wi/wh (H, 3H) packed by
+// ops/beam_fused.pack_gru (gru_step.cuh's tile layout, one stream per
+// cluster rank); out_k (H, D), out_b (D) f32; prev_class/t/u (B, W) i32;
 // log_prob (B, W) f32; is_finished (B, W) bool (1 byte); state (B, W, H)
 // f32; input_length (B,) i32. v2 only: total (B, W) i32, output length
 // (B,) i32, duration table (D,) i32, emptied (B,) bool. Optional debug
@@ -55,10 +79,42 @@ using namespace ssnt_gru;
 
 enum Kind { kV2 = 0, kTone = 1 };
 
+// Dynamic shared memory of one block, byte offsets.
+struct ClassSmem {
+  size_t x, hb, stf, bias, nh, stg, hk, hp, scr, h, bar, ring, total;
+  int nst, chunk;
+};
+
+ClassSmem class_smem(int WN, int D, int H, int csize) {
+  const Layer g = gru_layer(H, 0);
+  const int U = g.MT / 6 * 16;
+  const size_t act = (size_t)WN * act_ld(H) * csize;
+  Carve c;
+  ClassSmem s;
+  s.x = c.take(act);
+  s.hb = c.take(act);
+  // float32 state rows (stride act_ld(H)); in float32 compute, hb itself
+  s.stf = csize == 4 ? s.hb : c.take((size_t)WN * act_ld(H) * sizeof(float));
+  s.bias = c.take(sizeof(float) * (4 * H + D));  // bi, bhn, out_b
+  s.nh = c.take(sizeof(float) * WN * U);
+  s.stg = c.take(sizeof(float) * g.MT * 16 * WN);
+  s.hk = c.take(sizeof(float) * U * D);
+  s.hp = c.take(sizeof(float) * kCL * kMaxC);
+  s.scr = c.take(sizeof(float) * kThreads);
+  s.h = c.take(sizeof(float) * kMaxC);
+  s.bar = c.take(sizeof(uint64_t) * kMaxStages);
+  s.ring = c.at;
+  const RingShape r = ring_shape(s.ring);
+  s.nst = r.nst;
+  s.chunk = r.chunk;
+  s.total = s.ring + (size_t)s.nst * s.chunk;
+  return s;
+}
+
 struct StepArgs {
   int B, W, D, H, s;
   const void* xin_path; const float* base_path;
-  const void* embed; const void* wi; const void* bi; const void* wh;
+  const void* embed; const void* wpack; const void* bi;
   const void* bhn; const float* out_k; const float* out_b;
   const int* prev_class; const float* state; const float* lp;
   const uint8_t* fin; const int* t; const int* u; const int* il;
@@ -69,55 +125,101 @@ struct StepArgs {
   float* o_state; float* dbg_h; float* dbg_newh;
   V2Opts v2;
   int empty_id;  // tone only
+  Stream st;
+  ClassSmem sm;
 };
 
-// One block per utterance, so one block per SM is all a launch needs:
-// saying so (minBlocks 1) lets ptxas keep the 6*WMAX GRU accumulators in
-// registers (without it the WMAX=16 variants were held to 128 registers
-// and spilled, and the W=8 step ran 4% slower on an H100).
-template <int KIND, typename CT, int WMAX>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_class_step_kernel(StepArgs a) {
-  const int b = blockIdx.x, tid = threadIdx.x;
+// One block per SM (minBlocks 1): ptxas may keep the accumulators of six
+// m-tiles x two n-tiles (W=16) in registers.
+template <int KIND, typename CT, int NTN>
+__global__ void __cluster_dims__(kCL, 1, 1) __launch_bounds__(kThreads, 1)
+fused_class_step_kernel(const __grid_constant__ StepArgs a) {
+  constexpr int WN = NTN * 8;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int b = blockIdx.x / kCL, tid = threadIdx.x;
   const int B = a.B, W = a.W, D = a.D, H = a.H, C = W * D;
+  const int U = a.st.l[0].MT / 6 * 16, k0 = rank * U;
+  const int nu = max(0, min(U, H - k0)), lds = act_ld(H);
   const CT* xin = static_cast<const CT*>(a.xin_path);
   const CT* embed = static_cast<const CT*>(a.embed);
-  const CT* wi = static_cast<const CT*>(a.wi);
-  const CT* bi = static_cast<const CT*>(a.bi);
-  const CT* wh = static_cast<const CT*>(a.wh);
-  const CT* bhn = static_cast<const CT*>(a.bhn);
 
-  extern __shared__ float smem[];
-  float* x_s = smem;               // (W, H) GRU input, compute-dtype values
-  float* hb_s = x_s + W * H;       // (W, H) rnd(state)
-  float* nh_s = hb_s + W * H;      // (W, H) new_h before the reorder
-  float* h_s = nh_s + W * H;       // (W, D) logits, then log-probs
+  extern __shared__ __align__(128) unsigned char smem[];
+  CT* x_s = reinterpret_cast<CT*>(smem + a.sm.x);    // (WN, lds) GRU input
+  CT* hb_s = reinterpret_cast<CT*>(smem + a.sm.hb);  // (WN, lds) rnd(state)
+  float* stf_s = reinterpret_cast<float*>(smem + a.sm.stf);  // (WN, lds) state
+  float* bias_s = reinterpret_cast<float*>(smem + a.sm.bias);  // bi|bhn|out_b
+  float* nh_s = reinterpret_cast<float*>(smem + a.sm.nh);  // (WN, U) new_h
+  float* stg = reinterpret_cast<float*>(smem + a.sm.stg);
+  float* hk_s = reinterpret_cast<float*>(smem + a.sm.hk);  // (U, D) out_k rows
+  float* hp_s = reinterpret_cast<float*>(smem + a.sm.hp);  // (kCL, kMaxC)
+  float* scr = reinterpret_cast<float*>(smem + a.sm.scr);
+  float* h_s = reinterpret_cast<float*>(smem + a.sm.h);    // (W, D)
   __shared__ SelectSmem sel;
+  __shared__ Stream st_s;  // the weight stream's layers
+  __shared__ BeamIn bin;   // the beams' carry
 
-  // ---- 1. AR class cell ----
-  for (int i = tid; i < W * H; i += kThreads) {
-    const int w = i / H, k = i - w * H;
-    const int pc = a.prev_class[b * W + w];
-    const float e = ld(embed, (size_t)pc * H + k);
-    const float xi = ld(xin, ((size_t)a.s * B + b) * H + k);
-    x_s[i] = rnd<CT>(__fadd_rn(e, xi));
-    hb_s[i] = rnd<CT>(a.state[((size_t)b * W + w) * H + k]);
+  if (tid == 0) st_s = a.st;
+  Ring<CT> ring{reinterpret_cast<CT*>(smem + a.sm.ring),
+                reinterpret_cast<uint64_t*>(smem + a.sm.bar),
+                static_cast<const CT*>(a.wpack) +
+                    (size_t)rank * a.st.tiles * kTile,
+                &st_s, a.sm.nst, 0};
+  ring.start();
+  load_beams(bin, b, W, a.lp, a.fin, a.t, a.u, a.tot, a.prev_class, a.il,
+             a.ol);
+  __syncthreads();
+
+  // ---- 1. AR class cell: x = rnd(embed[prev_class] + xin_path[s]) and
+  // the state for every beam (zero padding), the biases and the rank's
+  // out_k rows ----
+#pragma unroll 4
+  for (int i = tid; i < WN * lds; i += kThreads) {
+    const int w = i / lds, k = i - w * lds;
+    float xv = 0.0f, sv = 0.0f;
+    if (w < W && k < H) {
+      xv = rnd<CT>(__fadd_rn(ld(embed, (size_t)bin.pc[w] * H + k),
+                             ld(xin, ((size_t)a.s * B + b) * H + k)));
+      sv = a.state[((size_t)b * W + w) * H + k];
+    }
+    x_s[i] = st<CT>(xv);
+    stf_s[i] = sv;  // in float32 compute this is hb_s, rnd(state) itself
+    hb_s[i] = st<CT>(rnd<CT>(sv));
   }
+  load_segs(bias_s, Segs<CT, 3>{{a.bi, a.bhn, a.out_b},
+                                {3 * H, H, D},
+                                {0, 3 * H, 4 * H},
+                                {false, false, true}});
+  load_segs(hk_s, Segs<CT, 1>{{a.out_k + (size_t)k0 * D}, {nu * D}, {0},
+                              {true}});
+  cluster_arrive();  // this block's buffers are ready for its peers
   __syncthreads();
 
-  gru_columns<CT, WMAX>(x_s, hb_s, a.state + (size_t)b * W * H, wi, bi, wh,
-                        bhn, W, H, nh_s,
-                        a.dbg_newh ? a.dbg_newh + (size_t)b * W * H : nullptr);
+  const Layer& gl = st_s.l[0];
+  dot_layer<CT, NTN>(ring, gl, x_s, hb_s, lds, stg);
+  gru_epilogue<CT, WN>(gl, stg, rank, W, bias_s, bias_s + 3 * H, stf_s, lds,
+                       nh_s,
+                       a.dbg_newh ? a.dbg_newh + (size_t)b * W * H : nullptr,
+                       [](int, int, float) {});
   __syncthreads();
 
-  // Correction head + per-position base logits (float32).
-  for (int i = tid; i < W * D; i += kThreads) {
-    const int w = i / D, d = i - w * D;
-    float acc = 0.0f;
-    for (int k = 0; k < H; ++k)
-      acc = __fmaf_rn(nh_s[w * H + k], a.out_k[(size_t)k * D + d], acc);
-    h_s[i] = __fadd_rn(a.base_path[((size_t)a.s * B + b) * D + d],
-                       __fadd_rn(acc, a.out_b[d]));
+  // Correction head: the rank's partial new_h . out_k (float32), to every
+  // block; the partials are added in rank order, then base + (sum + out_b).
+  block_sums(C, nu, scr, h_s, [&](int o, int i, float acc) {
+    const int w = o / D, d = o - w * D;
+    return __fmaf_rn(nh_s[w * U + i], hk_s[i * D + d], acc);
+  });
+  cluster_wait();
+  {
+    const Bcast<float> hp = bcast_of(hp_s);
+    if (tid < C) hp.put((size_t)rank * kMaxC + tid, h_s[tid]);
+  }
+  cluster_sync();
+  if (tid < C) {
+    const int d = tid % D;
+    float sum = hp_s[tid];
+    for (int r = 1; r < kCL; ++r) sum = __fadd_rn(sum, hp_s[r * kMaxC + tid]);
+    h_s[tid] = __fadd_rn(a.base_path[((size_t)a.s * B + b) * D + d],
+                         __fadd_rn(sum, bias_s[4 * H + d]));
   }
   __syncthreads();
   if (tid < W) {  // log_softmax: shifted - log(sum(exp(shifted)))
@@ -129,7 +231,7 @@ fused_class_step_kernel(StepArgs a) {
     const float ls = logf(sum);
     for (int d = 0; d < D; ++d) {
       row[d] = __fsub_rn(__fsub_rn(row[d], m), ls);
-      if (a.dbg_h) a.dbg_h[((size_t)b * W + tid) * D + d] = row[d];
+      if (a.dbg_h && rank == 0) a.dbg_h[((size_t)b * W + tid) * D + d] = row[d];
     }
   }
   __syncthreads();
@@ -137,67 +239,73 @@ fused_class_step_kernel(StepArgs a) {
   // ---- 2. candidate grid, one thread per candidate c = w*D + d ----
   bool valid = false;
   if (tid < C) {
-    const int w = tid / D, d = tid - w * D, o = b * W + w;
+    const int w = tid / D, d = tid - w * D;
     const Cand x = KIND == kV2
-        ? v2_candidate(d, D, h_s[tid], a.lp[o], a.fin[o], a.tot[o], a.t[o],
-                       a.u[o], a.il[b], a.ol[b], a.dtab, a.v2)
-        : tone_candidate(d, h_s[tid], a.lp[o], a.fin[o], a.t[o], a.u[o],
-                         a.il[b], a.empty_id);
+        ? v2_candidate(d, D, h_s[tid], bin.lp[w], bin.fin[w], bin.tot[w],
+                       bin.t[w], bin.u[w], bin.il, bin.ol, a.dtab, a.v2)
+        : tone_candidate(d, h_s[tid], bin.lp[w], bin.fin[w], bin.t[w],
+                         bin.u[w], bin.il, a.empty_id);
     store_cand(sel, tid, x);
     valid = x.valid;
   }
 
-  // ---- 3. selection ----
+  // ---- 3. selection (every block of the cluster, on the same h) ----
   const int n = select_beams(sel, C, W, valid, KIND == kV2 && !a.v2.test_mode);
-  write_selected(sel, b, W, D, a.out);
-  if (KIND == kV2 && tid == 0) {
-    a.o_nsurv[b] = n;
-    a.o_emptied[b] = (uint8_t)(a.emptied[b] || n == 0);
+  if (rank == 0) {
+    write_selected(sel, b, W, D, a.out);
+    if (KIND == kV2 && tid == 0) {
+      a.o_nsurv[b] = n;
+      a.o_emptied[b] = (uint8_t)(a.emptied[b] || n == 0);
+    }
   }
 
-  // ---- 4. parent-pointer reorder of the GRU state ----
-  reorder_rows(nh_s, a.o_state + (size_t)b * W * H, sel, W, D, H);
+  // ---- 4. parent-pointer reorder of the rank's state columns ----
+  for (int i = tid; i < W * nu; i += kThreads) {
+    const int j = i / nu, c = i - j * nu;
+    a.o_state[((size_t)b * W + j) * H + k0 + c] = nh_s[(sel.src[j] / D) * U + c];
+  }
 }
 
-size_t smem_bytes(int W, int D, int H) {
-  return sizeof(float) * (3 * (size_t)W * H + (size_t)W * D);
-}
-
-template <int KIND, typename CT, int WMAX>
-cudaError_t launch(const StepArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.W, a.D, a.H);
-  auto kern = fused_class_step_kernel<KIND, CT, WMAX>;
-  // The static SelectSmem counts against the 48 KB a launch may use
-  // without opting in.
-  if (smem + sizeof(SelectSmem) > 48 * 1024) {
+template <int KIND, typename CT, int NTN>
+cudaError_t launch(StepArgs a, cudaStream_t stream) {
+  a.sm = class_smem(NTN * 8, a.D, a.H, sizeof(CT));
+  a.st.n = 1;
+  a.st.l[0] = gru_layer(a.H, 0);
+  finish_stream(a.st, a.sm.chunk, sizeof(CT));
+  if (a.sm.nst < 2) return cudaErrorInvalidValue;
+  auto kern = fused_class_step_kernel<KIND, CT, NTN>;
+  // Opt in to the dynamic shared memory once per size (not inside a CUDA
+  // graph capture after the first call).
+  static size_t opted = 0;
+  if (a.sm.total > opted) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.sm.total);
     if (e != cudaSuccess) return e;
+    opted = a.sm.total;
   }
-  kern<<<a.B, kThreads, smem, stream>>>(a);
+  kern<<<a.B * kCL, kThreads, a.sm.total, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int KIND>
 cudaError_t dispatch(int compute_bf16, const StepArgs& a, cudaStream_t st) {
   if (compute_bf16) {
-    if (a.W <= 4) return launch<KIND, __nv_bfloat16, 4>(a, st);
-    if (a.W <= 8) return launch<KIND, __nv_bfloat16, 8>(a, st);
-    return launch<KIND, __nv_bfloat16, 16>(a, st);
+    if (a.W <= 8) return launch<KIND, __nv_bfloat16, 1>(a, st);
+    return launch<KIND, __nv_bfloat16, 2>(a, st);
   }
-  if (a.W <= 4) return launch<KIND, float, 4>(a, st);
-  if (a.W <= 8) return launch<KIND, float, 8>(a, st);
-  return launch<KIND, float, 16>(a, st);
+  if (a.W <= 8) return launch<KIND, float, 1>(a, st);
+  return launch<KIND, float, 2>(a, st);
 }
 
 bool bad_shape(int B, int W, int D, int H) {
-  return B < 1 || W < 1 || W > kMaxW || D < 1 || W * D > kMaxC || H < 1;
+  return B < 1 || W < 1 || W > kMaxW || D < 1 || W * D > kMaxC || H < 1 ||
+         gru_layer(H, 0).MT > kMaxMT;
 }
 
 void set_common(StepArgs& a, int B, int W, int D, int H, int s,
                 const void* xin_path, const void* base_path,
-                const void* embed, const void* wi, const void* bi,
-                const void* wh, const void* bhn, const void* out_k,
+                const void* embed, const void* wpack,
+                const void* bi, const void* bhn, const void* out_k,
                 const void* out_b, const void* prev_class, const void* state,
                 const void* lp, const void* fin, const void* t,
                 const void* u, const void* il, void* o_pred, void* o_lp,
@@ -205,7 +313,7 @@ void set_common(StepArgs& a, int B, int W, int D, int H, int s,
                 void* o_state, void* dbg_h, void* dbg_newh) {
   a.B = B; a.W = W; a.D = D; a.H = H; a.s = s;
   a.xin_path = xin_path; a.base_path = (const float*)base_path;
-  a.embed = embed; a.wi = wi; a.bi = bi; a.wh = wh; a.bhn = bhn;
+  a.embed = embed; a.wpack = wpack; a.bi = bi; a.bhn = bhn;
   a.out_k = (const float*)out_k; a.out_b = (const float*)out_b;
   a.prev_class = (const int*)prev_class; a.state = (const float*)state;
   a.lp = (const float*)lp; a.fin = (const uint8_t*)fin;
@@ -222,12 +330,20 @@ void set_common(StepArgs& a, int B, int W, int D, int H, int s,
 
 extern "C" int ssnt_fused_step_max_candidates() { return kMaxC; }
 extern "C" int ssnt_fused_step_max_beams() { return kMaxW; }
+extern "C" int ssnt_fused_cluster_blocks() { return kCL; }
+
+// Dynamic shared memory (bytes) of one block at these widths, the weight
+// ring's 16 or 32 KB slots included.
+extern "C" int ssnt_fused_class_smem_bytes(int compute_bf16, int W, int D,
+                                           int H) {
+  return (int)class_smem(W <= 8 ? 8 : 16, D, H, compute_bf16 ? 2 : 4).total;
+}
 
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ssnt_fused_v2_step(
     int compute_bf16, int B, int W, int D, int H, int s,
     const void* xin_path, const void* base_path, const void* embed,
-    const void* wi, const void* bi, const void* wh, const void* bhn,
+    const void* wpack, const void* bi, const void* bhn,
     const void* out_k, const void* out_b, const void* prev_class,
     const void* state, const void* lp, const void* fin, const void* tot,
     const void* t, const void* u, const void* il, const void* ol,
@@ -239,7 +355,7 @@ extern "C" int ssnt_fused_v2_step(
     float diag_lo, float diag_hi, void* stream) {
   if (bad_shape(B, W, D, H)) return (int)cudaErrorInvalidValue;
   StepArgs a;
-  set_common(a, B, W, D, H, s, xin_path, base_path, embed, wi, bi, wh, bhn,
+  set_common(a, B, W, D, H, s, xin_path, base_path, embed, wpack, bi, bhn,
              out_k, out_b, prev_class, state, lp, fin, t, u, il, o_pred,
              o_lp, o_nt, o_nu, o_fin, o_branch, o_state, dbg_h, dbg_newh);
   a.tot = (const int*)tot; a.ol = (const int*)ol; a.dtab = (const int*)dtab;
@@ -259,7 +375,7 @@ extern "C" int ssnt_fused_v2_step(
 extern "C" int ssnt_fused_tone_step(
     int compute_bf16, int B, int W, int K, int H, int s,
     const void* xin_path, const void* base_path, const void* embed,
-    const void* wi, const void* bi, const void* wh, const void* bhn,
+    const void* wpack, const void* bi, const void* bhn,
     const void* out_k, const void* out_b, const void* prev_class,
     const void* state, const void* lp, const void* fin, const void* t,
     const void* u, const void* il, void* o_pred, void* o_lp, void* o_nt,
@@ -267,7 +383,7 @@ extern "C" int ssnt_fused_tone_step(
     void* dbg_newh, int empty_id, void* stream) {
   if (bad_shape(B, W, K, H)) return (int)cudaErrorInvalidValue;
   StepArgs a;
-  set_common(a, B, W, K, H, s, xin_path, base_path, embed, wi, bi, wh, bhn,
+  set_common(a, B, W, K, H, s, xin_path, base_path, embed, wpack, bi, bhn,
              out_k, out_b, prev_class, state, lp, fin, t, u, il, o_pred,
              o_lp, o_nt, o_nu, o_fin, o_branch, o_state, dbg_h, dbg_newh);
   a.tot = nullptr; a.ol = nullptr; a.dtab = nullptr; a.emptied = nullptr;

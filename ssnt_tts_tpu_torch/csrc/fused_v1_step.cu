@@ -16,7 +16,7 @@
 //        new_h = the GRU cell of gru_step.cuh
 //        pre = rnd(tanh(rnd(rnd(rnd(new_h) . dec_pre_k) + dec_pre_b)))
 //        q = rnd(rnd(pre . dec_proj_k) + dec_proj_b)
-//        logit_k = sum_r rnd(rnd(p_kr) * q_kr) (float32, in order)
+//        logit_k = sum_r rnd(rnd(p_kr) * q_kr) (float32)
 //                  + enc_bias_k + (new_h . dec_bias_k + dec_bias_b_k)
 //        h = log_softmax(logits), as shifted - log(exp + exp)
 //        mel = rnd(rnd(em) + rnd(rnd(rnd(new_h) . dec_mel_k) + dec_mel_b))
@@ -28,24 +28,51 @@
 //      was finished (so its candidate is the finished padding) keeps the
 //      parent's previous mel frame instead of the new one.
 //
-// What bounds it on an H100: latency. One block of 256 threads per
-// utterance, so at the serving batch (B=32) 32 of 132 SMs are busy; a
-// frame is ~0.27 GFLOP at W=8 (prenet, GRU and joints, ~526k MAC per
-// beam) over ~1.05 MB of bfloat16 weights that stay resident in the 50 MB
-// L2 across blocks and frames. Each dot runs one thread per output column
-// with one register accumulator per beam, walking its input serially, so
-// the prenet's and the GRU's 256-long walks are the kernel's time. What
-// the design does about that: nothing yet; it is the simple first version
-// (tensor cores, several blocks per utterance and a persistent
-// multi-frame launch are later work).
+// What bounds it on an H100: latency, not bytes or operations. A frame is
+// ~0.27 GFLOP at B=32, W=8 (prenet, GRU and joints, ~526k MAC per beam)
+// over ~1.05 MB of bfloat16 weights that stay in the 50 MB L2 (bound 0.6
+// us). The first version ran one 256-thread block per utterance (32 of 132
+// SMs at B=32), one thread per output column walking its inputs serially
+// with a global load each: ~1,100 dependent L2 loads a frame (0.280 ms).
+// This design:
+//   - a cluster of kCL = 2 blocks per utterance (64 blocks at B=32), block
+//     r owning half of every layer's output columns (prenet 128 of 256,
+//     GRU hidden units [128 r, 128 r + 128) with their gates, dec_pre 32
+//     of 64, mel 48-column shares, dec_proj 64 of 128); after each layer
+//     a block writes its slice of the activations into both blocks of the
+//     cluster through distributed shared memory, then a cluster barrier
+//     (five a frame). Clusters of 4 ran in two waves on an H100;
+//   - every dot on tensor cores in bfloat16 (mma.sync m16n8k16, the beams
+//     as the n = 8 side; float32 as FMAs over the same tiles), layers of
+//     fewer than eight column tiles split over the warps by input tile;
+//   - the rank's ~520 KB of packed weight tiles (bfloat16) streamed in
+//     the order the layers use them into a ring of 16 or 32 KB
+//     shared-memory slots by TMA bulk copies, issued at the frame's start
+//     and refilled as each slot is consumed (by thread 0 after the block's
+//     barrier that closes the slot), so the loads overlap the gathers, the
+//     cluster barriers and each other;
+//   - the state, the biases and the beams' carry read into shared memory
+//     at the start; the dec_bias dot as per-rank partial sums over the
+//     rank's units (spread over the block), exchanged with the GRU's
+//     output and added in rank order; the rank sums computed by both
+//     blocks from the same q: both hold the same log-probs and run the same
+//     selection. Block 0 writes the beam outputs; each block reorders its
+//     own state and mel columns.
+// What holds it now (ssnt_tts_tpu_torch/probe_fused.py; numbers in
+// PERF.md): the GRU's weight stream, at the rate one SM pulls from L2
+// into shared memory; the prologue; and the single-slot layers (prenet,
+// dec_pre, mel, dec_proj), whose code runs once per launch and fetches its
+// instructions from L2 (the kernel is ~16k instructions).
 //
 // Layouts (row-major, contiguous): enc_pack (B, T, 2R+2+M) f32; t/u (B, W)
 // i32; log_prob (B, W) f32; is_finished (B, W) bool (1 byte);
 // input_length (B,) i32; prev_mel (B, W, M) f32; state (B, W, H) f32;
-// weights in CT: prenet w1 (M, H), b1 (H), w2 (H, H), b2 (H), wi/wh
-// (H, 3H), bi (3H), bhn (H), dec_pre_k (H, R), dec_pre_b (R), dec_proj_k
-// (R, 2R), dec_proj_b (2R), dec_mel_k (H, M), dec_mel_b (M); f32:
-// dec_bias_k (H, 2), dec_bias_b (2). Outputs: (B, W) prediction,
+// biases in CT: prenet b1 (H), b2 (H), bi (3H), bhn (H), dec_pre_b (R),
+// dec_proj_b (2R), dec_mel_b (M); wpack (kCL, tiles x 256) in CT: the
+// kernels prenet w1 (M, H), w2 (H, H), wi/wh (H, 3H), dec_pre_k (H, R),
+// dec_mel_k (H, M), dec_proj_k (R, 2R) packed by ops/beam_fused (one
+// stream per cluster rank, in that order, gru_step.cuh's tile layout);
+// f32: dec_bias_k (H, 2), dec_bias_b (2). Outputs: (B, W) prediction,
 // log_prob, next_t, next_u, is_finished, branch, t_history; mel (B, W, M)
 // and state (B, W, H) f32, reordered. Optional debug outputs (null to
 // skip): h (B, W, 2), new_h (B, W, H) and mel (B, W, M) before the
@@ -63,94 +90,270 @@ namespace {
 using namespace ssnt_beam;
 using namespace ssnt_gru;
 
+// The rank's weight stream, in the order the frame runs the layers.
+enum { kPre1 = 0, kPre2, kGru, kDecPre, kMel, kProj, kNumLayers };
+
+// Bias offsets in the block's float copy: b1, b2, bi, bhn, dec_pre_b,
+// dec_proj_b, dec_mel_b, dec_bias_b.
+struct V1Bias {
+  int b1, b2, bi, bhn, pre, proj, mel, db, n;
+};
+
+__host__ __device__ inline V1Bias v1_bias(int H, int M, int R) {
+  V1Bias o;
+  o.b1 = 0; o.b2 = H; o.bi = 2 * H; o.bhn = 5 * H; o.pre = 6 * H;
+  o.proj = o.pre + R; o.mel = o.proj + 2 * R; o.db = o.mel + M; o.n = o.db + 2;
+  return o;
+}
+
+Stream v1_stream(int H, int M, int R) {
+  Stream s;
+  s.n = kNumLayers;
+  const int dims[kNumLayers][2] = {{M, H}, {H, H}, {H, H},
+                                   {H, R}, {H, M}, {R, 2 * R}};
+  int t0 = 0;
+  for (int i = 0; i < kNumLayers; ++i) {
+    s.l[i] = i == kGru ? gru_layer(H, t0)
+                       : dense_layer(dims[i][0], dims[i][1], t0);
+    t0 += layer_tiles(s.l[i]);
+  }
+  return s;
+}
+
+// Dynamic shared memory of one block, byte offsets.
+struct V1Smem {
+  size_t x0, x1, x, hb, hn, stf, bias, pre, q, g, nh, mel, stg, dbk, dbp,
+      scr, sums, part, h, bar, ring, total;
+  int nst, chunk;
+};
+
+V1Smem v1_smem(int WN, int H, int M, int R, int csize) {
+  const Stream st = v1_stream(H, M, R);
+  const int U = st.l[kGru].MT / 6 * 16, P = 2 * R + 2 + M;
+  size_t stg = 0;
+  for (int i = 0; i < kNumLayers; ++i) {
+    const size_t n = (size_t)ksplit(st.l[i]) * st.l[i].MT * 16 * WN;
+    stg = n > stg ? n : stg;
+  }
+  const size_t ah = (size_t)WN * act_ld(H) * csize;
+  Carve c;
+  V1Smem s;
+  s.x0 = c.take((size_t)WN * act_ld(M) * csize);
+  s.x1 = c.take(ah);
+  s.x = c.take(ah);
+  s.hb = c.take(ah);
+  // rnd(new_h) takes the prenet's hidden layer's place: every block of the
+  // cluster is past the prenet when the GRU's outputs arrive.
+  s.hn = s.x1;
+  // float32 state rows (stride act_ld(H)); in float32 compute, hb itself
+  s.stf = csize == 4 ? s.hb : c.take((size_t)WN * act_ld(H) * sizeof(float));
+  s.bias = c.take(sizeof(float) * v1_bias(H, M, R).n);
+  s.pre = c.take((size_t)WN * act_ld(R) * csize);
+  s.q = c.take(sizeof(float) * WN * 2 * R);
+  s.g = c.take(sizeof(float) * WN * P);
+  s.nh = c.take(sizeof(float) * WN * U);
+  s.mel = c.take(sizeof(float) * WN * st.l[kMel].MT * 16);
+  s.stg = c.take(sizeof(float) * stg);
+  s.dbk = c.take(sizeof(float) * U * 2);
+  s.dbp = c.take(sizeof(float) * kCL * 2 * kMaxW);
+  s.scr = c.take(sizeof(float) * kThreads);
+  s.sums = c.take(sizeof(float) * 2 * kMaxW);
+  s.part = c.take(sizeof(float) * 2 * kMaxW);
+  s.h = c.take(sizeof(float) * 2 * kMaxW);
+  s.bar = c.take(sizeof(uint64_t) * kMaxStages);
+  s.ring = c.at;
+  const RingShape r = ring_shape(s.ring);
+  s.nst = r.nst;
+  s.chunk = r.chunk;
+  s.total = s.ring + (size_t)s.nst * s.chunk;
+  return s;
+}
+
 struct V1Args {
   int B, W, T, H, M, R;
   const float* enc_pack; const int* t; const int* u; const float* lp;
   const uint8_t* fin; const int* il; const float* prev_mel;
-  const float* state;
-  const void* pw1; const void* pb1; const void* pw2; const void* pb2;
-  const void* wi; const void* bi; const void* wh; const void* bhn;
-  const void* dpre_k; const void* dpre_b; const void* dproj_k;
-  const void* dproj_b; const float* dbias_k; const float* dbias_b;
-  const void* dmel_k; const void* dmel_b;
+  const float* state; const void* wpack;
+  const void* pb1; const void* pb2; const void* bi; const void* bhn;
+  const void* dpre_b; const void* dproj_b; const float* dbias_k;
+  const float* dbias_b; const void* dmel_b;
   BeamOut out;
   int* o_thist; float* o_mel; float* o_state;
   float* dbg_h; float* dbg_newh; float* dbg_mel;
+  Stream st;
+  V1Smem sm;
 };
 
-// Width of the buffer that holds the prenet's hidden layer, and later
-// pre (W, R) and q (W, 2R).
-__host__ __device__ __forceinline__ int hidden_width(int H, int R) {
-  return H > 3 * R ? H : 3 * R;
-}
-
-// minBlocks 1 as in fused_class_step.cu: one block per utterance.
-template <typename CT, int WMAX>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_v1_step_kernel(V1Args a) {
-  const int b = blockIdx.x, tid = threadIdx.x;
+// minBlocks 1 as in fused_class_step.cu: one block per SM.
+template <typename CT, int NTN>
+__global__ void __cluster_dims__(kCL, 1, 1) __launch_bounds__(kThreads, 1)
+fused_v1_step_kernel(const __grid_constant__ V1Args a) {
+  constexpr int WN = NTN * 8;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int b = blockIdx.x / kCL, tid = threadIdx.x;
   const int W = a.W, T = a.T, H = a.H, M = a.M, R = a.R;
-  const int R2 = 2 * R, P = R2 + 2 + M, C = 2 * W, L = hidden_width(H, R);
+  const int R2 = 2 * R, P = R2 + 2 + M, C = 2 * W;
   const size_t bw = (size_t)b * W;
-  auto cw = [](const void* p) { return static_cast<const CT*>(p); };
+  const Layer* L = a.st.l;  // scalars only; the ring reads st_s
+  const int U = L[kGru].MT / 6 * 16, k0 = rank * U;
+  const int nu = max(0, min(U, H - k0));
+  const int UM = L[kMel].MT * 16, m0 = rank * UM;
+  const int nm = max(0, min(UM, M - m0));
+  const int ldm = act_ld(M), ldh = act_ld(H), ldr = act_ld(R);
 
-  extern __shared__ float smem[];
-  float* x0_s = smem;           // (W, M) rnd(prev_mel)
-  float* x1_s = x0_s + W * M;   // (W, L) prenet hidden; later pre, q
-  float* x_s = x1_s + W * L;    // (W, H) GRU input
-  float* hb_s = x_s + W * H;    // (W, H) rnd(state), later rnd(new_h)
-  float* nh_s = hb_s + W * H;   // (W, H) new_h before the reorder
-  float* g_s = nh_s + W * H;    // (W, P) gathered enc_pack rows
-  float* mel_s = g_s + W * P;   // (W, M) mel before the reorder
-  float* h_s = mel_s + W * M;   // (W, 2) logits, then log-probs
-  float* pre_s = x1_s;          // (W, R)
-  float* q_s = x1_s + W * R;    // (W, 2R)
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto f32 = [&](size_t off) { return reinterpret_cast<float*>(smem + off); };
+  auto act = [&](size_t off) { return reinterpret_cast<CT*>(smem + off); };
+  CT* x0_s = act(a.sm.x0);    // (WN, ldm) rnd(prev_mel)
+  CT* x1_s = act(a.sm.x1);    // (WN, ldh) prenet hidden
+  CT* x_s = act(a.sm.x);      // (WN, ldh) GRU input
+  CT* hb_s = act(a.sm.hb);    // (WN, ldh) rnd(state)
+  CT* hn_s = act(a.sm.hn);    // (WN, ldh) rnd(new_h), in x1's place
+  float* stf_s = f32(a.sm.stf);  // (WN, ldh) state
+  float* bias_s = f32(a.sm.bias);
+  const V1Bias bo = v1_bias(H, M, R);
+  CT* pre_s = act(a.sm.pre);  // (WN, ldr) pre
+  float* q_s = f32(a.sm.q);   // (WN, 2R) q
+  float* g_s = f32(a.sm.g);   // (WN, P) gathered enc_pack rows
+  float* nh_s = f32(a.sm.nh);    // (WN, U) the rank's new_h
+  float* mel_s = f32(a.sm.mel);  // (WN, UM) the rank's mel, pre-reorder
+  float* stg = f32(a.sm.stg);
+  float* dbk_s = f32(a.sm.dbk);  // (U, 2) the rank's dec_bias_k rows
+  float* dbp_s = f32(a.sm.dbp);  // (kCL, 2 kMaxW) dec_bias partials
+  float* scr = f32(a.sm.scr);
+  float* sums_s = f32(a.sm.sums);
+  float* part_s = f32(a.sm.part);
+  float* h_s = f32(a.sm.h);      // (W, 2) logits, then log-probs
   __shared__ SelectSmem sel;
+  __shared__ Stream st_s;  // the weight stream's layers
+  __shared__ BeamIn bin;   // the beams' carry
 
-  // ---- 0. loads ----
+  if (tid == 0) st_s = a.st;
+  Ring<CT> ring{act(a.sm.ring), reinterpret_cast<uint64_t*>(smem + a.sm.bar),
+                static_cast<const CT*>(a.wpack) +
+                    (size_t)rank * a.st.tiles * kTile,
+                &st_s, a.sm.nst, 0};
+  ring.start();
+  load_beams(bin, b, W, a.lp, a.fin, a.t, a.u, nullptr, nullptr, a.il,
+             nullptr);
+
+  // ---- 0. loads (zero padding: beams >= W, inputs past the width) ----
+#pragma unroll 4
+  for (int i = tid; i < WN * ldm; i += kThreads) {
+    const int w = i / ldm, k = i - w * ldm;
+    x0_s[i] = st<CT>(w < W && k < M ? rnd<CT>(a.prev_mel[(bw + w) * M + k])
+                                    : 0.0f);
+  }
+#pragma unroll 4
+  for (int i = tid; i < WN * ldh; i += kThreads) {
+    const int w = i / ldh, k = i - w * ldh;
+    const float sv = w < W && k < H ? a.state[(bw + w) * H + k] : 0.0f;
+    stf_s[i] = sv;  // in float32 compute this is hb_s, rnd(state) itself
+    hb_s[i] = st<CT>(rnd<CT>(sv));
+    x1_s[i] = x_s[i] = st<CT>(0.0f);
+  }
+  for (int i = tid; i < WN * ldr; i += kThreads) pre_s[i] = st<CT>(0.0f);
+  load_segs(bias_s, Segs<CT, 8>{
+      {a.pb1, a.pb2, a.bi, a.bhn, a.dpre_b, a.dproj_b, a.dmel_b, a.dbias_b},
+      {H, H, 3 * H, H, R, 2 * R, M, 2},
+      {bo.b1, bo.b2, bo.bi, bo.bhn, bo.pre, bo.proj, bo.mel, bo.db},
+      {false, false, false, false, false, false, false, true}});
+  load_segs(dbk_s, Segs<CT, 1>{{a.dbias_k + k0 * 2}, {nu * 2}, {0}, {true}});
+  __syncthreads();  // bin.t
+#pragma unroll 4
   for (int i = tid; i < W * P; i += kThreads) {
     const int w = i / P, j = i - w * P;
-    const int row = min(max(a.t[bw + w], 0), T - 1);
+    const int row = min(max(bin.t[w], 0), T - 1);
     g_s[i] = a.enc_pack[((size_t)b * T + row) * P + j];
   }
-  for (int i = tid; i < W * M; i += kThreads)
-    x0_s[i] = rnd<CT>(a.prev_mel[bw * M + i]);
-  for (int i = tid; i < W * H; i += kThreads)
-    hb_s[i] = rnd<CT>(a.state[bw * H + i]);
+  cluster_arrive();  // this block's buffers are ready for its peers
   __syncthreads();
 
   // ---- 1. model step ----
-  dense_columns<CT, WMAX, kRelu>(x0_s, M, cw(a.pw1), cw(a.pb1), H, W, x1_s,
-                                 H);
+  // x = relu(rnd(rnd(prev_mel . w1) + b1)), twice (the prenet)
+  dot_layer<CT, NTN>(ring, st_s.l[kPre1], x0_s, x0_s, ldm, stg);
+  cluster_wait();
+  {
+    const Bcast<CT> o = bcast_of(x1_s);
+    dense_epilogue<CT, WN, kRelu>(
+        L[kPre1], stg, rank, W, bias_s + bo.b1, [&](int w, int n, int, float y) {
+          o.put((size_t)w * ldh + n, st<CT>(y));
+        });
+  }
+  cluster_sync();
+  dot_layer<CT, NTN>(ring, st_s.l[kPre2], x1_s, x1_s, ldh, stg);
+  {
+    const Bcast<CT> o = bcast_of(x_s);
+    dense_epilogue<CT, WN, kRelu>(
+        L[kPre2], stg, rank, W, bias_s + bo.b2, [&](int w, int n, int, float y) {
+          o.put((size_t)w * ldh + n, st<CT>(y));
+        });
+  }
+  cluster_sync();
+  // new_h = the GRU cell; rnd(new_h) to every block
+  dot_layer<CT, NTN>(ring, st_s.l[kGru], x_s, hb_s, ldh, stg);
+  {
+    const Bcast<CT> o = bcast_of(hn_s);
+    gru_epilogue<CT, WN>(L[kGru], stg, rank, W, bias_s + bo.bi,
+                         bias_s + bo.bhn, stf_s, ldh, nh_s,
+                         a.dbg_newh ? a.dbg_newh + bw * H : nullptr,
+                         [&](int w, int k, float nh) {
+                           o.put((size_t)w * ldh + k, st<CT>(rnd<CT>(nh)));
+                         });
+  }
   __syncthreads();
-  dense_columns<CT, WMAX, kRelu>(x1_s, H, cw(a.pw2), cw(a.pb2), H, W, x_s, H);
-  __syncthreads();
-  gru_columns<CT, WMAX>(x_s, hb_s, a.state + bw * H, cw(a.wi), cw(a.bi),
-                        cw(a.wh), cw(a.bhn), W, H, nh_s,
-                        a.dbg_newh ? a.dbg_newh + bw * H : nullptr);
-  __syncthreads();
-  for (int i = tid; i < W * H; i += kThreads) hb_s[i] = rnd<CT>(nh_s[i]);
-  __syncthreads();
-  dense_columns<CT, WMAX, kTanh>(hb_s, H, cw(a.dpre_k), cw(a.dpre_b), R, W,
-                                 pre_s, R);
-  dense_columns<CT, WMAX, kLinear>(hb_s, H, cw(a.dmel_k), cw(a.dmel_b), M, W,
-                                   mel_s, M);
-  __syncthreads();
-  dense_columns<CT, WMAX, kLinear>(pre_s, R, cw(a.dproj_k), cw(a.dproj_b),
-                                   R2, W, q_s, R2);
-  __syncthreads();
-  if (tid < C) {  // logit of class c = tid % 2 for beam w = tid / 2
+  // The rank's partial new_h . dec_bias_k (float32), to every block.
+  block_sums(C, nu, scr, part_s, [&](int o, int i, float acc) {
+    return __fmaf_rn(nh_s[(o >> 1) * U + i], dbk_s[i * 2 + (o & 1)], acc);
+  });
+  {
+    const Bcast<float> o = bcast_of(dbp_s);
+    if (tid < C) o.put((size_t)rank * 2 * kMaxW + tid, part_s[tid]);
+  }
+  cluster_sync();
+  // pre = rnd(tanh(rnd(rnd(rnd(new_h) . dec_pre_k) + dec_pre_b)))
+  dot_layer<CT, NTN>(ring, st_s.l[kDecPre], hn_s, hn_s, ldh, stg);
+  {
+    const Bcast<CT> o = bcast_of(pre_s);
+    dense_epilogue<CT, WN, kTanh>(
+        L[kDecPre], stg, rank, W, bias_s + bo.pre,
+        [&](int w, int n, int, float y) {
+          o.put((size_t)w * ldr + n, st<CT>(y));
+        });
+  }
+  // mel = rnd(rnd(em) + rnd(rnd(rnd(new_h) . dec_mel_k) + dec_mel_b)) for
+  // the rank's columns
+  dot_layer<CT, NTN>(ring, st_s.l[kMel], hn_s, hn_s, ldh, stg);
+  dense_epilogue<CT, WN, kLinear>(
+      L[kMel], stg, rank, W, bias_s + bo.mel, [&](int w, int n, int c, float y) {
+        const float m = rnd<CT>(__fadd_rn(rnd<CT>(g_s[w * P + R2 + 2 + n]), y));
+        mel_s[w * UM + c] = m;
+        if (a.dbg_mel) a.dbg_mel[(bw + w) * M + n] = m;
+      });
+  cluster_sync();
+  // q = rnd(rnd(pre . dec_proj_k) + dec_proj_b), to every block
+  dot_layer<CT, NTN>(ring, st_s.l[kProj], pre_s, pre_s, ldr, stg);
+  {
+    const Bcast<float> o = bcast_of(q_s);
+    dense_epilogue<CT, WN, kLinear>(
+        L[kProj], stg, rank, W, bias_s + bo.proj,
+        [&](int w, int n, int, float y) { o.put((size_t)w * R2 + n, y); });
+  }
+  cluster_sync();
+
+  // logit_k = sum_r rnd(rnd(p_kr) * q_kr) + enc_bias_k + (new_h .
+  // dec_bias_k + dec_bias_b_k), the same in every block
+  block_sums(C, R, scr, sums_s, [&](int o, int i, float acc) {
+    const int w = o >> 1, r = (o & 1) * R + i;
+    return __fadd_rn(acc, rnd<CT>(__fmul_rn(rnd<CT>(g_s[w * P + r]),
+                                            q_s[w * R2 + r])));
+  });
+  if (tid < C) {
     const int w = tid >> 1, c = tid & 1;
-    const float* g = g_s + w * P;
-    const float* q = q_s + w * R2;
-    float acc = 0.0f;
-    for (int r = c * R; r < (c + 1) * R; ++r)
-      acc = __fadd_rn(acc, rnd<CT>(__fmul_rn(rnd<CT>(g[r]), q[r])));
-    float db = 0.0f;
-    for (int k = 0; k < H; ++k)
-      db = __fmaf_rn(nh_s[w * H + k], a.dbias_k[2 * k + c], db);
-    db = __fadd_rn(db, a.dbias_b[c]);
-    h_s[tid] = __fadd_rn(__fadd_rn(acc, g[R2 + c]), db);
+    float db = dbp_s[tid];
+    for (int r = 1; r < kCL; ++r) db = __fadd_rn(db, dbp_s[r * 2 * kMaxW + tid]);
+    db = __fadd_rn(db, bias_s[bo.db + c]);
+    h_s[tid] = __fadd_rn(__fadd_rn(sums_s[tid], g_s[w * P + R2 + c]), db);
   }
   __syncthreads();
   if (tid < W) {  // log_softmax: shifted - log(exp + exp)
@@ -160,104 +363,109 @@ fused_v1_step_kernel(V1Args a) {
     const float lse = logf(__fadd_rn(expf(she), expf(shs)));
     h_s[2 * tid] = __fsub_rn(she, lse);
     h_s[2 * tid + 1] = __fsub_rn(shs, lse);
-    if (a.dbg_h) {
+    if (a.dbg_h && rank == 0) {
       a.dbg_h[2 * (bw + tid)] = h_s[2 * tid];
       a.dbg_h[2 * (bw + tid) + 1] = h_s[2 * tid + 1];
     }
   }
-  for (int i = tid; i < W * M; i += kThreads) {
-    const int w = i / M, m = i - w * M;
-    mel_s[i] = rnd<CT>(__fadd_rn(rnd<CT>(g_s[w * P + R2 + 2 + m]), mel_s[i]));
-    if (a.dbg_mel) a.dbg_mel[bw * M + i] = mel_s[i];
-  }
   __syncthreads();
 
-  // ---- 2. candidates, 3. selection ----
+  // ---- 2. candidates, 3. selection (every block, on the same h) ----
   bool valid = false;
   if (tid < C) {
     const int w = tid >> 1, k = tid & 1;
-    const size_t o = bw + w;
-    const Cand x = v1_candidate(k, h_s[tid], a.lp[o], a.fin[o], a.t[o],
-                                a.u[o], a.il[b]);
+    const Cand x = v1_candidate(k, h_s[tid], bin.lp[w], bin.fin[w], bin.t[w],
+                                bin.u[w], bin.il);
     store_cand(sel, tid, x);
     valid = x.valid;
   }
   select_beams(sel, C, W, valid, false);
-  write_selected(sel, b, W, 2, a.out);
+  if (rank == 0) {
+    write_selected(sel, b, W, 2, a.out);
+    if (tid < W) a.o_thist[bw + tid] = bin.t[sel.src[tid] / 2];
+  }
 
-  // ---- 4. t_history, reorders, finished-beam keep ----
-  if (tid < W) a.o_thist[bw + tid] = a.t[bw + sel.src[tid] / 2];
-  reorder_rows(nh_s, a.o_state + bw * H, sel, W, 2, H);
-  for (int i = tid; i < W * M; i += kThreads) {
-    const int j = i / M, m = i - j * M;
+  // ---- 4. reorders of the rank's columns, finished-beam keep ----
+  for (int i = tid; i < W * nu; i += kThreads) {
+    const int j = i / nu, c = i - j * nu;
+    a.o_state[(bw + j) * H + k0 + c] = nh_s[(sel.src[j] / 2) * U + c];
+  }
+  for (int i = tid; i < W * nm; i += kThreads) {
+    const int j = i / nm, c = i - j * nm;
     const int src = sel.src[j], parent = src / 2;
-    const bool keep = sel.fin[src] && a.fin[bw + parent];
-    a.o_mel[bw * M + i] = keep ? a.prev_mel[(bw + parent) * M + m]
-                               : mel_s[parent * M + m];
+    const bool keep = sel.fin[src] && bin.fin[parent];
+    a.o_mel[(bw + j) * M + m0 + c] =
+        keep ? a.prev_mel[(bw + parent) * M + m0 + c] : mel_s[parent * UM + c];
   }
 }
 
-size_t smem_bytes(int W, int H, int M, int R) {
-  const size_t P = 2 * (size_t)R + 2 + M;
-  return sizeof(float) * (size_t)W *
-         (2 * (size_t)M + hidden_width(H, R) + 3 * (size_t)H + P + 2);
-}
-
-template <typename CT, int WMAX>
-cudaError_t launch(const V1Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.W, a.H, a.M, a.R);
-  auto kern = fused_v1_step_kernel<CT, WMAX>;
-  // The static SelectSmem counts against the 48 KB a launch may use
-  // without opting in. Opt in once per size (not on every frame, and not
-  // inside a CUDA graph capture after the first call).
+template <typename CT, int NTN>
+cudaError_t launch(V1Args a, cudaStream_t stream) {
+  a.sm = v1_smem(NTN * 8, a.H, a.M, a.R, sizeof(CT));
+  a.st = v1_stream(a.H, a.M, a.R);
+  finish_stream(a.st, a.sm.chunk, sizeof(CT));
+  if (a.sm.nst < 2) return cudaErrorInvalidValue;
+  auto kern = fused_v1_step_kernel<CT, NTN>;
+  // Opt in to the dynamic shared memory once per size (not on every frame,
+  // and not inside a CUDA graph capture after the first call).
   static size_t opted = 0;
-  if (smem + sizeof(SelectSmem) > 48 * 1024 && smem > opted) {
+  if (a.sm.total > opted) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.sm.total);
     if (e != cudaSuccess) return e;
-    opted = smem;
+    opted = a.sm.total;
   }
-  kern<<<a.B, kThreads, smem, stream>>>(a);
+  kern<<<a.B * kCL, kThreads, a.sm.total, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename CT>
 cudaError_t dispatch(const V1Args& a, cudaStream_t st) {
-  if (a.W <= 4) return launch<CT, 4>(a, st);
-  if (a.W <= 8) return launch<CT, 8>(a, st);
-  return launch<CT, 16>(a, st);
+  if (a.W <= 8) return launch<CT, 1>(a, st);
+  return launch<CT, 2>(a, st);
+}
+
+bool bad_shape(int B, int W, int T, int H, int M, int R) {
+  if (B < 1 || W < 1 || W > kMaxW || T < 1 || H < 1 || M < 1 || R < 1)
+    return true;
+  const Stream s = v1_stream(H, M, R);
+  for (int i = 0; i < s.n; ++i)
+    if (s.l[i].MT > kMaxMT) return true;
+  return false;
 }
 
 }  // namespace
 
 extern "C" int ssnt_fused_v1_max_beams() { return kMaxW; }
 
+// Dynamic shared memory (bytes) of one block at these widths, the weight
+// ring's 16 or 32 KB slots included.
+extern "C" int ssnt_fused_v1_smem_bytes(int compute_bf16, int W, int H, int M,
+                                        int R) {
+  return (int)v1_smem(W <= 8 ? 8 : 16, H, M, R, compute_bf16 ? 2 : 4).total;
+}
+
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ssnt_fused_v1_step(
     int compute_bf16, int B, int W, int T, int H, int M, int R,
     const void* enc_pack, const void* t, const void* u, const void* lp,
     const void* fin, const void* il, const void* prev_mel, const void* state,
-    const void* pw1, const void* pb1, const void* pw2, const void* pb2,
-    const void* wi, const void* bi, const void* wh, const void* bhn,
-    const void* dpre_k, const void* dpre_b, const void* dproj_k,
-    const void* dproj_b, const void* dbias_k, const void* dbias_b,
-    const void* dmel_k, const void* dmel_b, void* o_pred, void* o_lp,
-    void* o_nt, void* o_nu, void* o_fin, void* o_branch, void* o_thist,
-    void* o_mel, void* o_state, void* dbg_h, void* dbg_newh, void* dbg_mel,
-    void* stream) {
-  if (B < 1 || W < 1 || W > kMaxW || T < 1 || H < 1 || M < 1 || R < 1)
-    return (int)cudaErrorInvalidValue;
+    const void* wpack, const void* pb1, const void* pb2, const void* bi,
+    const void* bhn, const void* dpre_b, const void* dproj_b,
+    const void* dbias_k, const void* dbias_b, const void* dmel_b,
+    void* o_pred, void* o_lp, void* o_nt, void* o_nu, void* o_fin,
+    void* o_branch, void* o_thist, void* o_mel, void* o_state, void* dbg_h,
+    void* dbg_newh, void* dbg_mel, void* stream) {
+  if (bad_shape(B, W, T, H, M, R)) return (int)cudaErrorInvalidValue;
   V1Args a;
   a.B = B; a.W = W; a.T = T; a.H = H; a.M = M; a.R = R;
   a.enc_pack = (const float*)enc_pack; a.t = (const int*)t;
   a.u = (const int*)u; a.lp = (const float*)lp;
   a.fin = (const uint8_t*)fin; a.il = (const int*)il;
   a.prev_mel = (const float*)prev_mel; a.state = (const float*)state;
-  a.pw1 = pw1; a.pb1 = pb1; a.pw2 = pw2; a.pb2 = pb2;
-  a.wi = wi; a.bi = bi; a.wh = wh; a.bhn = bhn;
-  a.dpre_k = dpre_k; a.dpre_b = dpre_b; a.dproj_k = dproj_k;
-  a.dproj_b = dproj_b; a.dbias_k = (const float*)dbias_k;
-  a.dbias_b = (const float*)dbias_b; a.dmel_k = dmel_k; a.dmel_b = dmel_b;
+  a.wpack = wpack; a.pb1 = pb1; a.pb2 = pb2; a.bi = bi; a.bhn = bhn;
+  a.dpre_b = dpre_b; a.dproj_b = dproj_b; a.dbias_k = (const float*)dbias_k;
+  a.dbias_b = (const float*)dbias_b; a.dmel_b = dmel_b;
   a.out.pred = (int*)o_pred; a.out.lp = (float*)o_lp;
   a.out.nt = (int*)o_nt; a.out.nu = (int*)o_nu;
   a.out.fin = (uint8_t*)o_fin; a.out.tot = nullptr;

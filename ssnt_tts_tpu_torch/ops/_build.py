@@ -44,12 +44,13 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# ssnt_fused_v2_step(compute_bf16, B, W, D, H, s, 20 inputs, 12 outputs,
-#                    5 int options, 4 float options, stream)
-FUSED_V2_ARGTYPES = [_I] * 6 + [_P] * 32 + [_I] * 5 + [_F] * 4 + [_P]
-# ssnt_fused_tone_step(compute_bf16, B, W, K, H, s, 16 inputs, 9 outputs,
+# ssnt_fused_v2_step(compute_bf16, B, W, D, H, s, 19 inputs (the GRU
+#                    matrices as one packed stream), 12 outputs, 5 int
+#                    options, 4 float options, stream)
+FUSED_V2_ARGTYPES = [_I] * 6 + [_P] * 31 + [_I] * 5 + [_F] * 4 + [_P]
+# ssnt_fused_tone_step(compute_bf16, B, W, K, H, s, 15 inputs, 9 outputs,
 #                      empty_tone_id, stream)
-FUSED_TONE_ARGTYPES = [_I] * 6 + [_P] * 25 + [_I] + [_P]
+FUSED_TONE_ARGTYPES = [_I] * 6 + [_P] * 24 + [_I] + [_P]
 # ssnt_beam_v2_step(B, W, D, H, 10 inputs, 9 outputs, 5 int options,
 #                   4 float options, stream)
 BEAM_V2_ARGTYPES = [_I] * 4 + [_P] * 19 + [_I] * 5 + [_F] * 4 + [_P]
@@ -59,9 +60,10 @@ BEAM_TONE_ARGTYPES = [_I] * 4 + [_P] * 14 + [_I] + [_P]
 # ssnt_beam_v1_step(B, W, F, 7 inputs, 7 outputs, stream); the state row
 # pointers may be null (F = 0)
 BEAM_V1_ARGTYPES = [_I] * 3 + [_P] * 14 + [_P]
-# ssnt_fused_v1_step(compute_bf16, B, W, T, H, M, R, 24 inputs, 9 outputs,
-#                    3 debug outputs, stream)
-FUSED_V1_ARGTYPES = [_I] * 7 + [_P] * 36 + [_P]
+# ssnt_fused_v1_step(compute_bf16, B, W, T, H, M, R, 18 inputs (the six
+#                    matrices as one packed stream), 9 outputs, 3 debug
+#                    outputs, stream)
+FUSED_V1_ARGTYPES = [_I] * 7 + [_P] * 30 + [_P]
 # ssnt_lattice_bidir(B, T, U, le, ls, lf, il, ol, alphas, betas, stream)
 LATTICE_BIDIR_ARGTYPES = [_I] * 3 + [_P] * 8
 # ssnt_lattice_forward_alphas(bf16, B, T, U, le, ls, lf, alphas, stream)
@@ -146,15 +148,17 @@ def _load(name: str, entries: dict, limits=()) -> ctypes.CDLL:
 def fused_class_library() -> ctypes.CDLL:
     return _load("fused_class_step",
                  {"ssnt_fused_v2_step": FUSED_V2_ARGTYPES,
-                  "ssnt_fused_tone_step": FUSED_TONE_ARGTYPES},
+                  "ssnt_fused_tone_step": FUSED_TONE_ARGTYPES,
+                  "ssnt_fused_class_smem_bytes": [_I] * 4},
                  ("ssnt_fused_step_max_candidates",
-                  "ssnt_fused_step_max_beams"))
+                  "ssnt_fused_step_max_beams", "ssnt_fused_cluster_blocks"))
 
 
 @functools.lru_cache(maxsize=None)
 def fused_v1_library() -> ctypes.CDLL:
     return _load("fused_v1_step",
-                 {"ssnt_fused_v1_step": FUSED_V1_ARGTYPES},
+                 {"ssnt_fused_v1_step": FUSED_V1_ARGTYPES,
+                  "ssnt_fused_v1_smem_bytes": [_I] * 5},
                  ("ssnt_fused_v1_max_beams",))
 
 

@@ -18,6 +18,14 @@ and the mel frames.
   - The `*_reference` functions are the plain versions: the stepmath
     step (class_step_from_paths, v1_step_math), then the plain beam_v2 /
     tone_latent / beam_v1 step, then gathers by parent pointer.
+  - `prepare_fused_weights` / `prepare_v1_fused_weights` cast and check
+    the weights once per decode and pack the kernels' matrices
+    (`pack_dense`, `pack_gru`) into the tile stream the kernels read
+    (`.packed`, beside the fields): one stream per block of an
+    utterance's cluster, 16x16 tiles in mma.sync fragment order
+    (csrc/gru_step.cuh). The wrappers then check only the per-step
+    tensors; weights built by hand run the plain version on the CPU and
+    are refused on the card.
 
 The TPU kernel's carry layouts ((B, 1, W) lane rows, (B, W, 1) prev_class,
 a kernel-emitted step counter) are dropped: beam state is (B, W), and the
@@ -35,6 +43,79 @@ from ssnt_tts_tpu_torch.ops import _build, beam_v1, beam_v2, tone_latent
 from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
 
 
+# Blocks of an utterance's cluster (csrc/gru_step.cuh kCL): each packed
+# stream has one row per block.
+CLUSTER = 2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fragment_order():
+    """(m, k) of each of a 16x16 tile's 256 values in the kernels' order:
+    lane L = 4g + t holds values 8L .. 8L + 7 at (g, 2t), (g, 2t+1),
+    (g+8, 2t), (g+8, 2t+1), (g, 2t+8), (g, 2t+9), (g+8, 2t+8),
+    (g+8, 2t+9): its mma.sync m16n8k16 A fragment."""
+    p = torch.arange(256)
+    lane, j = p // 8, p % 8
+    g, t, reg = lane // 4, lane % 4, j // 2
+    return g + 8 * (reg % 2), 2 * t + j % 2 + 8 * (reg // 2)
+
+
+_FRAG_M, _FRAG_K = _fragment_order()
+
+
+def _tiles(a: torch.Tensor) -> torch.Tensor:
+    """(..., 16 m, 16 k) tiles of W^T -> (..., 256) in fragment order."""
+    return a[..., _FRAG_M.to(a.device), _FRAG_K.to(a.device)]
+
+
+def pack_dense(w: torch.Tensor) -> torch.Tensor:
+    """A dense kernel w (K, N), (in, out) layout, as the fused kernels
+    stream it: (CLUSTER, KT * MT * 256) with KT = ceil(K/16) input tiles
+    and MT = ceil(ceil(N/16) / CLUSTER) 16-column tiles per block; block r
+    owns column tiles r*MT .. r*MT + MT - 1; tile (kt, mt) at kt*MT + mt
+    holds A[m][k] = w[16 kt + k][16 (r MT + mt) + m], zero past K and N."""
+    K, N = w.shape
+    KT, MT = _cdiv(K, 16), _cdiv(_cdiv(N, 16), CLUSTER)
+    p = w.new_zeros(KT * 16, CLUSTER * MT * 16)
+    p[:K, :N] = w
+    a = p.reshape(KT, 16, CLUSTER, MT, 16).permute(2, 0, 3, 4, 1)
+    return _tiles(a).reshape(CLUSTER, -1)
+
+
+def pack_gru(wi: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """The GRU kernels wi, wh (H, 3H) [r|z|n] as the fused kernels stream
+    them: block r owns hidden-unit tiles r*HR .. r*HR + HR - 1 (HR =
+    ceil(ceil(H/16) / CLUSTER)), each as six column tiles [wi_r, wi_z,
+    wi_n, wh_r, wh_z, wh_n] (MT = 6 HR), input-tile-major as pack_dense."""
+    H = wh.shape[0]
+    KT, HR = _cdiv(H, 16), _cdiv(_cdiv(H, 16), CLUSTER)
+    gates = []
+    for w in (wi, wh):
+        for g in range(3):
+            p = w.new_zeros(KT * 16, CLUSTER * HR * 16)
+            p[:H, :H] = w[:, g * H:(g + 1) * H]
+            gates.append(p)
+    a = torch.stack(gates).reshape(6, KT, 16, CLUSTER, HR, 16)
+    return _tiles(a.permute(3, 1, 4, 0, 5, 2)).reshape(CLUSTER, -1)
+
+
+def _check_weights(what, fields, shapes, dtypes) -> None:
+    """Raise unless each field has its shape and dtype."""
+    for name, x in fields.items():
+        if tuple(x.shape) != shapes[name] or x.dtype != dtypes[name]:
+            raise ValueError(f"{what} {name}: want {dtypes[name]} "
+                             f"{shapes[name]}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+
+
+def _check_compute_dtype(dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype} is not float32 or bfloat16")
+
+
 class FusedWeights(NamedTuple):
     """Kernel-ready weights, cast once per decode: the compute dtype for
     embed/wi/bi/wh/bhn (it is the kernel's compute dtype), float32 for the
@@ -49,14 +130,39 @@ class FusedWeights(NamedTuple):
     out_b: torch.Tensor  # (D,) float32
 
 
+class _Packed:
+    """Weights as prepare_*_fused_weights return them: the NamedTuple's
+    fields (the plain step's; iterating gives exactly those) and, beside
+    them, the kernel's stream `packed`, (CLUSTER, tiles * 256)."""
+
+    def __new__(cls, packed: torch.Tensor, **fields):
+        self = super().__new__(cls, **fields)
+        self.packed = packed
+        return self
+
+
+class PackedFusedWeights(_Packed, FusedWeights):
+    """FusedWeights with packed = pack_gru(wi, wh)."""
+
+
 def prepare_fused_weights(w: stepmath.ClassStepWeights,
-                          dtype) -> FusedWeights:
+                          dtype) -> PackedFusedWeights:
+    """Cast, check and pack the AR class cell's weights once per decode;
+    raises on a compute dtype other than float32 / bfloat16 or on weights
+    whose shapes do not fit together."""
+    _check_compute_dtype(dtype)
+    D, H = w.embed.shape
     cast = lambda x, dt: x.detach().to(dt).contiguous()
-    return FusedWeights(
-        embed=cast(w.embed, dtype), wi=cast(w.wi, dtype),
-        bi=cast(w.bi, dtype), wh=cast(w.wh, dtype), bhn=cast(w.bhn, dtype),
-        out_k=cast(w.out_k, torch.float32), out_b=cast(w.out_b, torch.float32),
-    )
+    f32 = torch.float32
+    fields = dict(embed=cast(w.embed, dtype), wi=cast(w.wi, dtype),
+                  bi=cast(w.bi, dtype), wh=cast(w.wh, dtype),
+                  bhn=cast(w.bhn, dtype), out_k=cast(w.out_k, f32),
+                  out_b=cast(w.out_b, f32))
+    shapes = dict(embed=(D, H), wi=(H, 3 * H), bi=(3 * H,), wh=(H, 3 * H),
+                  bhn=(H,), out_k=(H, D), out_b=(D,))
+    _check_weights("class step weights", fields, shapes,
+                   {k: f32 if k.startswith("out") else dtype for k in fields})
+    return PackedFusedWeights(pack_gru(fields["wi"], fields["wh"]), **fields)
 
 
 class V2Step(NamedTuple):
@@ -128,30 +234,32 @@ def fused_class_beam_step_reference(
 
 def _check_model_args(s, xin_path, base_path, fw, prev_class, state,
                       log_prob, is_finished, t, u, input_length, debug_out):
-    """Raise unless the fused kernel can take these (CUDA) tensors.
-    Returns (library, compute dtype, B, W, D, H, debug pointers)."""
+    """Raise unless the fused kernel can take these (CUDA) tensors; the
+    weights were checked and packed by prepare_fused_weights. Returns
+    (library, compute dtype, B, W, D, H, debug pointers)."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"fused class step runs on cuda or cpu, not {dev}")
+    packed = getattr(fw, "packed", None)
+    if packed is None or packed.device != dev:
+        raise ValueError("fused class step: weights not packed on "
+                         f"{dev}; prepare them with prepare_fused_weights")
     B, W, H = state.shape
     T, D = base_path.shape[0], base_path.shape[2]
-    ct = fw.wi.dtype
-    if ct not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute dtype {ct} is not float32 or bfloat16")
+    ct = packed.dtype
     lib = _build.fused_class_library()
     if W > lib.ssnt_fused_step_max_beams() or (
             W * D > lib.ssnt_fused_step_max_candidates()):
         raise ValueError(f"beam width {W} x classes {D} exceeds the kernel")
     if not 0 <= s < T:
         raise ValueError(f"step {s} out of range [0, {T})")
+    if fw.embed.shape != (D, H):
+        raise ValueError(f"weights are for (D, H) {tuple(fw.embed.shape)}, "
+                         f"the step has ({D}, {H})")
     i32, f32 = torch.int32, torch.float32
     for name, x, dt, shape in (
         ("xin_path", xin_path, ct, (T, B, H)),
         ("base_path", base_path, f32, (T, B, D)),
-        ("embed", fw.embed, ct, (D, H)), ("wi", fw.wi, ct, (H, 3 * H)),
-        ("bi", fw.bi, ct, (3 * H,)), ("wh", fw.wh, ct, (H, 3 * H)),
-        ("bhn", fw.bhn, ct, (H,)), ("out_k", fw.out_k, f32, (H, D)),
-        ("out_b", fw.out_b, f32, (D,)),
         ("prev_class", prev_class, i32, (B, W)),
         ("state", state, f32, (B, W, H)), ("log_prob", log_prob, f32, (B, W)),
         ("is_finished", is_finished, torch.bool, (B, W)),
@@ -165,6 +273,13 @@ def _check_model_args(s, xin_path, base_path, fw, prev_class, state,
         _build.check_arg("debug new_h", debug_out[1], f32, (B, W, H), dev)
         dbg = tuple(x.data_ptr() for x in debug_out)
     return lib, ct, B, W, D, H, dbg
+
+
+def _weight_ptrs(fw: FusedWeights):
+    """The kernels' weight arguments: embed, the packed GRU stream, bi,
+    bhn, out_k, out_b."""
+    return tuple(x.data_ptr() for x in (fw.embed, fw.packed, fw.bi, fw.bhn,
+                                        fw.out_k, fw.out_b))
 
 
 def fused_class_beam_step(
@@ -222,9 +337,10 @@ def fused_class_beam_step(
     ptr = lambda x: x.data_ptr()
     rc = lib.ssnt_fused_v2_step(
         int(ct == torch.bfloat16), B, W, D, H, int(s),
-        *map(ptr, (xin_path, base_path, *fw, prev_class, state, log_prob,
-                   is_finished, total_duration, t, u, input_length,
-                   output_length, duration_table, emptied)),
+        ptr(xin_path), ptr(base_path), *_weight_ptrs(fw),
+        *map(ptr, (prev_class, state, log_prob, is_finished, total_duration,
+                   t, u, input_length, output_length, duration_table,
+                   emptied)),
         *map(ptr, out), *dbg,
         int(zero_duration_id), int(bool(allow_skip)), int(bool(test_mode)),
         int(cfg.overrun_multiplier), int(bool(cfg.final_feasible_guard)),
@@ -285,7 +401,8 @@ def fused_tone_step(
     ptr = lambda x: x.data_ptr()
     rc = lib.ssnt_fused_tone_step(
         int(ct == torch.bfloat16), B, W, K, H, int(s),
-        *map(ptr, (xin_path, base_path, *fw, *args[4:])),
+        ptr(xin_path), ptr(base_path), *_weight_ptrs(fw),
+        *map(ptr, args[4:]),
         *map(ptr, out), *dbg, int(empty_tone_id),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -303,19 +420,53 @@ fused_tone_step.launches = 0
 
 # Kernel-ready v1 decode-step weights, cast once per decode: the compute
 # dtype except dec_bias (float32), contiguous, on the decode's device. The
-# fields are stepmath.V1StepWeights' decode side, in its order (the
-# kernel's argument order), so stepmath.v1_step_math takes either.
+# fields are stepmath.V1StepWeights' decode side, in its order, so
+# stepmath.v1_step_math takes either.
 V1FusedWeights = NamedTuple("V1FusedWeights", [
     (k, torch.Tensor) for k in stepmath.V1StepWeights._fields
     if not k.startswith("enc_")])
 
 
+class PackedV1FusedWeights(_Packed, V1FusedWeights):
+    """V1FusedWeights with packed = the six matrices in V1_PACKED's order."""
+
+
+# The v1 kernel's stream: the dense matrices and the GRU in the order the
+# frame runs them (csrc/fused_v1_step.cu v1_stream).
+V1_PACKED = ("prenet_w1", "prenet_w2", "gru", "dec_pre_k", "dec_mel_k",
+             "dec_proj_k")
+# The v1 kernel's other weight arguments, in its order.
+V1_UNPACKED = ("prenet_b1", "prenet_b2", "bi", "bhn", "dec_pre_b",
+               "dec_proj_b", "dec_bias_k", "dec_bias_b", "dec_mel_b")
+
+
+def v1_weight_shapes(H: int, M: int, R: int) -> dict:
+    return {"prenet_w1": (M, H), "prenet_b1": (H,), "prenet_w2": (H, H),
+            "prenet_b2": (H,), "wi": (H, 3 * H), "bi": (3 * H,),
+            "wh": (H, 3 * H), "bhn": (H,), "dec_pre_k": (H, R),
+            "dec_pre_b": (R,), "dec_proj_k": (R, 2 * R),
+            "dec_proj_b": (2 * R,), "dec_bias_k": (H, 2),
+            "dec_bias_b": (2,), "dec_mel_k": (H, M), "dec_mel_b": (M,)}
+
+
 def prepare_v1_fused_weights(w: stepmath.V1StepWeights,
-                             dtype) -> V1FusedWeights:
+                             dtype) -> PackedV1FusedWeights:
+    """Cast, check and pack the v1 step's weights once per decode; raises
+    on a compute dtype other than float32 / bfloat16 or on weights whose
+    shapes do not fit together."""
+    _check_compute_dtype(dtype)
     f32 = ("dec_bias_k", "dec_bias_b")
-    return V1FusedWeights(**{
-        k: getattr(w, k).detach().to(torch.float32 if k in f32 else dtype)
-        .contiguous() for k in V1FusedWeights._fields})
+    fields = {k: getattr(w, k).detach().to(torch.float32 if k in f32
+                                           else dtype).contiguous()
+              for k in V1FusedWeights._fields}
+    M, H = fields["prenet_w1"].shape
+    R = fields["dec_pre_k"].shape[1]
+    _check_weights("v1 step weights", fields, v1_weight_shapes(H, M, R),
+                   {k: torch.float32 if k in f32 else dtype for k in fields})
+    packed = torch.cat([
+        pack_gru(fields["wi"], fields["wh"]) if k == "gru"
+        else pack_dense(fields[k]) for k in V1_PACKED], dim=1).contiguous()
+    return PackedV1FusedWeights(packed, **fields)
 
 
 class V1FusedStep(NamedTuple):
@@ -390,27 +541,21 @@ def fused_v1_beam_step(
         return fused_v1_beam_step_reference(*args, fw, debug_out=debug_out)
     if dev.type != "cuda":
         raise ValueError(f"fused v1 step runs on cuda or cpu, not {dev}")
+    packed = getattr(fw, "packed", None)
+    if packed is None or packed.device != dev:
+        raise ValueError("fused v1 step: weights not packed on "
+                         f"{dev}; prepare them with prepare_v1_fused_weights")
     B, W, H = state.shape
     T, P = enc_pack.shape[1], enc_pack.shape[2]
     M = prev_mel.shape[2]
     R = fw.dec_pre_k.shape[1]
-    ct = fw.wi.dtype
-    if ct not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute dtype {ct} is not float32 or bfloat16")
+    ct = packed.dtype
     lib = _build.fused_v1_library()
-    if W > lib.ssnt_fused_v1_max_beams() or P != 2 * R + 2 + M:
-        raise ValueError(f"beam width {W} or row width {P} does not fit "
-                         f"the kernel")
+    if W > lib.ssnt_fused_v1_max_beams() or P != 2 * R + 2 + M or (
+            fw.prenet_w1.shape != (M, H)):
+        raise ValueError(f"beam width {W}, row width {P} or widths (H, M) = "
+                         f"({H}, {M}) do not fit the kernel and weights")
     i32, f32 = torch.int32, torch.float32
-    shapes = {"prenet_w1": (M, H), "prenet_b1": (H,), "prenet_w2": (H, H),
-              "prenet_b2": (H,), "wi": (H, 3 * H), "bi": (3 * H,),
-              "wh": (H, 3 * H), "bhn": (H,), "dec_pre_k": (H, R),
-              "dec_pre_b": (R,), "dec_proj_k": (R, 2 * R),
-              "dec_proj_b": (2 * R,), "dec_bias_k": (H, 2),
-              "dec_bias_b": (2,), "dec_mel_k": (H, M), "dec_mel_b": (M,)}
-    for name, x in fw._asdict().items():
-        _build.check_arg(name, x, f32 if name.startswith("dec_bias") else ct,
-                         shapes[name], dev)
     for name, x, dt, shape in (
         ("enc_pack", enc_pack, f32, (B, T, P)), ("t", t, i32, (B, W)),
         ("u", u, i32, (B, W)), ("log_prob", log_prob, f32, (B, W)),
@@ -438,7 +583,8 @@ def fused_v1_beam_step(
     ptr = lambda x: x.data_ptr()
     rc = lib.ssnt_fused_v1_step(
         int(ct == torch.bfloat16), B, W, T, H, M, R,
-        *map(ptr, (*args, *fw)), *map(ptr, out), *dbg,
+        *map(ptr, args), ptr(packed),
+        *(ptr(getattr(fw, k)) for k in V1_UNPACKED), *map(ptr, out), *dbg,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

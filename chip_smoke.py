@@ -54,9 +54,11 @@ weights, in phases, each reported on its own line:
      for bit;
  11. beam-only kernel check: the v2 (#12) and tone (#13) beam-only
      kernels against their plain versions on the same h and state, every
-     output bit for bit, at W=8 and W=16 on ragged lengths; v2 with
-     defaults, the final-feasibility guard, allow_skip and test_mode, and
-     an utterance that empties;
+     output bit for bit, at W=8 and W=16 on ragged lengths, at
+     max_beam_width W-1 and W+5, and at W=3 with F = H-1 state rows (spans
+     not a multiple of 16 bytes; the one-warp selection) for W_out 3 and
+     8; v2 with defaults, the final-feasibility guard, allow_skip and
+     test_mode, and an utterance that empties;
  12. tone serve (the tone path): 3 requests of B=32 (T=80, synthetic
      batches with tone targets, bf16) through encode -> tone_decode on
      the fused route (T launches of the fused tone kernel each), the
@@ -67,8 +69,10 @@ weights, in phases, each reported on its own line:
      weights are random); then one v2 request through
      v2_duration_decode(fuse_model=False): T launches of #12, durations
      equal to the plain route's;
- 13. timings: each new kernel against its plain version (device time
-     under a CUDA graph, and eager; host time per kernel call), and one
+ 13. timings: the launch floor (a one-element in-place add under the
+     same graph timing), each new kernel against its plain version
+     (device time under a CUDA graph, and eager; host time per kernel
+     call), and one
      tone request end to end
      (host clock: tone_decode, and apart its encode, its
      post-processing and the edit distance);
@@ -81,7 +85,8 @@ weights, in phases, each reported on its own line:
      against the kernel's outputs, bit for bit;
  15. beam-only v1 check: #11 with the decode's F = H + 2M + 2 = 418-wide
      rows and #10 without rows against their plain versions, every output
-     bit for bit, at W=1, 8 and 16 on ragged lengths;
+     bit for bit, at W=1, 8 and 16 on ragged lengths, at max_beam_width
+     W-1 and W+5, and at W=3 with F = 417 for W_out 3 and 8;
  16. v1 serve (the v1 path): 3 requests of B=32 (T=80, max_frames=400,
      bf16) through encode -> beam_decode on the fused route (400 #15
      launches each), the beam-only route (400 #11 each; outputs equal the
@@ -89,8 +94,9 @@ weights, in phases, each reported on its own line:
      greedy_decode on each route (400 #15; 400 #11 on the beam-only
      route: #10 has no decode caller, as in JAX); gates: alignment steps 0 or 1 inside each utterance,
      num_frames <= 400, mel finite, slot 0 the best beam;
- 17. timings: #15, #11 and #10 against their plain versions (device time
-     under a CUDA graph, and eager; host time per kernel call), #15 also at
+ 17. timings: the launch floor, #15, #11 and #10 against their plain
+     versions (device time under a CUDA graph, and eager; host time per
+     kernel call), #15 also at
      W=1 and W=16, and one v1 request per route end to
      end (host clock: beam_decode, and apart its encode and its backtrace
      + mel gather; audio-seconds per second, B*400*0.0125 s / latency);
@@ -123,9 +129,11 @@ weights, in phases, each reported on its own line:
      to the grad forward bit for bit), and variant="scan" fwd+bwd at B=32
      (no launch); each loss within BANDED_LOSS_RTOL and its gradients
      within BANDED_GRAD_RTOL / BANDED_GRAD_ATOL of variant="log";
- 23. timings: #2 and #6 at each K and batch against their plain versions
-     (device time under a CUDA graph) with their byte and operation
-     bounds and the composition tree's exp + log count, and the lattice
+ 23. timings: the plain forward alphas (#1) at each batch, #2 and #6 at
+     each K and batch against their plain versions (device time under a
+     CUDA graph) with their byte and operation bounds (#2's also with its
+     workspace written and read once) and the composition tree's exp +
+     log count, and the lattice
      loss fwd+bwd for variant "banded2".."banded16", "fused", "plain"
      and "scan" at B=32 and B=256 (eager, and device time under a CUDA
      graph).
@@ -402,6 +410,14 @@ def graph_ms(fn, k: int = 20, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (k * reps)
+
+
+def launch_floor_ms() -> float:
+    """Device time per call of the least kernel: an in-place add on a
+    one-element tensor, timed as graph_ms times any kernel (what one graph
+    node costs on this card)."""
+    one = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: one.add_(1.0))
 
 
 def eager_ms(fn, n: int = 50) -> float:
@@ -1246,6 +1262,13 @@ def banded_phases(seed: int, dev, smi: str) -> list:
         (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
         g = torch.ones(Bn, device=dev)
         with torch.no_grad():
+            a1 = lk.lattice_forward_alphas(le, ls, lf)
+            f_ms = graph_ms(lambda: lk.lattice_forward_alphas(le, ls, lf),
+                            k=20, reps=10)
+            f_bd = bound(nbytes(le, ls, lf, a1), 0, F32_OPS)
+            log(f"[23 time] {smi}: lattice_forward_alphas (#1, beside #2) "
+                f"B={Bn} T={T} U={U} f32: kernel {f_ms:.4f} ms (device "
+                f"time, CUDA graph); bound {f_bd[0] * 1e3:.2f} us (bytes)")
             for K in BANDS:
                 a = lk.lattice_forward_alphas_banded(le, ls, lf, K)
                 z = lat.gather_logz(a, le, il, ol)
@@ -1263,6 +1286,9 @@ def banded_phases(seed: int, dev, smi: str) -> list:
                          le, ls, lf, a, il, ol, g, z, K),
                      nbytes(le, ls, lf, a, il, ol, g, z) + 3 * nbytes(le)),
                 ]
+                # #2's workspace: the groups' composed operators, written
+                # by its first pass and read by its second.
+                work = 2 * groups * (K + 1) * Bn * T * 4
                 for name, bwd, kfn, pfn, nb in fns:
                     k_ms = graph_ms(kfn, k=20, reps=10)
                     p_ms = graph_ms(pfn, k=1, reps=2)
@@ -1270,13 +1296,17 @@ def banded_phases(seed: int, dev, smi: str) -> list:
                     cells = groups * Bn * T
                     bd = bound(nb, ops * cells, F32_OPS)
                     rows[name, Bn, K] = (k_ms, p_ms, bd)
+                    ws = "" if bwd else (
+                        f"; with the workspace written and read once "
+                        f"({work / 1e6:.1f} MB) "
+                        f"{bound(nb + work, 0, F32_OPS)[0] * 1e3:.2f} us")
                     log(f"[23 time] {smi}: {name} K={K} B={Bn} T={T} U={U} "
                         f"f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
                         f"(device time, CUDA graph); bound "
                         f"{bd[0] * 1e3:.2f} us ({bd[1]}, {nb / 1e6:.1f} MB, "
-                        f"{ops * cells / 1e6:.1f} M operations); per cell "
-                        f"and group: tree {tree_t} exp+log, walk {trans} "
-                        f"exp+log, {ops} operations")
+                        f"{ops * cells / 1e6:.1f} M operations){ws}; per "
+                        f"cell and group: tree {tree_t} exp+log, walk "
+                        f"{trans} exp+log, {ops} operations")
     for Bn in (B, B_LARGE):
         x = lattice_inputs(rng, Bn, torch.float32, dev)
         for variant in [f"banded{K}" for K in BANDS] + ["fused", "plain",
@@ -1399,10 +1429,11 @@ def beam_only_inputs(rng, s: int, Wn: int, D: int, K: int, H: int, il, ol,
                 state=f32(state))
 
 
-def check_beam_only(x, dtab, opts: dict, empty_tone_id: int) -> float:
+def check_beam_only(x, dtab, opts: dict, empty_tone_id: int,
+                    w_out=None) -> float:
     """Phase 11 for one input set: both beam-only kernels against their
-    plain versions, every output bit for bit; returns the v2 survivor
-    count of utterance 0."""
+    plain versions at max_beam_width w_out (None: W), every output bit
+    for bit; returns the v2 survivor count of utterance 0."""
     from ssnt_tts_tpu_torch.ops import beam_kernels as bk
 
     v2_args = (x["h"], x["lp"], x["fin"], x["tot"], dtab, x["t"], x["u"],
@@ -1410,22 +1441,25 @@ def check_beam_only(x, dtab, opts: dict, empty_tone_id: int) -> float:
     tone_args = (x["h_tone"], x["lp"], x["fin"], x["t"], x["u"], x["il"])
     with torch.no_grad():
         pairs = [
-            ("v2 #12", bk.v2_beam_search_decode(*v2_args, state=x["state"],
-                                                **opts),
+            ("v2 #12", bk.v2_beam_search_decode(
+                *v2_args, state=x["state"], max_beam_width=w_out, **opts),
              bk.v2_beam_search_decode_reference(
-                 *v2_args, state=x["state"], **opts)),
+                 *v2_args, state=x["state"], max_beam_width=w_out, **opts)),
             ("tone #13", bk.tone_beam_search_decode(
-                *tone_args, state=x["state"], empty_tone_id=empty_tone_id),
+                *tone_args, state=x["state"], empty_tone_id=empty_tone_id,
+                max_beam_width=w_out),
              bk.tone_beam_search_decode_reference(
                  *tone_args, state=x["state"],
-                 empty_tone_id=empty_tone_id)),
+                 empty_tone_id=empty_tone_id, max_beam_width=w_out)),
         ]
         torch.cuda.synchronize()
     for what, k, r in pairs:
         for name, a, b in zip(k._fields, k, r):
             if not same_bits(a, b):
-                raise AssertionError(f"{what} kernel differs on {name} "
-                                     f"({opts}, empty {empty_tone_id})")
+                raise AssertionError(
+                    f"{what} kernel differs on {name} ({opts}, empty "
+                    f"{empty_tone_id}, W={x['h'].shape[1]}, W_out={w_out}, "
+                    f"F={x['state'].shape[-1]})")
     return int(pairs[0][1].num_survivors[0])
 
 
@@ -1508,13 +1542,29 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
                 n0 = check_beam_only(x, dtab, opts, empty)
                 emptied += int(n0 == 0 and not opts.get("test_mode"))
                 n_checks += 1
+    # Other output widths, and F odd at W=3: a (W, F) span and a
+    # (W_out, F) output span whose bytes are not a multiple of 16, and at
+    # W=3 candidate grids of 30 and 24 (the one-warp selection; v2 with its
+    # diagonal re-injection).
+    widths = ((W, W - 1, H), (W, W + 5, H), (3, 3, H - 1), (3, W, H - 1))
+    for Wn, w_out, F in widths:
+        for s in (0, mid):
+            x = beam_only_inputs(rng, s, Wn, D, K, F, il, ol, dev)
+            for opts, empty in (
+                    ({}, 0),
+                    ({"config": V2BeamConfig(final_feasible_guard=True)}, 3),
+                    ({"allow_skip": True}, 0), ({"test_mode": True}, 3)):
+                n0 = check_beam_only(x, dtab, opts, empty, w_out)
+                emptied += int(n0 == 0 and not opts.get("test_mode"))
+                n_checks += 1
     if emptied != n_checks * 3 // 4:
         raise AssertionError(f"the overrun utterance emptied in {emptied} "
                              f"of {n_checks * 3 // 4} checks")
-    log(f"[11 beam-only] v2 #12 and tone #13 at W={W} and W=16, "
-        f"s=0/{mid}/{T - 1}, 4 option sets each ({n_checks} checks): "
-        f"every output bit-exact against the plain versions; the overrun "
-        f"utterance emptied in all {emptied} non-test_mode v2 checks")
+    log(f"[11 beam-only] v2 #12 and tone #13 at W={W} and W=16 "
+        f"(s=0/{mid}/{T - 1}), and (W, W_out, F) in {widths} (s=0/{mid}), "
+        f"4 option sets each ({n_checks} checks): every output bit-exact "
+        f"against the plain versions; the overrun utterance emptied in "
+        f"all {emptied} non-test_mode v2 checks")
 
     # ---- 12. tone serve (the tone path) ----
     counters = (beam_fused.fused_class_beam_step, beam_fused.fused_tone_step,
@@ -1611,6 +1661,8 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
                                                          state=x["state"])),
     }
     times = {}
+    log(f"[13 time] {smi}: launch floor (one-element in-place add, CUDA "
+        f"graph) {launch_floor_ms() * 1e3:.2f} us per call")
     with torch.no_grad():
         for name, (kfn, pfn) in fns.items():
             times[name] = (graph_ms(kfn), graph_ms(pfn), eager_ms(kfn),
@@ -1811,26 +1863,29 @@ def v1_beam_only_inputs(rng, s: int, Wn: int, il, F: int, dev):
                 t=i32(t), u=i32(u), il=il, state=f32(state))
 
 
-def check_v1_beam_only(x) -> None:
+def check_v1_beam_only(x, w_out=None) -> None:
     """Phase 15 for one input set: #11 and #10 against their plain
-    versions, every output bit for bit."""
+    versions at max_beam_width w_out (None: W), every output bit for
+    bit."""
     from ssnt_tts_tpu_torch.ops import beam_kernels as bk
 
     args = (x["h"], x["lp"], x["fin"], x["t"], x["u"], x["il"])
+    kw = {"max_beam_width": w_out}
     with torch.no_grad():
         pairs = [
-            ("#11", bk.beam_search_step_reorder(*args, x["state"]),
-             bk.beam_search_step_reorder_reference(*args, x["state"])),
-            ("#10", bk.beam_search_step_batched(*args),
-             bk.beam_search_step_batched_reference(*args)),
+            ("#11", bk.beam_search_step_reorder(*args, x["state"], **kw),
+             bk.beam_search_step_reorder_reference(*args, x["state"], **kw)),
+            ("#10", bk.beam_search_step_batched(*args, **kw),
+             bk.beam_search_step_batched_reference(*args, **kw)),
         ]
         torch.cuda.synchronize()
     for what, k, r in pairs:
         for name, a, b in zip(k._fields, k, r):
             if (a is None) != (b is None) or (
                     a is not None and not same_bits(a, b)):
-                raise AssertionError(f"{what} kernel differs on {name} "
-                                     f"(W={x['h'].shape[1]})")
+                raise AssertionError(
+                    f"{what} kernel differs on {name} (W={x['h'].shape[1]}, "
+                    f"W_out={w_out}, F={x['state'].shape[-1]})")
 
 
 def check_v1_request(what: str, out, il, Wn: int) -> int:
@@ -1899,9 +1954,17 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
         for s in (0, 40, T - 1):
             check_v1_beam_only(v1_beam_only_inputs(rng, s, Wn, il, F, dev))
             n15 += 1
+    # Other output widths, and F odd at W=3 (spans of 1251 floats).
+    widths = ((W, W - 1, F), (W, W + 5, F), (3, 3, F - 1), (3, W, F - 1))
+    for Wn, w_out, Fn in widths:
+        for s in (0, 40, T - 1):
+            check_v1_beam_only(v1_beam_only_inputs(rng, s, Wn, il, Fn, dev),
+                               w_out)
+            n15 += 1
     log(f"[15 v1 beam-only] #11 (F={F} rows) and #10 (no rows) at W=1, "
-        f"{W}, 16, s=0/40/{T - 1} on ragged lengths ({n15} checks each): "
-        f"every output bit-exact against the plain versions")
+        f"{W}, 16, and (W, W_out, F) in {widths}, s=0/40/{T - 1} on ragged "
+        f"lengths ({n15} checks each): every output bit-exact against the "
+        f"plain versions")
 
     # ---- 16. v1 serve (the v1 path) ----
     counters = (beam_fused.fused_v1_beam_step, bk.beam_search_step_reorder,
@@ -1995,6 +2058,8 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
             lambda: bk.beam_search_step_batched_reference(*bargs)),
     }
     times = {}
+    log(f"[17 time] {smi}: launch floor (one-element in-place add, CUDA "
+        f"graph) {launch_floor_ms() * 1e3:.2f} us per call")
     with torch.no_grad():
         for name, (kfn, pfn) in fns.items():
             times[name] = (graph_ms(kfn), graph_ms(pfn), eager_ms(kfn),

@@ -1,4 +1,5 @@
-"""Time the fused decode kernels of one or more checkouts, in turns.
+"""Time the fused decode kernels, the beam-only steps and the banded
+forward of one or more checkouts, in turns.
 
     python3 ssnt_tts_tpu_torch/bench_fused.py [--roots DIR ...] [--json OUT]
 
@@ -9,13 +10,25 @@ and batch (B=32, T=80):
   - #15 fused_v1_beam_step at W=1, 8 and 16 on a request's own carry at
     frame 100;
   - #14 fused_class_beam_step (v2) and fused_tone_step at W=8, step 30;
+  - the beam-only steps at W=8: #11 beam_search_step_reorder (F = 418
+    rows), #13 tone (K=8, H=256) and #12 v2 (D=10, H=256);
 each as device time per call under a CUDA graph (chip_smoke.graph_ms),
 eager time per call with a synchronize at the end (chip_smoke.eager_ms)
 and host time per call (the wrapper's own cost: the median of 5 runs of
-200 calls issued without a synchronize, host clock). Give the roots as
+200 calls issued without a synchronize, host clock); then, device time
+only, the launch floor (an in-place add on a one-element tensor), and at
+B=32 and B=256 (T=80, U=400, f32) the banded forward #2 at each K in
+chip_smoke.BANDS beside the plain forward alphas #1. Give the roots as
 parent, change, change, parent to compare two commits on one card. Each root's package and
 chip_smoke.py are imported afresh, so each times its own wrappers and
 kernels (built into the root's own build/ directory).
+
+    python3 ssnt_tts_tpu_torch/bench_fused.py --split [--roots DIR ...]
+
+instead prints #2's device time by CUDA kernel at each K and B
+(torch.profiler over 10 calls: the passes of the split design, or the one
+kernel of the design before it). Give it a process of its own: after a
+few profiler sessions in one process the later ones record nothing.
 
 Prints one JSON object per root and call, then the card's name and power
 limit; --json writes them all. Needs one CUDA device.
@@ -90,19 +103,99 @@ def bench_root(root: Path, dev) -> dict:
     fns["fused_v2_step W=8"] = lambda: beam_fused.fused_class_beam_step(*sa)
     ta = cs.tone_step_inputs(model, toks, il, 30, rng, dev)
     fns["fused_tone_step W=8"] = lambda: beam_fused.fused_tone_step(*ta)
+    fns.update(beam_only_fns(cs, cfg, req, rng, dev))
     out = {}
     with torch.no_grad():
         for name, fn in fns.items():
             out[name] = {"graph_ms": cs.graph_ms(fn),
                          "eager_ms": cs.eager_ms(fn),
                          "host_us": host_us(fn)}
+        one = torch.zeros(1, device=dev)
+        out["launch floor"] = {"graph_ms": cs.graph_ms(lambda: one.add_(1))}
+        for name, fn in lattice_fns(cs, rng, dev).items():
+            out[name] = {"graph_ms": cs.graph_ms(fn, k=20, reps=10)}
     return out
+
+
+def split_root(root: Path, dev) -> dict:
+    """#2's device microseconds per call by CUDA kernel, at each K and B."""
+    import numpy as np
+    import torch
+
+    cs, _ = load(root)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        return {name: kernel_split(fn)
+                for name, fn in lattice_fns(cs, rng, dev).items()
+                if "banded" in name}
+
+
+def kernel_split(fn, n: int = 10) -> dict:
+    """Device microseconds per call of each CUDA kernel fn launches
+    (torch.profiler, n calls after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0 and e.count >= n:
+            split[e.key[:80]] = e.device_time_total / n
+    return split
+
+
+def beam_only_fns(cs, cfg, req, rng, dev) -> dict:
+    """#11, #13 and #12 at chip_smoke's shapes (B=32, W=8)."""
+    import torch
+
+    bk = importlib.import_module("ssnt_tts_tpu_torch.ops.beam_kernels")
+    H, M = cfg.decoder_dim, cfg.mel_dim
+    D, K = cfg.duration_class_size, cfg.tone_class_size
+    _, il, ol = req
+    x1 = cs.v1_beam_only_inputs(rng, 40, cs.W, il, H + 2 * M + 2, dev)
+    x2 = cs.beam_only_inputs(rng, 30, cs.W, D, K, H, il, ol, dev)
+    dtab = torch.tensor(cfg.duration_table, dtype=torch.int32, device=dev)
+    a1 = (x1["h"], x1["lp"], x1["fin"], x1["t"], x1["u"], x1["il"])
+    a2 = (x2["h"], x2["lp"], x2["fin"], x2["tot"], dtab, x2["t"], x2["u"],
+          x2["il"], x2["ol"])
+    at = (x2["h_tone"], x2["lp"], x2["fin"], x2["t"], x2["u"], x2["il"])
+    return {
+        "beam_v1_step_reorder W=8 F=418":
+            lambda: bk.beam_search_step_reorder(*a1, x1["state"]),
+        "tone_beam_step W=8": lambda: bk.tone_beam_search_decode(
+            *at, state=x2["state"]),
+        "v2_beam_step W=8": lambda: bk.v2_beam_search_decode(
+            *a2, state=x2["state"]),
+    }
+
+
+def lattice_fns(cs, rng, dev) -> dict:
+    """#2 at each K and #1, at B=32 and B=256 (T=80, U=400, f32)."""
+    import torch
+
+    lk = importlib.import_module("ssnt_tts_tpu_torch.ops.lattice_kernels")
+    fns = {}
+    for Bn in (cs.B, cs.B_LARGE):
+        (le, ls, lf), _ = cs.lattice_inputs(rng, Bn, torch.float32, dev)
+        fns[f"lattice_forward_alphas B={Bn}"] = (
+            lambda x=(le, ls, lf): lk.lattice_forward_alphas(*x))
+        for K in cs.BANDS:
+            fns[f"lattice_forward_alphas_banded K={K} B={Bn}"] = (
+                lambda x=(le, ls, lf), K=K:
+                lk.lattice_forward_alphas_banded(*x, K))
+    return fns
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--roots", nargs="+", default=[str(HERE)])
     ap.add_argument("--json", default=None)
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -119,8 +212,9 @@ def main() -> int:
     results = []
     for i, root in enumerate(args.roots):
         t0 = time.time()
+        bench = split_root if args.split else bench_root
         r = {"call": i, "root": root,
-             "kernels": bench_root(Path(root).resolve(), dev),
+             "kernels": bench(Path(root).resolve(), dev),
              "seconds": time.time() - t0}
         print(json.dumps(r), flush=True)
         results.append(r)

@@ -5,8 +5,10 @@
 //     the tone candidate (no prunes, padding with empty_tone_id) and the
 //     v1 emit/shift candidate;
 //   - the stable top-W selection with adjacent dedup, pad by repetition
-//     and the v2 diagonal re-injection;
-//   - the parent-pointer reorder of per-beam state rows.
+//     and the v2 diagonal re-injection: by the whole block (select_beams,
+//     the fused steps; block_select, the beam-only steps above 32
+//     candidates) or by one warp without block barriers (warp_select,
+//     C <= 32; the beam-only steps).
 //
 // Candidates are in generation order c = w*D + d (beam-major, class-minor),
 // one thread per candidate, with the semantics of ops/beam_v2.py,
@@ -221,6 +223,146 @@ __device__ __forceinline__ int select_beams(SelectSmem& s, int C, int W,
   return n;
 }
 
+constexpr int kWarpC = 32;  // candidates warp_select takes
+
+// One warp's scratch for warp_select.
+struct WarpSmem {
+  int order[kWarpC];  // sorted position -> candidate
+  int surv[kWarpC];   // survivor rank -> candidate
+};
+
+// select_beams by one warp, for C <= kWarpC candidates: lane c holds
+// candidate c (x.valid false for lanes >= C, which the ballots then skip). The same order, dedup, pad
+// and re-injection, with shuffles, ballots and warp reductions in place of
+// the block's barriers (sorted positions and survivor ranks as bits of one
+// word). Several warps may run it on the same candidates, each with its
+// own scratch. Returns the survivor count; *src is the candidate of output
+// slot `lane` (lanes < Wo).
+__device__ __forceinline__ int warp_select(WarpSmem& ws, const Cand& x,
+                                           int Wo, bool use_diag, int* src) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned vmask = __ballot_sync(kAll, x.valid);
+  int r = 0;  // stable rank among valid candidates (lanes >= C invalid)
+#pragma unroll
+  for (int j = 0; j < kWarpC; ++j) {
+    const float lj = __shfl_sync(kAll, x.lp, j);
+    r += ((vmask >> j) & 1u) && ((lj > x.lp) || (lj == x.lp && j < lane));
+  }
+  if (x.valid) ws.order[r] = lane;
+  __syncwarp();
+  // adjacent dedup on every field but the parent
+  const int p = (x.valid && r > 0) ? ws.order[r - 1] : lane;
+  const int p_pred = __shfl_sync(kAll, x.pred, p);
+  const float p_lp = __shfl_sync(kAll, x.lp, p);
+  const int p_nt = __shfl_sync(kAll, x.nt, p);
+  const int p_nu = __shfl_sync(kAll, x.nu, p);
+  const int p_fin = __shfl_sync(kAll, (int)x.fin, p);
+  const int p_tot = __shfl_sync(kAll, x.tot, p);
+  const bool dup = r > 0 && p_pred == x.pred && p_lp == x.lp &&
+                   p_nt == x.nt && p_nu == x.nu && p_fin == (int)x.fin &&
+                   p_tot == x.tot;
+  const bool keep = x.valid && !dup;
+  const unsigned keep_at = __reduce_or_sync(kAll, keep ? 1u << r : 0u);
+  const unsigned diag_at =
+      __reduce_or_sync(kAll, use_diag && keep && x.diag ? 1u << r : 0u);
+  const int n = __popc(keep_at);
+  if (keep) ws.surv[__popc(keep_at & ((1u << r) - 1u))] = lane;
+  __syncwarp();
+  int s = 0;
+  if (lane < Wo) {
+    if (n > 0) s = ws.surv[lane < n ? lane : (lane - n) % n];
+    if (lane == Wo - 1 && diag_at) s = ws.order[__ffs(diag_at) - 1];
+  }
+  *src = s;
+  return n;
+}
+
+// Candidate fields and scratch of block_select (one utterance).
+struct BlockSmem {
+  __align__(16) float lp[kMaxC];
+  __align__(16) int valid[kMaxC];
+  int pred[kMaxC], nt[kMaxC], nu[kMaxC], tot[kMaxC], fin[kMaxC];
+  int diag[kMaxC];
+  int order[kMaxC];  // sorted position -> candidate
+  int surv[kMaxC];   // survivor rank -> candidate
+  int wcount[kThreads / 32];
+  int first_diag;    // sorted position of the first kept diagonal candidate
+};
+
+// select_beams over the C candidates of a block, with short loops and
+// four barriers: the ranks read four candidates a load (C padded to a
+// multiple of 4 with invalid slots); thread p then takes sorted position
+// p for the dedup, and the survivor ranks are ballots within a warp plus
+// the counts of the warps before it. Every thread of the block calls it
+// with its own candidate x (x.valid false for threads >= C). Returns the
+// survivor count; *src is the candidate of output slot `lane` (for lanes
+// < Wo, in every warp).
+__device__ __forceinline__ int block_select(BlockSmem& s, const Cand& x,
+                                            int C, int Wo, bool use_diag,
+                                            int* src) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C4 = (C + 3) & ~3;
+  if (tid < C) {
+    s.lp[tid] = x.lp; s.valid[tid] = x.valid; s.pred[tid] = x.pred;
+    s.nt[tid] = x.nt; s.nu[tid] = x.nu; s.tot[tid] = x.tot;
+    s.fin[tid] = x.fin; s.diag[tid] = x.diag;
+  } else if (tid < C4) {
+    s.lp[tid] = 0.0f;
+    s.valid[tid] = 0;
+  }
+  if (tid == 0) s.first_diag = kNone;
+  const int nvalid = __syncthreads_count(x.valid);
+  if (x.valid) {  // stable rank among valid candidates
+    const float li = x.lp;
+    int r = 0;
+#pragma unroll 4
+    for (int j = 0; j < C4; j += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(s.lp + j);
+      const int4 v = *reinterpret_cast<const int4*>(s.valid + j);
+      r += v.x && (l.x > li || (l.x == li && j < tid));
+      r += v.y && (l.y > li || (l.y == li && j + 1 < tid));
+      r += v.z && (l.z > li || (l.z == li && j + 2 < tid));
+      r += v.w && (l.w > li || (l.w == li && j + 3 < tid));
+    }
+    s.order[r] = tid;
+  }
+  __syncthreads();
+  // Thread p at sorted position p: adjacent dedup on every field but the
+  // parent.
+  bool keep = false;
+  int c = 0;
+  if (tid < nvalid) {
+    c = s.order[tid];
+    keep = true;
+    if (tid > 0) {
+      const int q = s.order[tid - 1];
+      keep = !(s.pred[q] == s.pred[c] && s.lp[q] == s.lp[c] &&
+               s.nt[q] == s.nt[c] && s.nu[q] == s.nu[c] &&
+               s.fin[q] == s.fin[c] && s.tot[q] == s.tot[c]);
+    }
+    if (use_diag && keep && s.diag[c]) atomicMin(&s.first_diag, tid);
+  }
+  const unsigned m = __ballot_sync(0xffffffffu, keep);
+  if (lane == 0) s.wcount[warp] = __popc(m);
+  __syncthreads();
+  int before = 0, n = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    before += w < warp ? s.wcount[w] : 0;
+    n += s.wcount[w];
+  }
+  if (keep) s.surv[before + __popc(m & ((1u << lane) - 1u))] = c;
+  __syncthreads();
+  int k = 0;
+  if (lane < Wo) {
+    if (n > 0) k = s.surv[lane < n ? lane : (lane - n) % n];
+    if (lane == Wo - 1 && s.first_diag != kNone) k = s.order[s.first_diag];
+  }
+  *src = k;
+  return n;
+}
+
 // Output rows (B, W) of a beam step; tot is null for tone.
 struct BeamOut {
   int* pred; float* lp; int* nt; int* nu; uint8_t* fin; int* tot;
@@ -241,17 +383,6 @@ __device__ __forceinline__ void write_selected(const SelectSmem& s, int b,
   o.fin[i] = (uint8_t)s.fin[src];
   if (o.tot) o.tot[i] = s.tot[src];
   o.branch[i] = src / D;
-}
-
-// dst row j = src row (parent of slot j), for one utterance's (W, H) rows;
-// src may be shared or global memory, but not dst.
-__device__ __forceinline__ void reorder_rows(const float* src, float* dst,
-                                             const SelectSmem& s, int W,
-                                             int D, int H) {
-  for (int i = threadIdx.x; i < W * H; i += blockDim.x) {
-    const int j = i / H, k = i - j * H;
-    dst[i] = src[(size_t)(s.src[j] / D) * H + k];
-  }
 }
 
 }  // namespace ssnt_beam

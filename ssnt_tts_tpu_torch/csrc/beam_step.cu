@@ -13,39 +13,71 @@
 //     kernel _v1_kernel :211), the same with a null state (F = 0).
 // Semantics: ops/beam_v2.beam_search_step, ops/tone_latent.
 // beam_search_step and ops/beam_v1.beam_search_step followed by the state
-// gather; candidates, selection and reorder come from beam_select.cuh,
-// which the fused steps share. The TPU v1 kernels pick their outputs by
-// one-hot sums (a selected -0.0 comes back +0.0); these copy.
+// gather, with W_out = max_beam_width output slots (1 to kMaxW; survivors
+// pad by repetition, v2's diagonal candidate goes to slot W_out - 1);
+// candidates and selection come from beam_select.cuh, which the fused
+// steps share. The TPU v1 kernels pick their outputs by one-hot sums (a
+// selected -0.0 comes back +0.0); these copy.
 // The TPU tone kernel lays candidates out class-major; here, as in the
 // plain steps, generation order is beam-major (c = w*K + k), which is the
 // order the TPU kernel's ties break by (gen = parent*K + k).
 //
-// What bounds it on an H100: latency. Per step it moves ~0.5 MB at B=32,
-// W=8, H=256 (v1: ~0.86 MB of F = 418 rows; mostly the state rows, read
-// once and written once) and does O(C^2) compares per utterance for the
-// ranks; one block per utterance, one thread per candidate. What the
-// design does about that: nothing yet; folding it into the step that
-// produces h is what the fused steps do.
+// What bounds it on an H100: latency, not bytes. Per step it moves ~0.5
+// MB at B=32, W=8, H=256 (v1: ~0.87 MB of F = 418 rows, 13.4 KB an
+// utterance), a 0.16-0.26 us byte bound, and does O(C^2) compares per
+// utterance; one block per utterance (32 of 132 SMs at B=32) waits on a
+// chain: its inputs' loads, the selection, then the rows, whose loads
+// cannot start before the parents are known. What the design does about
+// it:
+//   - the rows are in flight from the first instruction: thread 0 issues
+//     one TMA bulk copy of the utterance's contiguous (W, F) span into
+//     shared memory (an mbarrier carries its byte count) while the block
+//     loads the candidates' inputs and selects; the span's unaligned lead
+//     and tail (up to 3 floats each, when W*F*4 is not a multiple of 16)
+//     are read from global memory where the reorder needs them;
+//   - the selection of C <= 32 candidates (the v1 arm up to W = 16, small
+//     v2 and tone grids) runs in every warp at once (warp_select: shuffles,
+//     ballots, no block barrier); larger grids (v2 80, tone 64 candidates
+//     at W = 8) take block_select: four barriers, ranks read four
+//     candidates a load, survivor ranks by ballots (select_beams, which
+//     the fused steps keep, has six barriers and two serial loops over the
+//     candidates);
+//   - the reorder gives each output row to one warp, which reads the
+//     parent's row from shared memory and stores it coalesced, 16 bytes a
+//     lane where the row allows (F a multiple of 4: v2 and tone's H = 256;
+//     the v1 rows' F = 418 start 16-byte aligned only every other row, so
+//     they go a value at a time).
+// One block barrier remains on the warp path: it publishes the mbarrier's
+// initialisation. Measured by bench_fused.py (device time under a CUDA
+// graph, B=32, W=8; NVIDIA H100 80GB HBM3, 700 W): v1 with F = 418 rows
+// 3.2 us, tone 3.4 us, v2 3.9 us (the design before it: 6.8, 6.7, 7.8),
+// against a 1.3 us launch floor; probe_beam.py's stamps put the v1 rows'
+// landing at ~1.5 us after the block's start, the selection done at ~1.3
+// and the reorder's end at ~2.3.
 //
 // Layouts (row-major, contiguous): h (B, W, D) f32 (v1: D = 2, [emit,
-// shift]); log_prob (B, W) f32;
-// is_finished (B, W) bool (1 byte); t/u (B, W) i32; input_length (B,)
-// i32; state (B, W, H) f32 (v1: (B, W, F), or null). v2 only: total (B, W) i32, output length
-// (B,) i32, duration table (D,) i32. Outputs: (B, W) rows as inputs,
-// branch (B, W) i32, state (B, W, H) f32; v2 also total (B, W) and the
-// survivor count (B,) i32.
+// shift]); log_prob (B, W) f32; is_finished (B, W) bool (1 byte); t/u
+// (B, W) i32; input_length (B,) i32; state (B, W, H) f32 (v1: (B, W, F),
+// or null). v2 only: total (B, W) i32, output length (B,) i32, duration
+// table (D,) i32. Outputs: (B, W_out) rows as inputs, branch (B, W_out)
+// i32, state (B, W_out, H) f32; v2 also total (B, W_out) and the survivor
+// count (B,) i32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "beam_select.cuh"
+#include "tma.cuh"
 
 namespace {
 
 using namespace ssnt_beam;
+using namespace ssnt_tma;
+
+constexpr int kWarps = kThreads / 32;
 
 struct BeamArgs {
-  int B, W, D, H;
+  int B, W, Wo, D, H;
   const float* h; const float* lp; const uint8_t* fin; const int* t;
   const int* u; const int* il; const float* state;
   // v2 only
@@ -59,52 +91,203 @@ struct BeamArgs {
 enum Kind { kV2 = 0, kTone = 1, kV1 = 2 };
 
 template <int KIND>
-__global__ void __launch_bounds__(kThreads) beam_step_kernel(BeamArgs a) {
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int W = a.W, D = a.D, H = a.H, C = W * D;
-  __shared__ SelectSmem sel;
+__device__ __forceinline__ Cand candidate(const BeamArgs& a, int b, int c) {
+  const int w = c / a.D, d = c - w * a.D, o = b * a.W + w;
+  const float hv = a.h[(size_t)b * a.W * a.D + c];
+  if (KIND == kV2)
+    return v2_candidate(d, a.D, hv, a.lp[o], a.fin[o], a.tot[o], a.t[o],
+                        a.u[o], a.il[b], a.ol[b], a.dtab, a.v2);
+  if (KIND == kTone)
+    return tone_candidate(d, hv, a.lp[o], a.fin[o], a.t[o], a.u[o], a.il[b],
+                          a.empty_id);
+  return v1_candidate(d, hv, a.lp[o], a.fin[o], a.t[o], a.u[o], a.il[b]);
+}
 
-  bool valid = false;
-  if (tid < C) {
-    const int w = tid / D, d = tid - w * D, o = b * W + w;
-    const float hv = a.h[(size_t)b * C + tid];
-    const Cand x =
-        KIND == kV2
-            ? v2_candidate(d, D, hv, a.lp[o], a.fin[o], a.tot[o], a.t[o],
-                           a.u[o], a.il[b], a.ol[b], a.dtab, a.v2)
-        : KIND == kTone
-            ? tone_candidate(d, hv, a.lp[o], a.fin[o], a.t[o], a.u[o],
-                             a.il[b], a.empty_id)
-            : v1_candidate(d, hv, a.lp[o], a.fin[o], a.t[o], a.u[o],
-                           a.il[b]);
-    store_cand(sel, tid, x);
-    valid = x.valid;
+// The utterance's (W, H) state span: element i of the span in global
+// memory (g) is at s[lead + i] in shared memory; elements [i0, i0 + nb)
+// arrive by the bulk copy, the others (fewer than 4 at each end) are read
+// from global memory.
+struct Span {
+  const float* g;
+  const float* s;
+  int lead, i0, nb;
+  __device__ __forceinline__ float at(int i) const {
+    return (unsigned)(i - i0) < (unsigned)nb ? s[lead + i] : __ldg(g + i);
   }
-  const int n = select_beams(sel, C, W, valid, KIND == kV2 && !a.v2.test_mode);
-  write_selected(sel, b, W, D, a.out);
-  if (KIND == kV2 && tid == 0) a.o_nsurv[b] = n;
-  if (a.state) {
-    const size_t row0 = (size_t)b * W * H;
-    reorder_rows(a.state + row0, a.o_state + row0, sel, W, D, H);
+};
+
+// out (W_out, H) row j = the span row of slot j's parent, which lane j of
+// every warp holds (`parent`). Warp w copies rows w, w + kWarps, ...: each
+// lane reads the row's values from shared memory at a stride of 32 and
+// stores them, 16 bytes at a time where the row's width is a multiple of 4
+// and its source and destination are 16-byte aligned, else one value at a
+// time (coalesced either way).
+__device__ __forceinline__ void reorder_span(const Span& sp, int parent,
+                                             int Wo, int H, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = warp; j < Wo; j += kWarps) {
+    const int s0 = __shfl_sync(0xffffffffu, parent, j) * H;
+    float* dst = out + (size_t)j * H;
+    if ((H & 3) == 0 && ((sp.lead + s0) & 3) == 0 &&
+        ((uintptr_t)dst & 15) == 0 && s0 >= sp.i0 &&
+        s0 + H <= sp.i0 + sp.nb) {
+      const float4* src = reinterpret_cast<const float4*>(sp.s + sp.lead + s0);
+#pragma unroll 4
+      for (int k = lane; k < H / 4; k += 32)
+        reinterpret_cast<float4*>(dst)[k] = src[k];
+    } else {
+#pragma unroll 4
+      for (int k = lane; k < H; k += 32) dst[k] = sp.at(s0 + k);
+    }
   }
 }
 
 template <int KIND>
+__global__ void __launch_bounds__(kThreads) beam_step_kernel(BeamArgs a) {
+  extern __shared__ __align__(16) float rows[];
+  __shared__ uint64_t bar;
+  __shared__ BlockSmem bsm;
+  __shared__ WarpSmem wsm[kWarps];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
+            warp = tid >> 5;
+  const int W = a.W, Wo = a.Wo, D = a.D, H = a.H, C = W * D;
+  const bool use_diag = KIND == kV2 && !a.v2.test_mode;
+
+  // 1. The rows, in flight from the start.
+  Span sp{nullptr, rows, 0, 0, 0};
+  if (a.state) {
+    const int n = W * H;
+    sp.g = a.state + (size_t)b * n;
+    sp.lead = (int)(((uintptr_t)sp.g >> 2) & 3);
+    sp.i0 = min((4 - sp.lead) & 3, n);
+    sp.nb = (n - sp.i0) & ~3;
+    if (tid == 0) {
+      mbar_init(&bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (sp.nb)
+        bulk_copy(rows + sp.lead + sp.i0, sp.g + sp.i0, 4u * sp.nb, &bar);
+    }
+  }
+
+  // 2. Candidates, 3. selection.
+  const bool by_warp = C <= kWarpC;
+  Cand x{};
+  const int c = by_warp ? lane : tid;
+  if (c < C) x = candidate<KIND>(a, b, c);
+  int n, src;
+  if (by_warp) {
+    // Publishes the mbarrier's initialisation (the block routine's first
+    // barrier does that below).
+    if (a.state) __syncthreads();
+    n = warp_select(wsm[warp], x, Wo, use_diag, &src);
+    if (warp == 0) {  // slot `lane`'s fields, from lane src
+      constexpr unsigned kAll = 0xffffffffu;
+      const int pred = __shfl_sync(kAll, x.pred, src);
+      const float lp = __shfl_sync(kAll, x.lp, src);
+      const int nt = __shfl_sync(kAll, x.nt, src);
+      const int nu = __shfl_sync(kAll, x.nu, src);
+      const int fin = __shfl_sync(kAll, (int)x.fin, src);
+      const int tot = __shfl_sync(kAll, x.tot, src);
+      if (lane < Wo) {
+        const int i = b * Wo + lane;
+        a.out.pred[i] = pred;
+        a.out.lp[i] = lp;
+        a.out.nt[i] = nt;
+        a.out.nu[i] = nu;
+        a.out.fin[i] = (uint8_t)fin;
+        if (a.out.tot) a.out.tot[i] = tot;
+        a.out.branch[i] = src / D;
+      }
+    }
+  } else {
+    n = block_select(bsm, x, C, Wo, use_diag, &src);
+    if (warp == 0 && lane < Wo) {
+      const int i = b * Wo + lane;
+      a.out.pred[i] = bsm.pred[src];
+      a.out.lp[i] = bsm.lp[src];
+      a.out.nt[i] = bsm.nt[src];
+      a.out.nu[i] = bsm.nu[src];
+      a.out.fin[i] = (uint8_t)bsm.fin[src];
+      if (a.out.tot) a.out.tot[i] = bsm.tot[src];
+      a.out.branch[i] = src / D;
+    }
+  }
+  if (KIND == kV2 && tid == 0) a.o_nsurv[b] = n;
+
+  // 4. The reorder, from shared memory once the copy has landed.
+  if (a.state) {
+    if (sp.nb) mbar_wait(&bar, 0);
+    reorder_span(sp, src / D, Wo, H, a.o_state + (size_t)b * Wo * H);
+  }
+}
+
+// Static shared memory of the largest instance (read once).
+int static_smem() {
+  static int bytes = -1;
+  if (bytes < 0) {
+    const void* k[] = {(const void*)beam_step_kernel<kV2>,
+                       (const void*)beam_step_kernel<kTone>,
+                       (const void*)beam_step_kernel<kV1>};
+    bytes = 0;
+    for (const void* f : k) {
+      cudaFuncAttributes at;
+      if (cudaFuncGetAttributes(&at, f) != cudaSuccess) return -1;
+      if ((int)at.sharedSizeBytes > bytes) bytes = (int)at.sharedSizeBytes;
+    }
+  }
+  return bytes;
+}
+
+// The most dynamic shared memory a block may take: the device's opt-in
+// limit less the static part.
+int max_dynamic_smem() {
+  static int bytes = -1;
+  if (bytes < 0) {
+    int dev = 0, optin = 0;
+    const int st = static_smem();
+    if (st < 0 || cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+      return 0;
+    bytes = optin - st;
+  }
+  return bytes;
+}
+
+// Bytes of dynamic shared memory for (W, H) rows: the span and up to 3
+// floats of lead (16-byte alignment of the bulk copy's destination).
+size_t rows_smem(const BeamArgs& a) {
+  return a.state ? sizeof(float) * ((size_t)a.W * a.H + 4) : 0;
+}
+
+template <int KIND>
 cudaError_t launch(const BeamArgs& a, cudaStream_t stream) {
-  beam_step_kernel<KIND><<<a.B, kThreads, 0, stream>>>(a);
+  static bool opted = false;
+  const size_t smem = rows_smem(a);
+  if (smem > (size_t)max_dynamic_smem()) return cudaErrorInvalidValue;
+  if (smem > 0 && !opted) {  // once, to the limit (outside graph captures)
+    cudaError_t e = cudaFuncSetAttribute(
+        beam_step_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        max_dynamic_smem());
+    if (e != cudaSuccess) return e;
+    opted = true;
+  }
+  beam_step_kernel<KIND><<<a.B, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int W, int D, int H) {
-  return B < 1 || W < 1 || W > kMaxW || D < 1 || W * D > kMaxC || H < 1;
+bool bad_shape(int B, int W, int Wo, int D, int H) {
+  return B < 1 || W < 1 || W > kMaxW || Wo < 1 || Wo > kMaxW || D < 1 ||
+         W * D > kMaxC || H < 1;
 }
 
-void set_common(BeamArgs& a, int B, int W, int D, int H, const void* h,
-                const void* lp, const void* fin, const void* t,
+void set_common(BeamArgs& a, int B, int W, int Wo, int D, int H,
+                const void* h, const void* lp, const void* fin, const void* t,
                 const void* u, const void* il, const void* state,
                 void* o_pred, void* o_lp, void* o_nt, void* o_nu,
                 void* o_fin, void* o_branch, void* o_state) {
-  a.B = B; a.W = W; a.D = D; a.H = H;
+  a.B = B; a.W = W; a.Wo = Wo; a.D = D; a.H = H;
   a.h = (const float*)h; a.lp = (const float*)lp;
   a.fin = (const uint8_t*)fin; a.t = (const int*)t; a.u = (const int*)u;
   a.il = (const int*)il; a.state = (const float*)state;
@@ -119,10 +302,15 @@ void set_common(BeamArgs& a, int B, int W, int D, int H, const void* h,
 
 extern "C" int ssnt_beam_step_max_candidates() { return kMaxC; }
 extern "C" int ssnt_beam_step_max_beams() { return kMaxW; }
+// The largest (W, H) state span in bytes a step can stage.
+extern "C" int ssnt_beam_step_max_state_bytes() {
+  const int m = max_dynamic_smem() - 16;
+  return m > 0 ? m : 0;
+}
 
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ssnt_beam_v2_step(
-    int B, int W, int D, int H, const void* h, const void* lp,
+    int B, int W, int W_out, int D, int H, const void* h, const void* lp,
     const void* fin, const void* tot, const void* t, const void* u,
     const void* il, const void* ol, const void* dtab, const void* state,
     void* o_pred, void* o_lp, void* o_nt, void* o_nu, void* o_fin,
@@ -130,10 +318,10 @@ extern "C" int ssnt_beam_v2_step(
     int allow_skip, int test_mode, int overrun_mult, int feas_guard,
     float band_lower, float band_upper, float diag_lo, float diag_hi,
     void* stream) {
-  if (bad_shape(B, W, D, H)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, W, W_out, D, H)) return (int)cudaErrorInvalidValue;
   BeamArgs a;
-  set_common(a, B, W, D, H, h, lp, fin, t, u, il, state, o_pred, o_lp,
-             o_nt, o_nu, o_fin, o_branch, o_state);
+  set_common(a, B, W, W_out, D, H, h, lp, fin, t, u, il, state, o_pred,
+             o_lp, o_nt, o_nu, o_fin, o_branch, o_state);
   a.tot = (const int*)tot; a.ol = (const int*)ol; a.dtab = (const int*)dtab;
   a.out.tot = (int*)o_tot; a.o_nsurv = (int*)o_nsurv;
   a.v2 = V2Opts{zero_id, allow_skip, test_mode, overrun_mult, feas_guard,
@@ -144,15 +332,15 @@ extern "C" int ssnt_beam_v2_step(
 
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ssnt_beam_tone_step(
-    int B, int W, int K, int H, const void* h, const void* lp,
+    int B, int W, int W_out, int K, int H, const void* h, const void* lp,
     const void* fin, const void* t, const void* u, const void* il,
     const void* state, void* o_pred, void* o_lp, void* o_nt, void* o_nu,
     void* o_fin, void* o_branch, void* o_state, int empty_id,
     void* stream) {
-  if (bad_shape(B, W, K, H)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, W, W_out, K, H)) return (int)cudaErrorInvalidValue;
   BeamArgs a;
-  set_common(a, B, W, K, H, h, lp, fin, t, u, il, state, o_pred, o_lp,
-             o_nt, o_nu, o_fin, o_branch, o_state);
+  set_common(a, B, W, W_out, K, H, h, lp, fin, t, u, il, state, o_pred,
+             o_lp, o_nt, o_nu, o_fin, o_branch, o_state);
   a.tot = nullptr; a.ol = nullptr; a.dtab = nullptr; a.o_nsurv = nullptr;
   a.v2 = V2Opts{0, 0, 1, 0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
   a.empty_id = empty_id;
@@ -162,16 +350,16 @@ extern "C" int ssnt_beam_tone_step(
 // The v1 step; state/o_state null (and F = 0) for the step without rows.
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ssnt_beam_v1_step(
-    int B, int W, int F, const void* h, const void* lp, const void* fin,
-    const void* t, const void* u, const void* il, const void* state,
-    void* o_pred, void* o_lp, void* o_nt, void* o_nu, void* o_fin,
-    void* o_branch, void* o_state, void* stream) {
-  if (bad_shape(B, W, 2, state ? F : 1) ||
+    int B, int W, int W_out, int F, const void* h, const void* lp,
+    const void* fin, const void* t, const void* u, const void* il,
+    const void* state, void* o_pred, void* o_lp, void* o_nt, void* o_nu,
+    void* o_fin, void* o_branch, void* o_state, void* stream) {
+  if (bad_shape(B, W, W_out, 2, state ? F : 1) ||
       (state == nullptr) != (o_state == nullptr))
     return (int)cudaErrorInvalidValue;
   BeamArgs a;
-  set_common(a, B, W, 2, F, h, lp, fin, t, u, il, state, o_pred, o_lp, o_nt,
-             o_nu, o_fin, o_branch, o_state);
+  set_common(a, B, W, W_out, 2, F, h, lp, fin, t, u, il, state, o_pred,
+             o_lp, o_nt, o_nu, o_fin, o_branch, o_state);
   a.tot = nullptr; a.ol = nullptr; a.dtab = nullptr; a.o_nsurv = nullptr;
   a.v2 = V2Opts{0, 0, 1, 0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
   a.empty_id = 0;

@@ -41,6 +41,7 @@
 #include <stdint.h>
 
 #include "beam_select.cuh"
+#include "tma.cuh"
 
 namespace ssnt_gru {
 
@@ -146,47 +147,10 @@ inline void finish_stream(Stream& s, int chunk, int csize) {
 
 // ------------------------------------------------------- PTX wrappers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Spins until the barrier's phase `parity` has completed. A copy that
-// never lands traps (a launch error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-// One TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from global into this block's shared memory, completing on bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
+using ssnt_tma::bulk_copy;
+using ssnt_tma::mbar_init;
+using ssnt_tma::mbar_wait;
+using ssnt_tma::smem_u32;
 
 // Cluster barrier halves: arrive releases this thread's writes (local and
 // remote shared memory), wait acquires every other thread's.

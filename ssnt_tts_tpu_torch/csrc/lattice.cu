@@ -666,26 +666,42 @@ __global__ void backward_grads_kernel(
 // 0), then writes the three posteriors per column as
 // lattice_backward_grads does.
 //
-// Design: one block per example, one thread per t, as the other lattice
-// kernels. A group's column operators are computed in registers from
-// global memory (the t -+ 1 neighbours of ls and lf are read from global
-// memory too); each tree level writes its first-applied operands' band
-// entries to shared memory (two alternating buffers of K rows of T), one
-// barrier; the chain writes the group's start value to one of two
-// alternating shared rows, one barrier, and reads its t -+ k neighbours;
-// each interior column after the first is one more row and barrier. So a
-// group of K columns costs log2(K) + K - 1 (forward) or log2(K) + K
-// (backward) barriers, where the plain walks pay one a column, and the
-// group's loads are issued at its start, their latency on the chain once
-// a group. What bounds it: the barriers and the serial work of one thread
-// per t, not the bytes (bound 4.9 us for the forward at B=32, T=80,
-// U=400). Measured by chip_smoke.py phase 23 (device time, NVIDIA H100
-// 80GB HBM3, 700 W): forward 0.136 ms at K=2 and 0.299 ms at K=16,
-// backward 0.216 and 0.351 ms, at B=32; 0.27-0.51 ms at B=256: slower
-// than the plain walks at every K, as on the TPU. Registers: 39-128
-// (forward) and 40-214 (backward) from K=2 to K=16, no spills; at the
-// larger K they cap a block below kMaxT threads, which the wrapper asks
-// through ssnt_lattice_banded_max_t.
+// Design of the forward: three passes in order on one stream, as the TPU
+// kernel's own comments place its parts (lattice_pallas.py:262-271: the
+// tree and the interior replay are off the chain, the banded apply is the
+// only chain-dependent step):
+//   1. compose (a block per group and example, one thread per t): the K
+//      column operators from global memory (the t - 1 neighbour of ls
+//      too), the tree through two alternating shared buffers of K rows of
+//      T, one barrier a level; the (K+1)-band result P_g goes to a
+//      workspace P[g][k][b][t], (K+1) G B T floats (6.1 MB at K=2, B=32,
+//      T=80, U=400: it stays in L2; 49 MB at B=256);
+//   2. chain (a block per example): U/K steps of next = lse(P_g[k] +
+//      alpha(t - k)), one shared row and one barrier a step, P's next
+//      groups loaded into registers ahead (chain_ahead); writes each
+//      group's last column;
+//   3. replay (a block per group and example): the K - 1 interior
+//      columns from the group's start value (the previous group's last
+//      column), one barrier a column.
+// So the chain's depth falls from log2(K) + K - 1 barriers a group to one,
+// and the rest runs on every SM at once. The backward is one block per
+// example, one thread per t: a group's operators in registers, the tree as
+// above, the chain's value in one of two alternating shared rows, and each
+// interior column one more row and barrier, log2(K) + K barriers a group.
+// What bounds them: not the bytes (forward bound 4.9 us at B=32, T=80,
+// U=400; 8.6 us at K=2 with the workspace written and read). Measured by
+// bench_fused.py (device time under a CUDA graph and, by pass,
+// torch.profiler; NVIDIA H100 80GB HBM3, 700 W): the forward takes 0.053 /
+// 0.037 / 0.036 / 0.051 ms at K = 2/4/8/16 and B=32 (the one-block design
+// before it: 0.137-0.301 ms; the plain forward 0.060). Up to K=8 the chain
+// sets it (200 steps of 0.21 us at K=2, 50 of 0.31 at K=8); at K=16 the
+// compose pass (25 us: a 17-band tree, 218 accurate exp and log per cell
+// and group), and at B=256 compose and replay (the lattice read twice, the
+// workspace 49 MB at K=2): 0.14-0.27 ms against the plain forward's
+// 0.066. The backward: 0.216 ms at K=2 and 0.351 ms at K=16 at B=32,
+// 0.36-0.51 ms at B=256. Registers cap a block below kMaxT threads at the
+// larger K, which the wrapper asks through ssnt_lattice_banded_max_t (the
+// least of the three passes' limits for the forward).
 
 // A band entry of row `row` read at t - i (kUp false) or t + i (kUp true);
 // NEG where that leaves [0, T).
@@ -763,69 +779,148 @@ __device__ __forceinline__ void compose_tree(const float (&ops)[N][W],
   }
 }
 
+// Column u = g*K + j's operator for this thread's t: [lf_u + le_{u-1},
+// lf_u + ls_{u-1}(t-1)], NEG past U (le_{-1} = 0, ls_{-1} = NEG).
 template <int K>
-__global__ void forward_alphas_banded_kernel(int B, int T, int U,
-                                             const float* __restrict__ le,
-                                             const float* __restrict__ ls,
-                                             const float* __restrict__ lf,
-                                             float* __restrict__ alphas) {
-  extern __shared__ float smem[];
-  float* tb = smem;                  // tree operands: 2 x K rows of T
-  float* rows = smem + 2 * K * T;    // chain and replay: 2 rows of T
+__device__ __forceinline__ void forward_column_ops(
+    int g, int U, size_t col, size_t off, int t, bool live,
+    const float* __restrict__ le, const float* __restrict__ ls,
+    const float* __restrict__ lf, float (&M)[K][2]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int u = g * K + j;
+    float lf_u = kNeg, le_p = u == 0 ? 0.0f : kNeg, ls_p = kNeg;
+    if (live) {
+      if (u < U) lf_u = ld(lf, (size_t)u * col + off);
+      if (u >= 1 && u <= U) {
+        le_p = ld(le, (size_t)(u - 1) * col + off);
+        if (t >= 1) ls_p = ld(ls, (size_t)(u - 1) * col + off - 1);
+      }
+    }
+    M[j][0] = lf_u + le_p;
+    M[j][1] = lf_u + ls_p;
+  }
+}
+
+// The forward's three passes. The workspace P holds each group's composed
+// (K+1)-band operator as P[g][k][b][t] ((G, K+1, B, T) f32, G = ceil(U/K)).
+// Pass 1, off the chain (a block per group and example): the K column
+// operators and their composition tree into P.
+template <int K>
+__global__ void banded_compose_kernel(int B, int T, int U, int G,
+                                      const float* __restrict__ le,
+                                      const float* __restrict__ ls,
+                                      const float* __restrict__ lf,
+                                      float* __restrict__ P) {
+  extern __shared__ float smem[];  // tree operands: 2 x K rows of T
+  const int g = blockIdx.x % G, b = blockIdx.x / G, t = threadIdx.x;
+  const bool live = t < T;
+  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
+  float M[K][2];
+  forward_column_ops<K>(g, U, col, off, t, live, le, ls, lf, M);
+  float Pg[K + 1];
+  compose_tree<false, K + 1, K, 2>(M, Pg, smem, T, t, live, 0);
+  if (live) {
+#pragma unroll
+    for (int k = 0; k <= K; ++k)
+      P[((size_t)g * (K + 1) + k) * col + off] = Pg[k];
+  }
+}
+
+// Groups of P a chain thread holds in registers ahead of the chain: about
+// 24 values a buffer (two buffers), which keeps the chain's registers low
+// enough for blocks of several hundred threads (ssnt_lattice_banded_max_t).
+template <int K> __host__ __device__ constexpr int chain_ahead() {
+  return 24 / (K + 1) > 2 ? 24 / (K + 1) : 2;
+}
+
+// P's groups g0 .. g0 + A - 1 at this thread's (b, t); NEG past G.
+template <int K, int A>
+__device__ __forceinline__ void load_groups(const float* __restrict__ P,
+                                            float (&r)[A][K + 1], int g0,
+                                            int G, size_t col, size_t off,
+                                            bool live) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int k = 0; k <= K; ++k)
+      r[a][k] = live && g0 + a < G
+                    ? ld(P, ((size_t)(g0 + a) * (K + 1) + k) * col + off)
+                    : kNeg;
+}
+
+// Pass 2, the chain (a block per example): alpha at g*K + K - 1 from alpha
+// at g*K - 1 through P_g, one barrier a group, P's next groups loaded into
+// registers while the current ones are applied. Writes each group's last
+// column, which is the next group's start.
+template <int K>
+__global__ void banded_chain_kernel(int B, int T, int U, int G,
+                                    const float* __restrict__ P,
+                                    float* __restrict__ alphas) {
+  constexpr int A = chain_ahead<K>();
+  __shared__ float rows[2][kMaxT];
   const int b = blockIdx.x, t = threadIdx.x;
   const bool live = t < T;
   const size_t col = (size_t)B * T, off = (size_t)b * T + t;
-  const int groups = (U + K - 1) / K;
+  float cur[A][K + 1], nxt[A][K + 1];
+  load_groups<K, A>(P, cur, 0, G, col, off, live);
   float alpha = t == 0 ? 0.0f : kNeg;  // the virtual alpha_{-1}
-  int r = 0;
-  for (int g = 0; g < groups; ++g) {
-    const int base = g * K;
-    // Column u: [lf_u + le_{u-1}, lf_u + ls_{u-1}(t-1)], NEG past U.
-    float M[K][2];
+  for (int g0 = 0; g0 < G; g0 += A) {
+    load_groups<K, A>(P, nxt, g0 + A, G, col, off, live);
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int u = base + j;
-      float lf_u = kNeg, le_p = u == 0 ? 0.0f : kNeg, ls_p = kNeg;
-      if (live) {
-        if (u < U) lf_u = ld(lf, (size_t)u * col + off);
-        if (u >= 1 && u <= U) {
-          le_p = ld(le, (size_t)(u - 1) * col + off);
-          if (t >= 1) ls_p = ld(ls, (size_t)(u - 1) * col + off - 1);
-        }
-      }
-      M[j][0] = lf_u + le_p;
-      M[j][1] = lf_u + ls_p;
+    for (int a = 0; a < A; ++a) {
+      const int g = g0 + a;
+      if (g >= G) break;  // uniform across the block
+      float* s = rows[g & 1];
+      if (live) s[t] = alpha;
+      __syncthreads();
+      float x[K + 1];
+#pragma unroll
+      for (int k = 0; k <= K; ++k)
+        x[k] = cur[a][k] + shifted<false>(s, t, k, T, live);
+      alpha = lse_terms(x, K + 1);
+      const int u = g * K + K - 1;
+      if (live && u < U) alphas[(size_t)u * col + off] = alpha;
     }
-    float P[K + 1];
-    compose_tree<false, K + 1, K, 2>(M, P, tb, T, t, live, 0);
-    // The chain: alpha at base + K - 1 from alpha at base - 1.
-    float* s = rows + r * T;
-    r ^= 1;
-    if (live) s[t] = alpha;
-    __syncthreads();
-    float x[K + 1];
 #pragma unroll
-    for (int k = 0; k <= K; ++k)
-      x[k] = P[k] + shifted<false>(s, t, k, T, live);
-    const float next = lse_terms(x, K + 1);
-    // The interior: columns base .. base + K - 2 from alpha at base - 1.
-    float a = alpha;
+    for (int a = 0; a < A; ++a)
 #pragma unroll
-    for (int j = 0; j < K - 1; ++j) {
-      const float y[2] = {M[j][0] + a,
-                          M[j][1] + shifted<false>(s, t, 1, T, live)};
-      a = lse_terms(y, 2);
-      if (live && base + j < U) alphas[(size_t)(base + j) * col + off] = a;
-      if (j < K - 2) {
-        s = rows + r * T;
-        r ^= 1;
-        if (live) s[t] = a;
-        __syncthreads();
-      }
+      for (int k = 0; k <= K; ++k) cur[a][k] = nxt[a][k];
+  }
+}
+
+// Pass 3, off the chain (a block per group and example): the K - 1
+// interior columns of group g from its start value (alpha at g*K - 1, the
+// chain's, or the virtual carry for g = 0), one barrier a column.
+template <int K>
+__global__ void banded_replay_kernel(int B, int T, int U, int G,
+                                     const float* __restrict__ le,
+                                     const float* __restrict__ ls,
+                                     const float* __restrict__ lf,
+                                     float* __restrict__ alphas) {
+  __shared__ float rows[2][kMaxT];
+  const int g = blockIdx.x % G, b = blockIdx.x / G, t = threadIdx.x;
+  const bool live = t < T;
+  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
+  const int base = g * K;
+  float M[K][2];
+  forward_column_ops<K>(g, U, col, off, t, live, le, ls, lf, M);
+  float a = t == 0 ? 0.0f : kNeg;
+  if (g > 0 && live) a = alphas[(size_t)(base - 1) * col + off];
+  float* s = rows[0];
+  if (live) s[t] = a;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j) {
+    const float y[2] = {M[j][0] + a,
+                        M[j][1] + shifted<false>(s, t, 1, T, live)};
+    a = lse_terms(y, 2);
+    if (live && base + j < U) alphas[(size_t)(base + j) * col + off] = a;
+    if (j < K - 2) {
+      s = rows[(j + 1) & 1];
+      if (live) s[t] = a;
+      __syncthreads();
     }
-    alpha = next;
-    if (live && base + K - 1 < U)
-      alphas[(size_t)(base + K - 1) * col + off] = alpha;
   }
 }
 
@@ -970,16 +1065,23 @@ cudaError_t opt_in(Kern kern, size_t smem, size_t* opted) {
 
 int threads_for(int T) { return ((T + 31) / 32) * 32; }
 
+size_t tree_smem(int K, int T) { return sizeof(float) * 2 * (size_t)K * T; }
+
+// The three passes of the banded forward, in order on one stream; P is the
+// (G, K+1, B, T) workspace.
 template <int K>
 cudaError_t launch_forward_banded(int B, int T, int U, const float* le,
                                   const float* ls, const float* lf,
-                                  float* alphas, cudaStream_t s) {
+                                  float* alphas, float* P, cudaStream_t s) {
   static size_t opted = 0;
-  const size_t smem = banded_smem(K, T);
-  cudaError_t e = opt_in(forward_alphas_banded_kernel<K>, smem, &opted);
+  const size_t smem = tree_smem(K, T);
+  cudaError_t e = opt_in(banded_compose_kernel<K>, smem, &opted);
   if (e != cudaSuccess) return e;
-  forward_alphas_banded_kernel<K><<<B, threads_for(T), smem, s>>>(
-      B, T, U, le, ls, lf, alphas);
+  const int G = (U + K - 1) / K, n = threads_for(T);
+  banded_compose_kernel<K><<<G * B, n, smem, s>>>(B, T, U, G, le, ls, lf, P);
+  banded_chain_kernel<K><<<B, n, 0, s>>>(B, T, U, G, P, alphas);
+  banded_replay_kernel<K><<<G * B, n, 0, s>>>(B, T, U, G, le, ls, lf,
+                                               alphas);
   return cudaGetLastError();
 }
 
@@ -1013,8 +1115,11 @@ int max_threads(Kern kern) {
 
 template <int K>
 int banded_max_t(int backward) {
-  return backward ? max_threads(backward_grads_banded_kernel<K>)
-                  : max_threads(forward_alphas_banded_kernel<K>);
+  if (backward) return max_threads(backward_grads_banded_kernel<K>);
+  const int a = max_threads(banded_compose_kernel<K>);
+  const int b = max_threads(banded_chain_kernel<K>);
+  const int c = max_threads(banded_replay_kernel<K>);
+  return a < b ? (a < c ? a : c) : (b < c ? b : c);
 }
 
 bool bad_shape(int B, int T, int U) {
@@ -1130,21 +1235,23 @@ int ssnt_lattice_banded_max_t(int K, int backward) {
   }
 }
 
+// workspace: (ceil(U/K), K+1, B, T) f32, the groups' composed operators.
 int ssnt_lattice_forward_alphas_banded(int K, int B, int T, int U,
                                        const void* le, const void* ls,
                                        const void* lf, void* alphas,
-                                       void* stream) {
+                                       void* workspace, void* stream) {
   if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
   if (B == 0 || U == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const float *e = (const float*)le, *h = (const float*)ls,
               *f = (const float*)lf;
-  float* a = (float*)alphas;
+  float *a = (float*)alphas, *P = (float*)workspace;
   switch (K) {
-    case 2: return (int)launch_forward_banded<2>(B, T, U, e, h, f, a, s);
-    case 4: return (int)launch_forward_banded<4>(B, T, U, e, h, f, a, s);
-    case 8: return (int)launch_forward_banded<8>(B, T, U, e, h, f, a, s);
-    case 16: return (int)launch_forward_banded<16>(B, T, U, e, h, f, a, s);
+    case 2: return (int)launch_forward_banded<2>(B, T, U, e, h, f, a, P, s);
+    case 4: return (int)launch_forward_banded<4>(B, T, U, e, h, f, a, P, s);
+    case 8: return (int)launch_forward_banded<8>(B, T, U, e, h, f, a, P, s);
+    case 16:
+      return (int)launch_forward_banded<16>(B, T, U, e, h, f, a, P, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -51,15 +51,15 @@ FUSED_V2_ARGTYPES = [_I] * 6 + [_P] * 31 + [_I] * 5 + [_F] * 4 + [_P]
 # ssnt_fused_tone_step(compute_bf16, B, W, K, H, s, 15 inputs, 9 outputs,
 #                      empty_tone_id, stream)
 FUSED_TONE_ARGTYPES = [_I] * 6 + [_P] * 24 + [_I] + [_P]
-# ssnt_beam_v2_step(B, W, D, H, 10 inputs, 9 outputs, 5 int options,
-#                   4 float options, stream)
-BEAM_V2_ARGTYPES = [_I] * 4 + [_P] * 19 + [_I] * 5 + [_F] * 4 + [_P]
-# ssnt_beam_tone_step(B, W, K, H, 7 inputs, 7 outputs, empty_tone_id,
-#                     stream)
-BEAM_TONE_ARGTYPES = [_I] * 4 + [_P] * 14 + [_I] + [_P]
-# ssnt_beam_v1_step(B, W, F, 7 inputs, 7 outputs, stream); the state row
-# pointers may be null (F = 0)
-BEAM_V1_ARGTYPES = [_I] * 3 + [_P] * 14 + [_P]
+# ssnt_beam_v2_step(B, W, W_out, D, H, 10 inputs, 9 outputs, 5 int
+#                   options, 4 float options, stream)
+BEAM_V2_ARGTYPES = [_I] * 5 + [_P] * 19 + [_I] * 5 + [_F] * 4 + [_P]
+# ssnt_beam_tone_step(B, W, W_out, K, H, 7 inputs, 7 outputs,
+#                     empty_tone_id, stream)
+BEAM_TONE_ARGTYPES = [_I] * 5 + [_P] * 14 + [_I] + [_P]
+# ssnt_beam_v1_step(B, W, W_out, F, 7 inputs, 7 outputs, stream); the
+# state row pointers may be null (F = 0)
+BEAM_V1_ARGTYPES = [_I] * 4 + [_P] * 14 + [_P]
 # ssnt_fused_v1_step(compute_bf16, B, W, T, H, M, R, 18 inputs (the six
 #                    matrices as one packed stream), 9 outputs, 3 debug
 #                    outputs, stream)
@@ -76,9 +76,12 @@ LATTICE_BETAS_ARGTYPES = [_I] * 3 + [_P] * 7
 # ssnt_lattice_bidir_exp takes lattice_bidir's arguments.
 # ssnt_lattice_expin(B, T, U, E, S, F, mcol, il, ol, qn, bn, M, N, stream)
 LATTICE_EXPIN_ARGTYPES = [_I] * 3 + [_P] * 11
-# ssnt_lattice_forward_alphas_banded and ssnt_lattice_backward_grads_banded
-# take the arguments of the forward and backward kernels, with K in place
-# of the bf16 flag; ssnt_lattice_banded_max_t(K, backward).
+# ssnt_lattice_forward_alphas_banded(K, B, T, U, le, ls, lf, alphas,
+#                                    workspace, stream)
+LATTICE_FWD_BANDED_ARGTYPES = [_I] * 4 + [_P] * 6
+# ssnt_lattice_backward_grads_banded takes the backward kernel's
+# arguments, with K in place of the bf16 flag;
+# ssnt_lattice_banded_max_t(K, backward).
 
 
 def find_nvcc() -> str:
@@ -169,7 +172,8 @@ def beam_step_library() -> ctypes.CDLL:
                   "ssnt_beam_tone_step": BEAM_TONE_ARGTYPES,
                   "ssnt_beam_v1_step": BEAM_V1_ARGTYPES},
                  ("ssnt_beam_step_max_candidates",
-                  "ssnt_beam_step_max_beams"))
+                  "ssnt_beam_step_max_beams",
+                  "ssnt_beam_step_max_state_bytes"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,7 +185,8 @@ def lattice_library() -> ctypes.CDLL:
                   "ssnt_lattice_backward_betas": LATTICE_BETAS_ARGTYPES,
                   "ssnt_lattice_bidir_exp": LATTICE_BIDIR_ARGTYPES,
                   "ssnt_lattice_expin": LATTICE_EXPIN_ARGTYPES,
-                  "ssnt_lattice_forward_alphas_banded": LATTICE_FWD_ARGTYPES,
+                  "ssnt_lattice_forward_alphas_banded":
+                      LATTICE_FWD_BANDED_ARGTYPES,
                   "ssnt_lattice_backward_grads_banded": LATTICE_BWD_ARGTYPES,
                   "ssnt_lattice_banded_max_t": [_I, _I]},
                  ("ssnt_lattice_max_t",))

@@ -17,8 +17,9 @@ own `.launches` per launch. For CPU tensors it runs the plain version
 (`*_reference`): the plain beam_v2 / tone_latent / beam_v1 step, then the
 gather of the rows by parent pointer.
 
-The kernels write max_beam_width == W slots; the wrappers raise for any
-other width (no decode path asks for one).
+Each writes W_out = max_beam_width (W by default) output slots, 1 to
+MAX_BEAMS, as JAX's kernels do: the survivors pad by repetition when
+W_out exceeds them, and v2's diagonal candidate goes to slot W_out - 1.
 """
 
 from __future__ import annotations
@@ -48,11 +49,17 @@ class V2BeamStep(NamedTuple):
     state: torch.Tensor
 
 
-def _check_width(W: int, max_beam_width: Optional[int]) -> None:
-    if max_beam_width is not None and max_beam_width != W:
-        raise NotImplementedError(
-            f"max_beam_width {max_beam_width} != beam width {W}: the "
-            f"beam-only steps write W slots (ROADMAP.md, Queue 1)")
+MAX_BEAMS = 16  # csrc/beam_select.cuh kMaxW: the most slots a kernel writes
+
+
+def _out_width(W: int, max_beam_width: Optional[int]) -> int:
+    """W_out = max_beam_width, W when it is None; ValueError outside
+    1..MAX_BEAMS (the kernels' limit, for the plain versions too)."""
+    W_out = W if max_beam_width is None else int(max_beam_width)
+    if not 1 <= W_out <= MAX_BEAMS:
+        raise ValueError(f"output width {W_out}: the beam-only steps write "
+                         f"1 to {MAX_BEAMS} slots")
+    return W_out
 
 
 def v2_beam_search_decode_reference(
@@ -63,11 +70,11 @@ def v2_beam_search_decode_reference(
     max_beam_width: Optional[int] = None,
 ) -> V2BeamStep:
     """Plain PyTorch version of v2_beam_search_decode (any device)."""
-    _check_width(h.shape[1], max_beam_width)
     out = beam_v2.beam_search_decode(
         h, log_prob_history, is_finished, total_duration, duration_table, t,
         u, input_length, output_length, zero_duration_id=zero_duration_id,
-        allow_skip=allow_skip, test_mode=test_mode, config=config)
+        allow_skip=allow_skip, test_mode=test_mode, config=config,
+        max_beam_width=_out_width(h.shape[1], max_beam_width))
     return V2BeamStep(*out, reorder_state(state, out[6]))
 
 
@@ -84,7 +91,7 @@ def v2_beam_search_decode(
     is_finished (B, W) bool; total_duration, t, u (B, W) int32;
     duration_table (D,) int32; input_length, output_length (B,) int32
     (zeroed here in test_mode, as the reference wrapper does); state
-    (B, W, H) f32 per-beam rows.
+    (B, W, H) f32 per-beam rows. Outputs (B, W_out), state (B, W_out, H).
     """
     kw = dict(state=state, zero_duration_id=zero_duration_id,
               allow_skip=allow_skip, test_mode=test_mode, config=config,
@@ -96,8 +103,8 @@ def v2_beam_search_decode(
         return v2_beam_search_decode_reference(*args, **kw)
     B, W, D = h.shape
     H = state.shape[-1]
-    lib = _check_common(h, log_prob_history, is_finished, t, u,
-                        input_length, state, max_beam_width)
+    lib, W_out = _check_common(h, log_prob_history, is_finished, t, u,
+                               input_length, state, max_beam_width)
     if not 0 <= zero_duration_id < D:
         raise ValueError(f"zero_duration_id {zero_duration_id} out of range")
     i32 = torch.int32
@@ -110,17 +117,17 @@ def v2_beam_search_decode(
     if test_mode:
         output_length = torch.zeros_like(output_length)
     cfg = config if config is not None else V2BeamConfig()
-    new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
+    new = lambda dt: torch.empty(B, W_out, dtype=dt, device=dev)
     out = V2BeamStep(
         prediction=new(i32), log_prob=new(torch.float32), next_t=new(i32),
         next_u=new(i32), is_finished=new(torch.bool),
         total_duration=new(i32), branch=new(i32),
         num_survivors=torch.empty(B, dtype=i32, device=dev),
-        state=torch.empty(B, W, H, dtype=torch.float32, device=dev),
+        state=torch.empty(B, W_out, H, dtype=torch.float32, device=dev),
     )
     ptr = lambda x: x.data_ptr()
     rc = lib.ssnt_beam_v2_step(
-        B, W, D, H,
+        B, W, W_out, D, H,
         *map(ptr, (h, log_prob_history, is_finished, total_duration, t, u,
                    input_length, output_length, duration_table, state)),
         *map(ptr, out),
@@ -145,10 +152,10 @@ def tone_beam_search_decode_reference(
     empty_tone_id: int = 0, max_beam_width: Optional[int] = None,
 ) -> ToneStep:
     """Plain PyTorch version of tone_beam_search_decode (any device)."""
-    _check_width(h.shape[1], max_beam_width)
     out = tone_latent.beam_search_step(
         h, log_prob_history, is_finished, t, u, input_length,
-        empty_tone_id=empty_tone_id)
+        empty_tone_id=empty_tone_id,
+        max_beam_width=_out_width(h.shape[1], max_beam_width))
     return ToneStep(*out, reorder_state(state, out[5]))
 
 
@@ -166,17 +173,17 @@ def tone_beam_search_decode(
         return tone_beam_search_decode_reference(*args, **kw)
     B, W, K = h.shape
     H = state.shape[-1]
-    lib = _check_common(*args, state, max_beam_width)
+    lib, W_out = _check_common(*args, state, max_beam_width)
     i32 = torch.int32
-    new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
+    new = lambda dt: torch.empty(B, W_out, dtype=dt, device=dev)
     out = ToneStep(
         prediction=new(i32), log_prob=new(torch.float32), next_t=new(i32),
         next_u=new(i32), is_finished=new(torch.bool), branch=new(i32),
-        state=torch.empty(B, W, H, dtype=torch.float32, device=dev),
+        state=torch.empty(B, W_out, H, dtype=torch.float32, device=dev),
     )
     ptr = lambda x: x.data_ptr()
     rc = lib.ssnt_beam_tone_step(
-        B, W, K, H, *map(ptr, (*args, state)), *map(ptr, out),
+        B, W, W_out, K, H, *map(ptr, (*args, state)), *map(ptr, out),
         int(empty_tone_id), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"beam-only tone step kernel launch failed: "
@@ -189,8 +196,9 @@ tone_beam_search_decode.launches = 0
 
 
 class V1BeamStep(NamedTuple):
-    """(B, W): prediction, log_prob, next_t, next_u, is_finished, branch;
-    state (B, W, F) reordered rows, None for the step without state."""
+    """(B, W_out): prediction, log_prob, next_t, next_u, is_finished,
+    branch; state (B, W_out, F) reordered rows, None for the step without
+    state."""
 
     prediction: torch.Tensor
     log_prob: torch.Tensor
@@ -206,9 +214,9 @@ def beam_search_step_reorder_reference(
     *, max_beam_width: Optional[int] = None,
 ) -> V1BeamStep:
     """Plain PyTorch version of beam_search_step_reorder (any device)."""
-    _check_width(h.shape[1], max_beam_width)
-    out = beam_v1.beam_search_step(h, log_prob_history, is_finished, t, u,
-                                   input_length)
+    out = beam_v1.beam_search_step(
+        h, log_prob_history, is_finished, t, u, input_length,
+        max_beam_width=_out_width(h.shape[1], max_beam_width))
     return V1BeamStep(*out, reorder_state(state, out[5]))
 
 
@@ -217,9 +225,9 @@ def beam_search_step_batched_reference(
     *, max_beam_width: Optional[int] = None,
 ) -> V1BeamStep:
     """Plain PyTorch version of beam_search_step_batched (any device)."""
-    _check_width(h.shape[1], max_beam_width)
     return V1BeamStep(*beam_v1.beam_search_step(
-        h, log_prob_history, is_finished, t, u, input_length), None)
+        h, log_prob_history, is_finished, t, u, input_length,
+        max_beam_width=_out_width(h.shape[1], max_beam_width)), None)
 
 
 def _v1_step(args, state, max_beam_width) -> V1BeamStep:
@@ -227,17 +235,19 @@ def _v1_step(args, state, max_beam_width) -> V1BeamStep:
     h = args[0]
     dev = h.device
     B, W, _ = h.shape
-    lib = _check_common(*args, state, max_beam_width)
+    lib, W_out = _check_common(*args, state, max_beam_width)
     i32 = torch.int32
-    new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
+    new = lambda dt: torch.empty(B, W_out, dtype=dt, device=dev)
+    F = 0 if state is None else state.shape[-1]
     out = V1BeamStep(
         prediction=new(i32), log_prob=new(torch.float32), next_t=new(i32),
         next_u=new(i32), is_finished=new(torch.bool), branch=new(i32),
-        state=None if state is None else torch.empty_like(state),
+        state=None if state is None else torch.empty(
+            B, W_out, F, dtype=torch.float32, device=dev),
     )
     ptr = lambda x: None if x is None else x.data_ptr()
     rc = lib.ssnt_beam_v1_step(
-        B, W, 0 if state is None else state.shape[-1],
+        B, W, W_out, F,
         *map(ptr, (*args, state)), *map(ptr, out),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -255,7 +265,8 @@ def beam_search_step_reorder(
     h (B, W, 2) f32 emit/shift log-probs; log_prob_history (B, W) f32;
     is_finished (B, W) bool; t, u (B, W) int32; input_length (B,) int32;
     state (B, W, F) f32: any per-beam rows (the v1 decode packs its GRU
-    state, mel, previous mel, fin and t there)."""
+    state, mel, previous mel, fin and t there). Outputs (B, W_out), state
+    (B, W_out, F)."""
     args = (h, log_prob_history, is_finished, t, u, input_length)
     if h.device.type == "cpu":
         return beam_search_step_reorder_reference(
@@ -289,16 +300,20 @@ beam_search_step_batched.launches = 0
 def _check_common(h, log_prob, is_finished, t, u, input_length, state,
                   max_beam_width):
     """Raise unless a beam-only kernel can take these (CUDA) tensors
-    (state may be None); returns the kernel library."""
+    (state may be None); returns the kernel library and W_out."""
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"beam-only step runs on cuda or cpu, not {dev}")
     B, W, D = h.shape
-    _check_width(W, max_beam_width)
+    W_out = _out_width(W, max_beam_width)
     lib = _build.beam_step_library()
     if W > lib.ssnt_beam_step_max_beams() or (
             W * D > lib.ssnt_beam_step_max_candidates()):
         raise ValueError(f"beam width {W} x classes {D} exceeds the kernel")
+    if state is not None and (state.shape[-1] * W * 4
+                              > lib.ssnt_beam_step_max_state_bytes()):
+        raise ValueError(f"state rows ({W}, {state.shape[-1]}) exceed the "
+                         f"kernel's shared memory")
     i32, f32 = torch.int32, torch.float32
     for name, x, dt, shape in (
         ("h", h, f32, (B, W, D)), ("log_prob", log_prob, f32, (B, W)),
@@ -309,4 +324,4 @@ def _check_common(h, log_prob, is_finished, t, u, input_length, state,
         _build.check_arg(name, x, dt, shape, dev)
     if state is not None:
         _build.check_arg("state", state, f32, (B, W, state.shape[-1]), dev)
-    return lib
+    return lib, W_out

@@ -42,15 +42,19 @@ def beam_search_step(
     allow_skip: bool,
     test_mode: bool,
     config: V2BeamConfig | None = None,
+    max_beam_width: int | None = None,
 ):
     """One v2 beam step for a batch.
 
     h (B, W, D) f32 per-beam class log-probs; log_prob_history (B, W) f32;
     is_finished (B, W) bool; total_duration, t, u (B, W) int;
     duration_table (D,) int; input_length, output_length (B,) int.
+    max_beam_width: output width, W by default (survivors pad by
+    repetition; the diagonal candidate goes to the last slot).
 
     Returns (prediction, log_prob, next_t, next_u, is_finished,
-    total_duration, beam_branch), each (B, W), and num_survivors (B,).
+    total_duration, beam_branch), each (B, max_beam_width), and
+    num_survivors (B,).
     """
     B, W, D = h.shape
     cfg = config if config is not None else V2BeamConfig()
@@ -123,8 +127,8 @@ def beam_search_step(
         diff = tot.to(f32) - ratio * nt.to(f32)
         lo, hi = cfg.diagonal_window
         diag_mask = flat((diff >= f(lo)) & (diff <= f(hi)))
-    out = select_beams(fields, flat(valid), fields["log_prob"], W, _EQ_KEYS,
-                       diag_mask=diag_mask)
+    out = select_beams(fields, flat(valid), fields["log_prob"],
+                       max_beam_width or W, _EQ_KEYS, diag_mask=diag_mask)
     return (out["prediction"], out["log_prob"], out["next_t"], out["next_u"],
             out["is_finished"], out["total_duration"], out["parent_branch"],
             out["num_survivors"])
@@ -138,6 +142,7 @@ def beam_search_decode(
     allow_skip: bool = False,
     test_mode: bool = False,
     config: V2BeamConfig | None = None,
+    max_beam_width: int | None = None,
 ):
     """Reference Python API (ssnt_tts_tensorflow/__init__.py:33-73): in
     test_mode output_length is zeroed, like the reference wrapper.
@@ -148,5 +153,5 @@ def beam_search_decode(
         h, log_prob_history, is_finished, total_duration, duration_table,
         t, u, input_length, output_length,
         zero_duration_id=zero_duration_id, allow_skip=allow_skip,
-        test_mode=test_mode, config=config,
+        test_mode=test_mode, config=config, max_beam_width=max_beam_width,
     )

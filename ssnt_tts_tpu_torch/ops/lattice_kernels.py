@@ -629,15 +629,19 @@ def _check_band(K: int) -> None:
 
 def lattice_forward_alphas_banded(le, ls, lf, K: int):
     """(U, B, T) f32 lattice -> alphas (U, B, T) f32 by K-banded chains,
-    K in (2, 4, 8, 16)."""
+    K in (2, 4, 8, 16). On the card: three kernels (compose, chain,
+    replay; csrc/lattice.cu) through a (ceil(U/K), K+1, B, T) f32
+    workspace of the groups' composed operators; one launch counted."""
     _check_band(K)
     if le.device.type == "cpu":
         return lattice_forward_alphas_banded_reference(le, ls, lf, K)
     lib, U, B, T, dev = _banded_args(le, ls, lf, K, 0)
     alphas = torch.empty((U, B, T), device=dev)
+    work = torch.empty((-(-U // K), K + 1, B, T), device=dev)
     _raise_on(lib.ssnt_lattice_forward_alphas_banded(
         K, B, T, U, le.data_ptr(), ls.data_ptr(), lf.data_ptr(),
-        alphas.data_ptr(), _stream(dev)), "lattice_forward_alphas_banded")
+        alphas.data_ptr(), work.data_ptr(), _stream(dev)),
+        "lattice_forward_alphas_banded")
     lattice_forward_alphas_banded.launches += 1
     return alphas
 

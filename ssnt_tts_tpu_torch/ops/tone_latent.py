@@ -13,6 +13,8 @@ class-minor generation order.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ssnt_tts_tpu_torch.ops.beam_common import select_beams
@@ -21,14 +23,17 @@ _EQ_KEYS = ("prediction", "log_prob", "next_t", "next_u", "is_finished")
 
 
 def beam_search_step(h, log_prob_history, is_finished, t, u, input_length,
-                     *, empty_tone_id: int = 0):
+                     *, empty_tone_id: int = 0,
+                     max_beam_width: Optional[int] = None):
     """One tone step for a batch (JAX tone_latent.beam_search_decode).
 
     h (B, W, K) f32 per-beam tone-class log-probs; log_prob_history (B, W)
     f32; is_finished (B, W) bool; t, u (B, W) int; input_length (B,) int.
+    max_beam_width: output width, W by default (survivors pad by
+    repetition).
 
     Returns (prediction, log_prob, next_t, next_u, is_finished,
-    beam_branch), each (B, W).
+    beam_branch), each (B, max_beam_width).
     """
     B, W, K = h.shape
     dev = h.device
@@ -56,6 +61,7 @@ def beam_search_step(h, log_prob_history, is_finished, t, u, input_length,
         "next_t": flat(nt), "next_u": flat(nu), "is_finished": flat(pad0),
         "parent_branch": flat(parent.expand(shape)),
     }
-    out = select_beams(fields, flat(valid), fields["log_prob"], W, _EQ_KEYS)
+    out = select_beams(fields, flat(valid), fields["log_prob"],
+                       max_beam_width or W, _EQ_KEYS)
     return (out["prediction"], out["log_prob"], out["next_t"], out["next_u"],
             out["is_finished"], out["parent_branch"])

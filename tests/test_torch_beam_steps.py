@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import ssnt_tts_tpu.ops.beam_pallas as jbeam_pallas
+from ssnt_tts_tpu.ops import beam_v1 as jbeam_v1
 from ssnt_tts_tpu.ops import beam_v2 as jbeam_v2
 from ssnt_tts_tpu.ops import tone_latent as jtone
 from ssnt_tts_tpu.utils.config import V2BeamConfig as JaxV2BeamConfig
@@ -266,14 +267,156 @@ def test_hand_goldens_through_beam_only_steps(golden):
         rtol=0, atol=0)
 
 
+def _v1_inputs(seed, B, W, F=7):
+    """v1 beams at the shared step, on their last frame, past it, at t = -1
+    or finished; dyadic log-probs (ties, duplicate candidates); utterance
+    0 a first step; state rows with a -0.0 lane."""
+    rng = np.random.default_rng(seed)
+    T = rng.integers(1, 8, B)
+    s = rng.integers(0, T + 1)[:, None]
+    t = np.where(rng.random((B, W)) < 0.7, s,
+                 rng.integers(-1, T[:, None] + 1, (B, W)))
+    u = t + rng.integers(0, 3, (B, W))
+    fin = rng.random((B, W)) < 0.2
+    hist = -rng.integers(0, 12, (B, W)) / 4.0
+    h = -rng.integers(0, 8, (B, W, 2)) / 8.0
+    dup = rng.random(B) < 0.4
+    for a in (t, u, fin, hist, h):
+        a[dup, 1] = a[dup, 0]
+    t[0], u[0], fin[0], hist[0], h[0] = 0, 0, False, 0.0, h[0, :1]
+    state = rng.normal(0, 1, (B, W, F)).astype(np.float32)
+    state[:, :, 3] = -0.0
+    return dict(h=h.astype(np.float32), lph=hist.astype(np.float32), fin=fin,
+                t=t.astype(np.int32), u=u.astype(np.int32),
+                il=T.astype(np.int32), state=state)
+
+
+def _gathered(state, branch):
+    """state[b, branch[b, j]]: the reorder every wrapper's rows must be."""
+    idx = np.asarray(branch).astype(np.int64)[..., None]
+    return np.take_along_axis(state, idx, axis=1)
+
+
+def _other_width_case(kind, seed, W, W_out):
+    """(port output, JAX kernel output, eager JAX step output) of one
+    beam-only step at W_out output slots, all as numpy tuples with the
+    reordered rows last (the eager step's rows gathered by its branch)."""
+    v1 = kind.startswith("v1")
+    if v1:
+        x = _v1_inputs(seed, B=10, W=W)
+        names = _TONE_ARGS
+    elif kind == "tone":
+        x = _tone_inputs(seed, B=12, W=W, K=4)
+        names = _TONE_ARGS
+    else:
+        x = _v2_inputs(seed, B=12, W=W, D=6)
+        names = _V2_ARGS
+    tx = [torch.from_numpy(np.asarray(x[k])) for k in names]
+    jx = [jnp.asarray(x[k]) for k in names]
+    state = x["state"]
+    np_ = lambda out: tuple(np.asarray(a) for a in out)
+    if kind == "v1_batched":
+        got = beam_kernels.beam_search_step_batched(
+            *tx, max_beam_width=W_out)[:6]
+        kern = jbeam_pallas.beam_search_step_batched(
+            *jx, max_beam_width=W_out)
+        xla = jbeam_v1.beam_search_decode_batched(*jx,
+                                                  max_beam_width=W_out)
+        return np_(got), np_(kern), np_(xla)
+    if kind == "v1_reorder":
+        got = beam_kernels.beam_search_step_reorder(
+            *tx, torch.from_numpy(state), max_beam_width=W_out)
+        kern = jbeam_pallas.beam_search_step_reorder(
+            *jx, jnp.asarray(state), max_beam_width=W_out)
+        xla = jbeam_v1.beam_search_decode_batched(*jx,
+                                                  max_beam_width=W_out)
+        return (np_(got), np_(kern),
+                np_(xla) + (_gathered(state, xla[5]),))
+    if kind == "tone":
+        got = beam_kernels.tone_beam_search_decode(
+            *tx, state=torch.from_numpy(state), empty_tone_id=1,
+            max_beam_width=W_out)
+        kern = jbeam_pallas.tone_beam_search_decode(
+            *jx, empty_tone_id=1, max_beam_width=W_out,
+            state=jnp.asarray(state))
+        xla = jax.vmap(lambda *a: jtone.beam_search_step(
+            *a, empty_tone_id=1, max_beam_width=W_out))(*jx)
+        return (np_(got), np_(kern),
+                np_(xla) + (_gathered(state, xla[5]),))
+    test_mode = kind == "v2_test_mode"
+    kw = dict(zero_duration_id=0, allow_skip=False, test_mode=test_mode)
+    got = beam_kernels.v2_beam_search_decode(
+        *tx, state=torch.from_numpy(state), max_beam_width=W_out, **kw)
+    with jax.disable_jit():
+        kern = jbeam_pallas.v2_beam_search_decode(
+            *jx, return_num_survivors=True, state=jnp.asarray(state),
+            max_beam_width=W_out, **kw)
+        h, lph, fin, tot, dtab, t, u, il, ol = jx
+        if test_mode:
+            ol = jnp.zeros_like(ol)
+        xla = jax.vmap(
+            lambda h_, lp_, f_, tt_, t_, u_, il_, ol_: jbeam_v2.
+            beam_search_step(h_, lp_, f_, tt_, dtab, t_, u_, il_, ol_,
+                             max_beam_width=W_out,
+                             return_num_survivors=True, **kw))(
+            h, lph, fin, tot, t, u, il, ol)
+    return (np_(got), np_(kern), np_(xla) + (_gathered(state, xla[6]),))
+
+
+@pytest.mark.parametrize("dw", [-1, 5], ids=["narrower", "wider"])
+@pytest.mark.parametrize("kind", ["v1_batched", "v1_reorder", "v2",
+                                  "v2_test_mode", "tone"])
+def test_beam_only_wrappers_match_jax_at_other_widths(kind, dw):
+    """max_beam_width = W - 1 and W + 5 (survivors padded by repetition):
+    each beam-only wrapper (plain on CPU tensors, no launch) against JAX's
+    beam kernel at the same max_beam_width, interpreted, as
+    tests/test_beam_pallas.py runs it, and against JAX's eager step with
+    the rows gathered by its branch. Integers and selections exactly
+    equal; log-probs and rows exactly equal (IEEE == against the JAX
+    kernels, whose one-hot picks return a selected -0.0 as +0.0; bit for
+    bit, sign included, against the eager step). The v2 kernel outside
+    test_mode is held where it agrees with the eager step: its
+    interpreted diagonal window contracts into a fused multiply-add
+    (ROADMAP.md, Queue 3)."""
+    W = 4
+    W_out = W + dw
+    counters = (beam_kernels.v2_beam_search_decode,
+                beam_kernels.tone_beam_search_decode,
+                beam_kernels.beam_search_step_reorder,
+                beam_kernels.beam_search_step_batched)
+    before = [c.launches for c in counters]
+    compared = total = 0
+    for seed in range(3):
+        got, kern, xla = _other_width_case(kind, seed, W, W_out)
+        assert all(g.shape[:2] == (g.shape[0], W_out) for g in got
+                   if g.ndim >= 2)
+        _assert_same(got, {f"field {i}": a for i, a in enumerate(xla)},
+                     f"{kind} W_out={W_out} eager seed {seed}")
+        same = np.ones(len(got[0]), bool)
+        if kind == "v2":
+            for a, b in zip(kern, xla):
+                same &= (a == b).reshape(len(same), -1).all(axis=1)
+        for i, (g, k) in enumerate(zip(got, kern)):
+            np.testing.assert_array_equal(
+                g[same], k[same],
+                err_msg=f"{kind} W_out={W_out} kernel seed {seed} field {i}")
+        compared += int(same.sum())
+        total += len(same)
+    assert [c.launches for c in counters] == before
+    assert compared >= 0.8 * total
+
+
 @pytest.mark.parametrize("golden", [_v2_golden, _tone_golden],
                          ids=["v2", "tone"])
-def test_beam_only_wrappers_take_only_the_beam_width(golden):
+def test_beam_only_wrappers_bound_the_output_width(golden):
+    """1 <= max_beam_width <= 16, the kernels' slot limit, on the plain
+    versions too: outside it, ValueError."""
     x, _, names, step = golden()
     B, W = x["lph"].shape
-    with pytest.raises(NotImplementedError, match="max_beam_width"):
-        step(*(torch.from_numpy(x[k]) for k in names),
-             state=torch.zeros(B, W, 3), max_beam_width=W + 1)
+    for bad in (0, 17):
+        with pytest.raises(ValueError, match="output width"):
+            step(*(torch.from_numpy(x[k]) for k in names),
+                 state=torch.zeros(B, W, 3), max_beam_width=bad)
 
 
 @pytest.mark.parametrize("golden", [_v2_golden, _tone_golden],

@@ -290,12 +290,20 @@ def _wrapper_args(device="cpu"):
             torch.from_numpy(x["state"]).to(device))
 
 
-def test_beam_only_v1_wrappers_take_only_the_beam_width():
+def test_beam_only_v1_wrappers_bound_the_output_width():
+    """max_beam_width from 1 to 16 (the kernel's slot limit), on the plain
+    versions too; tests/test_torch_beam_steps.py compares the widths with
+    JAX's kernels."""
     args, state = _wrapper_args()
-    with pytest.raises(NotImplementedError, match="max_beam_width"):
-        beam_kernels.beam_search_step_reorder(*args, state, max_beam_width=3)
-    with pytest.raises(NotImplementedError, match="max_beam_width"):
-        beam_kernels.beam_search_step_batched(*args, max_beam_width=3)
+    for bad in (0, 17):
+        with pytest.raises(ValueError, match="output width"):
+            beam_kernels.beam_search_step_reorder(*args, state,
+                                                  max_beam_width=bad)
+        with pytest.raises(ValueError, match="output width"):
+            beam_kernels.beam_search_step_batched(*args, max_beam_width=bad)
+    out = beam_kernels.beam_search_step_reorder(*args, state,
+                                                max_beam_width=16)
+    assert out.state.shape == (3, 16, state.shape[-1])
 
 
 def test_beam_only_v1_wrappers_reject_other_devices():

@@ -104,9 +104,10 @@ weights, in phases, each reported on its own line:
      whose emit probability is 0 everywhere): the exp-native pass (#9)
      and the exp-domain bidirectional pass (#4) at B=32 and B=256, the
      betas-only pass (#3) at B=32 (bit for bit lattice_bidir's betas),
-     each against its plain version (LAT_REL; -inf cells equal), and the
-     gradients after the plain backward (GRAD_F32; degenerate examples'
-     exactly 0);
+     each against its plain version (LAT_REL; -inf cells equal; #9 also
+     bit for bit, its warp walk, and its block walk at T=T_BLOCK_WALK,
+     B=8), and the gradients after the plain backward (GRAD_F32;
+     degenerate examples' exactly 0);
  19. exp-domain training (the exp path, lattice_domain="exp", frame
      log_sigma EXP_LOG_SIGMA): run_training at B=32 for 10 steps (one #9
      launch each), one no-grad loss (one), run_training at B=256 for 2
@@ -131,8 +132,8 @@ weights, in phases, each reported on its own line:
      within BANDED_GRAD_RTOL / BANDED_GRAD_ATOL of variant="log";
  23. timings: the plain forward alphas (#1) at each batch, #2 and #6 at
      each K and batch against their plain versions (device time under a
-     CUDA graph) with their byte and operation bounds (#2's also with its
-     workspace written and read once) and the composition tree's exp +
+     CUDA graph) with their byte and operation bounds (also with their
+     workspaces written and read once) and the composition tree's exp +
      log count, and the lattice
      loss fwd+bwd for variant "banded2".."banded16", "fused", "plain"
      and "scan" at B=32 and B=256 (eager, and device time under a CUDA
@@ -184,6 +185,9 @@ EXP_LOSS_RTOL, EXP_GRAD_COS, EXP_VARIANT_RTOL = 1e-4, 0.999, 5e-4
 EXP_LOG_SIGMA, EXP_WARMUP = 2.0, 1000
 # A train loss at or above this holds an utterance at the 1e30 sentinel.
 SENTINEL_LOSS = 1e20
+# A source length above the exp-native pass's warp walk (T <= 128): phase
+# 18 holds its block walk too.
+T_BLOCK_WALK = 200
 # The banded kernels' K, and variant="bandedN" / "scan" against
 # variant="log" on one lattice: JAX's own tolerances
 # (tests/test_lattice_pallas.py::test_banded_k_variants_match_xla: loss
@@ -434,18 +438,18 @@ def eager_ms(fn, n: int = 50) -> float:
     return start.elapsed_time(end) / n
 
 
-def lattice_inputs(rng, Bn: int, dtype, dev):
-    """A (U, B, T) lattice (transition log-probs, Gaussian-like frame
+def lattice_inputs(rng, Bn: int, dtype, dev, Tn: int = T):
+    """A (U, B, Tn) lattice (transition log-probs, Gaussian-like frame
     log-likelihoods) and ragged lengths: example 0 full, 1 with
     il = ol = 1, 2 degenerate (ol < il: no path reaches t = il-1)."""
-    le = np.log(rng.uniform(0.1, 0.9, (U, Bn, T)))
+    le = np.log(rng.uniform(0.1, 0.9, (U, Bn, Tn)))
     ls = np.log1p(-np.exp(le))
-    lf = rng.normal(-2.0, 1.0, (U, Bn, T))
-    il = rng.integers(T // 2, T + 1, Bn)
+    lf = rng.normal(-2.0, 1.0, (U, Bn, Tn))
+    il = rng.integers(Tn // 2, Tn + 1, Bn)
     ol = np.minimum(U, np.round(il * rng.uniform(4.2, 5.0, Bn)))
-    il[0], ol[0] = T, U
+    il[0], ol[0] = Tn, U
     il[1], ol[1] = 1, 1
-    il[2], ol[2] = T, T - 1
+    il[2], ol[2] = Tn, Tn - 1
     lat = [torch.tensor(x, dtype=torch.float32, device=dev).to(dtype)
            for x in (le, ls, lf)]
     lens = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (il, ol)]
@@ -773,24 +777,41 @@ def train_phases(seed: int, dev, smi: str) -> list:
         if dtype == torch.float32]
 
 
-def exp_lattice_inputs(rng, Bn: int, dev):
+def exp_lattice_inputs(rng, Bn: int, dev, Tn: int = T):
     """lattice_inputs' lattice and lengths, and its exp-domain quadruple
     (E, S, F, mcol) as the joints emit it: mcol the max of lf over valid
     t, F = exp(lf - mcol) and 0 past the input length; example 3's emit
     probability is 0 everywhere (no valid path, as JAX's
     test_expin_degenerate_path_zero_grads)."""
-    (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
+    (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev,
+                                            Tn)
     E, S = le.exp(), ls.exp()
     E[:, 3], S[:, 3] = 0.0, 1.0
-    tmask = torch.arange(T, device=dev)[None, None, :] < il[None, :, None]
+    tmask = torch.arange(Tn, device=dev)[None, None, :] < il[None, :, None]
     mcol = torch.where(tmask, lf, -1e30).amax(dim=2)
     F = torch.exp(torch.where(tmask, lf - mcol[:, :, None], -torch.inf))
     return (E, S, F, mcol), (le, ls, lf), (il, ol)
 
 
+def check_expin_bits(x, il, ol, what: str):
+    """#9 on (E, S, F, mcol) and lengths: every output bit for bit its
+    plain version's. Returns (kernel outputs, plain outputs)."""
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    k = lk.lattice_expin(*x, il, ol)
+    r = lk.lattice_expin_reference(*x, il, ol)
+    torch.cuda.synchronize()
+    for a, b, n in zip(k, r, ("qn", "bn", "M", "N")):
+        if not same_bits(a, b):
+            raise AssertionError(f"expin {n} {what}: not the plain "
+                                 f"version's bit for bit")
+    return k, r
+
+
 def check_exp_lattice(rng, dev) -> dict:
     """Phase 18: #9 and #4 at B=32 and B=256, #3 at B=32, each against
-    its plain version. Returns each kernel's max abs error."""
+    its plain version, and #9's block walk (T above the warp walk's).
+    Returns each kernel's max abs error."""
     from ssnt_tts_tpu_torch.ops import lattice as lat
     from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
 
@@ -800,9 +821,7 @@ def check_exp_lattice(rng, dev) -> dict:
         x, logs, (il, ol) = exp_lattice_inputs(rng, Bn, dev)
         g = torch.ones(Bn, device=dev)
         with torch.no_grad():
-            k = lk.lattice_expin(*x, il, ol)
-            r = lk.lattice_expin_reference(*x, il, ol)
-            torch.cuda.synchronize()
+            k, r = check_expin_bits(x, il, ol, f"B={Bn}")
             e_in = max(lattice_err(a, b, f"expin {n} B={Bn}") for a, b, n in
                        zip(k, r, ("qn", "bn", "M", "N")))
             kz = lk.expin_logz(x[0], x[2], k[0], k[2], il, ol)
@@ -841,8 +860,9 @@ def check_exp_lattice(rng, dev) -> dict:
                      int(torch.isneginf(kb).sum()))
         err["lattice_expin"] = max(err["lattice_expin"], e_in[0])
         err["lattice_bidir_exp"] = max(err["lattice_bidir_exp"], e_ex[0])
-        log(f"[18 exp lattice] B={Bn} T={T} U={U} f32: expin qn/bn/M/N max "
-            f"abs err {e_in[0]:.3e}, rel err {e_in[1]:.3e}, grads after the "
+        log(f"[18 exp lattice] B={Bn} T={T} U={U} f32: expin (warp walk) "
+            f"qn/bn/M/N bit for bit the plain version's, max abs err "
+            f"{e_in[0]:.3e}, rel err {e_in[1]:.3e}, grads after the "
             f"plain backward {e_gin:.3e}; bidir_exp alphas/betas max abs "
             f"err {e_ex[0]:.3e}, rel err {e_ex[1]:.3e}, -inf cells equal "
             f"({n_inf[0]} alphas, {n_inf[1]} betas), grads after the "
@@ -870,6 +890,14 @@ def check_exp_lattice(rng, dev) -> dict:
             f"lattice_bidir's betas; max abs err {e_b[0]:.3e}, rel err "
             f"{e_b[1]:.3e} against the plain version, grads after the "
             f"posterior pass {e_gb:.3e}; degenerate grads exactly 0")
+    # #9's block walk: T above the warp walk's 128.
+    x, _, (il, ol) = exp_lattice_inputs(rng, 8, dev, T_BLOCK_WALK)
+    with torch.no_grad():
+        k, r = check_expin_bits(x, il, ol, f"T={T_BLOCK_WALK}")
+    e_blk = max(float((a - b).abs().max()) for a, b in zip(k, r))
+    err["lattice_expin"] = max(err["lattice_expin"], e_blk)
+    log(f"[18 exp lattice] expin (block walk) B=8 T={T_BLOCK_WALK} U={U} "
+        f"f32: qn/bn/M/N bit for bit the plain version's")
     return err
 
 
@@ -1286,9 +1314,10 @@ def banded_phases(seed: int, dev, smi: str) -> list:
                          le, ls, lf, a, il, ol, g, z, K),
                      nbytes(le, ls, lf, a, il, ol, g, z) + 3 * nbytes(le)),
                 ]
-                # #2's workspace: the groups' composed operators, written
-                # by its first pass and read by its second.
-                work = 2 * groups * (K + 1) * Bn * T * 4
+                # The workspaces, each written and read once: the groups'
+                # composed operators (#2 and #6) and #6's group bottoms.
+                work = {False: 2 * groups * (K + 1) * Bn * T * 4,
+                        True: 2 * groups * (K + 2) * Bn * T * 4}
                 for name, bwd, kfn, pfn, nb in fns:
                     k_ms = graph_ms(kfn, k=20, reps=10)
                     p_ms = graph_ms(pfn, k=1, reps=2)
@@ -1296,10 +1325,10 @@ def banded_phases(seed: int, dev, smi: str) -> list:
                     cells = groups * Bn * T
                     bd = bound(nb, ops * cells, F32_OPS)
                     rows[name, Bn, K] = (k_ms, p_ms, bd)
-                    ws = "" if bwd else (
-                        f"; with the workspace written and read once "
-                        f"({work / 1e6:.1f} MB) "
-                        f"{bound(nb + work, 0, F32_OPS)[0] * 1e3:.2f} us")
+                    ws = (f"; with the workspaces written and read once "
+                          f"({work[bwd] / 1e6:.1f} MB) "
+                          f"{bound(nb + work[bwd], 0, F32_OPS)[0] * 1e3:.2f}"
+                          f" us")
                     log(f"[23 time] {smi}: {name} K={K} B={Bn} T={T} U={U} "
                         f"f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
                         f"(device time, CUDA graph); bound "

@@ -1,5 +1,5 @@
-"""Time the fused decode kernels, the beam-only steps and the banded
-forward of one or more checkouts, in turns.
+"""Time the fused decode kernels, the beam-only steps, the banded lattice
+walks and the exp-native pass of one or more checkouts, in turns.
 
     python3 ssnt_tts_tpu_torch/bench_fused.py [--roots DIR ...] [--json OUT]
 
@@ -17,18 +17,20 @@ eager time per call with a synchronize at the end (chip_smoke.eager_ms)
 and host time per call (the wrapper's own cost: the median of 5 runs of
 200 calls issued without a synchronize, host clock); then, device time
 only, the launch floor (an in-place add on a one-element tensor), and at
-B=32 and B=256 (T=80, U=400, f32) the banded forward #2 at each K in
-chip_smoke.BANDS beside the plain forward alphas #1. Give the roots as
+B=32 and B=256 (T=80, U=400, f32) the banded forward #2 and the banded
+backward gradients #6 at each K in chip_smoke.BANDS beside the plain
+forward alphas #1, and the exp-native pass #9. Give the roots as
 parent, change, change, parent to compare two commits on one card. Each root's package and
 chip_smoke.py are imported afresh, so each times its own wrappers and
 kernels (built into the root's own build/ directory).
 
     python3 ssnt_tts_tpu_torch/bench_fused.py --split [--roots DIR ...]
 
-instead prints #2's device time by CUDA kernel at each K and B
-(torch.profiler over 10 calls: the passes of the split design, or the one
-kernel of the design before it). Give it a process of its own: after a
-few profiler sessions in one process the later ones record nothing.
+instead prints #2's and #6's device time by CUDA kernel at each K and B
+(torch.profiler over 10 calls of each, one session per batch size: the
+passes of the split design, or the one kernel of the design before it).
+Give it a process of its own: after a few profiler sessions in one
+process the later ones record nothing.
 
 Prints one JSON object per root and call, then the card's name and power
 limit; --json writes them all. Needs one CUDA device.
@@ -118,34 +120,40 @@ def bench_root(root: Path, dev) -> dict:
 
 
 def split_root(root: Path, dev) -> dict:
-    """#2's device microseconds per call by CUDA kernel, at each K and B."""
+    """#2's and #6's device microseconds per call by CUDA kernel, at each
+    batch size: every K and direction in one profiler session (their
+    kernels' names carry K and the direction)."""
     import numpy as np
     import torch
 
     cs, _ = load(root)
     rng = np.random.default_rng(0)
+    fns = {name: fn for name, fn in lattice_fns(cs, rng, dev).items()
+           if "banded" in name}
     with torch.no_grad():
-        return {name: kernel_split(fn)
-                for name, fn in lattice_fns(cs, rng, dev).items()
-                if "banded" in name}
+        return {f"B={Bn}": kernel_split(
+            [fn for name, fn in fns.items() if name.endswith(f" B={Bn}")])
+            for Bn in (cs.B, cs.B_LARGE)}
 
 
-def kernel_split(fn, n: int = 10) -> dict:
-    """Device microseconds per call of each CUDA kernel fn launches
-    (torch.profiler, n calls after a warm-up)."""
+def kernel_split(fns, n: int = 10) -> dict:
+    """Device microseconds per call of each CUDA kernel the fns launch
+    (torch.profiler, n calls of each after a warm-up)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+        for fn in fns:
+            for _ in range(n):
+                fn()
         torch.cuda.synchronize()
     split = {}
     for e in prof.key_averages():
         if e.device_time_total > 0 and e.count >= n:
-            split[e.key[:80]] = e.device_time_total / n
+            split[e.key[:100]] = e.device_time_total / n
     return split
 
 
@@ -175,19 +183,31 @@ def beam_only_fns(cs, cfg, req, rng, dev) -> dict:
 
 
 def lattice_fns(cs, rng, dev) -> dict:
-    """#2 at each K and #1, at B=32 and B=256 (T=80, U=400, f32)."""
+    """#2 and #6 at each K, #1 and #9, at B=32 and B=256 (T=80, U=400,
+    f32; #6 on #1's alphas and their logZ, g = 1)."""
     import torch
 
     lk = importlib.import_module("ssnt_tts_tpu_torch.ops.lattice_kernels")
+    lat = importlib.import_module("ssnt_tts_tpu_torch.ops.lattice")
     fns = {}
     for Bn in (cs.B, cs.B_LARGE):
-        (le, ls, lf), _ = cs.lattice_inputs(rng, Bn, torch.float32, dev)
+        (le, ls, lf), (il, ol) = cs.lattice_inputs(rng, Bn, torch.float32,
+                                                   dev)
+        x = (le, ls, lf)
+        a = lk.lattice_forward_alphas(*x)
+        bwd = (a, il, ol, torch.ones(Bn, device=dev),
+               lat.gather_logz(a, le, il, ol))
         fns[f"lattice_forward_alphas B={Bn}"] = (
-            lambda x=(le, ls, lf): lk.lattice_forward_alphas(*x))
+            lambda x=x: lk.lattice_forward_alphas(*x))
         for K in cs.BANDS:
             fns[f"lattice_forward_alphas_banded K={K} B={Bn}"] = (
-                lambda x=(le, ls, lf), K=K:
-                lk.lattice_forward_alphas_banded(*x, K))
+                lambda x=x, K=K: lk.lattice_forward_alphas_banded(*x, K))
+            fns[f"lattice_backward_grads_banded K={K} B={Bn}"] = (
+                lambda x=x, bwd=bwd, K=K:
+                lk.lattice_backward_grads_banded(*x, *bwd, K))
+        e, _, (il, ol) = cs.exp_lattice_inputs(rng, Bn, dev)
+        fns[f"lattice_expin B={Bn}"] = (
+            lambda e=e, il=il, ol=ol: lk.lattice_expin(*e, il, ol))
     return fns
 
 

@@ -79,9 +79,11 @@ LATTICE_EXPIN_ARGTYPES = [_I] * 3 + [_P] * 11
 # ssnt_lattice_forward_alphas_banded(K, B, T, U, le, ls, lf, alphas,
 #                                    workspace, stream)
 LATTICE_FWD_BANDED_ARGTYPES = [_I] * 4 + [_P] * 6
-# ssnt_lattice_backward_grads_banded takes the backward kernel's
-# arguments, with K in place of the bf16 flag;
+# ssnt_lattice_backward_grads_banded(K, B, T, U, le, ls, lf, alphas, il,
+#                                    ol, g, logz, d_le, d_ls, d_lf,
+#                                    workspace, bottoms, stream);
 # ssnt_lattice_banded_max_t(K, backward).
+LATTICE_BWD_BANDED_ARGTYPES = [_I] * 4 + [_P] * 14
 
 
 def find_nvcc() -> str:
@@ -187,7 +189,8 @@ def lattice_library() -> ctypes.CDLL:
                   "ssnt_lattice_expin": LATTICE_EXPIN_ARGTYPES,
                   "ssnt_lattice_forward_alphas_banded":
                       LATTICE_FWD_BANDED_ARGTYPES,
-                  "ssnt_lattice_backward_grads_banded": LATTICE_BWD_ARGTYPES,
+                  "ssnt_lattice_backward_grads_banded":
+                      LATTICE_BWD_BANDED_ARGTYPES,
                   "ssnt_lattice_banded_max_t": [_I, _I]},
                  ("ssnt_lattice_max_t",))
 

@@ -589,7 +589,11 @@ def lattice_bidir_exp(le, ls, lf, input_length, output_length):
 
 def lattice_expin(E, S, F, mcol, input_length, output_length):
     """(U, B, T) f32 probabilities E, S, F, (U, B) f32 mcol and (B,) int32
-    lengths -> (qn, bn (U, B, T), M, N (U, B)) f32."""
+    lengths -> (qn, bn (U, B, T), M, N (U, B)) f32. On the card: for T <=
+    128 (and U * B * T < 2^31) one warp per example and direction walks
+    the columns (shuffles for the neighbour and the row max), beside a
+    warp that stages its inputs and one that stores its outputs; otherwise
+    one block per walk (csrc/lattice.cu)."""
     if E.device.type == "cpu":
         return lattice_expin_reference(E, S, F, mcol, input_length,
                                        output_length)
@@ -650,7 +654,10 @@ def lattice_backward_grads_banded(le, ls, lf, alphas, input_length,
                                   output_length, g, logz, K: int):
     """(U, B, T) f32 lattice and alphas, (B,) int32 lengths, (B,) f32
     upstream cotangent g and logz -> (d_le, d_ls, d_lf) f32 by K-banded
-    beta chains."""
+    beta chains. On the card: three kernels (compose, chain, replay;
+    csrc/lattice.cu) through a (ceil(U/K), K+1, B, T) f32 workspace of the
+    groups' composed operators and a (ceil(U/K), B, T) one of the chain's
+    betas at the groups' bottoms; one launch counted."""
     _check_band(K)
     if le.device.type == "cpu":
         return lattice_backward_grads_banded_reference(
@@ -663,10 +670,13 @@ def lattice_backward_grads_banded(le, ls, lf, alphas, input_length,
                         ("logz", logz, torch.float32)):
         _build.check_arg(name, x, dt, (B,), dev)
     d = [torch.empty((U, B, T), device=dev) for _ in range(3)]
+    G = -(-U // K)
+    work = torch.empty((G, K + 1, B, T), device=dev)
+    bottoms = torch.empty((G, B, T), device=dev)
     _raise_on(lib.ssnt_lattice_backward_grads_banded(
         K, B, T, U,
         *(x.data_ptr() for x in (le, ls, lf, alphas, input_length,
-                                 output_length, g, logz, *d)),
+                                 output_length, g, logz, *d, work, bottoms)),
         _stream(dev)), "lattice_backward_grads_banded")
     lattice_backward_grads_banded.launches += 1
     return tuple(d)

@@ -33,9 +33,12 @@ weights, in phases, each reported on its own line:
      split into decode, encode and synthesis);
   7. lattice check: each lattice kernel against its plain version on
      ragged lengths with an il = ol = 1 and a degenerate example: the
-     bidirectional kernel at B=32 T=80 U=400 (alphas, betas, loss, and the
-     gradients after the posterior pass), forward alphas and backward
-     gradients at B=256 in float32 and bfloat16 storage;
+     bidirectional kernel at B=32 T=80 U=400 (its warp walk: alphas,
+     betas, loss, and the gradients after the posterior pass; alphas bit
+     for bit the forward alphas kernel's) and at T=T_BLOCK_WALK, B=8 (its
+     block walk; alphas and betas bit for bit the forward alphas and
+     betas-only kernels'), forward alphas and backward gradients at B=256
+     in float32 and bfloat16 storage;
   8. train (the training path): run_training at B=32 for 10 steps (one
      bidirectional launch each), one no-grad loss (one forward-alphas
      launch), run_training at B=256 for 2 steps in float32 and 2 in
@@ -102,12 +105,13 @@ weights, in phases, each reported on its own line:
      + mel gather; audio-seconds per second, B*400*0.0125 s / latency);
  18. exp-domain lattice check on the same ragged lengths (and an example
      whose emit probability is 0 everywhere): the exp-native pass (#9)
-     and the exp-domain bidirectional pass (#4) at B=32 and B=256, the
-     betas-only pass (#3) at B=32 (bit for bit lattice_bidir's betas),
-     each against its plain version (LAT_REL; -inf cells equal; #9 also
-     bit for bit, its warp walk, and its block walk at T=T_BLOCK_WALK,
-     B=8), and the gradients after the plain backward (GRAD_F32;
-     degenerate examples' exactly 0);
+     and the exp-domain bidirectional pass (#4) at B=32 and B=256 (their
+     warp walks), the betas-only pass (#3) at B=32 (bit for bit
+     lattice_bidir's warp-walk betas), each against its plain version
+     (LAT_REL; -inf cells equal; #9 and #4 also bit for bit), #9's and
+     #4's block walks at T=T_BLOCK_WALK, B=8, the same way, and the
+     gradients after the plain backward (GRAD_F32; degenerate examples'
+     exactly 0);
  19. exp-domain training (the exp path, lattice_domain="exp", frame
      log_sigma EXP_LOG_SIGMA): run_training at B=32 for 10 steps (one #9
      launch each), one no-grad loss (one), run_training at B=256 for 2
@@ -135,7 +139,7 @@ weights, in phases, each reported on its own line:
      CUDA graph) with their byte and operation bounds (also with their
      workspaces written and read once) and the composition tree's exp +
      log count, and the lattice
-     loss fwd+bwd for variant "banded2".."banded16", "fused", "plain"
+     loss fwd+bwd for variant "banded2".."banded16", "fused", "exp", "plain"
      and "scan" at B=32 and B=256 (eager, and device time under a CUDA
      graph).
 
@@ -185,8 +189,8 @@ EXP_LOSS_RTOL, EXP_GRAD_COS, EXP_VARIANT_RTOL = 1e-4, 0.999, 5e-4
 EXP_LOG_SIGMA, EXP_WARMUP = 2.0, 1000
 # A train loss at or above this holds an utterance at the 1e30 sentinel.
 SENTINEL_LOSS = 1e20
-# A source length above the exp-native pass's warp walk (T <= 128): phase
-# 18 holds its block walk too.
+# A source length above the warp walks' T <= 128: phases 7 and 18 hold the
+# block walks of #8, #9 and #4 too.
 T_BLOCK_WALK = 200
 # The banded kernels' K, and variant="bandedN" / "scan" against
 # variant="log" on one lattice: JAX's own tolerances
@@ -496,16 +500,42 @@ def check_lattice(rng, dev):
         torch.cuda.synchronize()
         e_bidir = max(lattice_err(ka, ra, "bidir alphas"),
                       lattice_err(kb, rb, "bidir betas"))  # (abs, rel)
+        # The warp walk's alphas against #1's block walk (the same cells in
+        # the same order).
+        fa = lk.lattice_forward_alphas(le, ls, lf)
+        torch.cuda.synchronize()
+        if not same_bits(ka, fa):
+            raise AssertionError("bidir alphas: not forward alphas' bit for "
+                                 "bit")
         kz = lat.gather_logz(ka, le, il, ol)
         rz = lat.gather_logz(ra, le, il, ol)
         lattice_err(kz, rz, "bidir logz")
         kg = lat.posterior_grads(le, ls, lf, ka, kb, kz, il, ol, g)
         rg = lat.posterior_grads(le, ls, lf, ra, rb, rz, il, ol, g)
         e_post = grad_err(kg, rg, GRAD_F32, "bidir + posterior pass")
-    log(f"[7 lattice] bidir B={B} T={T} U={U} f32: alphas/betas max abs "
+    log(f"[7 lattice] bidir (warp walk) B={B} T={T} U={U} f32: alphas bit "
+        f"for bit forward alphas'; alphas/betas max abs "
         f"err {e_bidir[0]:.3e}, rel err {e_bidir[1]:.3e}, grads after the "
         f"posterior pass {e_post:.3e} "
         f"(tol {LAT_REL}, {GRAD_F32}); degenerate grads exactly 0")
+    # The block walk, kept above the warp walk's T <= 128.
+    (le, ls, lf), (il, ol) = lattice_inputs(rng, 8, torch.float32, dev,
+                                            T_BLOCK_WALK)
+    with torch.no_grad():
+        ka, kb = lk.lattice_bidir(le, ls, lf, il, ol)
+        ra, rb = lk.lattice_bidir_reference(le, ls, lf, il, ol)
+        fa = lk.lattice_forward_alphas(le, ls, lf)
+        fb = lk.lattice_backward_betas(le, ls, lf, il, ol)
+        torch.cuda.synchronize()
+        e_blk = max(lattice_err(ka, ra, f"bidir alphas T={T_BLOCK_WALK}"),
+                    lattice_err(kb, rb, f"bidir betas T={T_BLOCK_WALK}"))
+        if not (same_bits(ka, fa) and same_bits(kb, fb)):
+            raise AssertionError(f"bidir T={T_BLOCK_WALK}: not forward "
+                                 f"alphas' and backward betas' bit for bit")
+    e_bidir = max(e_bidir, e_blk)
+    log(f"[7 lattice] bidir (block walk) B=8 T={T_BLOCK_WALK} U={U} f32: "
+        f"alphas/betas bit for bit forward alphas' / backward betas'; max "
+        f"abs err {e_blk[0]:.3e}, rel err {e_blk[1]:.3e} (tol {LAT_REL})")
     errs = {}
     for dtype, gtol in ((torch.float32, GRAD_F32),
                         (torch.bfloat16, GRAD_BF16)):
@@ -846,6 +876,9 @@ def check_exp_lattice(rng, dev) -> dict:
                                          f"cells differ")
             e_ex = max(lattice_err(ka, ra, f"bidir_exp alphas B={Bn}"),
                        lattice_err(kb, rb, f"bidir_exp betas B={Bn}"))
+            if not (same_bits(ka, ra) and same_bits(kb, rb)):
+                raise AssertionError(f"bidir_exp B={Bn}: not the plain "
+                                     f"version's bit for bit")
             kz = lat.gather_logz(ka, logs[0], il, ol)
             rz = lat.gather_logz(ra, logs[0], il, ol)
             lattice_err(kz, rz, f"bidir_exp logz B={Bn}")
@@ -863,7 +896,8 @@ def check_exp_lattice(rng, dev) -> dict:
         log(f"[18 exp lattice] B={Bn} T={T} U={U} f32: expin (warp walk) "
             f"qn/bn/M/N bit for bit the plain version's, max abs err "
             f"{e_in[0]:.3e}, rel err {e_in[1]:.3e}, grads after the "
-            f"plain backward {e_gin:.3e}; bidir_exp alphas/betas max abs "
+            f"plain backward {e_gin:.3e}; bidir_exp (warp walk) alphas/betas "
+            f"bit for bit the plain version's, max abs "
             f"err {e_ex[0]:.3e}, rel err {e_ex[1]:.3e}, -inf cells equal "
             f"({n_inf[0]} alphas, {n_inf[1]} betas), grads after the "
             f"posterior pass {e_gex:.3e} (tol {LAT_REL}, {GRAD_F32}); "
@@ -898,6 +932,26 @@ def check_exp_lattice(rng, dev) -> dict:
     err["lattice_expin"] = max(err["lattice_expin"], e_blk)
     log(f"[18 exp lattice] expin (block walk) B=8 T={T_BLOCK_WALK} U={U} "
         f"f32: qn/bn/M/N bit for bit the plain version's")
+    # #4's block walk.
+    _, logs, (il, ol) = exp_lattice_inputs(rng, 8, dev, T_BLOCK_WALK)
+    with torch.no_grad():
+        ka, kb = lk.lattice_bidir_exp(*logs, il, ol)
+        ra, rb = lk.lattice_bidir_exp_reference(*logs, il, ol)
+        torch.cuda.synchronize()
+        for a, b, n in ((ka, ra, "alphas"), (kb, rb, "betas")):
+            if not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+                raise AssertionError(f"bidir_exp {n} T={T_BLOCK_WALK}: -inf "
+                                     f"cells differ")
+        e_blk = max(lattice_err(ka, ra, f"bidir_exp alphas T={T_BLOCK_WALK}"),
+                    lattice_err(kb, rb, f"bidir_exp betas T={T_BLOCK_WALK}"))
+        if not (same_bits(ka, ra) and same_bits(kb, rb)):
+            raise AssertionError(f"bidir_exp T={T_BLOCK_WALK}: not the plain "
+                                 f"version's bit for bit")
+    err["lattice_bidir_exp"] = max(err["lattice_bidir_exp"], e_blk[0])
+    log(f"[18 exp lattice] bidir_exp (block walk) B=8 T={T_BLOCK_WALK} U={U} "
+        f"f32: alphas/betas bit for bit the plain version's, max "
+        f"abs err {e_blk[0]:.3e}, rel err {e_blk[1]:.3e} (tol {LAT_REL}), "
+        f"-inf cells equal")
     return err
 
 
@@ -1338,8 +1392,8 @@ def banded_phases(seed: int, dev, smi: str) -> list:
                         f"{trans} exp+log, {ops} operations")
     for Bn in (B, B_LARGE):
         x = lattice_inputs(rng, Bn, torch.float32, dev)
-        for variant in [f"banded{K}" for K in BANDS] + ["fused", "plain",
-                                                         "scan"]:
+        for variant in [f"banded{K}" for K in BANDS] + ["fused", "exp",
+                                                         "plain", "scan"]:
             ms = eager_ms(lambda: fwd_bwd(x, variant), n=10)
             # The route's device time: forward and backward under a graph.
             scan = variant == "scan"

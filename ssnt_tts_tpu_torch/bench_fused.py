@@ -19,7 +19,9 @@ and host time per call (the wrapper's own cost: the median of 5 runs of
 only, the launch floor (an in-place add on a one-element tensor), and at
 B=32 and B=256 (T=80, U=400, f32) the banded forward #2 and the banded
 backward gradients #6 at each K in chip_smoke.BANDS beside the plain
-forward alphas #1, and the exp-native pass #9. Give the roots as
+forward alphas #1, the exp-native pass #9 and the exp-domain
+bidirectional pass #4, and at B=32 and B=64 the log-domain bidirectional
+pass #8. Give the roots as
 parent, change, change, parent to compare two commits on one card. Each root's package and
 chip_smoke.py are imported afresh, so each times its own wrappers and
 kernels (built into the root's own build/ directory).
@@ -183,8 +185,9 @@ def beam_only_fns(cs, cfg, req, rng, dev) -> dict:
 
 
 def lattice_fns(cs, rng, dev) -> dict:
-    """#2 and #6 at each K, #1 and #9, at B=32 and B=256 (T=80, U=400,
-    f32; #6 on #1's alphas and their logZ, g = 1)."""
+    """#2 and #6 at each K, #1, #9 and #4 at B=32 and B=256, and #8 at
+    B=32 and B=64 (the largest batch the "fused" route takes at T=80)
+    (T=80, U=400, f32; #6 on #1's alphas and their logZ, g = 1)."""
     import torch
 
     lk = importlib.import_module("ssnt_tts_tpu_torch.ops.lattice_kernels")
@@ -205,9 +208,15 @@ def lattice_fns(cs, rng, dev) -> dict:
             fns[f"lattice_backward_grads_banded K={K} B={Bn}"] = (
                 lambda x=x, bwd=bwd, K=K:
                 lk.lattice_backward_grads_banded(*x, *bwd, K))
-        e, _, (il, ol) = cs.exp_lattice_inputs(rng, Bn, dev)
+        e, logs, (il, ol) = cs.exp_lattice_inputs(rng, Bn, dev)
         fns[f"lattice_expin B={Bn}"] = (
             lambda e=e, il=il, ol=ol: lk.lattice_expin(*e, il, ol))
+        fns[f"lattice_bidir_exp B={Bn}"] = (
+            lambda x=logs, il=il, ol=ol: lk.lattice_bidir_exp(*x, il, ol))
+    for Bn in (cs.B, 2 * cs.B):
+        x, (il, ol) = cs.lattice_inputs(rng, Bn, torch.float32, dev)
+        fns[f"lattice_bidir B={Bn}"] = (
+            lambda x=x, il=il, ol=ol: lk.lattice_bidir(*x, il, ol))
     return fns
 
 

@@ -65,28 +65,35 @@
 // forward/backward at B=256 (f32), but every column waits for the one
 // before it: U dependent steps of a few adds, one exp and one log1p, and
 // a neighbour exchange (the exp-domain walks: a multiply-add, and a row
-// max with a second barrier). Design: one thread block per example (per
-// example and direction for the bidirectional kernels: the alpha and beta
-// walks run on different SMs at once), one thread per source position t,
-// the t-1 / t+1 neighbour through a double-buffered shared-memory row with
-// one barrier per column, the row max by warp shuffles and one more
-// barrier over a shared word per warp, and the next kAhead columns' inputs
-// loaded into registers while the current ones are computed, so
-// global-memory latency is off the chain. At B=32 this occupies 64 of 132
-// SMs with 3 warps each: it is latency-bound by construction, and a
-// faster design (more columns per step, a packed or split walk) is later
-// work. Measured by chip_smoke.py (device time, NVIDIA H100 80GB HBM3,
-// 700 W power limit): lattice_bidir B=32 0.081 ms; forward alphas B=256
-// 0.073 ms (bf16 0.070); backward gradients B=256 0.147 ms (bf16 0.174):
-// 0.18-0.37 us per column. The exp-domain walks are slower per column
-// than the log-domain ones, not faster as on the TPU: the block-wide row
-// max (shuffles, a barrier, a serial read of one word per warp) sits on
-// the chain where the log walk has only its neighbour exchange;
-// lattice_bidir_exp 0.305 ms (a max, a division and two logs every
-// column), lattice_backward_betas 0.081 ms; lattice_expin's block walk,
-// kept for T > 128, took 0.116 ms at T=80. lattice_expin's warp walk
-// ("exp-native warp walk" below) and the K-banded walks ("banded") are
-// designed differently.
+// max). The block walks: one thread block per example (per example and
+// direction for the bidirectional kernels: the alpha and beta walks run on
+// different SMs at once), one thread per source position t, the t-1 / t+1
+// neighbour through a double-buffered shared-memory row with one barrier
+// per column, the row max by warp shuffles and one more barrier over a
+// shared word per warp, and the next kAhead columns' inputs loaded into
+// registers while the current ones are computed, so global-memory latency
+// is off the chain. lattice_forward_alphas, lattice_backward_grads and
+// lattice_backward_betas are block walks; lattice_bidir,
+// lattice_bidir_exp and lattice_expin are block walks above T = 128 and
+// warp walks ("warp walks" below) up to it; the K-banded walks ("banded")
+// are designed differently. Measured (device time under a CUDA graph,
+// NVIDIA H100 80GB HBM3, 700 W power limit; T=80, U=400, f32):
+//   - block walks (chip_smoke.py): forward alphas B=256 0.073 ms (bf16
+//     0.070); backward gradients B=256 0.147 ms (bf16 0.174); backward
+//     betas B=32 0.081 ms: 0.18-0.37 us a column. Above T = 128,
+//     lattice_bidir's and lattice_bidir_exp's (B=32 0.082 and 0.306 ms
+//     at T=80, where the warp walks replace them): the exp walk's row max
+//     (a second barrier) and its division, whose fast path falls back to a
+//     subroutine for the subnormal probabilities every column meets, make
+//     it 3.7x slower per column than the log walk.
+//   - warp walks (probe_bidir.py, probe_expin.py): lattice_bidir B=32
+//     0.0705 ms (B=64 0.0709), bound by its chain, one lae (expf +
+//     log1pf) and a shuffle a column, ~170 ns (the chain alone 0.069);
+//     lattice_bidir_exp B=32 0.085 ms, bound by its chain (a row max and
+//     an exact division through a double reciprocal a column, ~205 ns;
+//     the chain alone 0.083), B=256 0.144 ms, bound by the exps and logs
+//     of ~4 walks an SM (0.095 without them); lattice_expin B=32 0.042 ms,
+//     B=256 0.087 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1172,64 +1179,87 @@ int banded_max_t(int backward) {
                max_threads(banded_replay_kernel<K>));
 }
 
-// ------------------------------------------------- exp-native warp walk
+// ------------------------------------------------------------ warp walks
 //
-// lattice_expin for T <= kWarpMaxT (the main path's T = 80): each walk
-// (example, direction) runs on one warp, lane l holding the V consecutive
-// source positions t = l*V + j (V = 1/2/4 by T), so a column's neighbour
-// exchange is one shuffle (__shfl_up_sync forward, the value at t - 1 of
-// the lane below; __shfl_down_sync backward, t + 1 of the lane above; 0 at
-// t = 0 and past T, as the block walk's shared row edges) and the
-// renormalizing row max is the lane's max and one __reduce_max_sync on the
-// values' bits (for floats >= 0 the bits order as the values, and a max
-// does not depend on the order, so it equals the block walk's bit for
-// bit). Per cell the operations and their order are expin_alpha_walk's and
-// expin_beta_walk's.
+// For T <= kWarpMaxT (the main path's T = 80) lattice_expin and
+// lattice_bidir_exp run each walk (example, direction) on one warp, lane l
+// holding the V consecutive source positions t = l*V + j (V = 1/2/4 by T;
+// lattice_bidir on several warps, "bidirectional warp walks" below), so a
+// column's neighbour exchange is one shuffle (__shfl_up_sync forward, the
+// value at t - 1 of the lane below; __shfl_down_sync backward, t + 1 of
+// the lane above; the block walk's
+// shared-row edge at t = 0 and past T: 0 in the exp domain, NEG in the
+// log domain) and a row max is the lane's max and one __reduce_max_sync
+// on the values' bits (for floats >= 0 the bits order as the values, and a
+// max does not depend on the order, so it equals the block walk's bit for
+// bit). Per cell the operations and their order are the block walks'.
 //
-// One warp issues its instructions in order, so the walk's time is about
-// the instructions between two steps of its chain. The walk's block
-// therefore has three warps on three of the SM's schedulers, each a loop
-// of its own, passing rounds through shared memory and mbarriers (a full
-// and an empty barrier a slot; no block barrier inside the loops):
-//   - the loader stages the walk's E, S, F columns into a ring of
-//     kInRounds rounds with cp.async (one copy of 4V bytes a row and lane
-//     where T % V == 0 and the fields are aligned to it; else one of 4
-//     bytes per value below T: a column of T % 4 != 0 floats starts
-//     unaligned; zeros for a column past the walk), each lane's copies
+// One warp issues its instructions in order, so a walk's time is about
+// the instructions between two steps of its chain. A walk's block
+// therefore has a loader, a chain and a storer warp on separate
+// schedulers, each a loop of its own, passing rounds of R columns through
+// shared memory and mbarriers (a full and an empty barrier a slot; no
+// block barrier inside the loops), the WalkRing below:
+//   - the loader stages the walk's three input rows a column into a ring
+//     of NIn rounds with cp.async (one copy of 4V bytes a row and
+//     lane where T % V == 0 and the fields are aligned to it; else one of
+//     4 bytes per value below T: a column of T % 4 != 0 floats starts
+//     unaligned; zeros for a column outside [0, U)), each lane's copies
 //     completing on the round's barrier (cp.async.mbarrier.arrive);
-//   - the chain warp takes the rounds of kRenorm columns (the
-//     renormalization period; rounds aligned on u, so the renormalizing
-//     column is each round's last in walk order), reads a round, walks it
-//     in registers and shuffles, and writes the round's field and its
-//     normalizer into a ring of kResRounds result slots;
-//   - the storer reads a round's field into registers, frees its slot,
-//     then writes the field to global memory, and keeps the log
-//     normalizers M / N (mcol loaded once per 32 columns, a value a lane,
-//     read by shuffle; each lane stores one column's M / N a block).
+//   - the chain warp reads a round, walks it in registers and shuffles,
+//     and writes the round's R output rows (and its normalizers) into a
+//     ring of NRes result slots;
+//   - the storer reads a round's rows into registers, frees its slot, then
+//     writes them to global memory (no store waits on its shared load).
 // A slot row is 32 V floats, so a lane past T reads inside the ring; its
 // values (and a lane's values at t >= T) never reach a position below T
-// (the backward's shift from t >= T and the row max read 0 there) and are
-// never stored. Offsets are 32-bit: the launcher takes this walk for
-// U * B * T < 2^31. Measured (probe_expin.py, NVIDIA H100 80GB HBM3,
-// 700 W; T=80, U=400): 0.042 ms at B=32, of which the chain alone takes
-// 0.034 (stores, copies and renormalization taken out); 0.090 ms at
-// B=256, where the copies and stores of ~4 walks an SM set it (0.041
-// without them); the block walk 0.116 / 0.140.
+// (the backward's shift from t >= T reads the edge value, the row max 0)
+// and are never stored. Offsets are 32-bit: the launchers take the warp
+// walks for U * B * T < 2^31.
+//
+// lattice_expin ("exp-native warp walk" below) renormalizes every 4th
+// column, so its rounds are kRenorm columns aligned on u. The
+// bidirectional walks ("bidirectional warp walks") take rounds from u = 0
+// forward and from u = U - 1 backward.
 
 constexpr int kWarpMaxT = 128;  // 32 lanes x V = 4
 constexpr int kInRounds = 6;    // input ring: rounds staged ahead
 constexpr int kResRounds = 4;   // result ring
 
-// The walk's shared memory: the input ring (kInRounds rounds of kRenorm
-// columns of 3 rows of 32 V floats), the result ring (kResRounds rounds of
-// kRenorm rows of 32 V floats), the results' normalizers, the barriers.
-template <int V> struct ExpinSmem {
-  float in[kInRounds][kRenorm][3][32 * V];
-  float res[kResRounds][kRenorm][32 * V];
-  float norm[kResRounds];
-  uint64_t in_full[kInRounds], in_empty[kInRounds];
-  uint64_t res_full[kResRounds], res_empty[kResRounds];
+// A warp walk's shared memory: the input ring (NIn rounds of R columns of
+// 3 rows of 32 V floats), the result ring (NRes rounds of R rows of 32 V
+// floats), NNorm normalizers a result round, the barriers.
+template <int V_, int R_, int NNorm_, int NIn_ = kInRounds,
+          int NRes_ = kResRounds>
+struct WalkRing {
+  static constexpr int V = V_, R = R_, NNorm = NNorm_;
+  static constexpr int NIn = NIn_, NRes = NRes_;
+  float in[NIn][R][3][32 * V];
+  float res[NRes][R][32 * V];
+  float norm[NRes][NNorm];
+  uint64_t in_full[NIn], in_empty[NIn];
+  uint64_t res_full[NRes], res_empty[NRes];
 };
+
+// Initializes the ring's barriers (`loaders` warps fill each input slot,
+// `chains` warps read it and fill each result slot) before any warp takes
+// its role.
+template <class Ring>
+__device__ __forceinline__ void init_ring(Ring& sm, int loaders,
+                                          int chains = 1) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Ring::NIn; ++i) {
+      ssnt_tma::mbar_init(&sm.in_full[i], 32 * loaders);
+      ssnt_tma::mbar_init(&sm.in_empty[i], 32 * chains);
+    }
+    for (int i = 0; i < Ring::NRes; ++i) {
+      ssnt_tma::mbar_init(&sm.res_full[i], 32 * chains);
+      ssnt_tma::mbar_init(&sm.res_empty[i], 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -1267,57 +1297,87 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// One walk at this lane: E, S, F and its fields' outputs at (example b,
-// t0), mcol and M / N at b (column u at + u * col and + u * B).
-struct ExpinWalk {
-  int col, B, T, U, top, rounds, t0, lane;  // top: the backward's first round's u
+// One walk at this lane: its three input rows and its outputs at (example
+// b, t0), column u at + u * col; lattice_expin's mcol and M / N at b,
+// column u at + u * B.
+struct WarpWalk {
+  int col, B, T, U, top, rounds, t0, lane;  // top: see round_column
   bool live;                                // t0 < T
 };
 
-// Round r's j-th column in walk order: forward r * 4 + j, backward top -
-// r * 4 + 3 - j; in the walk if in [0, U).
-template <bool kBack>
-__device__ __forceinline__ int round_column(const ExpinWalk& w, int r,
-                                            int j) {
-  return kBack ? w.top - kRenorm * r + (kRenorm - 1 - j) : kRenorm * r + j;
+// A walk at this lane, which holds the V positions from t_base + lane * V,
+// in rounds of R columns; top is the backward's first round's first
+// column less R - 1.
+__device__ __forceinline__ WarpWalk make_walk(int B, int T, int U, int V,
+                                              int R, int top,
+                                              int t_base = 0) {
+  WarpWalk w;
+  w.lane = threadIdx.x % 32, w.t0 = t_base + w.lane * V;
+  w.live = w.t0 < T;
+  w.col = B * T, w.B = B, w.T = T, w.U = U;
+  w.top = top;
+  w.rounds = (U + R - 1) / R;
+  return w;
 }
 
-// The loader: round r into input slot r % kInRounds once the chain warp
-// has read the round kInRounds before.
-template <int V, bool kVec, bool kBack>
-__device__ void expin_loader(const ExpinWalk& w, ExpinSmem<V>& sm,
-                             const float* __restrict__ E,
-                             const float* __restrict__ S,
-                             const float* __restrict__ F) {
-  for (int r = 0; r < w.rounds; ++r) {
-    const int slot = r % kInRounds;
-    if (r >= kInRounds)
-      ssnt_tma::mbar_wait(&sm.in_empty[slot], (r / kInRounds + 1) & 1);
+// Round r's j-th column in walk order: forward r * R + j, backward top -
+// r * R + R - 1 - j; in the walk if in [0, U).
+template <bool kBack, int R>
+__device__ __forceinline__ int round_column(const WarpWalk& w, int r,
+                                            int j) {
+  return kBack ? w.top - R * r + (R - 1 - j) : R * r + j;
+}
+
+// Round r's columns j with j % L == j0 into its input slot by cp.async,
+// each lane its own live positions; zeros for a column outside [0, U).
+template <class Ring, bool kVec, bool kBack, int L = 1>
+__device__ __forceinline__ void stage_round(const WarpWalk& w, Ring& sm,
+                                            int r, int j0,
+                                            const float* __restrict__ E,
+                                            const float* __restrict__ S,
+                                            const float* __restrict__ F) {
+  constexpr int V = Ring::V;
+  const int slot = r % Ring::NIn;
 #pragma unroll
-    for (int j = 0; j < kRenorm; ++j) {
-      const int u = round_column<kBack>(w, r, j);
-      const bool in_walk = u < w.U;
-      const int o = (in_walk ? u : w.U - 1) * w.col;
-      float(&rows)[3][32 * V] = sm.in[slot][j];
-      if constexpr (kVec) {
-        if (w.live) {
-          const int n = in_walk ? 4 * V : 0;
-          cp_async_zfill<4 * V>(rows[0] + w.t0, E + o, n);
-          cp_async_zfill<4 * V>(rows[1] + w.t0, S + o, n);
-          cp_async_zfill<4 * V>(rows[2] + w.t0, F + o, n);
-        }
-      } else {
+  for (int j = 0; j < Ring::R; ++j) {
+    if (j % L != j0) continue;
+    const int u = round_column<kBack, Ring::R>(w, r, j);
+    const bool in_walk = (unsigned)u < (unsigned)w.U;
+    const int o = (in_walk ? u : w.U - 1) * w.col;
+    float(&rows)[3][32 * V] = sm.in[slot][j];
+    if constexpr (kVec) {
+      if (w.live) {
+        const int n = in_walk ? 4 * V : 0;
+        cp_async_zfill<4 * V>(rows[0] + w.t0, E + o, n);
+        cp_async_zfill<4 * V>(rows[1] + w.t0, S + o, n);
+        cp_async_zfill<4 * V>(rows[2] + w.t0, F + o, n);
+      }
+    } else {
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-          if (w.t0 + k < w.T) {
-            const int n = in_walk ? 4 : 0;
-            cp_async_zfill<4>(rows[0] + w.t0 + k, E + o + k, n);
-            cp_async_zfill<4>(rows[1] + w.t0 + k, S + o + k, n);
-            cp_async_zfill<4>(rows[2] + w.t0 + k, F + o + k, n);
-          }
+      for (int k = 0; k < V; ++k) {
+        if (w.t0 + k < w.T) {
+          const int n = in_walk ? 4 : 0;
+          cp_async_zfill<4>(rows[0] + w.t0 + k, E + o + k, n);
+          cp_async_zfill<4>(rows[1] + w.t0 + k, S + o + k, n);
+          cp_async_zfill<4>(rows[2] + w.t0 + k, F + o + k, n);
         }
       }
     }
+  }
+}
+
+// The loader of lattice_expin and lattice_bidir: round r into input slot
+// r % NIn once the chain warp has read the round NIn before.
+template <class Ring, bool kVec, bool kBack>
+__device__ void walk_loader(const WarpWalk& w, Ring& sm,
+                            const float* __restrict__ E,
+                            const float* __restrict__ S,
+                            const float* __restrict__ F) {
+  for (int r = 0; r < w.rounds; ++r) {
+    const int slot = r % Ring::NIn;
+    if (r >= Ring::NIn)
+      ssnt_tma::mbar_wait(&sm.in_empty[slot], (r / Ring::NIn + 1) & 1);
+    stage_round<Ring, kVec, kBack>(w, sm, r, 0, E, S, F);
     cp_async_arrive(&sm.in_full[slot]);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -1347,21 +1407,34 @@ __device__ __forceinline__ void store_lane(float* p, const float (&x)[V]) {
   }
 }
 
-// A round's E, S, F at this lane.
-template <int V> struct ExpinRound {
-  float e[kRenorm][V], s[kRenorm][V], f[kRenorm][V];
+// A storer's global stores of one column at this lane: its values below T.
+template <int V, bool kVec>
+__device__ __forceinline__ void store_cells(const WarpWalk& w, float* dst,
+                                            const float (&x)[V]) {
+  if constexpr (kVec) {
+    if (w.live) store_lane<V>(dst, x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (w.t0 + j < w.T) dst[j] = x[j];
+  }
+}
+
+// A round's three input rows at this lane.
+template <int V, int R> struct WalkRound {
+  float e[R][V], s[R][V], f[R][V];
 };
 
-// The chain warp's side of the rings: waits for round r, reads it and
-// frees its input slot.
-template <int V>
-__device__ __forceinline__ void take_round(const ExpinWalk& w,
-                                           ExpinSmem<V>& sm, int r,
-                                           ExpinRound<V>& d) {
-  const int slot = r % kInRounds;
-  ssnt_tma::mbar_wait(&sm.in_full[slot], (r / kInRounds) & 1);
+// A chain warp's side of the rings (its lanes' V positions of each row):
+// waits for round r, reads it and frees its input slot.
+template <class Ring, int V>
+__device__ __forceinline__ void take_round(const WarpWalk& w, Ring& sm,
+                                           int r,
+                                           WalkRound<V, Ring::R>& d) {
+  const int slot = r % Ring::NIn;
+  ssnt_tma::mbar_wait(&sm.in_full[slot], (r / Ring::NIn) & 1);
 #pragma unroll
-  for (int j = 0; j < kRenorm; ++j) {
+  for (int j = 0; j < Ring::R; ++j) {
     load_lane<V>(sm.in[slot][j][0] + w.t0, d.e[j]);
     load_lane<V>(sm.in[slot][j][1] + w.t0, d.s[j]);
     load_lane<V>(sm.in[slot][j][2] + w.t0, d.f[j]);
@@ -1369,36 +1442,80 @@ __device__ __forceinline__ void take_round(const ExpinWalk& w,
   mbar_arrive(&sm.in_empty[slot]);
 }
 
-// ... and hands the round's field and normalizer to the storer.
-template <int V>
-__device__ __forceinline__ void give_round(const ExpinWalk& w,
-                                           ExpinSmem<V>& sm, int r,
-                                           const float (&x)[kRenorm][V],
-                                           float norm) {
-  const int slot = r % kResRounds;
-  if (r >= kResRounds)
-    ssnt_tma::mbar_wait(&sm.res_empty[slot], (r / kResRounds + 1) & 1);
+// ... and hands the round's rows and normalizers to the storer.
+template <class Ring, int V>
+__device__ __forceinline__ void give_round(
+    const WarpWalk& w, Ring& sm, int r, const float (&x)[Ring::R][V],
+    const float (&norm)[Ring::NNorm]) {
+  const int slot = r % Ring::NRes;
+  if (r >= Ring::NRes)
+    ssnt_tma::mbar_wait(&sm.res_empty[slot], (r / Ring::NRes + 1) & 1);
 #pragma unroll
-  for (int k = 0; k < kRenorm; ++k)
+  for (int k = 0; k < Ring::R; ++k)
     store_lane<V>(sm.res[slot][k] + w.t0, x[k]);
-  if (w.lane == 0) sm.norm[slot] = norm;
+  if (w.lane == 0) {
+#pragma unroll
+    for (int k = 0; k < Ring::NNorm; ++k) sm.norm[slot][k] = norm[k];
+  }
   mbar_arrive(&sm.res_full[slot]);
 }
 
-// Renormalizes the warp's field x (all values >= 0 below T): the max of
-// each lane's values below T (0 for a lane past T), the warp's max of
-// those, floored at kTiny; x times its correctly rounded reciprocal.
-// Returns the normalizer.
+// The storer's side: waits for round r's rows, reads them (and the
+// normalizers) and frees the slot.
+template <class Ring>
+__device__ __forceinline__ void read_round(const WarpWalk& w, Ring& sm,
+                                           int r,
+                                           float (&x)[Ring::R][Ring::V],
+                                           float (&norm)[Ring::NNorm]) {
+  const int slot = r % Ring::NRes;
+  ssnt_tma::mbar_wait(&sm.res_full[slot], (r / Ring::NRes) & 1);
+#pragma unroll
+  for (int k = 0; k < Ring::NNorm; ++k) norm[k] = sm.norm[slot][k];
+#pragma unroll
+  for (int k = 0; k < Ring::R; ++k)
+    load_lane<Ring::V>(sm.res[slot][k] + w.t0, x[k]);
+  mbar_arrive(&sm.res_empty[slot]);
+}
+
+// The warp's max of the field x (every value +0 or positive below T): the
+// max of each lane's values below T (0 for a lane past T), the warp's max
+// of those, floored at kTiny.
 template <int V, bool kVec>
-__device__ __forceinline__ float warp_renorm(const ExpinWalk& w,
-                                             float (&x)[V]) {
+__device__ __forceinline__ float warp_max(const WarpWalk& w,
+                                          const float (&x)[V]) {
   float m = x[0];
 #pragma unroll
   for (int j = 1; j < V; ++j)
     if (kVec || w.t0 + j < w.T) m = fmaxf(m, x[j]);
   m = w.live ? m : 0.0f;
   const unsigned top = __reduce_max_sync(0xffffffffu, __float_as_uint(m));
-  const float norm = fmaxf(__uint_as_float(top), kTiny);
+  return fmaxf(__uint_as_float(top), kTiny);
+}
+
+// ------------------------------------------------- exp-native warp walk
+//
+// lattice_expin's warp walk: rounds of kRenorm columns aligned on u, so
+// the renormalizing column is each round's last in walk order (the
+// backward's top is (U - 1) / 4 * 4). The chain warp renormalizes by the
+// warp's max and the correctly rounded reciprocal and hands the round's
+// last normalizer to the storer, which writes the field and keeps the log
+// normalizers M / N (mcol loaded once per 32 columns, a value a lane, read
+// by shuffle; each lane stores one column's M / N a block). Columns past
+// U in the backward's first round read zeros, which leave c at 0.
+// Measured (probe_expin.py, NVIDIA H100 80GB HBM3, 700 W; T=80, U=400):
+// 0.042 ms at B=32, of which the chain alone takes 0.034 (stores, copies
+// and renormalization taken out); 0.090 ms at B=256, where the copies and
+// stores of ~4 walks an SM set it (0.041 without them); the block walk
+// 0.116 / 0.140.
+
+template <int V> using ExpinRing = WalkRing<V, kRenorm, 1>;
+
+// Renormalizes the warp's field x: x times the correctly rounded
+// reciprocal of warp_max. Returns the normalizer.
+template <int V, bool kVec>
+__device__ __forceinline__ float warp_renorm(const WarpWalk& w,
+                                             float (&x)[V]) {
+  const float norm = warp_max<V, kVec>(w, x);
   const float rcp = __frcp_rn(norm);
 #pragma unroll
   for (int j = 0; j < V; ++j) x[j] = x[j] * rcp;
@@ -1409,7 +1526,7 @@ __device__ __forceinline__ float warp_renorm(const ExpinWalk& w,
 //   q = p * E_{u-1} + shift0_down(p * S_{u-1}); renormalize after u when
 //   (u + 1) % 4 == 0 (a round's last column); qn_u = q; p = q * F_u.
 template <int V, bool kVec>
-__device__ void expin_alpha_chain(const ExpinWalk& w, ExpinSmem<V>& sm) {
+__device__ void expin_alpha_chain(const WarpWalk& w, ExpinRing<V>& sm) {
   float p[V], e_prev[V], s_prev[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
@@ -1418,9 +1535,9 @@ __device__ void expin_alpha_chain(const ExpinWalk& w, ExpinSmem<V>& sm) {
     s_prev[j] = 0.0f;
   }
   for (int r = 0; r < w.rounds; ++r) {
-    ExpinRound<V> d;
-    take_round<V>(w, sm, r, d);
-    float q[kRenorm][V], norm;
+    WalkRound<V, kRenorm> d;
+    take_round(w, sm, r, d);
+    float q[kRenorm][V], norm[1];
 #pragma unroll
     for (int k = 0; k < kRenorm; ++k) {
       float sp[V];
@@ -1431,7 +1548,7 @@ __device__ void expin_alpha_chain(const ExpinWalk& w, ExpinSmem<V>& sm) {
       q[k][0] = p[0] * e_prev[0] + (w.lane == 0 ? 0.0f : edge);
 #pragma unroll
       for (int j = 1; j < V; ++j) q[k][j] = p[j] * e_prev[j] + sp[j - 1];
-      if (k == kRenorm - 1) norm = warp_renorm<V, kVec>(w, q[k]);
+      if (k == kRenorm - 1) norm[0] = warp_renorm<V, kVec>(w, q[k]);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         p[j] = q[k][j] * d.f[k][j];
@@ -1439,7 +1556,7 @@ __device__ void expin_alpha_chain(const ExpinWalk& w, ExpinSmem<V>& sm) {
         s_prev[j] = d.s[k][j];
       }
     }
-    give_round<V>(w, sm, r, q, norm);
+    give_round(w, sm, r, q, norm);
   }
 }
 
@@ -1449,18 +1566,18 @@ __device__ void expin_alpha_chain(const ExpinWalk& w, ExpinSmem<V>& sm) {
 //   c = F_u * b_raw. The first round's columns past U read zeros, which
 //   leave c at 0.
 template <int V, bool kVec>
-__device__ void expin_beta_chain(const ExpinWalk& w, ExpinSmem<V>& sm,
+__device__ void expin_beta_chain(const WarpWalk& w, ExpinRing<V>& sm,
                                  int in_len, int out_len) {
   float c[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) c[j] = 0.0f;
   for (int r = 0; r < w.rounds; ++r) {
-    ExpinRound<V> d;
-    take_round<V>(w, sm, r, d);
-    float b[kRenorm][V], norm;
+    WalkRound<V, kRenorm> d;
+    take_round(w, sm, r, d);
+    float b[kRenorm][V], norm[1];
 #pragma unroll
     for (int k = 0; k < kRenorm; ++k) {
-      const bool reset = round_column<true>(w, r, k) == out_len - 1;
+      const bool reset = round_column<true, kRenorm>(w, r, k) == out_len - 1;
       // 0 past T - 1: nothing shifts up into the last position
       const float above = __shfl_down_sync(0xffffffffu, c[0], 1);
 #pragma unroll
@@ -1471,22 +1588,22 @@ __device__ void expin_beta_chain(const ExpinWalk& w, ExpinSmem<V>& sm,
         const float x = d.e[k][j] * c[j] + d.s[k][j] * nb;
         b[k][j] = reset ? (w.t0 + j == in_len - 1 ? d.e[k][j] : 0.0f) : x;
       }
-      if (k == kRenorm - 1) norm = warp_renorm<V, kVec>(w, b[k]);
+      if (k == kRenorm - 1) norm[0] = warp_renorm<V, kVec>(w, b[k]);
 #pragma unroll
       for (int j = 0; j < V; ++j) c[j] = d.f[k][j] * b[k][j];
     }
-    give_round<V>(w, sm, r, b, norm);
+    give_round(w, sm, r, b, norm);
   }
 }
 
 // mcol at this lane's column of the 32-column block q (rounds 8 q .. 8 q +
 // 7); 0 past the walk.
 template <bool kBack>
-__device__ __forceinline__ float block_mcol(const ExpinWalk& w,
+__device__ __forceinline__ float block_mcol(const WarpWalk& w,
                                             const float* __restrict__ mcol,
                                             int q) {
   const int i = q * 32 + w.lane;
-  const int u = round_column<kBack>(w, i / kRenorm, i % kRenorm);
+  const int u = round_column<kBack, kRenorm>(w, i / kRenorm, i % kRenorm);
   return u >= 0 && u < w.U ? __ldg(mcol + u * w.B) : 0.0f;
 }
 
@@ -1499,7 +1616,7 @@ __device__ __forceinline__ float block_mcol(const ExpinWalk& w,
 // column slot 32 q + l of the 32-column block q and stores it at the
 // block's end: one store a lane per 32 columns.
 template <int V, bool kVec, bool kBack>
-__device__ void expin_storer(const ExpinWalk& w, ExpinSmem<V>& sm,
+__device__ void expin_storer(const WarpWalk& w, ExpinRing<V>& sm,
                              const float* __restrict__ mcol, int out_len,
                              float* __restrict__ field,
                              float* __restrict__ logs) {
@@ -1507,29 +1624,15 @@ __device__ void expin_storer(const ExpinWalk& w, ExpinSmem<V>& sm,
   float mnext = block_mcol<kBack>(w, mcol, 1);
   float acc = 0.0f, keep = 0.0f;
   for (int r = 0; r < w.rounds; ++r) {
-    // The round's field into registers, the slot freed, then the stores:
-    // no store waits on its shared load.
-    const int slot = r % kResRounds;
-    ssnt_tma::mbar_wait(&sm.res_full[slot], (r / kResRounds) & 1);
-    const float norm = sm.norm[slot];
-    float x[kRenorm][V];
-#pragma unroll
-    for (int k = 0; k < kRenorm; ++k)
-      load_lane<V>(sm.res[slot][k] + w.t0, x[k]);
-    mbar_arrive(&sm.res_empty[slot]);
+    float x[kRenorm][V], nrm[1];
+    read_round(w, sm, r, x, nrm);
+    const float norm = nrm[0];
 #pragma unroll
     for (int k = 0; k < kRenorm; ++k) {
-      const int u = round_column<kBack>(w, r, k);
+      const int u = round_column<kBack, kRenorm>(w, r, k);
       const float mc = __shfl_sync(0xffffffffu, mblk, (r * kRenorm + k) & 31);
       if (u < w.U) {
-        float* dst = field + u * w.col;
-        if constexpr (kVec) {
-          if (w.live) store_lane<V>(dst, x[k]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j)
-            if (w.t0 + j < w.T) dst[j] = x[k][j];
-        }
+        store_cells<V, kVec>(w, field + u * w.col, x[k]);
         if (kBack && u == out_len - 1) acc = 0.0f;
         if (k == kRenorm - 1) acc = acc + logf(norm);
         if (kBack) {
@@ -1543,7 +1646,8 @@ __device__ void expin_storer(const ExpinWalk& w, ExpinSmem<V>& sm,
     }
     if ((r & 7) == 7 || r == w.rounds - 1) {  // the block's last round
       const int i = (r & ~7) * kRenorm + w.lane;
-      const int ul = round_column<kBack>(w, i / kRenorm, i % kRenorm);
+      const int ul = round_column<kBack, kRenorm>(w, i / kRenorm,
+                                                  i % kRenorm);
       if (i / kRenorm <= r && ul >= 0 && ul < w.U) logs[ul * w.B] = keep;
       mblk = mnext;
       mnext = block_mcol<kBack>(w, mcol, r / 8 + 2);
@@ -1553,7 +1657,7 @@ __device__ void expin_storer(const ExpinWalk& w, ExpinSmem<V>& sm,
 
 // A block of three warps (loader, chain, storer) per example (blockIdx.x)
 // and direction (blockIdx.y: 0 the alpha walk, 1 the beta walk); dynamic
-// shared memory: ExpinSmem<V>.
+// shared memory: ExpinRing<V>.
 template <int V, bool kVec>
 __global__ void __launch_bounds__(96)
     expin_warp_kernel(int B, int T, int U, const float* __restrict__ E,
@@ -1563,33 +1667,19 @@ __global__ void __launch_bounds__(96)
                       const int* __restrict__ il, const int* __restrict__ ol,
                       float* __restrict__ qn, float* __restrict__ bn,
                       float* __restrict__ M, float* __restrict__ N) {
-  extern __shared__ float4 expin_smem[];
-  ExpinSmem<V>& sm = *reinterpret_cast<ExpinSmem<V>*>(expin_smem);
+  extern __shared__ float4 walk_smem[];
+  ExpinRing<V>& sm = *reinterpret_cast<ExpinRing<V>*>(walk_smem);
   const int b = blockIdx.x, warp = threadIdx.x / 32;
   const bool back = blockIdx.y == 1;
-  ExpinWalk w;
-  w.lane = threadIdx.x % 32, w.t0 = w.lane * V, w.live = w.t0 < T;
-  w.col = B * T, w.B = B, w.T = T, w.U = U;
-  w.top = (U - 1) / kRenorm * kRenorm;
-  w.rounds = (U + kRenorm - 1) / kRenorm;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kInRounds; ++i) {
-      ssnt_tma::mbar_init(&sm.in_full[i], 32);
-      ssnt_tma::mbar_init(&sm.in_empty[i], 32);
-    }
-    for (int i = 0; i < kResRounds; ++i) {
-      ssnt_tma::mbar_init(&sm.res_full[i], 32);
-      ssnt_tma::mbar_init(&sm.res_empty[i], 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  const WarpWalk w =
+      make_walk(B, T, U, V, kRenorm, (U - 1) / kRenorm * kRenorm);
+  init_ring(sm, 1);
   const int eb = b * T + w.t0;
   if (warp == 0) {
     if (back)
-      expin_loader<V, kVec, true>(w, sm, E + eb, S + eb, F + eb);
+      walk_loader<ExpinRing<V>, kVec, true>(w, sm, E + eb, S + eb, F + eb);
     else
-      expin_loader<V, kVec, false>(w, sm, E + eb, S + eb, F + eb);
+      walk_loader<ExpinRing<V>, kVec, false>(w, sm, E + eb, S + eb, F + eb);
   } else if (warp == 1) {
     if (back)
       expin_beta_chain<V, kVec>(w, sm, il[b], ol[b]);
@@ -1610,7 +1700,7 @@ cudaError_t launch_expin_warp(int B, int T, int U, const float* E,
                               const int* ol, float* qn, float* bn, float* M,
                               float* N, cudaStream_t s) {
   static size_t opted = 0;
-  constexpr size_t smem = sizeof(ExpinSmem<V>);
+  constexpr size_t smem = sizeof(ExpinRing<V>);
   cudaError_t e = opt_in(expin_warp_kernel<V, kVec>, smem, &opted);
   if (e != cudaSuccess) return e;
   expin_warp_kernel<V, kVec><<<dim3(B, 2), 96, smem, s>>>(
@@ -1639,6 +1729,578 @@ cudaError_t launch_expin_warps(int B, int T, int U, const float* E,
 #undef SSNT_EXPIN_ARGS
 }
 
+// --------------------------------------------- bidirectional warp walks
+//
+// lattice_bidir (log domain) and lattice_bidir_exp (exp domain) for T <=
+// kWarpMaxT: a block per example (blockIdx.x) and direction (blockIdx.y)
+// of loader, chain and storer warps, rounds of R columns (u = 0, 1, ...
+// forward; u = U - 1, U - 2, ... backward: top = U - R; the last round's
+// columns past the walk read zeros, and are walked but never stored), the
+// chain reading round r + 1 before it walks round r.
+//
+// lattice_bidir: the loader is lattice_expin's (le, ls, lf raw). The
+// chain warps walk alpha_walk's or beta_walk's cells (lae with expf and
+// log1pf) with NEG at the edges, and hand each round's alphas or betas to
+// the storer, which writes them. One lae a column is the chain's floor
+// (~170 ns on an H100), and four cells a lane on one warp took longer
+// (their instructions queue behind one another), so the positions are
+// split over chain warps below. No normalizer, so the round length is
+// free: rounds of kLogRound columns.
+//
+// lattice_bidir_exp: one chain warp walks only the recursion's multiplies
+// and adds, the row max (warp_max) and the division of every column
+// (div_rn: the float division's bits without its slow path), and hands the
+// round's raw fields p_raw / b_raw and their normalizers to the storer, in
+// rounds of kBidirRound columns. The exps and logs are off the chain: the
+// loader (L warps, each the round's columns j with j % L equal to its
+// index) copies kExpAhead rounds ahead by cp.async into the ring slot
+// itself, and once a round's copies have landed (the thread's own,
+// cp.async.wait_group) replaces each value by its expf in place and
+// arrives on the slot's full barrier; the storer writes log(raw) plus the
+// running log normalizer (forward m, backward n with its reset at u ==
+// U_b - 1) and adds log(norm) after each column. The loader's and the
+// storer's column loops are not unrolled (kExpUnroll): unrolled, the
+// three warps' loops were each thousands of instructions, and at B=256,
+// where ~4 blocks share an SM, the walk took 2.6x as long.
+
+constexpr int kBidirRound = 4;    // columns a round
+constexpr int kExpLoaders = 2;    // #4's loaders where a block has an SM
+constexpr int kExpAhead = 3;      // rounds its copies run ahead of its exps
+constexpr int kExpUnroll = 1;     // its loader's and storer's column loops
+
+template <int V> using BidirExpRing = WalkRing<V, kBidirRound, kBidirRound>;
+
+// A chain warp's rounds: walk(r, d) on round r's inputs d (its lanes' V
+// positions), with round r + 1 read from the ring before round r is
+// walked, so that its wait and shared loads are off the chain.
+template <int V, class Ring, class Walk>
+__device__ __forceinline__ void chain_rounds(const WarpWalk& w, Ring& sm,
+                                             Walk walk) {
+  WalkRound<V, Ring::R> cur, nxt;
+  take_round(w, sm, 0, cur);
+  for (int r = 0; r < w.rounds; ++r) {
+    if (r + 1 < w.rounds) take_round(w, sm, r + 1, nxt);
+    walk(r, cur);
+    cur = nxt;
+  }
+}
+
+// x / s correctly rounded (the bits of div.rn.f32) for finite x >= 0 and
+// s >= kTiny, given r = 1 / s in double: the double product x * r is
+// within 2^-52 of x / s relatively, and a quotient of two floats lies at
+// least 2^-49 of itself (2^-174 where it is below 2^-126) from every
+// midpoint between floats, so rounding the product to float rounds the
+// quotient. The float division's fast path falls back to a subroutine for
+// subnormal dividends and quotients, which the exp walks meet in every
+// column; this has no slow path.
+__device__ __forceinline__ float div_rn(float x, double r) {
+  return __double2float_rn((double)x * r);
+}
+
+// lattice_bidir's walk is split over NC chain warps (kLogVC positions a
+// lane, NC = ceil(T / (32 kLogVC))): chain warp c holds t = c * 32 VC +
+// lane * VC + j. The neighbour across two chain warps goes one way a
+// column, so it is a stream, not a barrier: forward, warp c's lane 31
+// publishes its value at t = 32 VC (c + 1) - 1 for warp c + 1's lane 0;
+// backward, warp c's lane 0 publishes its value at t = 32 VC c for warp c -
+// 1's lane 31. A published value sits in a ring of kXch 8-byte words in
+// shared memory, the value and its column's step in one word (one store,
+// read by one volatile load that checks the step), so the consumer only
+// waits when it is ahead; in the steady state each warp lags the one it
+// reads by one exchange, and no column waits for the slowest warp. A
+// producer is at most NRes + 1 rounds ahead of its consumer (the storer
+// frees a result slot once every chain warp has filled it), below kXch
+// columns.
+//
+// The walk's rounds are long (kLogRound columns, in a ring of
+// kLogInRounds input and kLogResRounds result rounds), so the chain warps
+// wait on the ring's barriers once per kLogRound columns.
+constexpr int kLogVC = 1;         // lattice_bidir: positions a chain lane holds
+constexpr int kLogRound = 16;     // its columns a round
+constexpr int kLogInRounds = 3;   // its input ring
+constexpr int kLogResRounds = 2;  // its result ring
+constexpr int kMaxChains = 4;     // 128 / 32
+constexpr int kXch = 128;         // exchange words a chain warp
+static_assert((kLogResRounds + 1) * kLogRound <= kXch,
+              "a producer's lead fits its exchange words");
+
+template <int Vio>
+using LogRing = WalkRing<Vio, kLogRound, 1, kLogInRounds, kLogResRounds>;
+
+// The log walk's shared memory: the ring (rows of 32 Vio floats, the
+// loader's and storer's lane layout), and each chain warp's exchange words.
+template <int Vio> struct BidirLogSmem {
+  LogRing<Vio> ring;
+  unsigned long long xch[kMaxChains][kXch];
+};
+
+// Publishes v as the value of column step s.
+__device__ __forceinline__ void edge_give(unsigned long long* xch, int s,
+                                          float v) {
+  *reinterpret_cast<volatile unsigned long long*>(&xch[s % kXch]) =
+      (unsigned long long)(unsigned)s << 32 | __float_as_uint(v);
+}
+
+// The value published for column step s, once it is there (every lane
+// reads the same word). A value that never comes traps (a launch error)
+// instead of hanging the card.
+__device__ __forceinline__ float edge_take(const unsigned long long* xch,
+                                           int s) {
+  const volatile unsigned long long* p =
+      reinterpret_cast<const volatile unsigned long long*>(&xch[s % kXch]);
+  unsigned long long v = *p;
+  for (uint32_t spins = 0; (unsigned)(v >> 32) != (unsigned)s; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    v = *p;
+  }
+  return __uint_as_float((unsigned)v);
+}
+
+// alpha_walk's chain on chain warp c of NC: alpha_0 = t == 0 ? lf_0 : NEG,
+// then per column u
+//   stay = alpha + le_{u-1};  moved = shift_down(alpha + ls_{u-1}), NEG
+//   into t = 0;  alpha = lf_u + lae(stay, moved).
+template <int V, int NC, int Vio>
+__device__ void log_alpha_chain(const WarpWalk& w, BidirLogSmem<Vio>& sm,
+                                int c) {
+  constexpr int R = kLogRound;
+  float alpha[V], le_prev[V], ls_prev[V];
+  const float none[1] = {0.0f};
+#pragma unroll
+  for (int j = 0; j < V; ++j) alpha[j] = le_prev[j] = ls_prev[j] = kNeg;
+  chain_rounds<V>(w, sm.ring, [&](int r, const WalkRound<V, R>& d) {
+    float a[R][V];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int s = r * R + k;
+      float mv[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) mv[j] = alpha[j] + ls_prev[j];
+      if (c + 1 < NC && w.lane == 31) edge_give(sm.xch[c], s, mv[V - 1]);
+      const float edge = __shfl_up_sync(0xffffffffu, mv[V - 1], 1);
+      const float below = c > 0 ? edge_take(sm.xch[c - 1], s) : kNeg;
+      const bool first = k == 0 && r == 0;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float moved =
+            j == 0 ? (w.lane == 0 ? below : edge) : mv[j - 1];
+        const float x = d.f[k][j] + lae(alpha[j] + le_prev[j], moved);
+        alpha[j] = first ? (w.t0 + j == 0 ? d.f[k][j] : kNeg) : x;
+        a[k][j] = alpha[j];
+        le_prev[j] = d.e[k][j];
+        ls_prev[j] = d.s[k][j];
+      }
+    }
+    give_round(w, sm.ring, r, a, none);
+  });
+}
+
+// beta_walk's chain on chain warp c of NC, descending: per column u
+//   cont = lf_{u+1} + beta;  up = shift_up(cont), NEG from t >= T;
+//   beta = u == U_b - 1 ? (t == T_b - 1 ? le_u : NEG)
+//                       : lae(le_u + cont, ls_u + up)
+// from beta = lf_{U} = NEG.
+template <int V, int NC, int Vio>
+__device__ void log_beta_chain(const WarpWalk& w, BidirLogSmem<Vio>& sm,
+                               int c, int in_len, int out_len) {
+  constexpr int R = kLogRound;
+  float beta[V], lf_next[V];
+  const float none[1] = {0.0f};
+#pragma unroll
+  for (int j = 0; j < V; ++j) beta[j] = lf_next[j] = kNeg;
+  chain_rounds<V>(w, sm.ring, [&](int r, const WalkRound<V, R>& d) {
+    float b[R][V];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int s = r * R + k;
+      const bool reset = round_column<true, R>(w, r, k) == out_len - 1;
+      float cont[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) cont[j] = lf_next[j] + beta[j];
+      if (c > 0 && w.lane == 0) edge_give(sm.xch[c], s, cont[0]);
+      float above = __shfl_down_sync(0xffffffffu, cont[0], 1);
+      const float from_up = c + 1 < NC ? edge_take(sm.xch[c + 1], s) : kNeg;
+      if (w.lane == 31) above = from_up;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float up = j + 1 < V ? cont[j + 1] : above;
+        if (w.t0 + j + 1 >= w.T) up = kNeg;
+        const float x = lae(d.e[k][j] + cont[j], d.s[k][j] + up);
+        beta[j] = reset ? (w.t0 + j == in_len - 1 ? d.e[k][j] : kNeg) : x;
+        b[k][j] = beta[j];
+        lf_next[j] = d.f[k][j];
+      }
+    }
+    give_round(w, sm.ring, r, b, none);
+  });
+}
+
+// lattice_bidir's storer: round r's alphas or betas (columns in the walk).
+template <class Ring, bool kVec, bool kBack>
+__device__ void log_storer(const WarpWalk& w, Ring& sm,
+                           float* __restrict__ out) {
+  constexpr int V = Ring::V, R = Ring::R;
+  for (int r = 0; r < w.rounds; ++r) {
+    float x[R][V], none[1];
+    read_round(w, sm, r, x, none);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int u = round_column<kBack, R>(w, r, k);
+      if ((unsigned)u < (unsigned)w.U)
+        store_cells<V, kVec>(w, out + u * w.col, x[k]);
+    }
+  }
+}
+
+// A block of a loader, NC chain warps and a storer per example
+// (blockIdx.x) and direction (blockIdx.y); the loader and the storer hold
+// Vio positions a lane, a chain lane VC; dynamic shared memory:
+// BidirLogSmem<Vio>.
+template <int VC, int NC, int Vio, bool kVec>
+__global__ void __launch_bounds__(32 * (NC + 2))
+    bidir_warp_kernel(int B, int T, int U, const float* __restrict__ le,
+                      const float* __restrict__ ls,
+                      const float* __restrict__ lf,
+                      const int* __restrict__ il, const int* __restrict__ ol,
+                      float* __restrict__ alphas, float* __restrict__ betas) {
+  extern __shared__ float4 walk_smem[];
+  BidirLogSmem<Vio>& sm = *reinterpret_cast<BidirLogSmem<Vio>*>(walk_smem);
+  const int b = blockIdx.x, warp = threadIdx.x / 32;
+  const bool back = blockIdx.y == 1;
+  for (int i = threadIdx.x; i < kMaxChains * kXch; i += blockDim.x)
+    sm.xch[i / kXch][i % kXch] = ~0ull;
+  init_ring(sm.ring, 1, NC);
+  const int top = U - kLogRound;
+  if (warp == 0 || warp == NC + 1) {
+    const WarpWalk w = make_walk(B, T, U, Vio, kLogRound, top);
+    const int eb = b * T + w.t0;
+    if (warp == 0) {
+      if (back)
+        walk_loader<LogRing<Vio>, kVec, true>(w, sm.ring, le + eb, ls + eb,
+                                              lf + eb);
+      else
+        walk_loader<LogRing<Vio>, kVec, false>(w, sm.ring, le + eb,
+                                               ls + eb, lf + eb);
+    } else {
+      if (back)
+        log_storer<LogRing<Vio>, kVec, true>(w, sm.ring, betas + eb);
+      else
+        log_storer<LogRing<Vio>, kVec, false>(w, sm.ring, alphas + eb);
+    }
+  } else {
+    const int c = warp - 1;
+    const WarpWalk w = make_walk(B, T, U, VC, kLogRound, top, c * 32 * VC);
+    if (back)
+      log_beta_chain<VC, NC>(w, sm, c, il[b], ol[b]);
+    else
+      log_alpha_chain<VC, NC>(w, sm, c);
+  }
+}
+
+template <int VC, int NC, int Vio, bool kVec>
+cudaError_t launch_log_walk(int B, int T, int U, const float* le,
+                            const float* ls, const float* lf, const int* il,
+                            const int* ol, float* alphas, float* betas,
+                            cudaStream_t s) {
+  static size_t opted = 0;
+  constexpr size_t smem = sizeof(BidirLogSmem<Vio>);
+  cudaError_t e = opt_in(bidir_warp_kernel<VC, NC, Vio, kVec>, smem, &opted);
+  if (e != cudaSuccess) return e;
+  bidir_warp_kernel<VC, NC, Vio, kVec><<<dim3(B, 2), 32 * (NC + 2), smem, s>>>(
+      B, T, U, le, ls, lf, il, ol, alphas, betas);
+  return cudaGetLastError();
+}
+
+// lattice_bidir's walk for rows of 32 Vio positions: kLogVC positions a
+// chain lane (at most Vio), NC = ceil(T / (32 VC)) chain warps.
+template <int Vio, bool kVec>
+cudaError_t launch_log_walks(int B, int T, int U, const float* le,
+                             const float* ls, const float* lf, const int* il,
+                             const int* ol, float* alphas, float* betas,
+                             cudaStream_t s) {
+  constexpr int VC = kLogVC < Vio ? kLogVC : Vio;
+#define SSNT_LOG_ARGS B, T, U, le, ls, lf, il, ol, alphas, betas, s
+  switch ((T + 32 * VC - 1) / (32 * VC)) {
+    case 1: return launch_log_walk<VC, 1, Vio, kVec>(SSNT_LOG_ARGS);
+    case 2:
+      if constexpr (Vio / VC >= 2)
+        return launch_log_walk<VC, 2, Vio, kVec>(SSNT_LOG_ARGS);
+      break;
+    case 3:
+      if constexpr (Vio / VC >= 3)
+        return launch_log_walk<VC, 3, Vio, kVec>(SSNT_LOG_ARGS);
+      break;
+    case 4:
+      if constexpr (Vio / VC >= 4)
+        return launch_log_walk<VC, 4, Vio, kVec>(SSNT_LOG_ARGS);
+      break;
+  }
+#undef SSNT_LOG_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// lattice_bidir_exp's loader (warp j0 of L): rounds kExpAhead ahead by
+// cp.async into their slots, then round r's values, once its copies have
+// landed, replaced by their expf in place, and the slot's full barrier
+// arrived on.
+template <class Ring, bool kVec, bool kBack, int L>
+__device__ void exp_loader(const WarpWalk& w, Ring& sm, int j0,
+                           const float* __restrict__ le,
+                           const float* __restrict__ ls,
+                           const float* __restrict__ lf) {
+  constexpr int V = Ring::V;
+  auto issue = [&](int r) {
+    if (r < w.rounds) {
+      if (r >= Ring::NIn)
+        ssnt_tma::mbar_wait(&sm.in_empty[r % Ring::NIn],
+                            (r / Ring::NIn + 1) & 1);
+      stage_round<Ring, kVec, kBack, L>(w, sm, r, j0, le, ls, lf);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  for (int r = 0; r < kExpAhead; ++r) issue(r);
+  for (int r = 0; r < w.rounds; ++r) {
+    issue(r + kExpAhead);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kExpAhead) : "memory");
+    const int slot = r % Ring::NIn;
+#pragma unroll(kExpUnroll)
+    for (int j = 0; j < Ring::R; ++j) {
+      if (j % L != j0) continue;
+#pragma unroll
+      for (int row = 0; row < 3; ++row) {
+        float* p = sm.in[slot][j][row] + w.t0;
+        if constexpr (kVec) {
+          if (w.live) {
+            float x[V];
+            load_lane<V>(p, x);
+#pragma unroll
+            for (int i = 0; i < V; ++i) x[i] = expf(x[i]);
+            store_lane<V>(p, x);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            if (w.t0 + i < w.T) p[i] = expf(p[i]);
+        }
+      }
+    }
+    mbar_arrive(&sm.in_full[slot]);
+  }
+}
+
+// exp_alpha_walk's chain: per column u
+//   q = p * e_le_{u-1} + shift0_down(p * e_ls_{u-1})
+//   p_raw = (u == 0 ? [t == 0] : q) * e_lf_u;  s = max(rowmax, TINY)
+//   p = p_raw / s
+// p_raw and s to the storer.
+template <int V, bool kVec>
+__device__ void exp_alpha_chain(const WarpWalk& w, BidirExpRing<V>& sm) {
+  constexpr int R = kBidirRound;
+  float p[V], e_le_prev[V], e_ls_prev[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) p[j] = e_le_prev[j] = e_ls_prev[j] = 0.0f;
+  chain_rounds<V>(w, sm, [&](int r, const WalkRound<V, R>& d) {
+    float x[R][V], norm[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float sp[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) sp[j] = p[j] * e_ls_prev[j];
+      const float edge = __shfl_up_sync(0xffffffffu, sp[V - 1], 1);
+      const bool first = k == 0 && r == 0;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float q = p[j] * e_le_prev[j] +
+                        (j == 0 ? (w.lane == 0 ? 0.0f : edge) : sp[j - 1]);
+        x[k][j] = (first ? (w.t0 + j == 0 ? 1.0f : 0.0f) : q) * d.f[k][j];
+      }
+      norm[k] = warp_max<V, kVec>(w, x[k]);
+      const double rn = 1.0 / (double)norm[k];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        p[j] = div_rn(x[k][j], rn);
+        e_le_prev[j] = d.e[k][j];
+        e_ls_prev[j] = d.s[k][j];
+      }
+    }
+    give_round(w, sm, r, x, norm);
+  });
+}
+
+// exp_beta_walk's chain, descending: per column u
+//   c = b * e_lf_{u+1};  b_raw = e_le_u * c + e_ls_u * shift0_up(c)
+//   at u == U_b - 1: b_raw = [t == T_b - 1] e_le_u
+//   s = max(rowmax, TINY);  b = b_raw / s
+// b_raw and s to the storer.
+template <int V, bool kVec>
+__device__ void exp_beta_chain(const WarpWalk& w, BidirExpRing<V>& sm,
+                               int in_len, int out_len) {
+  constexpr int R = kBidirRound;
+  float field[V], e_lf_next[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) field[j] = e_lf_next[j] = 0.0f;
+  chain_rounds<V>(w, sm, [&](int r, const WalkRound<V, R>& d) {
+    float x[R][V], norm[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const bool reset = round_column<true, R>(w, r, k) == out_len - 1;
+      float c[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) c[j] = field[j] * e_lf_next[j];
+      const float above = __shfl_down_sync(0xffffffffu, c[0], 1);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float nb = j + 1 < V ? c[j + 1] : above;
+        if (kVec ? j + 1 == V && w.t0 + V >= w.T : w.t0 + j + 1 >= w.T)
+          nb = 0.0f;
+        const float y = d.e[k][j] * c[j] + d.s[k][j] * nb;
+        x[k][j] = reset ? (w.t0 + j == in_len - 1 ? d.e[k][j] : 0.0f) : y;
+      }
+      norm[k] = warp_max<V, kVec>(w, x[k]);
+      const double rn = 1.0 / (double)norm[k];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        field[j] = div_rn(x[k][j], rn);
+        e_lf_next[j] = d.f[k][j];
+      }
+    }
+    give_round(w, sm, r, x, norm);
+  });
+}
+
+// lattice_bidir_exp's storer: per column in the walk, [backward: n = 0 at
+// u == U_b - 1]; out_u = log(raw) + m;  m += log(s). It reads a column's
+// row from the result slot as it stores it (a loop of kExpUnroll columns
+// of code), and frees the slot after the round.
+template <int V, bool kVec, bool kBack>
+__device__ void exp_storer(const WarpWalk& w, BidirExpRing<V>& sm,
+                           int out_len, float* __restrict__ out) {
+  constexpr int NRes = BidirExpRing<V>::NRes;
+  float acc = 0.0f;
+  for (int r = 0; r < w.rounds; ++r) {
+    const int slot = r % NRes;
+    ssnt_tma::mbar_wait(&sm.res_full[slot], (r / NRes) & 1);
+#pragma unroll(kExpUnroll)
+    for (int k = 0; k < kBidirRound; ++k) {
+      const int u = round_column<kBack, kBidirRound>(w, r, k);
+      float x[V];
+      load_lane<V>(sm.res[slot][k] + w.t0, x);
+      const float nrm = sm.norm[slot][k];
+      if ((unsigned)u < (unsigned)w.U) {
+        if (kBack && u == out_len - 1) acc = 0.0f;
+        float y[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) y[j] = logf(x[j]) + acc;
+        store_cells<V, kVec>(w, out + u * w.col, y);
+        acc = acc + logf(nrm);
+      }
+    }
+    mbar_arrive(&sm.res_empty[slot]);
+  }
+}
+
+// A block of L loader warps, a chain and a storer warp per example and
+// direction; dynamic shared memory: BidirExpRing<V>.
+template <int V, bool kVec, int L>
+__global__ void __launch_bounds__(32 * (L + 2))
+    bidir_exp_warp_kernel(int B, int T, int U, const float* __restrict__ le,
+                          const float* __restrict__ ls,
+                          const float* __restrict__ lf,
+                          const int* __restrict__ il,
+                          const int* __restrict__ ol,
+                          float* __restrict__ alphas,
+                          float* __restrict__ betas) {
+  using Ring = BidirExpRing<V>;
+  extern __shared__ float4 walk_smem[];
+  Ring& sm = *reinterpret_cast<Ring*>(walk_smem);
+  const int b = blockIdx.x, warp = threadIdx.x / 32;
+  const bool back = blockIdx.y == 1;
+  const WarpWalk w = make_walk(B, T, U, V, kBidirRound, U - kBidirRound);
+  init_ring(sm, L);
+  const int eb = b * T + w.t0;
+  if (warp < L) {
+    if (back)
+      exp_loader<Ring, kVec, true, L>(w, sm, warp, le + eb, ls + eb,
+                                      lf + eb);
+    else
+      exp_loader<Ring, kVec, false, L>(w, sm, warp, le + eb, ls + eb,
+                                       lf + eb);
+  } else if (warp == L) {
+    if (back)
+      exp_beta_chain<V, kVec>(w, sm, il[b], ol[b]);
+    else
+      exp_alpha_chain<V, kVec>(w, sm);
+  } else {
+    if (back)
+      exp_storer<V, kVec, true>(w, sm, ol[b], betas + eb);
+    else
+      exp_storer<V, kVec, false>(w, sm, 0, alphas + eb);
+  }
+}
+
+template <int V, bool kVec>
+cudaError_t launch_bidir_warp(bool exp_domain, int B, int T, int U,
+                              const float* le, const float* ls,
+                              const float* lf, const int* il, const int* ol,
+                              float* alphas, float* betas, cudaStream_t s) {
+  if (exp_domain) {
+    // kExpLoaders loader warps where every block has an SM of its own (the
+    // exps set the pace); one where blocks share SMs (a second loader's
+    // issue slots then slow the other blocks' warps).
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    constexpr size_t smem = sizeof(BidirExpRing<V>);
+    if (2 * B <= sms && kExpLoaders > 1) {
+      static size_t opted = 0;
+      constexpr int L = kExpLoaders;
+      e = opt_in(bidir_exp_warp_kernel<V, kVec, L>, smem, &opted);
+      if (e != cudaSuccess) return e;
+      bidir_exp_warp_kernel<V, kVec, L><<<dim3(B, 2), 32 * (L + 2), smem, s>>>(
+          B, T, U, le, ls, lf, il, ol, alphas, betas);
+    } else {
+      static size_t opted = 0;
+      e = opt_in(bidir_exp_warp_kernel<V, kVec, 1>, smem, &opted);
+      if (e != cudaSuccess) return e;
+      bidir_exp_warp_kernel<V, kVec, 1><<<dim3(B, 2), 96, smem, s>>>(
+          B, T, U, le, ls, lf, il, ol, alphas, betas);
+    }
+    return cudaGetLastError();
+  }
+  return launch_log_walks<V, kVec>(B, T, U, le, ls, lf, il, ol, alphas,
+                                   betas, s);
+}
+
+// The bidirectional warp walks with rows of 32 V positions, V = ceil(T /
+// 32) rounded up to 1, 2 or 4, with copies of 4V bytes a lane where T % V
+// == 0 and every field is aligned to them.
+cudaError_t launch_bidir_warps(bool exp_domain, int B, int T, int U,
+                               const float* le, const float* ls,
+                               const float* lf, const int* il,
+                               const int* ol, float* alphas, float* betas,
+                               cudaStream_t s) {
+  const uintptr_t bits = (uintptr_t)le | (uintptr_t)ls | (uintptr_t)lf |
+                         (uintptr_t)alphas | (uintptr_t)betas;
+#define SSNT_BIDIR_ARGS exp_domain, B, T, U, le, ls, lf, il, ol, alphas, \
+                        betas, s
+  if (T <= 32) return launch_bidir_warp<1, true>(SSNT_BIDIR_ARGS);
+  if (T <= 64)
+    return bits % 8 == 0 && T % 2 == 0
+               ? launch_bidir_warp<2, true>(SSNT_BIDIR_ARGS)
+               : launch_bidir_warp<2, false>(SSNT_BIDIR_ARGS);
+  return bits % 16 == 0 && T % 4 == 0
+             ? launch_bidir_warp<4, true>(SSNT_BIDIR_ARGS)
+             : launch_bidir_warp<4, false>(SSNT_BIDIR_ARGS);
+#undef SSNT_BIDIR_ARGS
+}
+
+// The warp walks take 32-bit offsets.
+bool warp_walk(int B, int T, int U) {
+  return T <= kWarpMaxT && (size_t)U * B * T < (size_t{1} << 31);
+}
+
 bool bad_shape(int B, int T, int U) {
   return B < 0 || U < 0 || T < 1 || T > kMaxT;
 }
@@ -1654,9 +2316,16 @@ int ssnt_lattice_bidir(int B, int T, int U, const void* le, const void* ls,
                        void* alphas, void* betas, void* stream) {
   if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
   if (B == 0 || U == 0) return 0;
-  bidir_kernel<<<dim3(B, 2), threads_for(T), 0, (cudaStream_t)stream>>>(
-      B, T, U, (const float*)le, (const float*)ls, (const float*)lf,
-      (const int*)il, (const int*)ol, (float*)alphas, (float*)betas);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *e = (const float*)le, *h = (const float*)ls,
+              *f = (const float*)lf;
+  const int *in_len = (const int*)il, *out_len = (const int*)ol;
+  float *a = (float*)alphas, *bt = (float*)betas;
+  if (warp_walk(B, T, U))
+    return (int)launch_bidir_warps(false, B, T, U, e, h, f, in_len, out_len,
+                                   a, bt, s);
+  bidir_kernel<<<dim3(B, 2), threads_for(T), 0, s>>>(B, T, U, e, h, f,
+                                                     in_len, out_len, a, bt);
   return (int)cudaGetLastError();
 }
 
@@ -1723,9 +2392,16 @@ int ssnt_lattice_bidir_exp(int B, int T, int U, const void* le,
                            void* stream) {
   if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
   if (B == 0 || U == 0) return 0;
-  bidir_exp_kernel<<<dim3(B, 2), threads_for(T), 0, (cudaStream_t)stream>>>(
-      B, T, U, (const float*)le, (const float*)ls, (const float*)lf,
-      (const int*)il, (const int*)ol, (float*)alphas, (float*)betas);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *e = (const float*)le, *h = (const float*)ls,
+              *f = (const float*)lf;
+  const int *in_len = (const int*)il, *out_len = (const int*)ol;
+  float *a = (float*)alphas, *bt = (float*)betas;
+  if (warp_walk(B, T, U))
+    return (int)launch_bidir_warps(true, B, T, U, e, h, f, in_len, out_len,
+                                   a, bt, s);
+  bidir_exp_kernel<<<dim3(B, 2), threads_for(T), 0, s>>>(
+      B, T, U, e, h, f, in_len, out_len, a, bt);
   return (int)cudaGetLastError();
 }
 
@@ -1740,7 +2416,7 @@ int ssnt_lattice_expin(int B, int T, int U, const void* E, const void* S,
               *f = (const float*)F, *m = (const float*)mcol;
   const int *in_len = (const int*)il, *out_len = (const int*)ol;
   float *q = (float*)qn, *r = (float*)bn, *mm = (float*)M, *nn = (float*)N;
-  if (T <= kWarpMaxT && (size_t)U * B * T < (size_t{1} << 31))
+  if (warp_walk(B, T, U))
     return (int)launch_expin_warps(B, T, U, e, h, f, m, in_len, out_len, q,
                                    r, mm, nn, s);
   expin_kernel<<<dim3(B, 2), threads_for(T), 0, s>>>(

@@ -494,7 +494,11 @@ def _stream(dev) -> int:
 
 def lattice_bidir(le, ls, lf, input_length, output_length):
     """(U, B, T) f32 lattice + (B,) int32 lengths -> (alphas, betas)
-    (U, B, T) f32."""
+    (U, B, T) f32. On the card: for T <= 128 (and U * B * T < 2^31) each
+    walk (example, direction) runs on ceil(T / 32) warps of one position a
+    lane (shuffles between lanes, a one-way stream in shared memory
+    between warps), beside a warp that stages its inputs and one that
+    stores its outputs; otherwise one block per walk (csrc/lattice.cu)."""
     if le.device.type == "cpu":
         return lattice_bidir_reference(le, ls, lf, input_length,
                                        output_length)
@@ -570,7 +574,10 @@ def lattice_backward_betas(le, ls, lf, input_length, output_length):
 def lattice_bidir_exp(le, ls, lf, input_length, output_length):
     """(U, B, T) f32 lattice + (B,) int32 lengths -> (alphas, betas)
     (U, B, T) f32 by the exp-domain walks; -inf for a cell of
-    probability 0."""
+    probability 0. On the card: for T <= 128 (and U * B * T < 2^31) one
+    warp per walk (shuffles for the neighbour and the row max), beside
+    warps that stage and exponentiate its inputs and one that takes the
+    logs and stores; otherwise one block per walk (csrc/lattice.cu)."""
     if le.device.type == "cpu":
         return lattice_bidir_exp_reference(le, ls, lf, input_length,
                                            output_length)

@@ -37,15 +37,15 @@ HERE = Path(__file__).resolve().parent.parent
 OUT = HERE / "build" / "probe_expin"
 
 STORES = [
-    ("if (w.live) store_lane<V>(dst, x[k]);", ""),
+    ("if (w.live) store_lane<V>(dst, x);", ""),
     ("if (i / kRenorm <= r && ul >= 0 && ul < w.U) logs[ul * w.B] = keep;",
      "if (keep == 12345.0f) logs[0] = keep;"),
 ]
 RENORM = [
-    ("if (k == kRenorm - 1) norm = warp_renorm<V, kVec>(w, q[k]);",
-     "norm = 1.0f;"),
-    ("if (k == kRenorm - 1) norm = warp_renorm<V, kVec>(w, b[k]);",
-     "norm = 1.0f;"),
+    ("if (k == kRenorm - 1) norm[0] = warp_renorm<V, kVec>(w, q[k]);",
+     "norm[0] = 1.0f;"),
+    ("if (k == kRenorm - 1) norm[0] = warp_renorm<V, kVec>(w, b[k]);",
+     "norm[0] = 1.0f;"),
 ]
 COPIES = [
     ("cp_async_zfill<4 * V>(rows[0] + w.t0, E + o, n);", ""),

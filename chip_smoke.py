@@ -38,7 +38,11 @@ weights, in phases, each reported on its own line:
      for bit the forward alphas kernel's) and at T=T_BLOCK_WALK, B=8 (its
      block walk; alphas and betas bit for bit the forward alphas and
      betas-only kernels'), forward alphas and backward gradients at B=256
-     in float32 and bfloat16 storage;
+     in float32 and bfloat16 storage (their warp walks: bit for bit their
+     block walks', through the C entries only this script and
+     bench_fused.py call; the forward's float32 alphas bit for bit the
+     bidirectional kernel's; whether the gradients equal the plain
+     version's bit for bit is printed);
   8. train (the training path): run_training at B=32 for 10 steps (one
      bidirectional launch each), one no-grad loss (one forward-alphas
      launch), run_training at B=256 for 2 steps in float32 and 2 in
@@ -47,7 +51,8 @@ weights, in phases, each reported on its own line:
      weights and batch as a kernel-route step (no launches; loss and
      grad_norm agree);
   9. timings: each lattice kernel and its plain version (device time,
-     CUDA graph), both lattice routes at both batch sizes, and the train
+     CUDA graph; forward alphas and backward gradients also by their block
+     walks), both lattice routes at both batch sizes, and the train
      step at B=32 and B=256 on both routes, split into forward, backward
      and optimizer (host clock, each part ending in a synchronize);
  10. tone step check at B=32, W=8, K=8, H=256, float32 and bfloat16 (and
@@ -141,7 +146,23 @@ weights, in phases, each reported on its own line:
      log count, and the lattice
      loss fwd+bwd for variant "banded2".."banded16", "fused", "exp", "plain"
      and "scan" at B=32 and B=256 (eager, and device time under a CUDA
-     graph).
+     graph);
+ 24. long lattices (the block walks at several positions a thread): at
+     T=T_LONG (1500), U=400, B=2 and B=8, with paths that reach far (il <=
+     U) and an example with il = T: #1, #3, #5 (float32 and bfloat16),
+     #7/#8, #4 and #9 against their plain versions (#8's alphas and betas
+     bit for bit #1's and #3's), the same at T=1100, U=1100 (paths over
+     all of T), at T=3000, U=1600 (4 positions a thread) and at T=MAX_T
+     (8192), U=16 and U=1100, with lengths whose alphas, betas and
+     gradients carry live values across the position bounds of the
+     threads (block_bounds; checked); #1, #5, #3 and #8 through their C
+     entries with every tensor inside guard bands (guard_check); one
+     lattice_loss step through
+     the kernel route against the plain route at T_LONG, B=2 ("fused") and
+     B=8 ("plain"); ValueError at MAX_T + 1, the C side's limit equal to
+     the wrapper's; each banded K's limit (banded_max_t) run at the limit
+     against the plain versions bit for bit and refused (ValueError) at
+     the limit + 32.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -192,6 +213,9 @@ SENTINEL_LOSS = 1e20
 # A source length above the warp walks' T <= 128: phases 7 and 18 hold the
 # block walks of #8, #9 and #4 too.
 T_BLOCK_WALK = 200
+# Phase 24's source length: above the 1024 threads of a block, so the
+# block walks hold two positions a thread.
+T_LONG = 1500
 # The banded kernels' K, and variant="bandedN" / "scan" against
 # variant="log" on one lattice: JAX's own tolerances
 # (tests/test_lattice_pallas.py::test_banded_k_variants_match_xla: loss
@@ -487,6 +511,38 @@ def grad_err(got, want, tol: float, what: str) -> float:
     return err
 
 
+def block_forward_alphas(le, ls, lf):
+    """#1 by its block walk at any T (ssnt_lattice_forward_alphas_block:
+    only this script and bench_fused.py call it)."""
+    from ssnt_tts_tpu_torch.ops import _build
+
+    U, Bn, Tn = le.shape
+    a = torch.empty((U, Bn, Tn), device=le.device)
+    rc = _build.lattice_library().ssnt_lattice_forward_alphas_block(
+        int(le.dtype == torch.bfloat16), Bn, Tn, U, le.data_ptr(),
+        ls.data_ptr(), lf.data_ptr(), a.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"forward alphas block walk: cudaError {rc}")
+    return a
+
+
+def block_backward_grads(le, ls, lf, a, il, ol, g, z):
+    """#5 by its block walk at any T (ssnt_lattice_backward_grads_block)."""
+    from ssnt_tts_tpu_torch.ops import _build
+
+    U, Bn, Tn = le.shape
+    d = [torch.empty((U, Bn, Tn), dtype=le.dtype, device=le.device)
+         for _ in range(3)]
+    rc = _build.lattice_library().ssnt_lattice_backward_grads_block(
+        int(le.dtype == torch.bfloat16), Bn, Tn, U,
+        *(x.data_ptr() for x in (le, ls, lf, a, il, ol, g, z, *d)),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"backward grads block walk: cudaError {rc}")
+    return tuple(d)
+
+
 def check_lattice(rng, dev):
     """Phase 7. Returns the float32 max errors (bidir, fwd, bwd)."""
     from ssnt_tts_tpu_torch.ops import lattice as lat
@@ -544,21 +600,41 @@ def check_lattice(rng, dev):
         with torch.no_grad():
             ka = lk.lattice_forward_alphas(le, ls, lf)
             ra = lk.lattice_forward_alphas_reference(le, ls, lf)
+            ba = block_forward_alphas(le, ls, lf)
             torch.cuda.synchronize()
             e_fwd = lattice_err(ka, ra, f"forward alphas {dtype}")
+            if not same_bits(ka, ba):
+                raise AssertionError(f"forward alphas {dtype}: the warp "
+                                     f"walk is not the block walk's bit for "
+                                     f"bit")
+            if dtype == torch.float32:
+                xa, _ = lk.lattice_bidir(le, ls, lf, il, ol)
+                torch.cuda.synchronize()
+                if not same_bits(ka, xa):
+                    raise AssertionError("forward alphas: not the "
+                                         "bidirectional kernel's bit for bit")
             z = lat.gather_logz(ra, le, il, ol)
             kd = lk.lattice_backward_grads(le, ls, lf, ra, il, ol, g, z)
             rd = lk.lattice_backward_grads_reference(le, ls, lf, ra, il, ol,
                                                      g, z)
+            bd = block_backward_grads(le, ls, lf, ra, il, ol, g, z)
             torch.cuda.synchronize()
             if any(d.dtype != dtype for d in kd):
                 raise AssertionError("backward grads not in the input dtype")
             e_bwd = grad_err(kd, rd, gtol, f"backward grads {dtype}")
+            if not all(same_bits(a, b) for a, b in zip(kd, bd)):
+                raise AssertionError(f"backward grads {dtype}: the warp "
+                                     f"walk is not the block walk's bit for "
+                                     f"bit")
+            plain_bits = all(same_bits(a, b) for a, b in zip(kd, rd))
         errs[dtype] = (e_fwd, e_bwd)
         log(f"[7 lattice] B={B_LARGE} {str(dtype)[6:]} storage: forward "
-            f"alphas max abs err {e_fwd[0]:.3e}, rel err {e_fwd[1]:.3e} "
-            f"(tol {LAT_REL}), backward grads "
-            f"{e_bwd:.3e} (tol {gtol}); degenerate grads exactly 0")
+            f"alphas (warp walk) max abs err {e_fwd[0]:.3e}, rel err "
+            f"{e_fwd[1]:.3e} (tol {LAT_REL}), bit for bit the block walk's"
+            + (" and the bidirectional kernel's" if dtype == torch.float32
+               else "") + f"; backward grads (warp walk) {e_bwd:.3e} (tol "
+            f"{gtol}), bit for bit the block walk's; bit for bit the plain "
+            f"version's: {plain_bits}; degenerate grads exactly 0")
     (e_fwd, _), e_bwd = errs[torch.float32]
     return e_bidir[0], e_fwd, e_bwd
 
@@ -741,6 +817,12 @@ def train_phases(seed: int, dev, smi: str) -> list:
                      lambda: lk.lattice_backward_grads_reference(
                          le, ls, lf, a, il, ol, g, z),
                      nbytes(le, ls, lf, a, il, ol, g, z) + 3 * nbytes(le))]
+                blocks = {
+                    "lattice_forward_alphas":
+                        lambda: block_forward_alphas(le, ls, lf),
+                    "lattice_backward_grads":
+                        lambda: block_backward_grads(le, ls, lf, a, il, ol,
+                                                     g, z)}
             for kname, kfn, pfn, nb in fns:
                 k_ms = graph_ms(kfn, k=20, reps=10)
                 p_ms = graph_ms(pfn, k=1, reps=3)
@@ -750,8 +832,12 @@ def train_phases(seed: int, dev, smi: str) -> list:
                                          else 1)
                 bd = bound(nb, ops, F32_OPS)
                 lat_rows.append((kname, dtype, k_ms, p_ms, bd))
+                blk = ""
+                if name != "bidir":
+                    b_ms = graph_ms(blocks[kname], k=20, reps=10)
+                    blk = f", block walk {b_ms:.4f} ms"
                 log(f"[9 time] {smi}: {kname} B={Bn} T={T} U={U} "
-                    f"{str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain "
+                    f"{str(dtype)[6:]}: kernel {k_ms:.4f} ms{blk}, plain "
                     f"{p_ms:.4f} ms (device time, CUDA graph); bound "
                     f"{bd[0] * 1e3:.2f} us ({bd[1]}, {nb / 1e6:.1f} MB)")
     for Bn in (B, B_LARGE):
@@ -1251,6 +1337,22 @@ def check_banded(rng, dev) -> dict:
     return err
 
 
+def route_grads_err(grads, ref_grads, ref_loss) -> tuple:
+    """Two routes' lattice gradients (U, B, T) against each other:
+    max(|d| - rtol |ref|) over the cells, held to BANDED_GRAD_ATOL by the
+    caller, with rtol = max(BANDED_GRAD_RTOL, GRAD_ULPS eps |logZ|) per
+    example; and the largest relative difference (where |ref| > 1e-3) in
+    units of eps |logZ|."""
+    eps_z = (torch.finfo(torch.float32).eps
+             * ref_loss.abs())[None, :, None]  # eps |logZ| per example
+    rtol = (GRAD_ULPS * eps_z).clamp(min=BANDED_GRAD_RTOL)
+    gerr = max(float(((a - b).abs() - rtol * b.abs()).max())
+               for a, b in zip(grads, ref_grads))
+    ulps = max(float(((a - b).abs() / (b.abs() * eps_z))[
+        b.abs() > 1e-3].max()) for a, b in zip(grads, ref_grads))
+    return gerr, ulps
+
+
 def banded_phases(seed: int, dev, smi: str) -> list:
     """Phases 21-23; returns #2's and #6's entries of the JSON line (the
     K=2 instance, bare "banded"'s, at B=32)."""
@@ -1308,15 +1410,7 @@ def banded_phases(seed: int, dev, smi: str) -> list:
         ref_loss, ref_grads = refs[Bn]
         live = torch.arange(Bn, device=dev) != 2
         rel = float(((loss - ref_loss).abs() / ref_loss.abs())[live].max())
-        eps_z = (torch.finfo(torch.float32).eps
-                 * ref_loss.abs())[None, :, None]  # eps |logZ| per example
-        rtol = (GRAD_ULPS * eps_z).clamp(min=BANDED_GRAD_RTOL)
-        # max(|d| - rtol |ref|), held to atol; the largest relative
-        # difference (where |ref| > 1e-3) in units of eps |logZ|
-        gerr = max(float(((a - b).abs() - rtol * b.abs()).max())
-                   for a, b in zip(grads, ref_grads))
-        ulps = max(float(((a - b).abs() / (b.abs() * eps_z))[
-            b.abs() > 1e-3].max()) for a, b in zip(grads, ref_grads))
+        gerr, ulps = route_grads_err(grads, ref_grads, ref_loss)
         if not (rel <= BANDED_LOSS_RTOL and gerr <= BANDED_GRAD_ATOL):
             raise AssertionError(f"{variant} B={Bn}: loss {rel} relative, "
                                  f"gradients {gerr} past the tolerance of "
@@ -1415,6 +1509,357 @@ def banded_phases(seed: int, dev, smi: str) -> list:
         "bound_ms": rows[name, B, 2][2][0],
         "bound_by": rows[name, B, 2][2][1], "library_ms": None,
     } for name in replaces]
+
+
+def long_inputs(rng, Bn: int, Tn: int, Un: int, dev, lens=None):
+    """A (Un, Bn, Tn) float32 lattice (lattice_inputs' distributions) whose
+    paths reach far: example 0 with il = Tn and ol = Un (no path when Un <
+    Tn: its alphas then exercise the low positions and its betas the high
+    ones), the others il <= min(Tn, Un), ol in [il, Un]; with B > 2,
+    example 1 il = ol = 1 and example 2 degenerate (ol = il - 1). lens:
+    (il, ol) given instead."""
+    le = np.log(rng.uniform(0.1, 0.9, (Un, Bn, Tn)))
+    ls = np.log1p(-np.exp(le))
+    lf = rng.normal(-2.0, 1.0, (Un, Bn, Tn))
+    il = rng.integers(2, min(Tn, Un) + 1, Bn)
+    ol = np.minimum(Un, il + rng.integers(0, Un, Bn))
+    il[0], ol[0] = Tn, Un
+    if Bn > 2:
+        il[1], ol[1] = 1, 1
+        ol[2] = il[2] - 1
+    if lens is not None:
+        il, ol = (np.asarray(x) for x in lens)
+    lat = [torch.tensor(x, dtype=torch.float32, device=dev)
+           for x in (le, ls, lf)]
+    lens = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (il, ol)]
+    return lat, lens
+
+
+def block_bounds(Tn: int) -> list:
+    """Where a block walk's thread takes its next position past 1024
+    threads: t = p n for p in 1..P-1, t = threadIdx.x + p n, as
+    launch_block_walk picks P (the least of 2, 4, 8 with ceil(Tn / P) <=
+    1024) and n = ceil(Tn / P) rounded up to a warp."""
+    P = next(p for p in (2, 4, 8) if -(-Tn // p) <= 1024)
+    n = -(-(-(-Tn // P)) // 32) * 32
+    return [p * n for p in range(1, P) if p * n < Tn]
+
+
+def crossed(live, bounds) -> list:
+    """The bounds b at which some column and example of live (U, B, T)
+    holds a live cell at both t = b - 1 and t = b: a walk that reads its
+    neighbour across b reads a live value there."""
+    return [b for b in bounds if bool((live[:, :, b - 1] & live[:, :, b])
+                                      .any())]
+
+
+def check_long(rng, Bn: int, Tn: int, Un: int, dev, lens=None) -> tuple:
+    """Phase 24 at one shape: #8, #1, #3, #5 (float32 and bfloat16
+    storage), #4 and #9 against their plain versions (LAT_REL, GRAD_F32 /
+    GRAD_BF16 with g = 1, -inf cells equal; #8's alphas and betas bit for
+    bit #1's and #3's; #9 bit for bit). Returns a summary and, for the
+    plain alphas, betas, f32 gradients, exp-domain betas and #9's bn, the
+    block_bounds each carries live values across (crossed)."""
+    from ssnt_tts_tpu_torch.ops import lattice as lat
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    (le, ls, lf), (il, ol) = long_inputs(rng, Bn, Tn, Un, dev, lens)
+    bounds = block_bounds(Tn)
+    cover = {}
+    what = f"B={Bn} T={Tn} U={Un}"
+    g = torch.ones(Bn, device=dev)
+    with torch.no_grad():
+        ka, kb = lk.lattice_bidir(le, ls, lf, il, ol)
+        ra, rb = lk.lattice_bidir_reference(le, ls, lf, il, ol)
+        fa = lk.lattice_forward_alphas(le, ls, lf)
+        fb = lk.lattice_backward_betas(le, ls, lf, il, ol)
+        torch.cuda.synchronize()
+        cover["alphas"] = crossed(ra > lat.NEG / 2, bounds)
+        cover["betas"] = crossed(rb > lat.NEG / 2, bounds)
+        e_lat = max(lattice_err(ka, ra, f"bidir alphas {what}"),
+                    lattice_err(kb, rb, f"bidir betas {what}"))
+        if not (same_bits(ka, fa) and same_bits(kb, fb)):
+            raise AssertionError(f"{what}: bidir alphas/betas not forward "
+                                 f"alphas' / backward betas' bit for bit")
+        e_grad = {}
+        for dtype, tol in ((torch.float32, GRAD_F32),
+                           (torch.bfloat16, GRAD_BF16)):
+            x = [t.to(dtype) for t in (le, ls, lf)]
+            a = lk.lattice_forward_alphas(*x)
+            r = lk.lattice_forward_alphas_reference(*x)
+            z = lat.gather_logz(r, x[0], il, ol)
+            kd = lk.lattice_backward_grads(*x, r, il, ol, g, z)
+            rd = lk.lattice_backward_grads_reference(*x, r, il, ol, g, z)
+            torch.cuda.synchronize()
+            e_lat = max(e_lat, lattice_err(a, r, f"forward alphas {what} "
+                                                 f"{dtype}"))
+            err = max(float((p.float() - q.float()).abs().max())
+                      for p, q in zip(kd, rd))
+            if not (err <= tol and all(d.dtype == dtype for d in kd)):
+                raise AssertionError(f"backward grads {what} {dtype}: "
+                                     f"error {err} > {tol}")
+            if Bn > 2 and any(bool(d[:, 2].float().any()) for d in kd):
+                raise AssertionError(f"backward grads {what}: degenerate "
+                                     f"example's gradients not exactly 0")
+            e_grad[dtype] = err
+            if dtype == torch.float32:
+                cover["grads"] = crossed(rd[0] != 0, bounds)
+        ea, eb = lk.lattice_bidir_exp(le, ls, lf, il, ol)
+        rea, reb = lk.lattice_bidir_exp_reference(le, ls, lf, il, ol)
+        torch.cuda.synchronize()
+        for p, q, n in ((ea, rea, "alphas"), (eb, reb, "betas")):
+            if not torch.equal(torch.isneginf(p), torch.isneginf(q)):
+                raise AssertionError(f"bidir_exp {n} {what}: -inf cells "
+                                     f"differ")
+            lattice_err(p, q, f"bidir_exp {n} {what}")
+        exp_bits = same_bits(ea, rea) and same_bits(eb, reb)
+        cover["exp betas"] = crossed(torch.isfinite(reb), bounds)
+        tmask = (torch.arange(Tn, device=dev)[None, None, :]
+                 < il[None, :, None])
+        mcol = torch.where(tmask, lf, -1e30).amax(dim=2)
+        F = torch.exp(torch.where(tmask, lf - mcol[:, :, None], -torch.inf))
+        _, (_, bn, _, _) = check_expin_bits((le.exp(), ls.exp(), F, mcol),
+                                            il, ol, what)
+        cover["expin bn"] = crossed(bn != 0, bounds)
+    return (f"{what}: bidir/forward/betas max rel err {e_lat[1]:.2e} (tol "
+            f"{LAT_REL}), bidir bit for bit forward alphas' and backward "
+            f"betas'; backward grads err f32 {e_grad[torch.float32]:.2e} "
+            f"(tol {GRAD_F32}) bf16 {e_grad[torch.bfloat16]:.2e} (tol "
+            f"{GRAD_BF16}); bidir_exp within {LAT_REL}, -inf cells equal, "
+            f"bit for bit the plain version's: {exp_bits}; expin bit for "
+            f"bit; live values across the block walks' position bounds "
+            f"{bounds}: {cover}"), cover
+
+
+# Elements of each guard band around guard_check's tensors.
+GUARD = 4096
+
+
+def guard_check(rng, dev) -> str:
+    """#1 and #5 (float32 and bfloat16 storage; the entries' walks and the
+    block walks' _block entries), #3 and #8, called through their C
+    entries at T = 80 (warp walks; block walks at one thread a position),
+    1100, 3000 and MAX_T (2, 4 and 8 positions a thread), twice: on plain
+    tensors and with every tensor in the middle of a buffer whose GUARD
+    elements on each side hold NaN (inputs; -2^30 for lengths) or a
+    sentinel bit pattern (outputs). The second run must leave the guard
+    bands as they were, write every output cell and give the first run's
+    bits: no write outside an output, no read of a guard band that reaches
+    a result. Returns a summary."""
+    from ssnt_tts_tpu_torch.ops import _build
+    from ssnt_tts_tpu_torch.ops import lattice as lat
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    lib = _build.lattice_library()
+    sentinel = {torch.float32: (torch.int32, 0x7FBADBAD),
+                torch.bfloat16: (torch.int16, 0x7FAD)}
+
+    def banded(x, fill=None):
+        """(buffer, the view of x's shape in its middle)."""
+        buf = torch.empty(x.numel() + 2 * GUARD, dtype=x.dtype, device=dev)
+        if fill is None:
+            view, bits = sentinel[x.dtype]
+            buf.view(view).fill_(bits)
+        else:
+            buf.fill_(fill)
+        mid = buf[GUARD:GUARD + x.numel()].view(x.shape)
+        if fill is not None:
+            mid.copy_(x)
+        return buf, mid
+
+    def call(entry, lead, ins, outs) -> int:
+        """Checks entry on ins (tensors) with outputs shaped as outs;
+        returns the cells written."""
+        fn = getattr(lib, entry)
+        stream = torch.cuda.current_stream().cuda_stream
+        plain = [torch.empty_like(o) for o in outs]
+        rc = fn(*lead, *(x.data_ptr() for x in (*ins, *plain)), stream)
+        gin = [banded(x, -(1 << 30) if x.dtype == torch.int32
+                      else float("nan")) for x in ins]
+        gout = [banded(o) for o in outs]
+        rc = rc or fn(*lead, *(m.data_ptr() for _, m in (*gin, *gout)),
+                      stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"{entry}: cudaError {rc}")
+        for (buf, mid), want in zip(gout, plain):
+            view, bits = sentinel[buf.dtype]
+            band = torch.cat([buf[:GUARD], buf[-GUARD:]]).view(view)
+            if not bool((band == bits).all()):
+                raise AssertionError(f"{entry} {lead}: a guard band was "
+                                     f"written")
+            if bool((mid.view(view) == bits).any()):
+                raise AssertionError(f"{entry} {lead}: an output cell was "
+                                     f"not written")
+            if not same_bits(mid, want):
+                raise AssertionError(f"{entry} {lead}: not the unguarded "
+                                     f"run's bits")
+        for (buf, mid), x in zip(gin, ins):
+            if not same_bits(mid, x):
+                raise AssertionError(f"{entry} {lead}: an input changed")
+        return sum(o.numel() for o in outs)
+
+    cells, runs = 0, 0
+    for Bn, Tn, Un in ((4, T, 40), (2, 1100, 24), (2, 3000, 24),
+                       (2, lk.MAX_T, 24)):
+        (le, ls, lf), (il, ol) = long_inputs(rng, Bn, Tn, Un, dev)
+        shape = (Un, Bn, Tn)
+        f32 = torch.empty(shape, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in (le, ls, lf)]
+            bf16 = int(dtype == torch.bfloat16)
+            a = block_forward_alphas(*x)
+            z = lat.gather_logz(a, x[0], il, ol)
+            g = torch.ones(Bn, device=dev)
+            d = torch.empty(shape, dtype=dtype, device=dev)
+            for block in ("", "_block"):
+                cells += call(f"ssnt_lattice_forward_alphas{block}",
+                              (bf16, Bn, Tn, Un), x, [f32])
+                cells += call(f"ssnt_lattice_backward_grads{block}",
+                              (bf16, Bn, Tn, Un), [*x, a, il, ol, g, z],
+                              [d, d, d])
+                runs += 2
+        cells += call("ssnt_lattice_backward_betas", (Bn, Tn, Un),
+                      [le, ls, lf, il, ol], [f32])
+        cells += call("ssnt_lattice_bidir", (Bn, Tn, Un),
+                      [le, ls, lf, il, ol], [f32, f32])
+        runs += 2
+    return (f"{runs} guarded calls of #1, #5 (f32, bf16; walk and block "
+            f"walk), #3, #8 at T = {T}, 1100, 3000, {lk.MAX_T}: guard "
+            f"bands of {GUARD} elements intact, all {cells} output cells "
+            f"written, bit for bit the unguarded runs")
+
+
+def long_phase(seed: int, dev) -> None:
+    """Phase 24: lattices past one thread a position, the T limit and the
+    banded kernels' named limits."""
+    from ssnt_tts_tpu_torch.ops import _build
+    from ssnt_tts_tpu_torch.ops import lattice as lat
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    rng = np.random.default_rng(seed + 7)
+    limit = _build.lattice_library().ssnt_lattice_max_t()
+    if limit != lk.MAX_T or limit < 8192:
+        raise AssertionError(f"T limit: the kernels' {limit}, the "
+                             f"wrapper's {lk.MAX_T}")
+    # (B, T, U, lengths, the bounds each field must carry live values
+    # across): T = 3000 holds 4 positions a thread (example 1: il 1560 < ol,
+    # a band of paths past two bounds), MAX_T 8; at MAX_T the examples of U
+    # = 16 end 8 past each bound (betas live there, in both domains), and
+    # at U = 1100 example 1 (il 1060 < ol) takes alphas and gradients past
+    # the first bound. "all": every bound. The exp-domain fields flush
+    # cells far below their column's best, so at U >= 1100 they are only
+    # reported.
+    t3k = block_bounds(3000)
+    shapes = (
+        (2, T_LONG, U, None, {}), (8, T_LONG, U, None, {}),
+        (2, 1100, 1100, None, {}),
+        (3, 3000, 1600, ([3000, 1560, 2320], [1600] * 3),
+         {"alphas": t3k[:2], "betas": "all", "grads": t3k[:2]}),
+        (8, lk.MAX_T, 16, ([lk.MAX_T] + [1024 * k + 8 for k in range(1, 8)],
+                           [16] * 8),
+         {"betas": "all", "exp betas": "all", "expin bn": "all"}),
+        (2, lk.MAX_T, 1100, ([lk.MAX_T, 1060], [1100, 1100]),
+         {"alphas": [1024], "grads": [1024]}))
+    for Bn, Tn, Un, lens, need in shapes:
+        summary, cover = check_long(rng, Bn, Tn, Un, dev, lens)
+        log(f"[24 long] {summary}")
+        for field, want in need.items():
+            want = block_bounds(Tn) if want == "all" else want
+            if not set(want) <= set(cover[field]):
+                raise AssertionError(f"B={Bn} T={Tn} U={Un}: {field} carry "
+                                     f"live values across {cover[field]}, "
+                                     f"not every one of {want}")
+    log(f"[24 guard] {guard_check(rng, dev)}")
+
+    # One loss step through the kernel route against the plain route.
+    from ssnt_tts_tpu_torch.models.ssnt import lattice_loss
+
+    for Bn, route, want in ((2, "fused", 1), (8, "plain", 2)):
+        (le, ls, lf), (il, ol) = long_inputs(rng, Bn, T_LONG, U, dev)
+        if lk.grad_mode("log", Bn, T_LONG)[0] != route:
+            raise AssertionError(f"B={Bn} T={T_LONG}: not route {route}")
+        runs = []
+        for impl in ("pallas", "xla"):
+            leaves = [x.clone().requires_grad_() for x in (le, ls, lf)]
+            before = lattice_counts()
+            loss = lattice_loss(impl, "float32", leaves, il, ol)
+            loss.sum().backward()
+            torch.cuda.synchronize()
+            n = sum(lattice_counts()) - sum(before)
+            if n != (want if impl == "pallas" else 0):
+                raise AssertionError(f"lattice_loss {impl} B={Bn}: {n} "
+                                     f"kernel launches")
+            runs.append((loss.detach(), [x.grad for x in leaves]))
+        (kl, kg), (pl, pg) = runs
+        rel = float(((kl - pl).abs() / pl.abs()).max())
+        gerr, ulps = route_grads_err(kg, pg, pl)
+        if not (rel <= ROUTE_LOSS_RTOL and gerr <= BANDED_GRAD_ATOL
+                and bool(torch.isfinite(kl).all())):
+            raise AssertionError(f"lattice_loss B={Bn} T={T_LONG}: loss "
+                                 f"{rel} relative, gradients {gerr} past the "
+                                 f"tolerance ({ulps:.1f} eps |logZ|)")
+        n_none = int((pl >= -lat.NEG / 2).sum())
+        log(f"[24 long] lattice_loss fwd+bwd B={Bn} T={T_LONG} U={U}, "
+            f"kernel route ({route}: {want} launch(es)) vs plain route: loss "
+            f"within {rel:.2e} relative (tol {ROUTE_LOSS_RTOL}), gradients "
+            f"within {ulps:.2f} eps |logZ| relative (tol max("
+            f"{BANDED_GRAD_RTOL}, {GRAD_ULPS} eps |logZ|) + "
+            f"{BANDED_GRAD_ATOL}); {n_none} example(s) without a path, at "
+            f"the sentinel")
+
+    x = [torch.zeros((1, 1, lk.MAX_T + 1), device=dev) for _ in range(3)]
+    try:
+        lk.lattice_forward_alphas(*x)
+    except ValueError as e:
+        if str(lk.MAX_T) not in str(e):
+            raise AssertionError(f"T limit + 1: {e}") from e
+        log(f"[24 long] T={lk.MAX_T + 1}: ValueError ({e})")
+    else:
+        raise AssertionError(f"T={lk.MAX_T + 1} did not raise")
+
+    # The banded kernels' limits, one thread a position: run at the limit,
+    # refused at the limit + 32.
+    for K in BANDS:
+        limits = [lk.banded_max_t(K, d) for d in (0, 1)]
+        Tn = min(limits)
+        (le, ls, lf), (il, ol) = long_inputs(rng, 2, Tn, 16, dev)
+        g = torch.ones(2, device=dev)
+        with torch.no_grad():
+            ka = lk.lattice_forward_alphas_banded(le, ls, lf, K)
+            ra = lk.lattice_forward_alphas_banded_reference(le, ls, lf, K)
+            z = lat.gather_logz(ra, le, il, ol)
+            kd = lk.lattice_backward_grads_banded(le, ls, lf, ra, il, ol, g,
+                                                  z, K)
+            rd = lk.lattice_backward_grads_banded_reference(
+                le, ls, lf, ra, il, ol, g, z, K)
+            torch.cuda.synchronize()
+        if not (same_bits(ka, ra)
+                and all(same_bits(a, b) for a, b in zip(kd, rd))):
+            raise AssertionError(f"banded K={K} T={Tn}: not the plain "
+                                 f"versions' bit for bit")
+        refused = []
+        for d, lim in enumerate(limits):
+            x = [torch.zeros((16, 1, lim + 32), device=dev)
+                 for _ in range(3)]
+            lens = [torch.ones(1, dtype=torch.int32, device=dev)] * 2
+            one = torch.ones(1, device=dev)
+            try:
+                if d == 0:
+                    lk.lattice_forward_alphas_banded(*x, K)
+                else:
+                    lk.lattice_backward_grads_banded(*x, x[0], *lens, one,
+                                                     one, K)
+            except ValueError as e:
+                if str(lim) not in str(e):
+                    raise AssertionError(f"banded K={K}: {e}") from e
+                refused.append(lim + 32)
+            else:
+                raise AssertionError(f"banded K={K} T={lim + 32} ran")
+        log(f"[24 long] banded K={K}: limits T <= {limits[0]} (forward), "
+            f"{limits[1]} (backward); run at T={Tn} bit for bit the plain "
+            f"versions', refused at T={refused} (ValueError naming the "
+            f"limit)")
 
 
 def tone_step_inputs(model, tokens, il, s: int, rng, dev, Wn: int = W):
@@ -2406,6 +2851,7 @@ def main() -> int:
     kernels += v1_phases(args.seed, dev, smi, models)
     kernels += exp_phases(args.seed, dev, smi)
     kernels += banded_phases(args.seed, dev, smi)
+    long_phase(args.seed, dev)
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,14 @@ only, the launch floor (an in-place add on a one-element tensor), and at
 B=32 and B=256 (T=80, U=400, f32) the banded forward #2 and the banded
 backward gradients #6 at each K in chip_smoke.BANDS beside the plain
 forward alphas #1, the exp-native pass #9 and the exp-domain
-bidirectional pass #4, and at B=32 and B=64 the log-domain bidirectional
-pass #8. Give the roots as
+bidirectional pass #4, at B=32 and B=64 the log-domain bidirectional
+pass #8, and the two-pass route's forward alphas #1 and backward
+gradients #5 at B=256 (float32 and bfloat16 storage) and B=128 (float32),
+with, where a root has them, their block walks at the same shapes
+(ssnt_lattice_forward_alphas_block / _backward_grads_block, which only
+this script and chip_smoke.py call), and the block walks at one thread a
+position: the betas-only pass #3 at B=32 and B=256, and #8, #1, #5, #4
+and #9 at T = chip_smoke.T_BLOCK_WALK (200), B=8. Give the roots as
 parent, change, change, parent to compare two commits on one card. Each root's package and
 chip_smoke.py are imported afresh, so each times its own wrappers and
 kernels (built into the root's own build/ directory).
@@ -185,9 +191,11 @@ def beam_only_fns(cs, cfg, req, rng, dev) -> dict:
 
 
 def lattice_fns(cs, rng, dev) -> dict:
-    """#2 and #6 at each K, #1, #9 and #4 at B=32 and B=256, and #8 at
-    B=32 and B=64 (the largest batch the "fused" route takes at T=80)
-    (T=80, U=400, f32; #6 on #1's alphas and their logZ, g = 1)."""
+    """#2 and #6 at each K, #1, #9 and #4 at B=32 and B=256, #8 at B=32
+    and B=64 (the largest batch the "fused" route takes at T=80) (T=80,
+    U=400, f32; #6 on #1's alphas and their logZ, g = 1), and #1 and #5
+    at B=256 (f32, bf16) and B=128 (f32), by their block walks too where
+    the root has them (#5 on #1's alphas, g = 1)."""
     import torch
 
     lk = importlib.import_module("ssnt_tts_tpu_torch.ops.lattice_kernels")
@@ -217,6 +225,46 @@ def lattice_fns(cs, rng, dev) -> dict:
         x, (il, ol) = cs.lattice_inputs(rng, Bn, torch.float32, dev)
         fns[f"lattice_bidir B={Bn}"] = (
             lambda x=x, il=il, ol=ol: lk.lattice_bidir(*x, il, ol))
+    blocks = hasattr(cs, "block_backward_grads")
+    for Bn, dt in ((cs.B_LARGE, torch.float32), (cs.B_LARGE, torch.bfloat16),
+                   (cs.B_LARGE // 2, torch.float32)):
+        x, (il, ol) = cs.lattice_inputs(rng, Bn, dt, dev)
+        a = lk.lattice_forward_alphas(*x)
+        bwd = (a, il, ol, torch.ones(Bn, device=dev),
+               lat.gather_logz(a, x[0], il, ol))
+        tag = f"{str(dt)[6:]} B={Bn}"
+        fns[f"two-pass forward alphas {tag}"] = (
+            lambda x=x: lk.lattice_forward_alphas(*x))
+        fns[f"two-pass backward grads {tag}"] = (
+            lambda x=x, bwd=bwd: lk.lattice_backward_grads(*x, *bwd))
+        if blocks:
+            fns[f"two-pass forward alphas block walk {tag}"] = (
+                lambda x=x: cs.block_forward_alphas(*x))
+            fns[f"two-pass backward grads block walk {tag}"] = (
+                lambda x=x, bwd=bwd: cs.block_backward_grads(*x, *bwd))
+    # The block walks at one thread a position: #3 at T=80, and every log-
+    # and exp-domain kernel at T = chip_smoke.T_BLOCK_WALK (B=8).
+    for Bn in (cs.B, cs.B_LARGE):
+        x, (il, ol) = cs.lattice_inputs(rng, Bn, torch.float32, dev)
+        fns[f"lattice_backward_betas B={Bn}"] = (
+            lambda x=x, il=il, ol=ol: lk.lattice_backward_betas(*x, il, ol))
+    Tb = cs.T_BLOCK_WALK
+    x, (il, ol) = cs.lattice_inputs(rng, 8, torch.float32, dev, Tb)
+    a = lk.lattice_forward_alphas(*x)
+    bwd = (a, il, ol, torch.ones(8, device=dev),
+           lat.gather_logz(a, x[0], il, ol))
+    e, logs, (eil, eol) = cs.exp_lattice_inputs(rng, 8, dev, Tb)
+    fns.update({
+        f"block walk T={Tb} B=8 lattice_bidir":
+            lambda: lk.lattice_bidir(*x, il, ol),
+        f"block walk T={Tb} B=8 lattice_forward_alphas":
+            lambda: lk.lattice_forward_alphas(*x),
+        f"block walk T={Tb} B=8 lattice_backward_grads":
+            lambda: lk.lattice_backward_grads(*x, *bwd),
+        f"block walk T={Tb} B=8 lattice_bidir_exp":
+            lambda: lk.lattice_bidir_exp(*logs, eil, eol),
+        f"block walk T={Tb} B=8 lattice_expin":
+            lambda: lk.lattice_expin(*e, eil, eol)})
     return fns
 
 

@@ -67,36 +67,44 @@
 // a neighbour exchange (the exp-domain walks: a multiply-add, and a row
 // max). The block walks: one thread block per example (per example and
 // direction for the bidirectional kernels: the alpha and beta walks run on
-// different SMs at once), one thread per source position t, the t-1 / t+1
-// neighbour through a double-buffered shared-memory row with one barrier
-// per column, the row max by warp shuffles and one more barrier over a
-// shared word per warp, and the next kAhead columns' inputs loaded into
-// registers while the current ones are computed, so global-memory latency
-// is off the chain. lattice_forward_alphas, lattice_backward_grads and
-// lattice_backward_betas are block walks; lattice_bidir,
-// lattice_bidir_exp and lattice_expin are block walks above T = 128 and
-// warp walks ("warp walks" below) up to it; the K-banded walks ("banded")
-// are designed differently. Measured (device time under a CUDA graph,
-// NVIDIA H100 80GB HBM3, 700 W power limit; T=80, U=400, f32):
-//   - block walks (chip_smoke.py): forward alphas B=256 0.073 ms (bf16
-//     0.070); backward gradients B=256 0.147 ms (bf16 0.174); backward
-//     betas B=32 0.081 ms: 0.18-0.37 us a column. Above T = 128,
-//     lattice_bidir's and lattice_bidir_exp's (B=32 0.082 and 0.306 ms
-//     at T=80, where the warp walks replace them): the exp walk's row max
-//     (a second barrier) and its division, whose fast path falls back to a
-//     subroutine for the subnormal probabilities every column meets, make
-//     it 3.7x slower per column than the log walk.
-//   - warp walks (probe_bidir.py, probe_expin.py): lattice_bidir B=32
-//     0.0705 ms (B=64 0.0709), bound by its chain, one lae (expf +
-//     log1pf) and a shuffle a column, ~170 ns (the chain alone 0.069);
-//     lattice_bidir_exp B=32 0.085 ms, bound by its chain (a row max and
-//     an exact division through a double reciprocal a column, ~205 ns;
-//     the chain alone 0.083), B=256 0.144 ms, bound by the exps and logs
-//     of ~4 walks an SM (0.095 without them); lattice_expin B=32 0.042 ms,
-//     B=256 0.087 ms.
+// different SMs at once), P = 1, 2, 4 or 8 source positions a thread (t =
+// threadIdx.x + p * blockDim.x; P = 1 where the kernel's registers allow a
+// block of T threads, ~400-900, else kernels bounded to 1024 threads: T up
+// to kMaxT = 8192), the t-1 / t+1 neighbour through a double-buffered
+// shared-memory row (dynamic shared memory, 2 (T + 1) floats and padding)
+// with one barrier per column, the row max by each thread's max over its
+// positions, warp shuffles and one more barrier over a shared word per
+// warp, and the next kAhead / P columns' inputs loaded into registers
+// while the current ones are computed, so global-memory latency is off
+// the chain. Per cell the operations and their order do not depend on P.
+// Every log- and exp-domain kernel is a block walk above T = 128 and a
+// warp walk ("warp walks" below) up to it (lattice_backward_betas a block
+// walk at any T); the K-banded walks ("banded") are designed differently.
+// Measured (device time under a CUDA graph, NVIDIA H100 80GB HBM3, 700 W
+// power limit; T=80, U=400, f32):
+//   - block walks (chip_smoke.py, bench_fused.py): forward alphas B=256
+//     0.071 ms (bf16 0.071); backward gradients B=256 0.141 ms (bf16
+//     0.160); backward betas B=32 0.089 ms: 0.14-0.40 us a column. Above T
+//     = 128, lattice_bidir's and lattice_bidir_exp's (B=32 0.082 and 0.306
+//     ms at T=80, where the warp walks replace them): the exp walk's row
+//     max (a second barrier) and its division, whose fast path falls back
+//     to a subroutine for the subnormal probabilities every column meets,
+//     make it 3.7x slower per column than the log walk.
+//   - warp walks (probe_bidir.py, probe_expin.py, probe_grads.py):
+//     lattice_bidir B=32 0.0705 ms (B=64 0.0709), bound by its chain, one
+//     lae (expf + log1pf) and a shuffle or exchange word a column, ~170 ns
+//     (the chain alone 0.069); lattice_forward_alphas, the same walk with
+//     the barrier exchange, B=32 0.0499 ms (~125 ns a column), B=256
+//     0.0644; lattice_backward_grads B=32 0.080 ms, B=256 0.114 (bf16
+//     0.118); lattice_bidir_exp B=32 0.085 ms, bound by its chain (a row
+//     max and an exact division through a double reciprocal a column,
+//     ~205 ns; the chain alone 0.083), B=256 0.144 ms, bound by the exps
+//     and logs of ~4 walks an SM (0.095 without them); lattice_expin B=32
+//     0.042 ms, B=256 0.087 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "tma.cuh"
@@ -106,8 +114,10 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr float kTiny = 1e-30f;  // floor of an exp-domain normalizer
 constexpr int kRenorm = 4;       // lattice_expin renormalizes every 4th
-constexpr int kMaxT = 1024;      // one thread per source position
-constexpr int kAhead = 8;        // columns loaded ahead of the chain
+constexpr int kMaxBlock = 1024;  // threads a block
+constexpr int kMaxP = 8;         // positions a block-walk thread holds
+constexpr int kMaxT = kMaxP * kMaxBlock;  // ssnt_lattice_max_t
+constexpr int kAhead = 8;        // columns loaded ahead of the chain (P = 1)
 
 // Inputs are prefetched in their storage type and converted where they are
 // used: a conversion right after the load would wait for the load there.
@@ -133,116 +143,180 @@ __device__ __forceinline__ float lae(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-// Loads kAhead columns starting at u0 and stepping by `dir` (+1 forward,
-// -1 backward) for this thread's t; columns outside [0, U) (never used)
-// are left as they were.
-template <typename S>
+// Loads A columns starting at u0 and stepping by `dir` (+1 forward, -1
+// backward) at offset off; columns outside [0, U) (never used) are left as
+// they were.
+template <int A, typename S>
 __device__ __forceinline__ void load_cols(const S* __restrict__ x, S* r,
                                           int u0, int dir, int U,
                                           size_t col, size_t off, bool live) {
 #pragma unroll
-  for (int k = 0; k < kAhead; ++k) {
+  for (int k = 0; k < A; ++k) {
     const int u = u0 + dir * k;
     if (live && u >= 0 && u < U) r[k] = ld(x, (size_t)u * col + off);
   }
 }
 
+// The P source positions a block-walk thread holds, t = threadIdx.x + p *
+// blockDim.x (P = 1: one thread a position), of example blockIdx.x, and
+// their offsets b T + t in a column: 32-bit (bad_shape keeps B T below
+// 2^31), since a 64-bit one cost two register moves a load and a store
+// (#3's walk 11 % slower at B=32).
+template <int P> struct Cells {
+  int t[P];
+  bool live[P];
+  int off[P];
+  __device__ __forceinline__ Cells(int T) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      t[p] = threadIdx.x + p * blockDim.x;
+      live[p] = t[p] < T;
+      off[p] = blockIdx.x * T + t[p];
+    }
+  }
+};
+
+// load_cols at each of the thread's positions.
+template <int A, int P, typename S>
+__device__ __forceinline__ void load_block(const S* __restrict__ x,
+                                           S (&r)[P][A], int u0, int dir,
+                                           int U, size_t col,
+                                           const Cells<P>& c) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    load_cols<A>(x, r[p], u0, dir, U, col, c.off[p], c.live[p]);
+}
+
+template <int A, int P, typename S>
+__device__ __forceinline__ void take_cols(S (&d)[P][A], const S (&s)[P][A]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int k = 0; k < A; ++k) d[p][k] = s[p][k];
+}
+
+// Row u & 1 of a block walk's double-buffered shared row: T + 1 floats at
+// sh + (u & 1) * (T + 1) (launch_block_walk adds the padding that the
+// positions past T read, and never use).
+__device__ __forceinline__ float* walk_row(float* sh, int T, int u) {
+  return sh + (u & 1) * (T + 1);
+}
+
 // The alpha walk of one example (shared by lattice_bidir and
-// lattice_forward_alphas). sh: 2 x (kMaxT + 1) floats, sh[.][0] = NEG.
-template <typename S>
+// lattice_forward_alphas). sh: walk_row's rows, row[0] = NEG.
+template <int P, typename S>
 __device__ void alpha_walk(int B, int T, int U, const S* __restrict__ le,
                            const S* __restrict__ ls, const S* __restrict__ lf,
-                           float* __restrict__ alphas,
-                           float (*sh)[kMaxT + 1]) {
-  const int b = blockIdx.x, t = threadIdx.x;
-  const bool live = t < T;
-  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
-  S cle[kAhead], cls[kAhead], clf[kAhead];
-  S nle[kAhead], nls[kAhead], nlf[kAhead];
-  load_cols(le, cle, 0, 1, U, col, off, live);
-  load_cols(ls, cls, 0, 1, U, col, off, live);
-  load_cols(lf, clf, 0, 1, U, col, off, live);
-  float alpha = kNeg, le_prev = kNeg, ls_prev = kNeg;
-  for (int u0 = 0; u0 < U; u0 += kAhead) {
-    load_cols(le, nle, u0 + kAhead, 1, U, col, off, live);
-    load_cols(ls, nls, u0 + kAhead, 1, U, col, off, live);
-    load_cols(lf, nlf, u0 + kAhead, 1, U, col, off, live);
+                           float* __restrict__ alphas, float* sh) {
+  constexpr int A = kAhead / P;
+  const Cells<P> c(T);
+  const size_t col = (size_t)B * T;
+  S cle[P][A], cls[P][A], clf[P][A];
+  S nle[P][A], nls[P][A], nlf[P][A];
+  load_block<A>(le, cle, 0, 1, U, col, c);
+  load_block<A>(ls, cls, 0, 1, U, col, c);
+  load_block<A>(lf, clf, 0, 1, U, col, c);
+  float alpha[P], le_prev[P], ls_prev[P];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
+  for (int p = 0; p < P; ++p) alpha[p] = le_prev[p] = ls_prev[p] = kNeg;
+  for (int u0 = 0; u0 < U; u0 += A) {
+    load_block<A>(le, nle, u0 + A, 1, U, col, c);
+    load_block<A>(ls, nls, u0 + A, 1, U, col, c);
+    load_block<A>(lf, nlf, u0 + A, 1, U, col, c);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
       const int u = u0 + k;
       if (u >= U) continue;  // uniform across the block
       if (u == 0) {
-        alpha = t == 0 ? f32(clf[0]) : kNeg;
-      } else {
-        const float stay = alpha + le_prev;
-        float* s = sh[u & 1];
-        if (live) s[t + 1] = alpha + ls_prev;
-        __syncthreads();
-        const float moved = s[t];  // s[0] = NEG: nothing shifts into t = 0
-        alpha = f32(clf[k]) + lae(stay, moved);
-      }
-      if (live) alphas[(size_t)u * col + off] = alpha;
-      le_prev = f32(cle[k]);
-      ls_prev = f32(cls[k]);
-    }
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      cle[k] = nle[k];
-      cls[k] = nls[k];
-      clf[k] = nlf[k];
+        for (int p = 0; p < P; ++p)
+          alpha[p] = c.t[p] == 0 ? f32(clf[p][0]) : kNeg;
+      } else {
+        float* s = walk_row(sh, T, u);
+        float stay[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          stay[p] = alpha[p] + le_prev[p];
+          if (c.live[p]) s[c.t[p] + 1] = alpha[p] + ls_prev[p];
+        }
+        __syncthreads();
+        // s[0] = NEG: nothing shifts into t = 0
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          alpha[p] = f32(clf[p][k]) + lae(stay[p], s[c.t[p]]);
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (c.live[p]) alphas[(size_t)u * col + c.off[p]] = alpha[p];
+        le_prev[p] = f32(cle[p][k]);
+        ls_prev[p] = f32(cls[p][k]);
+      }
     }
+    take_cols(cle, nle);
+    take_cols(cls, nls);
+    take_cols(clf, nlf);
   }
 }
 
 // The beta walk of one example for lattice_bidir, in _bidir_kernel's
-// operation order. sh: 2 x (kMaxT + 1) floats, sh[.][T] = NEG.
+// operation order. sh: walk_row's rows, row[T] = NEG.
+template <int P>
 __device__ void beta_walk(int B, int T, int U, const float* __restrict__ le,
                           const float* __restrict__ ls,
                           const float* __restrict__ lf, int in_len,
-                          int out_len, float* __restrict__ betas,
-                          float (*sh)[kMaxT + 1]) {
-  const int b = blockIdx.x, t = threadIdx.x;
-  const bool live = t < T;
-  const bool is_last_t = t == in_len - 1;
-  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
-  float cle[kAhead], cls[kAhead], clf[kAhead];
-  float nle[kAhead], nls[kAhead], nlf[kAhead];
-  load_cols(le, cle, U - 1, -1, U, col, off, live);
-  load_cols(ls, cls, U - 1, -1, U, col, off, live);
-  load_cols(lf, clf, U - 1, -1, U, col, off, live);
-  float beta = kNeg, lf_next = kNeg;
-  for (int u0 = U - 1; u0 >= 0; u0 -= kAhead) {
-    load_cols(le, nle, u0 - kAhead, -1, U, col, off, live);
-    load_cols(ls, nls, u0 - kAhead, -1, U, col, off, live);
-    load_cols(lf, nlf, u0 - kAhead, -1, U, col, off, live);
+                          int out_len, float* __restrict__ betas, float* sh) {
+  constexpr int A = kAhead / P;
+  const Cells<P> c(T);
+  const size_t col = (size_t)B * T;
+  float cle[P][A], cls[P][A], clf[P][A];
+  float nle[P][A], nls[P][A], nlf[P][A];
+  load_block<A>(le, cle, U - 1, -1, U, col, c);
+  load_block<A>(ls, cls, U - 1, -1, U, col, c);
+  load_block<A>(lf, clf, U - 1, -1, U, col, c);
+  float beta[P], lf_next[P];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
+  for (int p = 0; p < P; ++p) beta[p] = lf_next[p] = kNeg;
+  for (int u0 = U - 1; u0 >= 0; u0 -= A) {
+    load_block<A>(le, nle, u0 - A, -1, U, col, c);
+    load_block<A>(ls, nls, u0 - A, -1, U, col, c);
+    load_block<A>(lf, nlf, u0 - A, -1, U, col, c);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
       const int u = u0 - k;
       if (u < 0) continue;  // uniform across the block
-      const float cont = lf_next + beta;
-      float* s = sh[u & 1];
-      if (live) s[t] = cont;
-      __syncthreads();
-      const float up = s[t + 1];  // s[T] = NEG: nothing shifts into T-1
-      const float rec = lae(cle[k] + cont, cls[k] + up);
-      beta = u == out_len - 1 ? (is_last_t ? cle[k] : kNeg) : rec;
-      if (live) betas[(size_t)u * col + off] = beta;
-      lf_next = clf[k];
-    }
+      float* s = walk_row(sh, T, u);
+      float cont[P];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      cle[k] = nle[k];
-      cls[k] = nls[k];
-      clf[k] = nlf[k];
+      for (int p = 0; p < P; ++p) {
+        cont[p] = lf_next[p] + beta[p];
+        if (c.live[p]) s[c.t[p]] = cont[p];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float up = s[c.t[p] + 1];  // s[T] = NEG: nothing shifts into T-1
+        const float rec = lae(cle[p][k] + cont[p], cls[p][k] + up);
+        beta[p] = u == out_len - 1 ? (c.t[p] == in_len - 1 ? cle[p][k] : kNeg)
+                                   : rec;
+        if (c.live[p]) betas[(size_t)u * col + c.off[p]] = beta[p];
+        lf_next[p] = clf[p][k];
+      }
     }
+    take_cols(cle, nle);
+    take_cols(cls, nls);
+    take_cols(clf, nlf);
   }
 }
 
-// The max over the block of v >= 0 (threads past T pass 0): warp shuffles,
-// one word per warp in red, one barrier. The max of non-negative values
-// does not depend on the order. red may be reused after the caller's next
-// barrier.
-__device__ __forceinline__ float block_max(float v, float* red) {
+// The max over the block of v >= 0 (positions past T pass 0): each
+// thread's max over its P values, warp shuffles, one word per warp in red,
+// one barrier. The max of non-negative values does not depend on the
+// order. red may be reused after the caller's next barrier.
+template <int P>
+__device__ __forceinline__ float block_max(const float (&x)[P], float* red) {
+  float v = x[0];
+#pragma unroll
+  for (int p = 1; p < P; ++p) v = fmaxf(v, x[p]);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -253,56 +327,85 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return m;
 }
 
+// The thread's values for block_max: x where live, 0 past T.
+template <int P>
+__device__ __forceinline__ float live_max(const Cells<P>& c,
+                                          const float (&x)[P], float* red) {
+  float v[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) v[p] = c.live[p] ? x[p] : 0.0f;
+  return block_max(v, red);
+}
+
 // lattice_bidir_exp's alpha walk, _bidir_kernel_exp's forward column:
 //   q = p * exp(le_{u-1}) + shift0_down(p * exp(ls_{u-1}))
 //   p_raw = (u == 0 ? [t == 0] : q) * exp(lf_u);  s = max(rowmax, TINY)
 //   alpha_u = log(p_raw) + m;  p = p_raw / s;  m += log(s)
-// sh: 2 x (kMaxT + 1) floats, sh[.][0] = 0.
+// sh: walk_row's rows, row[0] = 0.
+template <int P>
 __device__ void exp_alpha_walk(int B, int T, int U,
                                const float* __restrict__ le,
                                const float* __restrict__ ls,
                                const float* __restrict__ lf,
-                               float* __restrict__ alphas,
-                               float (*sh)[kMaxT + 1], float* red) {
-  const int b = blockIdx.x, t = threadIdx.x;
-  const bool live = t < T;
-  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
-  float cle[kAhead], cls[kAhead], clf[kAhead];
-  float nle[kAhead], nls[kAhead], nlf[kAhead];
-  load_cols(le, cle, 0, 1, U, col, off, live);
-  load_cols(ls, cls, 0, 1, U, col, off, live);
-  load_cols(lf, clf, 0, 1, U, col, off, live);
-  const float first_t = t == 0 ? 1.0f : 0.0f;
-  float p = 0.0f, m = 0.0f, e_le_prev = 0.0f, e_ls_prev = 0.0f;
-  for (int u0 = 0; u0 < U; u0 += kAhead) {
-    load_cols(le, nle, u0 + kAhead, 1, U, col, off, live);
-    load_cols(ls, nls, u0 + kAhead, 1, U, col, off, live);
-    load_cols(lf, nlf, u0 + kAhead, 1, U, col, off, live);
+                               float* __restrict__ alphas, float* sh,
+                               float* red) {
+  constexpr int A = kAhead / P;
+  const Cells<P> c(T);
+  const size_t col = (size_t)B * T;
+  float cle[P][A], cls[P][A], clf[P][A];
+  float nle[P][A], nls[P][A], nlf[P][A];
+  load_block<A>(le, cle, 0, 1, U, col, c);
+  load_block<A>(ls, cls, 0, 1, U, col, c);
+  load_block<A>(lf, clf, 0, 1, U, col, c);
+  float first_t[P], pv[P], e_le_prev[P], e_ls_prev[P];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
+  for (int p = 0; p < P; ++p) {
+    first_t[p] = c.t[p] == 0 ? 1.0f : 0.0f;
+    pv[p] = e_le_prev[p] = e_ls_prev[p] = 0.0f;
+  }
+  float m = 0.0f;
+  for (int u0 = 0; u0 < U; u0 += A) {
+    load_block<A>(le, nle, u0 + A, 1, U, col, c);
+    load_block<A>(ls, nls, u0 + A, 1, U, col, c);
+    load_block<A>(lf, nlf, u0 + A, 1, U, col, c);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
       const int u = u0 + k;
       if (u >= U) continue;  // uniform across the block
-      float q = 0.0f;
-      if (u > 0) {
-        float* s = sh[u & 1];
-        if (live) s[t + 1] = p * e_ls_prev;
-        __syncthreads();
-        q = p * e_le_prev + s[t];  // s[0] = 0: nothing shifts into t = 0
-      }
-      const float p_raw = (u == 0 ? first_t : q) * expf(clf[k]);
-      const float norm = fmaxf(block_max(live ? p_raw : 0.0f, red), kTiny);
-      if (live) alphas[(size_t)u * col + off] = logf(p_raw) + m;
-      p = p_raw / norm;
-      m = m + logf(norm);
-      e_le_prev = expf(cle[k]);
-      e_ls_prev = expf(cls[k]);
-    }
+      float q[P];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      cle[k] = nle[k];
-      cls[k] = nls[k];
-      clf[k] = nlf[k];
+      for (int p = 0; p < P; ++p) q[p] = 0.0f;
+      if (u > 0) {
+        float* s = walk_row(sh, T, u);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          if (c.live[p]) s[c.t[p] + 1] = pv[p] * e_ls_prev[p];
+        __syncthreads();
+        // s[0] = 0: nothing shifts into t = 0
+#pragma unroll
+        for (int p = 0; p < P; ++p) q[p] = pv[p] * e_le_prev[p] + s[c.t[p]];
+      }
+      float p_raw[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        p_raw[p] = (u == 0 ? first_t[p] : q[p]) * expf(clf[p][k]);
+      const float norm = fmaxf(live_max(c, p_raw, red), kTiny);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (c.live[p])
+          alphas[(size_t)u * col + c.off[p]] = logf(p_raw[p]) + m;
+        pv[p] = p_raw[p] / norm;
+      }
+      m = m + logf(norm);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        e_le_prev[p] = expf(cle[p][k]);
+        e_ls_prev[p] = expf(cls[p][k]);
+      }
     }
+    take_cols(cle, nle);
+    take_cols(cls, nls);
+    take_cols(clf, nlf);
   }
 }
 
@@ -310,54 +413,66 @@ __device__ void exp_alpha_walk(int B, int T, int U,
 //   c = b * exp(lf_{u+1});  b_raw = exp(le_u) * c + exp(ls_u) * shift0_up(c)
 //   at u == U_b-1: b_raw = [t == T_b-1] exp(le_u), n = 0
 //   beta_u = log(b_raw) + n;  b = b_raw / s;  n += log(s)
-// sh: 2 x (kMaxT + 1) floats, sh[.][T] = 0.
+// sh: walk_row's rows, row[T] = 0.
+template <int P>
 __device__ void exp_beta_walk(int B, int T, int U,
                               const float* __restrict__ le,
                               const float* __restrict__ ls,
                               const float* __restrict__ lf, int in_len,
                               int out_len, float* __restrict__ betas,
-                              float (*sh)[kMaxT + 1], float* red) {
-  const int b = blockIdx.x, t = threadIdx.x;
-  const bool live = t < T;
-  const bool is_last_t = t == in_len - 1;
-  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
-  float cle[kAhead], cls[kAhead], clf[kAhead];
-  float nle[kAhead], nls[kAhead], nlf[kAhead];
-  load_cols(le, cle, U - 1, -1, U, col, off, live);
-  load_cols(ls, cls, U - 1, -1, U, col, off, live);
-  load_cols(lf, clf, U - 1, -1, U, col, off, live);
-  float field = 0.0f, n = 0.0f, e_lf_next = 0.0f;
-  for (int u0 = U - 1; u0 >= 0; u0 -= kAhead) {
-    load_cols(le, nle, u0 - kAhead, -1, U, col, off, live);
-    load_cols(ls, nls, u0 - kAhead, -1, U, col, off, live);
-    load_cols(lf, nlf, u0 - kAhead, -1, U, col, off, live);
+                              float* sh, float* red) {
+  constexpr int A = kAhead / P;
+  const Cells<P> c(T);
+  const size_t col = (size_t)B * T;
+  float cle[P][A], cls[P][A], clf[P][A];
+  float nle[P][A], nls[P][A], nlf[P][A];
+  load_block<A>(le, cle, U - 1, -1, U, col, c);
+  load_block<A>(ls, cls, U - 1, -1, U, col, c);
+  load_block<A>(lf, clf, U - 1, -1, U, col, c);
+  float field[P], e_lf_next[P];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
+  for (int p = 0; p < P; ++p) field[p] = e_lf_next[p] = 0.0f;
+  float n = 0.0f;
+  for (int u0 = U - 1; u0 >= 0; u0 -= A) {
+    load_block<A>(le, nle, u0 - A, -1, U, col, c);
+    load_block<A>(ls, nls, u0 - A, -1, U, col, c);
+    load_block<A>(lf, nlf, u0 - A, -1, U, col, c);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
       const int u = u0 - k;
       if (u < 0) continue;  // uniform across the block
-      const float e_le = expf(cle[k]);
-      const float c = field * e_lf_next;
-      float* s = sh[u & 1];
-      if (live) s[t] = c;
+      float e_le[P], cv[P], b_raw[P];
+      float* s = walk_row(sh, T, u);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        e_le[p] = expf(cle[p][k]);
+        cv[p] = field[p] * e_lf_next[p];
+        if (c.live[p]) s[c.t[p]] = cv[p];
+      }
       __syncthreads();
       // s[T] = 0: nothing shifts into T-1
-      float b_raw = e_le * c + expf(cls[k]) * s[t + 1];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        b_raw[p] = e_le[p] * cv[p] + expf(cls[p][k]) * s[c.t[p] + 1];
       if (u == out_len - 1) {  // uniform across the block
-        b_raw = is_last_t ? e_le : 0.0f;
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          b_raw[p] = c.t[p] == in_len - 1 ? e_le[p] : 0.0f;
         n = 0.0f;
       }
-      const float norm = fmaxf(block_max(live ? b_raw : 0.0f, red), kTiny);
-      if (live) betas[(size_t)u * col + off] = logf(b_raw) + n;
-      field = b_raw / norm;
-      n = n + logf(norm);
-      e_lf_next = expf(clf[k]);
-    }
+      const float norm = fmaxf(live_max(c, b_raw, red), kTiny);
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      cle[k] = nle[k];
-      cls[k] = nls[k];
-      clf[k] = nlf[k];
+      for (int p = 0; p < P; ++p) {
+        if (c.live[p]) betas[(size_t)u * col + c.off[p]] = logf(b_raw[p]) + n;
+        field[p] = b_raw[p] / norm;
+      }
+      n = n + logf(norm);
+#pragma unroll
+      for (int p = 0; p < P; ++p) e_lf_next[p] = expf(clf[p][k]);
     }
+    take_cols(cle, nle);
+    take_cols(cls, nls);
+    take_cols(clf, nlf);
   }
 }
 
@@ -366,56 +481,75 @@ __device__ void exp_beta_walk(int B, int T, int U,
 //   q = p * E_{u-1} + shift0_down(p * S_{u-1})
 //   if (u + 1) % 4 == 0: s = max(rowmax(q), TINY); q *= 1/s; m += log(s)
 //   qn_u = q;  m += mcol_u;  M_u = m;  p = q * F_u
+template <int P>
 __device__ void expin_alpha_walk(int B, int T, int U,
                                  const float* __restrict__ E,
                                  const float* __restrict__ S,
                                  const float* __restrict__ F,
                                  const float* __restrict__ mcol,
                                  float* __restrict__ qn,
-                                 float* __restrict__ M,
-                                 float (*sh)[kMaxT + 1], float* red) {
-  const int b = blockIdx.x, t = threadIdx.x;
-  const bool live = t < T;
-  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
-  float cE[kAhead], cS[kAhead], cF[kAhead], cm[kAhead];
-  float nE[kAhead], nS[kAhead], nF[kAhead], nm[kAhead];
-  load_cols(E, cE, 0, 1, U, col, off, live);
-  load_cols(S, cS, 0, 1, U, col, off, live);
-  load_cols(F, cF, 0, 1, U, col, off, live);
-  load_cols(mcol, cm, 0, 1, U, (size_t)B, (size_t)b, true);
-  float p = t == 0 ? 1.0f : 0.0f, m = 0.0f, e_prev = 1.0f, s_prev = 0.0f;
-  for (int u0 = 0; u0 < U; u0 += kAhead) {
-    load_cols(E, nE, u0 + kAhead, 1, U, col, off, live);
-    load_cols(S, nS, u0 + kAhead, 1, U, col, off, live);
-    load_cols(F, nF, u0 + kAhead, 1, U, col, off, live);
-    load_cols(mcol, nm, u0 + kAhead, 1, U, (size_t)B, (size_t)b, true);
+                                 float* __restrict__ M, float* sh,
+                                 float* red) {
+  constexpr int A = kAhead / P;
+  const int b = blockIdx.x;
+  const Cells<P> c(T);
+  const size_t col = (size_t)B * T;
+  float cE[P][A], cS[P][A], cF[P][A], cm[A];
+  float nE[P][A], nS[P][A], nF[P][A], nm[A];
+  load_block<A>(E, cE, 0, 1, U, col, c);
+  load_block<A>(S, cS, 0, 1, U, col, c);
+  load_block<A>(F, cF, 0, 1, U, col, c);
+  load_cols<A>(mcol, cm, 0, 1, U, (size_t)B, (size_t)b, true);
+  float pv[P], e_prev[P], s_prev[P];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
+  for (int p = 0; p < P; ++p) {
+    pv[p] = c.t[p] == 0 ? 1.0f : 0.0f;
+    e_prev[p] = 1.0f;
+    s_prev[p] = 0.0f;
+  }
+  float m = 0.0f;
+  for (int u0 = 0; u0 < U; u0 += A) {
+    load_block<A>(E, nE, u0 + A, 1, U, col, c);
+    load_block<A>(S, nS, u0 + A, 1, U, col, c);
+    load_block<A>(F, nF, u0 + A, 1, U, col, c);
+    load_cols<A>(mcol, nm, u0 + A, 1, U, (size_t)B, (size_t)b, true);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
       const int u = u0 + k;
       if (u >= U) continue;  // uniform across the block
-      float* s = sh[u & 1];
-      if (live) s[t + 1] = p * s_prev;
+      float* s = walk_row(sh, T, u);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        if (c.live[p]) s[c.t[p] + 1] = pv[p] * s_prev[p];
       __syncthreads();
-      float q = p * e_prev + s[t];  // s[0] = 0: nothing shifts into t = 0
+      float q[P];
+      // s[0] = 0: nothing shifts into t = 0
+#pragma unroll
+      for (int p = 0; p < P; ++p) q[p] = pv[p] * e_prev[p] + s[c.t[p]];
       if ((u + 1) % kRenorm == 0) {  // uniform across the block
-        const float norm = fmaxf(block_max(live ? q : 0.0f, red), kTiny);
-        q = q * __frcp_rn(norm);
+        const float norm = fmaxf(live_max(c, q, red), kTiny);
+        const float rcp = __frcp_rn(norm);
+#pragma unroll
+        for (int p = 0; p < P; ++p) q[p] = q[p] * rcp;
         m = m + logf(norm);
       }
-      if (live) qn[(size_t)u * col + off] = q;
-      m = m + cm[k];
-      if (t == 0) M[(size_t)u * B + b] = m;
-      p = q * cF[k];
-      e_prev = cE[k];
-      s_prev = cS[k];
-    }
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      cE[k] = nE[k];
-      cS[k] = nS[k];
-      cF[k] = nF[k];
-      cm[k] = nm[k];
+      for (int p = 0; p < P; ++p)
+        if (c.live[p]) qn[(size_t)u * col + c.off[p]] = q[p];
+      m = m + cm[k];
+      if (threadIdx.x == 0) M[(size_t)u * B + b] = m;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        pv[p] = q[p] * cF[p][k];
+        e_prev[p] = cE[p][k];
+        s_prev[p] = cS[p][k];
+      }
     }
+    take_cols(cE, nE);
+    take_cols(cS, nS);
+    take_cols(cF, nF);
+#pragma unroll
+    for (int k = 0; k < A; ++k) cm[k] = nm[k];
   }
 }
 
@@ -425,231 +559,334 @@ __device__ void expin_alpha_walk(int B, int T, int U,
 //   at u == U_b-1: b_raw = [t == T_b-1] E_u, n = 0
 //   if u % 4 == 0: s = max(rowmax(b_raw), TINY); b_raw *= 1/s; n += log(s)
 //   bn_u = b_raw;  N_u = n;  c = F_u * bn_u;  n += mcol_u
+template <int P>
 __device__ void expin_beta_walk(int B, int T, int U,
                                 const float* __restrict__ E,
                                 const float* __restrict__ S,
                                 const float* __restrict__ F,
                                 const float* __restrict__ mcol, int in_len,
                                 int out_len, float* __restrict__ bn,
-                                float* __restrict__ N,
-                                float (*sh)[kMaxT + 1], float* red) {
-  const int b = blockIdx.x, t = threadIdx.x;
-  const bool live = t < T;
-  const bool is_last_t = t == in_len - 1;
-  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
-  float cE[kAhead], cS[kAhead], cF[kAhead], cm[kAhead];
-  float nE[kAhead], nS[kAhead], nF[kAhead], nm[kAhead];
-  load_cols(E, cE, U - 1, -1, U, col, off, live);
-  load_cols(S, cS, U - 1, -1, U, col, off, live);
-  load_cols(F, cF, U - 1, -1, U, col, off, live);
-  load_cols(mcol, cm, U - 1, -1, U, (size_t)B, (size_t)b, true);
-  float c = 0.0f, n = 0.0f;
-  for (int u0 = U - 1; u0 >= 0; u0 -= kAhead) {
-    load_cols(E, nE, u0 - kAhead, -1, U, col, off, live);
-    load_cols(S, nS, u0 - kAhead, -1, U, col, off, live);
-    load_cols(F, nF, u0 - kAhead, -1, U, col, off, live);
-    load_cols(mcol, nm, u0 - kAhead, -1, U, (size_t)B, (size_t)b, true);
+                                float* __restrict__ N, float* sh,
+                                float* red) {
+  constexpr int A = kAhead / P;
+  const int b = blockIdx.x;
+  const Cells<P> c(T);
+  const size_t col = (size_t)B * T;
+  float cE[P][A], cS[P][A], cF[P][A], cm[A];
+  float nE[P][A], nS[P][A], nF[P][A], nm[A];
+  load_block<A>(E, cE, U - 1, -1, U, col, c);
+  load_block<A>(S, cS, U - 1, -1, U, col, c);
+  load_block<A>(F, cF, U - 1, -1, U, col, c);
+  load_cols<A>(mcol, cm, U - 1, -1, U, (size_t)B, (size_t)b, true);
+  float cv[P];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
+  for (int p = 0; p < P; ++p) cv[p] = 0.0f;
+  float n = 0.0f;
+  for (int u0 = U - 1; u0 >= 0; u0 -= A) {
+    load_block<A>(E, nE, u0 - A, -1, U, col, c);
+    load_block<A>(S, nS, u0 - A, -1, U, col, c);
+    load_block<A>(F, nF, u0 - A, -1, U, col, c);
+    load_cols<A>(mcol, nm, u0 - A, -1, U, (size_t)B, (size_t)b, true);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
       const int u = u0 - k;
       if (u < 0) continue;  // uniform across the block
-      float* s = sh[u & 1];
-      if (live) s[t] = c;
+      float* s = walk_row(sh, T, u);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        if (c.live[p]) s[c.t[p]] = cv[p];
       __syncthreads();
+      float b_raw[P];
       // s[T] = 0: nothing shifts into T-1
-      float b_raw = cE[k] * c + cS[k] * s[t + 1];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        b_raw[p] = cE[p][k] * cv[p] + cS[p][k] * s[c.t[p] + 1];
       if (u == out_len - 1) {  // uniform across the block
-        b_raw = is_last_t ? cE[k] : 0.0f;
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          b_raw[p] = c.t[p] == in_len - 1 ? cE[p][k] : 0.0f;
         n = 0.0f;
       }
       if (u % kRenorm == 0) {  // uniform across the block
-        const float norm = fmaxf(block_max(live ? b_raw : 0.0f, red),
-                                 kTiny);
-        b_raw = b_raw * __frcp_rn(norm);
+        const float norm = fmaxf(live_max(c, b_raw, red), kTiny);
+        const float rcp = __frcp_rn(norm);
+#pragma unroll
+        for (int p = 0; p < P; ++p) b_raw[p] = b_raw[p] * rcp;
         n = n + logf(norm);
       }
-      if (live) bn[(size_t)u * col + off] = b_raw;
-      if (t == 0) N[(size_t)u * B + b] = n;
-      c = cF[k] * b_raw;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        if (c.live[p]) bn[(size_t)u * col + c.off[p]] = b_raw[p];
+      if (threadIdx.x == 0) N[(size_t)u * B + b] = n;
+#pragma unroll
+      for (int p = 0; p < P; ++p) cv[p] = cF[p][k] * b_raw[p];
       n = n + cm[k];
     }
+    take_cols(cE, nE);
+    take_cols(cS, nS);
+    take_cols(cF, nF);
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      cE[k] = nE[k];
-      cS[k] = nS[k];
-      cF[k] = nF[k];
-      cm[k] = nm[k];
-    }
+    for (int k = 0; k < A; ++k) cm[k] = nm[k];
   }
-}
-
-__global__ void bidir_kernel(int B, int T, int U, const float* __restrict__ le,
-                             const float* __restrict__ ls,
-                             const float* __restrict__ lf,
-                             const int* __restrict__ il,
-                             const int* __restrict__ ol,
-                             float* __restrict__ alphas,
-                             float* __restrict__ betas) {
-  __shared__ float sh[2][kMaxT + 1];
-  if (threadIdx.x == 0) {
-    sh[0][0] = sh[1][0] = kNeg;
-    sh[0][T] = sh[1][T] = kNeg;
-  }
-  __syncthreads();
-  if (blockIdx.y == 0) {
-    alpha_walk<float>(B, T, U, le, ls, lf, alphas, sh);
-  } else {
-    const int b = blockIdx.x;
-    beta_walk(B, T, U, le, ls, lf, il[b], ol[b], betas, sh);
-  }
-}
-
-__global__ void backward_betas_kernel(int B, int T, int U,
-                                      const float* __restrict__ le,
-                                      const float* __restrict__ ls,
-                                      const float* __restrict__ lf,
-                                      const int* __restrict__ il,
-                                      const int* __restrict__ ol,
-                                      float* __restrict__ betas) {
-  __shared__ float sh[2][kMaxT + 1];
-  if (threadIdx.x == 0) sh[0][T] = sh[1][T] = kNeg;
-  __syncthreads();
-  const int b = blockIdx.x;
-  beta_walk(B, T, U, le, ls, lf, il[b], ol[b], betas, sh);
-}
-
-// The exp-domain kernels' shared rows carry 0 at both edges: the shifts
-// fill with 0, not NEG.
-__global__ void bidir_exp_kernel(int B, int T, int U,
-                                 const float* __restrict__ le,
-                                 const float* __restrict__ ls,
-                                 const float* __restrict__ lf,
-                                 const int* __restrict__ il,
-                                 const int* __restrict__ ol,
-                                 float* __restrict__ alphas,
-                                 float* __restrict__ betas) {
-  __shared__ float sh[2][kMaxT + 1];
-  __shared__ float red[32];
-  if (threadIdx.x == 0) {
-    sh[0][0] = sh[1][0] = 0.0f;
-    sh[0][T] = sh[1][T] = 0.0f;
-  }
-  __syncthreads();
-  if (blockIdx.y == 0) {
-    exp_alpha_walk(B, T, U, le, ls, lf, alphas, sh, red);
-  } else {
-    const int b = blockIdx.x;
-    exp_beta_walk(B, T, U, le, ls, lf, il[b], ol[b], betas, sh, red);
-  }
-}
-
-__global__ void expin_kernel(int B, int T, int U, const float* __restrict__ E,
-                             const float* __restrict__ S,
-                             const float* __restrict__ F,
-                             const float* __restrict__ mcol,
-                             const int* __restrict__ il,
-                             const int* __restrict__ ol,
-                             float* __restrict__ qn, float* __restrict__ bn,
-                             float* __restrict__ M, float* __restrict__ N) {
-  __shared__ float sh[2][kMaxT + 1];
-  __shared__ float red[32];
-  if (threadIdx.x == 0) {
-    sh[0][0] = sh[1][0] = 0.0f;
-    sh[0][T] = sh[1][T] = 0.0f;
-  }
-  __syncthreads();
-  if (blockIdx.y == 0) {
-    expin_alpha_walk(B, T, U, E, S, F, mcol, qn, M, sh, red);
-  } else {
-    const int b = blockIdx.x;
-    expin_beta_walk(B, T, U, E, S, F, mcol, il[b], ol[b], bn, N, sh, red);
-  }
-}
-
-template <typename S>
-__global__ void forward_alphas_kernel(int B, int T, int U,
-                                      const S* __restrict__ le,
-                                      const S* __restrict__ ls,
-                                      const S* __restrict__ lf,
-                                      float* __restrict__ alphas) {
-  __shared__ float sh[2][kMaxT + 1];
-  if (threadIdx.x == 0) sh[0][0] = sh[1][0] = kNeg;
-  __syncthreads();
-  alpha_walk<S>(B, T, U, le, ls, lf, alphas, sh);
 }
 
 // _bwdgrad_kernel's walk: per column u (descending), the emit/shift/frame
 // posteriors exp(min(score - logz, 30)) on the valid region, times -g (0
-// for an example with no valid path, logz <= NEG/2), then beta_u.
-template <typename S>
-__global__ void backward_grads_kernel(
+// for an example with no valid path, logz <= NEG/2), then beta_u. sh:
+// walk_row's rows, row[T] = NEG.
+template <int P, typename S>
+__device__ void grads_walk(int B, int T, int U, const S* __restrict__ le,
+                           const S* __restrict__ ls, const S* __restrict__ lf,
+                           const float* __restrict__ alphas,
+                           const int* __restrict__ il,
+                           const int* __restrict__ ol,
+                           const float* __restrict__ g,
+                           const float* __restrict__ logz,
+                           S* __restrict__ d_le, S* __restrict__ d_ls,
+                           S* __restrict__ d_lf, float* sh) {
+  constexpr int A = kAhead / P;
+  const int b = blockIdx.x;
+  const Cells<P> c(T);
+  const int in_len = il[b], out_len = ol[b];
+  const float lz = logz[b];
+  const float neg_g = lz <= kNeg / 2 ? 0.0f : -g[b];
+  const size_t col = (size_t)B * T;
+  S cle[P][A], cls[P][A], clf[P][A];
+  S nle[P][A], nls[P][A], nlf[P][A];
+  float cal[P][A], nal[P][A];
+  load_block<A>(le, cle, U - 1, -1, U, col, c);
+  load_block<A>(ls, cls, U - 1, -1, U, col, c);
+  load_block<A>(lf, clf, U - 1, -1, U, col, c);
+  load_block<A>(alphas, cal, U - 1, -1, U, col, c);
+  float beta[P], lf_next[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) beta[p] = lf_next[p] = kNeg;
+  for (int u0 = U - 1; u0 >= 0; u0 -= A) {
+    load_block<A>(le, nle, u0 - A, -1, U, col, c);
+    load_block<A>(ls, nls, u0 - A, -1, U, col, c);
+    load_block<A>(lf, nlf, u0 - A, -1, U, col, c);
+    load_block<A>(alphas, nal, u0 - A, -1, U, col, c);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
+      const int u = u0 - k;
+      if (u < 0) continue;  // uniform across the block
+      const bool is_last_u = u == out_len - 1;
+      float* s = walk_row(sh, T, u);
+      float cont[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        cont[p] = lf_next[p] + beta[p];
+        if (c.live[p]) s[c.t[p]] = cont[p];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const bool is_last_t = c.t[p] == in_len - 1;
+        const bool valid = c.t[p] < in_len && u < out_len;
+        const float cont_shift_raw = s[c.t[p] + 1];
+        const float cont_emit =
+            is_last_u ? (is_last_t ? 0.0f : kNeg) : cont[p];
+        const float cont_shift = is_last_u ? kNeg : cont_shift_raw;
+        const float le_u = f32(cle[p][k]), ls_u = f32(cls[p][k]);
+        const float anorm = cal[p][k] - lz;
+        const float p_le =
+            valid ? expf(fminf(anorm + le_u + cont_emit, 30.0f)) : 0.0f;
+        const float p_ls =
+            valid ? expf(fminf(anorm + ls_u + cont_shift, 30.0f)) : 0.0f;
+        const float rec = lae(le_u + cont[p], ls_u + cont_shift_raw);
+        beta[p] = is_last_u ? (is_last_t ? le_u : kNeg) : rec;
+        const float p_lf = valid ? expf(fminf(anorm + beta[p], 30.0f)) : 0.0f;
+        if (c.live[p]) {
+          const size_t i = (size_t)u * col + c.off[p];
+          st(d_le, i, neg_g * p_le);
+          st(d_ls, i, neg_g * p_ls);
+          st(d_lf, i, neg_g * p_lf);
+        }
+        lf_next[p] = f32(clf[p][k]);
+      }
+    }
+    take_cols(cle, nle);
+    take_cols(cls, nls);
+    take_cols(clf, nlf);
+    take_cols(cal, nal);
+  }
+}
+
+// The block walks' kernels: a block per example (per example and direction
+// for the bidirectional ones, blockIdx.y), P positions a thread, the
+// shared rows (walk_row) in dynamic shared memory.
+template <int P>
+__device__ __forceinline__ void bidir_block(int B, int T, int U,
+                                            const float* __restrict__ le,
+                                            const float* __restrict__ ls,
+                                            const float* __restrict__ lf,
+                                            const int* __restrict__ il,
+                                            const int* __restrict__ ol,
+                                            float* __restrict__ alphas,
+                                            float* __restrict__ betas) {
+  extern __shared__ float walk_sh[];
+  if (threadIdx.x == 0) {
+    walk_sh[0] = walk_sh[T + 1] = kNeg;
+    walk_sh[T] = walk_sh[2 * T + 1] = kNeg;
+  }
+  __syncthreads();
+  if (blockIdx.y == 0) {
+    alpha_walk<P, float>(B, T, U, le, ls, lf, alphas, walk_sh);
+  } else {
+    const int b = blockIdx.x;
+    beta_walk<P>(B, T, U, le, ls, lf, il[b], ol[b], betas, walk_sh);
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void backward_betas_block(
+    int B, int T, int U, const float* __restrict__ le,
+    const float* __restrict__ ls, const float* __restrict__ lf,
+    const int* __restrict__ il, const int* __restrict__ ol,
+    float* __restrict__ betas) {
+  extern __shared__ float walk_sh[];
+  if (threadIdx.x == 0) walk_sh[T] = walk_sh[2 * T + 1] = kNeg;
+  __syncthreads();
+  const int b = blockIdx.x;
+  beta_walk<P>(B, T, U, le, ls, lf, il[b], ol[b], betas, walk_sh);
+}
+
+// The exp-domain kernels' shared rows carry 0 at both edges: the shifts
+// fill with 0, not NEG.
+template <int P>
+__device__ __forceinline__ void bidir_exp_block(
+    int B, int T, int U, const float* __restrict__ le,
+    const float* __restrict__ ls, const float* __restrict__ lf,
+    const int* __restrict__ il, const int* __restrict__ ol,
+    float* __restrict__ alphas, float* __restrict__ betas) {
+  extern __shared__ float walk_sh[];
+  __shared__ float red[32];
+  if (threadIdx.x == 0) {
+    walk_sh[0] = walk_sh[T + 1] = 0.0f;
+    walk_sh[T] = walk_sh[2 * T + 1] = 0.0f;
+  }
+  __syncthreads();
+  if (blockIdx.y == 0) {
+    exp_alpha_walk<P>(B, T, U, le, ls, lf, alphas, walk_sh, red);
+  } else {
+    const int b = blockIdx.x;
+    exp_beta_walk<P>(B, T, U, le, ls, lf, il[b], ol[b], betas, walk_sh, red);
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void expin_block(
+    int B, int T, int U, const float* __restrict__ E,
+    const float* __restrict__ S, const float* __restrict__ F,
+    const float* __restrict__ mcol, const int* __restrict__ il,
+    const int* __restrict__ ol, float* __restrict__ qn,
+    float* __restrict__ bn, float* __restrict__ M, float* __restrict__ N) {
+  extern __shared__ float walk_sh[];
+  __shared__ float red[32];
+  if (threadIdx.x == 0) {
+    walk_sh[0] = walk_sh[T + 1] = 0.0f;
+    walk_sh[T] = walk_sh[2 * T + 1] = 0.0f;
+  }
+  __syncthreads();
+  if (blockIdx.y == 0) {
+    expin_alpha_walk<P>(B, T, U, E, S, F, mcol, qn, M, walk_sh, red);
+  } else {
+    const int b = blockIdx.x;
+    expin_beta_walk<P>(B, T, U, E, S, F, mcol, il[b], ol[b], bn, N, walk_sh,
+                       red);
+  }
+}
+
+template <int P, typename S>
+__device__ __forceinline__ void forward_alphas_block(
+    int B, int T, int U, const S* __restrict__ le, const S* __restrict__ ls,
+    const S* __restrict__ lf, float* __restrict__ alphas) {
+  extern __shared__ float walk_sh[];
+  if (threadIdx.x == 0) walk_sh[0] = walk_sh[T + 1] = kNeg;
+  __syncthreads();
+  alpha_walk<P, S>(B, T, U, le, ls, lf, alphas, walk_sh);
+}
+
+template <int P, typename S>
+__device__ __forceinline__ void backward_grads_block(
     int B, int T, int U, const S* __restrict__ le, const S* __restrict__ ls,
     const S* __restrict__ lf, const float* __restrict__ alphas,
     const int* __restrict__ il, const int* __restrict__ ol,
     const float* __restrict__ g, const float* __restrict__ logz,
     S* __restrict__ d_le, S* __restrict__ d_ls, S* __restrict__ d_lf) {
-  __shared__ float sh[2][kMaxT + 1];
-  const int b = blockIdx.x, t = threadIdx.x;
-  if (t == 0) sh[0][T] = sh[1][T] = kNeg;
+  extern __shared__ float walk_sh[];
+  if (threadIdx.x == 0) walk_sh[T] = walk_sh[2 * T + 1] = kNeg;
   __syncthreads();
-  const bool live = t < T;
-  const int in_len = il[b], out_len = ol[b];
-  const float lz = logz[b];
-  const float neg_g = lz <= kNeg / 2 ? 0.0f : -g[b];
-  const bool is_last_t = t == in_len - 1, t_valid = t < in_len;
-  const size_t col = (size_t)B * T, off = (size_t)b * T + t;
-  S cle[kAhead], cls[kAhead], clf[kAhead];
-  S nle[kAhead], nls[kAhead], nlf[kAhead];
-  float cal[kAhead], nal[kAhead];
-  load_cols(le, cle, U - 1, -1, U, col, off, live);
-  load_cols(ls, cls, U - 1, -1, U, col, off, live);
-  load_cols(lf, clf, U - 1, -1, U, col, off, live);
-  load_cols(alphas, cal, U - 1, -1, U, col, off, live);
-  float beta = kNeg, lf_next = kNeg;
-  for (int u0 = U - 1; u0 >= 0; u0 -= kAhead) {
-    load_cols(le, nle, u0 - kAhead, -1, U, col, off, live);
-    load_cols(ls, nls, u0 - kAhead, -1, U, col, off, live);
-    load_cols(lf, nlf, u0 - kAhead, -1, U, col, off, live);
-    load_cols(alphas, nal, u0 - kAhead, -1, U, col, off, live);
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      const int u = u0 - k;
-      if (u < 0) continue;  // uniform across the block
-      const bool is_last_u = u == out_len - 1;
-      const bool valid = t_valid && u < out_len;
-      const float cont = lf_next + beta;
-      float* s = sh[u & 1];
-      if (live) s[t] = cont;
-      __syncthreads();
-      const float cont_shift_raw = s[t + 1];
-      const float cont_emit = is_last_u ? (is_last_t ? 0.0f : kNeg) : cont;
-      const float cont_shift = is_last_u ? kNeg : cont_shift_raw;
-      const float le_u = f32(cle[k]), ls_u = f32(cls[k]);
-      const float anorm = cal[k] - lz;
-      const float p_le =
-          valid ? expf(fminf(anorm + le_u + cont_emit, 30.0f)) : 0.0f;
-      const float p_ls =
-          valid ? expf(fminf(anorm + ls_u + cont_shift, 30.0f)) : 0.0f;
-      const float rec = lae(le_u + cont, ls_u + cont_shift_raw);
-      beta = is_last_u ? (is_last_t ? le_u : kNeg) : rec;
-      const float p_lf = valid ? expf(fminf(anorm + beta, 30.0f)) : 0.0f;
-      if (live) {
-        const size_t i = (size_t)u * col + off;
-        st(d_le, i, neg_g * p_le);
-        st(d_ls, i, neg_g * p_ls);
-        st(d_lf, i, neg_g * p_lf);
-      }
-      lf_next = f32(clf[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      cle[k] = nle[k];
-      cls[k] = nls[k];
-      clf[k] = nlf[k];
-      cal[k] = nal[k];
-    }
-  }
+  grads_walk<P, S>(B, T, U, le, ls, lf, alphas, il, ol, g, logz, d_le, d_ls,
+                   d_lf, walk_sh);
 }
+
+// Each comes as <name>_kernel, one thread a position with registers as the
+// compiler picks them (~70-150, so blocks of ~400-900 threads at most),
+// and <name>_kernel_p<P> for P in 2, 4, 8, bounded to kMaxBlock threads
+// (at most 64 registers, spilling what does not fit), both over
+// <name>_block<P> (the template argument after P, the storage type, passed
+// on): launch_block_walk takes P = 1 where the registers allow
+// threads_for(T) threads.
+#define SSNT_BLOCK_KERNEL(name, params, args)                             \
+  template <int P>                                                        \
+  __global__ void __launch_bounds__(kMaxBlock) name##_kernel_p params {   \
+    name##_block<P> args;                                                 \
+  }                                                                       \
+  __global__ void name##_kernel params { name##_block<1> args; }
+
+#define SSNT_BLOCK_KERNEL_S(name, params, args)                           \
+  template <int P, typename S>                                            \
+  __global__ void __launch_bounds__(kMaxBlock) name##_kernel_p params {   \
+    name##_block<P, S> args;                                              \
+  }                                                                       \
+  template <typename S>                                                   \
+  __global__ void name##_kernel params { name##_block<1, S> args; }
+
+SSNT_BLOCK_KERNEL(bidir,
+                  (int B, int T, int U, const float* __restrict__ le,
+                   const float* __restrict__ ls, const float* __restrict__ lf,
+                   const int* __restrict__ il, const int* __restrict__ ol,
+                   float* __restrict__ alphas, float* __restrict__ betas),
+                  (B, T, U, le, ls, lf, il, ol, alphas, betas))
+SSNT_BLOCK_KERNEL(backward_betas,
+                  (int B, int T, int U, const float* __restrict__ le,
+                   const float* __restrict__ ls, const float* __restrict__ lf,
+                   const int* __restrict__ il, const int* __restrict__ ol,
+                   float* __restrict__ betas),
+                  (B, T, U, le, ls, lf, il, ol, betas))
+SSNT_BLOCK_KERNEL(bidir_exp,
+                  (int B, int T, int U, const float* __restrict__ le,
+                   const float* __restrict__ ls, const float* __restrict__ lf,
+                   const int* __restrict__ il, const int* __restrict__ ol,
+                   float* __restrict__ alphas, float* __restrict__ betas),
+                  (B, T, U, le, ls, lf, il, ol, alphas, betas))
+SSNT_BLOCK_KERNEL(expin,
+                  (int B, int T, int U, const float* __restrict__ E,
+                   const float* __restrict__ S, const float* __restrict__ F,
+                   const float* __restrict__ mcol, const int* __restrict__ il,
+                   const int* __restrict__ ol, float* __restrict__ qn,
+                   float* __restrict__ bn, float* __restrict__ M,
+                   float* __restrict__ N),
+                  (B, T, U, E, S, F, mcol, il, ol, qn, bn, M, N))
+SSNT_BLOCK_KERNEL_S(forward_alphas,
+                    (int B, int T, int U, const S* __restrict__ le,
+                     const S* __restrict__ ls, const S* __restrict__ lf,
+                     float* __restrict__ alphas),
+                    (B, T, U, le, ls, lf, alphas))
+SSNT_BLOCK_KERNEL_S(backward_grads,
+                    (int B, int T, int U, const S* __restrict__ le,
+                     const S* __restrict__ ls, const S* __restrict__ lf,
+                     const float* __restrict__ alphas,
+                     const int* __restrict__ il, const int* __restrict__ ol,
+                     const float* __restrict__ g,
+                     const float* __restrict__ logz, S* __restrict__ d_le,
+                     S* __restrict__ d_ls, S* __restrict__ d_lf),
+                    (B, T, U, le, ls, lf, alphas, il, ol, g, logz, d_le,
+                     d_ls, d_lf))
+
+#undef SSNT_BLOCK_KERNEL
+#undef SSNT_BLOCK_KERNEL_S
 
 // ------------------------------------------------------------------ banded
 //
@@ -719,10 +956,13 @@ __global__ void backward_grads_kernel(
 // 42 us at K=2; at K=16 compose and replay, 25 and 22 us) and 0.19-0.37 ms
 // at B=256, where compose and replay take most of it (its passes move
 // ~0.5 GB at K=2: the lattice and alphas read by compose and replay, the
-// workspaces written and read, the three gradients written). Registers
-// cap a block below kMaxT threads at the larger K, which the wrapper asks
-// through ssnt_lattice_banded_max_t (the least of the three passes'
-// limits of the walk).
+// workspaces written and read, the three gradients written). The banded
+// passes keep one thread a position, so registers cap T below kMaxT,
+// which the wrapper asks through ssnt_lattice_banded_max_t (the least of
+// the three passes' limits of the walk; chip_smoke.py phase 24 on an H100:
+// forward / backward T <= 1024 / 896 at K=2, 512 / 1024 at K=4, 512 / 640
+// at K=8, 512 / 384 at K=16; the compose tree's 2 K T floats of shared
+// memory would allow ~1800 at K=16).
 
 // A band entry of row `row` read at t - i (kUp false) or t + i (kUp true);
 // NEG where that leaves [0, T).
@@ -938,7 +1178,7 @@ __global__ void banded_chain_kernel(int B, int T, int U, int G,
                                     const int* __restrict__ il,
                                     float* __restrict__ out) {
   constexpr int A = chain_ahead<K>();
-  __shared__ float rows[2][kMaxT];
+  __shared__ float rows[2][kMaxBlock];
   const int b = blockIdx.x, t = threadIdx.x;
   const bool live = t < T;
   const size_t col = (size_t)B * T, off = (size_t)b * T + t;
@@ -982,7 +1222,7 @@ __global__ void banded_replay_kernel(int B, int T, int U, int G,
                                      const float* __restrict__ ls,
                                      const float* __restrict__ lf,
                                      float* __restrict__ alphas) {
-  __shared__ float rows[2][kMaxT];
+  __shared__ float rows[2][kMaxBlock];
   const int g = blockIdx.x % G, b = blockIdx.x / G, t = threadIdx.x;
   const bool live = t < T;
   const size_t col = (size_t)B * T, off = (size_t)b * T + t;
@@ -1047,7 +1287,7 @@ __global__ void banded_grads_replay_kernel(
     const float* __restrict__ logz, const float* __restrict__ bottoms,
     float* __restrict__ d_le, float* __restrict__ d_ls,
     float* __restrict__ d_lf) {
-  __shared__ float rows[2][kMaxT];
+  __shared__ float rows[2][kMaxBlock];
   const int gi = blockIdx.x % G, b = blockIdx.x / G, t = threadIdx.x;
   const bool live = t < T;
   const int in_len = il[b], out_len = ol[b];
@@ -1153,14 +1393,15 @@ cudaError_t launch_backward_banded(int B, int T, int U, const float* le,
   return cudaGetLastError();
 }
 
-// The most threads a block of the K-banded kernel may have (its registers
-// may allow fewer than kMaxT), rounded down to whole warps; 0 for a K
+// The most threads a block of kern may have (its registers may allow
+// fewer than kMaxBlock), rounded down to whole warps; 0 for a banded K
 // without an instance.
 template <typename Kern>
 int max_threads(Kern kern) {
   cudaFuncAttributes a;
   if (cudaFuncGetAttributes(&a, kern) != cudaSuccess) return 0;
-  const int n = a.maxThreadsPerBlock < kMaxT ? a.maxThreadsPerBlock : kMaxT;
+  const int n = a.maxThreadsPerBlock < kMaxBlock ? a.maxThreadsPerBlock
+                                               : kMaxBlock;
   return n / 32 * 32;
 }
 
@@ -1227,14 +1468,16 @@ constexpr int kInRounds = 6;    // input ring: rounds staged ahead
 constexpr int kResRounds = 4;   // result ring
 
 // A warp walk's shared memory: the input ring (NIn rounds of R columns of
-// 3 rows of 32 V floats), the result ring (NRes rounds of R rows of 32 V
-// floats), NNorm normalizers a result round, the barriers.
+// 3 rows of 32 V values of the storage type In, float or bfloat16), the
+// result ring (NRes rounds of R rows of 32 V floats), NNorm normalizers a
+// result round, the barriers.
 template <int V_, int R_, int NNorm_, int NIn_ = kInRounds,
-          int NRes_ = kResRounds>
+          int NRes_ = kResRounds, typename In_ = float>
 struct WalkRing {
   static constexpr int V = V_, R = R_, NNorm = NNorm_;
   static constexpr int NIn = NIn_, NRes = NRes_;
-  float in[NIn][R][3][32 * V];
+  using In = In_;
+  In in[NIn][R][3][32 * V];
   float res[NRes][R][32 * V];
   float norm[NRes][NNorm];
   uint64_t in_full[NIn], in_empty[NIn];
@@ -1242,19 +1485,21 @@ struct WalkRing {
 };
 
 // Initializes the ring's barriers (`loaders` warps fill each input slot,
-// `chains` warps read it and fill each result slot) before any warp takes
-// its role.
+// `chains` warps read it and fill each result slot, `storers` warps read
+// each result slot, `readers` more warps read each input slot) before any
+// warp takes its role.
 template <class Ring>
 __device__ __forceinline__ void init_ring(Ring& sm, int loaders,
-                                          int chains = 1) {
+                                          int chains = 1, int storers = 1,
+                                          int readers = 0) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < Ring::NIn; ++i) {
       ssnt_tma::mbar_init(&sm.in_full[i], 32 * loaders);
-      ssnt_tma::mbar_init(&sm.in_empty[i], 32 * chains);
+      ssnt_tma::mbar_init(&sm.in_empty[i], 32 * (chains + readers));
     }
     for (int i = 0; i < Ring::NRes; ++i) {
       ssnt_tma::mbar_init(&sm.res_full[i], 32 * chains);
-      ssnt_tma::mbar_init(&sm.res_empty[i], 32);
+      ssnt_tma::mbar_init(&sm.res_empty[i], 32 * storers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1268,7 +1513,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // cp.async of N bytes, of which the first `src_bytes` are read and the
 // rest filled with zeros.
 template <int N>
-__device__ __forceinline__ void cp_async_zfill(float* dst, const float* src,
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
                                                int src_bytes) {
   if constexpr (N == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -1328,15 +1573,32 @@ __device__ __forceinline__ int round_column(const WarpWalk& w, int r,
   return kBack ? w.top - R * r + (R - 1 - j) : R * r + j;
 }
 
-// Round r's columns j with j % L == j0 into its input slot by cp.async,
-// each lane its own live positions; zeros for a column outside [0, U).
+// Whether a ring round's rows are copied by cp.async (every float row; a
+// bfloat16 row where a lane's values are one copy of 4 to 16 bytes), and
+// not value by value by the lane itself (cp.async copies 4 bytes at least).
+template <class Ring, bool kVec>
+__host__ __device__ constexpr bool vec_copies() {
+  return kVec && sizeof(typename Ring::In) * Ring::V >= 4;
+}
+
+template <class Ring, bool kVec>
+__host__ __device__ constexpr bool async_rows() {
+  return sizeof(typename Ring::In) == 4 || vec_copies<Ring, kVec>();
+}
+
+// Round r's columns j with j % L == j0 into its input slot, each lane its
+// own live positions; zeros for a column outside [0, U). By cp.async (one
+// copy of V values a row where kVec and they make 4 bytes or more, else
+// float values one by one); other bfloat16 rows by loads and shared
+// stores.
 template <class Ring, bool kVec, bool kBack, int L = 1>
-__device__ __forceinline__ void stage_round(const WarpWalk& w, Ring& sm,
-                                            int r, int j0,
-                                            const float* __restrict__ E,
-                                            const float* __restrict__ S,
-                                            const float* __restrict__ F) {
-  constexpr int V = Ring::V;
+__device__ __forceinline__ void stage_round(
+    const WarpWalk& w, Ring& sm, int r, int j0,
+    const typename Ring::In* __restrict__ E,
+    const typename Ring::In* __restrict__ S,
+    const typename Ring::In* __restrict__ F) {
+  using In = typename Ring::In;
+  constexpr int V = Ring::V, N = (int)sizeof(In) * V;
   const int slot = r % Ring::NIn;
 #pragma unroll
   for (int j = 0; j < Ring::R; ++j) {
@@ -1344,13 +1606,23 @@ __device__ __forceinline__ void stage_round(const WarpWalk& w, Ring& sm,
     const int u = round_column<kBack, Ring::R>(w, r, j);
     const bool in_walk = (unsigned)u < (unsigned)w.U;
     const int o = (in_walk ? u : w.U - 1) * w.col;
-    float(&rows)[3][32 * V] = sm.in[slot][j];
-    if constexpr (kVec) {
+    In(&rows)[3][32 * V] = sm.in[slot][j];
+    if constexpr (vec_copies<Ring, kVec>()) {
       if (w.live) {
-        const int n = in_walk ? 4 * V : 0;
-        cp_async_zfill<4 * V>(rows[0] + w.t0, E + o, n);
-        cp_async_zfill<4 * V>(rows[1] + w.t0, S + o, n);
-        cp_async_zfill<4 * V>(rows[2] + w.t0, F + o, n);
+        const int n = in_walk ? N : 0;
+        cp_async_zfill<N>(rows[0] + w.t0, E + o, n);
+        cp_async_zfill<N>(rows[1] + w.t0, S + o, n);
+        cp_async_zfill<N>(rows[2] + w.t0, F + o, n);
+      }
+    } else if constexpr (!async_rows<Ring, kVec>()) {
+      const In zero = __float2bfloat16_rn(0.0f);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (w.t0 + k < w.T) {
+          rows[0][w.t0 + k] = in_walk ? ld(E, o + k) : zero;
+          rows[1][w.t0 + k] = in_walk ? ld(S, o + k) : zero;
+          rows[2][w.t0 + k] = in_walk ? ld(F, o + k) : zero;
+        }
       }
     } else {
 #pragma unroll
@@ -1366,19 +1638,24 @@ __device__ __forceinline__ void stage_round(const WarpWalk& w, Ring& sm,
   }
 }
 
-// The loader of lattice_expin and lattice_bidir: round r into input slot
-// r % NIn once the chain warp has read the round NIn before.
+// The loader of lattice_expin and the log walks: round r into input slot
+// r % NIn once its readers have read the round NIn before; the slot's
+// full barrier arrived on once the copies have landed (a bfloat16 row
+// staged by the lane itself: after its shared stores).
 template <class Ring, bool kVec, bool kBack>
 __device__ void walk_loader(const WarpWalk& w, Ring& sm,
-                            const float* __restrict__ E,
-                            const float* __restrict__ S,
-                            const float* __restrict__ F) {
+                            const typename Ring::In* __restrict__ E,
+                            const typename Ring::In* __restrict__ S,
+                            const typename Ring::In* __restrict__ F) {
   for (int r = 0; r < w.rounds; ++r) {
     const int slot = r % Ring::NIn;
     if (r >= Ring::NIn)
       ssnt_tma::mbar_wait(&sm.in_empty[slot], (r / Ring::NIn + 1) & 1);
     stage_round<Ring, kVec, kBack>(w, sm, r, 0, E, S, F);
-    cp_async_arrive(&sm.in_full[slot]);
+    if constexpr (async_rows<Ring, kVec>())
+      cp_async_arrive(&sm.in_full[slot]);
+    else
+      mbar_arrive(&sm.in_full[slot]);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -1394,6 +1671,13 @@ __device__ __forceinline__ void load_lane(const float* p, float (&x)[V]) {
   } else {
     x[0] = *p;
   }
+}
+
+template <int V>
+__device__ __forceinline__ void load_lane(const __nv_bfloat16* p,
+                                          float (&x)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = __bfloat162float(p[j]);
 }
 
 template <int V>
@@ -1772,16 +2056,25 @@ template <int V> using BidirExpRing = WalkRing<V, kBidirRound, kBidirRound>;
 
 // A chain warp's rounds: walk(r, d) on round r's inputs d (its lanes' V
 // positions), with round r + 1 read from the ring before round r is
-// walked, so that its wait and shared loads are off the chain.
-template <int V, class Ring, class Walk>
+// walked (kReadAhead), so that its wait and shared loads are off the
+// chain; without kReadAhead, round r read just before it is walked (its
+// input slot then holds one round less ahead of other readers).
+template <int V, bool kReadAhead = true, class Ring, class Walk>
 __device__ __forceinline__ void chain_rounds(const WarpWalk& w, Ring& sm,
                                              Walk walk) {
   WalkRound<V, Ring::R> cur, nxt;
-  take_round(w, sm, 0, cur);
-  for (int r = 0; r < w.rounds; ++r) {
-    if (r + 1 < w.rounds) take_round(w, sm, r + 1, nxt);
-    walk(r, cur);
-    cur = nxt;
+  if constexpr (kReadAhead) {
+    take_round(w, sm, 0, cur);
+    for (int r = 0; r < w.rounds; ++r) {
+      if (r + 1 < w.rounds) take_round(w, sm, r + 1, nxt);
+      walk(r, cur);
+      cur = nxt;
+    }
+  } else {
+    for (int r = 0; r < w.rounds; ++r) {
+      take_round(w, sm, r, cur);
+      walk(r, cur);
+    }
   }
 }
 
@@ -1824,15 +2117,28 @@ constexpr int kXch = 128;         // exchange words a chain warp
 static_assert((kLogResRounds + 1) * kLogRound <= kXch,
               "a producer's lead fits its exchange words");
 
-template <int Vio>
-using LogRing = WalkRing<Vio, kLogRound, 1, kLogInRounds, kLogResRounds>;
+template <int Vio, typename St = float>
+using LogRing =
+    WalkRing<Vio, kLogRound, 1, kLogInRounds, kLogResRounds, St>;
 
-// The log walk's shared memory: the ring (rows of 32 Vio floats, the
-// loader's and storer's lane layout), and each chain warp's exchange words.
-template <int Vio> struct BidirLogSmem {
-  LogRing<Vio> ring;
+// The log walk's shared memory: the ring (input rows of 32 Vio values in
+// the lattice's storage type St, the loader's and storer's lane layout;
+// float result rows), and each chain warp's exchange words.
+template <int Vio, typename St = float> struct BidirLogSmem {
+  LogRing<Vio, St> ring;
   unsigned long long xch[kMaxChains][kXch];
+  float row[2][32 * kMaxChains + 1];  // the barrier exchange's rows
 };
+
+// The barrier exchange (kBar below), the block walks' pattern on the chain
+// warps alone: each column's values into a double-buffered shared row,
+// then named barrier 1 over the NC chain warps, then the neighbours read.
+// #1 and #5 take it; lattice_bidir still takes the stream of exchange
+// words (edge_give / edge_take).
+template <int NC>
+__device__ __forceinline__ void chain_bar() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * NC) : "memory");
+}
 
 // Publishes v as the value of column step s.
 __device__ __forceinline__ void edge_give(unsigned long long* xch, int s,
@@ -1860,9 +2166,9 @@ __device__ __forceinline__ float edge_take(const unsigned long long* xch,
 // then per column u
 //   stay = alpha + le_{u-1};  moved = shift_down(alpha + ls_{u-1}), NEG
 //   into t = 0;  alpha = lf_u + lae(stay, moved).
-template <int V, int NC, int Vio>
-__device__ void log_alpha_chain(const WarpWalk& w, BidirLogSmem<Vio>& sm,
-                                int c) {
+template <int V, int NC, int Vio, typename St, bool kBar = false>
+__device__ void log_alpha_chain(const WarpWalk& w,
+                                BidirLogSmem<Vio, St>& sm, int c) {
   constexpr int R = kLogRound;
   float alpha[V], le_prev[V], ls_prev[V];
   const float none[1] = {0.0f};
@@ -1873,18 +2179,29 @@ __device__ void log_alpha_chain(const WarpWalk& w, BidirLogSmem<Vio>& sm,
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const int s = r * R + k;
-      float mv[V];
+      float mv[V], moved[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) mv[j] = alpha[j] + ls_prev[j];
-      if (c + 1 < NC && w.lane == 31) edge_give(sm.xch[c], s, mv[V - 1]);
-      const float edge = __shfl_up_sync(0xffffffffu, mv[V - 1], 1);
-      const float below = c > 0 ? edge_take(sm.xch[c - 1], s) : kNeg;
+      if constexpr (kBar && NC > 1) {
+        float* row = sm.row[s & 1];  // row[t + 1]: the value at t
+#pragma unroll
+        for (int j = 0; j < V; ++j) row[w.t0 + j + 1] = mv[j];
+        chain_bar<NC>();
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          moved[j] = w.t0 + j == 0 ? kNeg : row[w.t0 + j];
+      } else {
+        if (c + 1 < NC && w.lane == 31) edge_give(sm.xch[c], s, mv[V - 1]);
+        const float edge = __shfl_up_sync(0xffffffffu, mv[V - 1], 1);
+        const float below = c > 0 ? edge_take(sm.xch[c - 1], s) : kNeg;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          moved[j] = j == 0 ? (w.lane == 0 ? below : edge) : mv[j - 1];
+      }
       const bool first = k == 0 && r == 0;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const float moved =
-            j == 0 ? (w.lane == 0 ? below : edge) : mv[j - 1];
-        const float x = d.f[k][j] + lae(alpha[j] + le_prev[j], moved);
+        const float x = d.f[k][j] + lae(alpha[j] + le_prev[j], moved[j]);
         alpha[j] = first ? (w.t0 + j == 0 ? d.f[k][j] : kNeg) : x;
         a[k][j] = alpha[j];
         le_prev[j] = d.e[k][j];
@@ -1899,31 +2216,47 @@ __device__ void log_alpha_chain(const WarpWalk& w, BidirLogSmem<Vio>& sm,
 //   cont = lf_{u+1} + beta;  up = shift_up(cont), NEG from t >= T;
 //   beta = u == U_b - 1 ? (t == T_b - 1 ? le_u : NEG)
 //                       : lae(le_u + cont, ls_u + up)
-// from beta = lf_{U} = NEG.
-template <int V, int NC, int Vio>
-__device__ void log_beta_chain(const WarpWalk& w, BidirLogSmem<Vio>& sm,
+// from beta = lf_{U} = NEG (also lattice_backward_grads' beta recursion,
+// cell for cell: there the posterior warps read the input slots too, so
+// the chain reads no round ahead, kReadAhead false).
+template <int V, int NC, int Vio, typename St, bool kReadAhead = true,
+          bool kBar = false>
+__device__ void log_beta_chain(const WarpWalk& w, BidirLogSmem<Vio, St>& sm,
                                int c, int in_len, int out_len) {
   constexpr int R = kLogRound;
   float beta[V], lf_next[V];
   const float none[1] = {0.0f};
 #pragma unroll
   for (int j = 0; j < V; ++j) beta[j] = lf_next[j] = kNeg;
-  chain_rounds<V>(w, sm.ring, [&](int r, const WalkRound<V, R>& d) {
+  chain_rounds<V, kReadAhead>(w, sm.ring, [&](int r,
+                                              const WalkRound<V, R>& d) {
     float b[R][V];
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const int s = r * R + k;
       const bool reset = round_column<true, R>(w, r, k) == out_len - 1;
-      float cont[V];
+      float cont[V], upv[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) cont[j] = lf_next[j] + beta[j];
-      if (c > 0 && w.lane == 0) edge_give(sm.xch[c], s, cont[0]);
-      float above = __shfl_down_sync(0xffffffffu, cont[0], 1);
-      const float from_up = c + 1 < NC ? edge_take(sm.xch[c + 1], s) : kNeg;
-      if (w.lane == 31) above = from_up;
+      if constexpr (kBar && NC > 1) {
+        float* row = sm.row[s & 1];  // row[t]: the value at t
+#pragma unroll
+        for (int j = 0; j < V; ++j) row[w.t0 + j] = cont[j];
+        chain_bar<NC>();
+#pragma unroll
+        for (int j = 0; j < V; ++j) upv[j] = row[w.t0 + j + 1];
+      } else {
+        if (c > 0 && w.lane == 0) edge_give(sm.xch[c], s, cont[0]);
+        float above = __shfl_down_sync(0xffffffffu, cont[0], 1);
+        const float from_up =
+            c + 1 < NC ? edge_take(sm.xch[c + 1], s) : kNeg;
+        if (w.lane == 31) above = from_up;
+#pragma unroll
+        for (int j = 0; j < V; ++j) upv[j] = j + 1 < V ? cont[j + 1] : above;
+      }
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        float up = j + 1 < V ? cont[j + 1] : above;
+        float up = upv[j];
         if (w.t0 + j + 1 >= w.T) up = kNeg;
         const float x = lae(d.e[k][j] + cont[j], d.s[k][j] + up);
         beta[j] = reset ? (w.t0 + j == in_len - 1 ? d.e[k][j] : kNeg) : x;
@@ -1953,22 +2286,26 @@ __device__ void log_storer(const WarpWalk& w, Ring& sm,
 }
 
 // A block of a loader, NC chain warps and a storer per example
-// (blockIdx.x) and direction (blockIdx.y); the loader and the storer hold
-// Vio positions a lane, a chain lane VC; dynamic shared memory:
-// BidirLogSmem<Vio>.
-template <int VC, int NC, int Vio, bool kVec>
+// (blockIdx.x) and direction (blockIdx.y; lattice_forward_alphas launches
+// the forward walks alone, and a bfloat16 lattice St only those); the
+// loader and the storer hold Vio positions a lane, a chain lane VC;
+// dynamic shared memory: BidirLogSmem<Vio, St>.
+template <int VC, int NC, int Vio, bool kVec, typename St = float,
+          bool kBar = false>
 __global__ void __launch_bounds__(32 * (NC + 2))
-    bidir_warp_kernel(int B, int T, int U, const float* __restrict__ le,
-                      const float* __restrict__ ls,
-                      const float* __restrict__ lf,
+    bidir_warp_kernel(int B, int T, int U, const St* __restrict__ le,
+                      const St* __restrict__ ls, const St* __restrict__ lf,
                       const int* __restrict__ il, const int* __restrict__ ol,
                       float* __restrict__ alphas, float* __restrict__ betas) {
+  using Smem = BidirLogSmem<Vio, St>;
+  using Ring = LogRing<Vio, St>;
   extern __shared__ float4 walk_smem[];
-  BidirLogSmem<Vio>& sm = *reinterpret_cast<BidirLogSmem<Vio>*>(walk_smem);
+  Smem& sm = *reinterpret_cast<Smem*>(walk_smem);
   const int b = blockIdx.x, warp = threadIdx.x / 32;
-  const bool back = blockIdx.y == 1;
-  for (int i = threadIdx.x; i < kMaxChains * kXch; i += blockDim.x)
-    sm.xch[i / kXch][i % kXch] = ~0ull;
+  const bool back = sizeof(St) == 4 && blockIdx.y == 1;
+  if constexpr (!kBar)
+    for (int i = threadIdx.x; i < kMaxChains * kXch; i += blockDim.x)
+      sm.xch[i / kXch][i % kXch] = ~0ull;
   init_ring(sm.ring, 1, NC);
   const int top = U - kLogRound;
   if (warp == 0 || warp == NC + 1) {
@@ -1976,63 +2313,79 @@ __global__ void __launch_bounds__(32 * (NC + 2))
     const int eb = b * T + w.t0;
     if (warp == 0) {
       if (back)
-        walk_loader<LogRing<Vio>, kVec, true>(w, sm.ring, le + eb, ls + eb,
-                                              lf + eb);
+        walk_loader<Ring, kVec, true>(w, sm.ring, le + eb, ls + eb, lf + eb);
       else
-        walk_loader<LogRing<Vio>, kVec, false>(w, sm.ring, le + eb,
-                                               ls + eb, lf + eb);
+        walk_loader<Ring, kVec, false>(w, sm.ring, le + eb, ls + eb,
+                                       lf + eb);
     } else {
       if (back)
-        log_storer<LogRing<Vio>, kVec, true>(w, sm.ring, betas + eb);
+        log_storer<Ring, kVec, true>(w, sm.ring, betas + eb);
       else
-        log_storer<LogRing<Vio>, kVec, false>(w, sm.ring, alphas + eb);
+        log_storer<Ring, kVec, false>(w, sm.ring, alphas + eb);
     }
   } else {
     const int c = warp - 1;
     const WarpWalk w = make_walk(B, T, U, VC, kLogRound, top, c * 32 * VC);
     if (back)
-      log_beta_chain<VC, NC>(w, sm, c, il[b], ol[b]);
+      log_beta_chain<VC, NC, Vio, St, true, kBar>(w, sm, c, il[b], ol[b]);
     else
-      log_alpha_chain<VC, NC>(w, sm, c);
+      log_alpha_chain<VC, NC, Vio, St, kBar>(w, sm, c);
   }
 }
 
-template <int VC, int NC, int Vio, bool kVec>
-cudaError_t launch_log_walk(int B, int T, int U, const float* le,
-                            const float* ls, const float* lf, const int* il,
+template <int VC, int NC, int Vio, bool kVec, typename St, bool kBar>
+cudaError_t launch_log_walk(int dirs, int B, int T, int U, const St* le,
+                            const St* ls, const St* lf, const int* il,
                             const int* ol, float* alphas, float* betas,
                             cudaStream_t s) {
   static size_t opted = 0;
-  constexpr size_t smem = sizeof(BidirLogSmem<Vio>);
-  cudaError_t e = opt_in(bidir_warp_kernel<VC, NC, Vio, kVec>, smem, &opted);
+  constexpr size_t smem = sizeof(BidirLogSmem<Vio, St>);
+  const auto kern = bidir_warp_kernel<VC, NC, Vio, kVec, St, kBar>;
+  cudaError_t e = opt_in(kern, smem, &opted);
   if (e != cudaSuccess) return e;
-  bidir_warp_kernel<VC, NC, Vio, kVec><<<dim3(B, 2), 32 * (NC + 2), smem, s>>>(
-      B, T, U, le, ls, lf, il, ol, alphas, betas);
+  kern<<<dim3(B, dirs), 32 * (NC + 2), smem, s>>>(B, T, U, le, ls, lf, il,
+                                                   ol, alphas, betas);
   return cudaGetLastError();
 }
 
-// lattice_bidir's walk for rows of 32 Vio positions: kLogVC positions a
+// The chain warps a log walk may take with rows of 32 Vio positions (T in
+// (16 Vio, 32 Vio], or up to 32 at Vio = 1) at VC positions a lane: from
+// Vio / (2 VC) + 1 to Vio / VC.
+template <int NC, int VC, int Vio>
+constexpr bool log_chains() {
+  return NC >= Vio / (2 * VC) + 1 && NC <= Vio / VC;
+}
+
+// The log walks (dirs 2: lattice_bidir; dirs 1: the forward walks alone,
+// lattice_forward_alphas) for rows of 32 Vio positions: kLogVC positions a
 // chain lane (at most Vio), NC = ceil(T / (32 VC)) chain warps.
-template <int Vio, bool kVec>
-cudaError_t launch_log_walks(int B, int T, int U, const float* le,
-                             const float* ls, const float* lf, const int* il,
+template <int Vio, bool kVec, typename St, bool kBar = false>
+cudaError_t launch_log_walks(int dirs, int B, int T, int U, const St* le,
+                             const St* ls, const St* lf, const int* il,
                              const int* ol, float* alphas, float* betas,
                              cudaStream_t s) {
   constexpr int VC = kLogVC < Vio ? kLogVC : Vio;
-#define SSNT_LOG_ARGS B, T, U, le, ls, lf, il, ol, alphas, betas, s
+#define SSNT_LOG_ARGS dirs, B, T, U, le, ls, lf, il, ol, alphas, betas, s
   switch ((T + 32 * VC - 1) / (32 * VC)) {
-    case 1: return launch_log_walk<VC, 1, Vio, kVec>(SSNT_LOG_ARGS);
+    case 1:
+      if constexpr (log_chains<1, VC, Vio>())
+        return launch_log_walk<VC, 1, Vio, kVec, St, kBar>(
+            SSNT_LOG_ARGS);
+      break;
     case 2:
-      if constexpr (Vio / VC >= 2)
-        return launch_log_walk<VC, 2, Vio, kVec>(SSNT_LOG_ARGS);
+      if constexpr (log_chains<2, VC, Vio>())
+        return launch_log_walk<VC, 2, Vio, kVec, St, kBar>(
+            SSNT_LOG_ARGS);
       break;
     case 3:
-      if constexpr (Vio / VC >= 3)
-        return launch_log_walk<VC, 3, Vio, kVec>(SSNT_LOG_ARGS);
+      if constexpr (log_chains<3, VC, Vio>())
+        return launch_log_walk<VC, 3, Vio, kVec, St, kBar>(
+            SSNT_LOG_ARGS);
       break;
     case 4:
-      if constexpr (Vio / VC >= 4)
-        return launch_log_walk<VC, 4, Vio, kVec>(SSNT_LOG_ARGS);
+      if constexpr (log_chains<4, VC, Vio>())
+        return launch_log_walk<VC, 4, Vio, kVec, St, kBar>(
+            SSNT_LOG_ARGS);
       break;
   }
 #undef SSNT_LOG_ARGS
@@ -2269,8 +2622,8 @@ cudaError_t launch_bidir_warp(bool exp_domain, int B, int T, int U,
     }
     return cudaGetLastError();
   }
-  return launch_log_walks<V, kVec>(B, T, U, le, ls, lf, il, ol, alphas,
-                                   betas, s);
+  return launch_log_walks<V, kVec, float>(2, B, T, U, le, ls, lf, il, ol,
+                                          alphas, betas, s);
 }
 
 // The bidirectional warp walks with rows of 32 V positions, V = ceil(T /
@@ -2296,13 +2649,409 @@ cudaError_t launch_bidir_warps(bool exp_domain, int B, int T, int U,
 #undef SSNT_BIDIR_ARGS
 }
 
+// ------------------------------------------- the two-pass route's walks
+//
+// lattice_forward_alphas (#1) and lattice_backward_grads (#5) for T <=
+// kWarpMaxT, the route "plain" that grad_mode takes at B * pad128(T) >
+// 8192 (the B=256 train step) and for every bfloat16-storage lattice:
+//   - #1 is lattice_bidir's forward walk alone (bidir_warp_kernel with
+//     gridDim.y = 1, rows in the lattice's storage type), so its alphas are
+//     lattice_bidir's bit for bit;
+//   - #5 is a block per example of a loader warp (lattice_bidir's, rows in
+//     the storage type, rounds of kLogRound columns from u = U - 1 down),
+//     ceil(T / 32) chain warps running log_beta_chain (lattice_bidir's beta
+//     walk, cell for cell backward_grads_kernel's beta recursion) that hand
+//     each column's betas to a result ring, and as many posterior warps
+//     of one position a lane that form the three posteriors of each
+//     column from beta_u, beta_{u+1}, lf_{u+1}, le_u, ls_u and alpha_u in
+//     grads_walk's expressions and order, and store them.
+// The chain stays one lae a column: the posteriors' three expf a cell and
+// the stores run beside it on other warps. The posterior warps read each
+// input slot after the chain, so the chain reads no round ahead and the
+// ring holds one round for each of the loader, the chain and the
+// posteriors; the alphas do not pass through the ring (with them its
+// three rounds would not fit two blocks to an SM at B=256), a posterior
+// lane loads its own one round ahead into registers.
+//
+// Both take the barrier exchange between their chain warps (kBar): each
+// column's values into a shared row, a named barrier over the chain warps,
+// the neighbours read back, as the block walks do. Measured
+// (probe_grads.py, NVIDIA H100 80GB HBM3, 700 W; T=80, U=400, f32): #1
+// 0.0499-0.0502 / 0.058-0.065 ms at B=32 / 256 (on lattice_bidir's
+// stream of exchange words 0.0631 / 0.0777; the block walk 0.0566 /
+// 0.063-0.070), ~125 ns a column at B=32, the stream's ~170; #5 0.074-0.080 /
+// 0.114-0.117 ms (stream 0.079-0.086 / 0.124; block walk 0.132 / 0.140;
+// bf16 B=256 0.118-0.123 against the block walk's 0.153-0.159), bit for
+// bit. #5 without its posteriors' stores runs at its chain's pace (0.0505
+// / 0.064 ms): the posteriors' ~75 instructions a column on three warps
+// that share the SM's schedulers with the chain warps (and, at B=256, two
+// blocks an SM) slow the chain. Posterior lanes of several positions set
+// the pace instead (slower), rounds of 8 are no better.
+
+// alpha_u at this posterior lane's position for round r's columns (0
+// outside the walk).
+__device__ __forceinline__ void load_alpha_round(const WarpWalk& w,
+                                                 const float* __restrict__ al,
+                                                 int r, float (&x)[kLogRound]) {
+#pragma unroll
+  for (int k = 0; k < kLogRound; ++k) {
+    const int u = round_column<true, kLogRound>(w, r, k);
+    const bool in_walk = (unsigned)u < (unsigned)w.U;
+    x[k] = in_walk && w.t0 < w.T ? __ldg(al + u * w.col) : 0.0f;
+  }
+}
+
+// #5's posterior warp at its position t = t0 (t_base + lane; lane 31 also
+// holds the next warp's first position th, for the shift): per column u,
+// descending,
+//   cont = lf_{u+1} + beta_{u+1};  cont_shift_raw = cont at t + 1, NEG
+//   from t + 1 >= T;  the emit and shift continuations reset at U_b - 1;
+//   p_le, p_ls, p_lf = exp(min(alpha_u - logz + ..., 30)) on the valid
+//   region, times neg_g, stored in St.
+// beta_u from the chain's result slot, le_u, ls_u, lf_u from the input
+// slot (both freed after the round), beta_{u+1} and lf_{u+1} carried.
+template <int Vio, typename St>
+__device__ void grads_posterior(const WarpWalk& w, LogRing<Vio, St>& sm,
+                                int th, const float* __restrict__ al,
+                                float lz, float neg_g, int in_len,
+                                int out_len, St* __restrict__ d_le,
+                                St* __restrict__ d_ls,
+                                St* __restrict__ d_lf) {
+  using Ring = LogRing<Vio, St>;
+  constexpr int R = kLogRound;
+  const int t = w.t0;
+  const bool halo = w.lane == 31 && th < w.T;
+  const bool is_last_t = t == in_len - 1;
+  float beta_n = kNeg, lf_n = kNeg, hb = kNeg, hf = kNeg;
+  float cal[R], nal[R];
+  load_alpha_round(w, al, 0, cal);
+  for (int r = 0; r < w.rounds; ++r) {
+    const int si = r % Ring::NIn, sr = r % Ring::NRes;
+    if (r + 1 < w.rounds) load_alpha_round(w, al, r + 1, nal);
+    ssnt_tma::mbar_wait(&sm.in_full[si], (r / Ring::NIn) & 1);
+    ssnt_tma::mbar_wait(&sm.res_full[sr], (r / Ring::NRes) & 1);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int u = round_column<true, R>(w, r, k);
+      const float be = sm.res[sr][k][t];
+      const float e = f32(sm.in[si][k][0][t]);
+      const float s = f32(sm.in[si][k][1][t]);
+      const float f = f32(sm.in[si][k][2][t]);
+      float hbu = kNeg, hfu = kNeg;
+      if (halo) {
+        hbu = sm.res[sr][k][th];
+        hfu = f32(sm.in[si][k][2][th]);
+      }
+      const float cont = lf_n + beta_n;
+      float cont_shift_raw = __shfl_down_sync(0xffffffffu, cont, 1);
+      if (w.lane == 31) cont_shift_raw = hf + hb;
+      if (t + 1 >= w.T) cont_shift_raw = kNeg;
+      const bool is_last_u = u == out_len - 1;
+      const bool valid = t < in_len && u < out_len;
+      const float cont_emit = is_last_u ? (is_last_t ? 0.0f : kNeg) : cont;
+      const float cont_shift = is_last_u ? kNeg : cont_shift_raw;
+      const float anorm = cal[k] - lz;
+      const float p_le =
+          valid ? expf(fminf(anorm + e + cont_emit, 30.0f)) : 0.0f;
+      const float p_ls =
+          valid ? expf(fminf(anorm + s + cont_shift, 30.0f)) : 0.0f;
+      const float p_lf = valid ? expf(fminf(anorm + be, 30.0f)) : 0.0f;
+      if ((unsigned)u < (unsigned)w.U && t < w.T) {
+        const int o = u * w.col;
+        st(d_le, o, neg_g * p_le);
+        st(d_ls, o, neg_g * p_ls);
+        st(d_lf, o, neg_g * p_lf);
+      }
+      beta_n = be;
+      lf_n = f;
+      hb = hbu;
+      hf = hfu;
+    }
+    mbar_arrive(&sm.in_empty[si]);
+    mbar_arrive(&sm.res_empty[sr]);
+#pragma unroll
+    for (int k = 0; k < R; ++k) cal[k] = nal[k];
+  }
+}
+
+// A block per example of a loader (warp 0), NC chain warps and NC
+// posterior warps; dynamic shared memory: BidirLogSmem<Vio, St>.
+template <typename St, int NC, int Vio, bool kVec>
+__global__ void __launch_bounds__(32 * (1 + 2 * NC))
+    grads_warp_kernel(int B, int T, int U, const St* __restrict__ le,
+                      const St* __restrict__ ls, const St* __restrict__ lf,
+                      const float* __restrict__ alphas,
+                      const int* __restrict__ il, const int* __restrict__ ol,
+                      const float* __restrict__ g,
+                      const float* __restrict__ logz, St* __restrict__ d_le,
+                      St* __restrict__ d_ls, St* __restrict__ d_lf) {
+  using Smem = BidirLogSmem<Vio, St>;
+  extern __shared__ float4 walk_smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(walk_smem);
+  const int b = blockIdx.x, warp = threadIdx.x / 32;
+  init_ring(sm.ring, 1, NC, NC, NC);
+  const int top = U - kLogRound;
+  if (warp == 0) {
+    const WarpWalk w = make_walk(B, T, U, Vio, kLogRound, top);
+    const int eb = b * T + w.t0;
+    walk_loader<LogRing<Vio, St>, kVec, true>(w, sm.ring, le + eb, ls + eb,
+                                              lf + eb);
+  } else if (warp <= NC) {
+    const int c = warp - 1;
+    const WarpWalk w = make_walk(B, T, U, 1, kLogRound, top, c * 32);
+    log_beta_chain<1, NC, Vio, St, false, true>(w, sm, c, il[b], ol[b]);
+  } else {
+    const int q = warp - 1 - NC;
+    const WarpWalk w = make_walk(B, T, U, 1, kLogRound, top, q * 32);
+    const int eb = b * T + w.t0;
+    const float lz = logz[b];
+    grads_posterior<Vio, St>(w, sm.ring, (q + 1) * 32, alphas + eb, lz,
+                             lz <= kNeg / 2 ? 0.0f : -g[b], il[b], ol[b],
+                             d_le + eb, d_ls + eb, d_lf + eb);
+  }
+}
+
+template <typename St, int NC, int Vio, bool kVec>
+cudaError_t launch_grads_walk(int B, int T, int U, const St* le,
+                              const St* ls, const St* lf, const float* al,
+                              const int* il, const int* ol, const float* g,
+                              const float* lz, St* de, St* ds, St* df,
+                              cudaStream_t s) {
+  static size_t opted = 0;
+  constexpr size_t smem = sizeof(BidirLogSmem<Vio, St>);
+  const auto kern = grads_warp_kernel<St, NC, Vio, kVec>;
+  cudaError_t e = opt_in(kern, smem, &opted);
+  if (e != cudaSuccess) return e;
+  kern<<<B, 32 * (1 + 2 * NC), smem, s>>>(B, T, U, le, ls, lf, al, il, ol, g,
+                                          lz, de, ds, df);
+  return cudaGetLastError();
+}
+
+// #5's warp walk for rows of 32 Vio positions: NC = ceil(T / 32) chain
+// warps of one position a lane.
+template <typename St, int Vio, bool kVec>
+cudaError_t launch_grads_walks(int B, int T, int U, const St* le,
+                               const St* ls, const St* lf, const float* al,
+                               const int* il, const int* ol, const float* g,
+                               const float* lz, St* de, St* ds, St* df,
+                               cudaStream_t s) {
+#define SSNT_GRADS_ARGS B, T, U, le, ls, lf, al, il, ol, g, lz, de, ds, df, s
+  switch ((T + 31) / 32) {
+    case 1:
+      if constexpr (log_chains<1, 1, Vio>())
+        return launch_grads_walk<St, 1, Vio, kVec>(SSNT_GRADS_ARGS);
+      break;
+    case 2:
+      if constexpr (log_chains<2, 1, Vio>())
+        return launch_grads_walk<St, 2, Vio, kVec>(SSNT_GRADS_ARGS);
+      break;
+    case 3:
+      if constexpr (log_chains<3, 1, Vio>())
+        return launch_grads_walk<St, 3, Vio, kVec>(SSNT_GRADS_ARGS);
+      break;
+    case 4:
+      if constexpr (log_chains<4, 1, Vio>())
+        return launch_grads_walk<St, 4, Vio, kVec>(SSNT_GRADS_ARGS);
+      break;
+  }
+#undef SSNT_GRADS_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// Whether a warp walk's loader copies the V values of a row at a lane at
+// once (cp.async of sizeof(St) V bytes where that is 4 bytes or more):
+// T % V == 0 and the inputs (`in`, their addresses or'ed) aligned to them,
+// and the float outputs (`out`, stored V at a time; 0 for none) to 4 V.
+template <typename St, int V>
+bool vec_rows(uintptr_t in, uintptr_t out, int T) {
+  return in % (sizeof(St) * V) == 0 && out % (4 * V) == 0 && T % V == 0;
+}
+
+// The two-pass route's warp walks with rows of 32 V positions, V =
+// ceil(T / 32) rounded up to 1, 2 or 4.
+template <typename St>
+cudaError_t launch_alpha_warps(int B, int T, int U, const St* le,
+                               const St* ls, const St* lf, float* alphas,
+                               cudaStream_t s) {
+  const uintptr_t in = (uintptr_t)le | (uintptr_t)ls | (uintptr_t)lf;
+  const uintptr_t out = (uintptr_t)alphas;
+#define SSNT_FWD_ARGS 1, B, T, U, le, ls, lf, nullptr, nullptr, alphas, \
+                      nullptr, s
+  if (T <= 32)
+    return vec_rows<St, 1>(in, out, T)
+               ? launch_log_walks<1, true, St, true>(SSNT_FWD_ARGS)
+               : launch_log_walks<1, false, St, true>(SSNT_FWD_ARGS);
+  if (T <= 64)
+    return vec_rows<St, 2>(in, out, T)
+               ? launch_log_walks<2, true, St, true>(SSNT_FWD_ARGS)
+               : launch_log_walks<2, false, St, true>(SSNT_FWD_ARGS);
+  return vec_rows<St, 4>(in, out, T)
+             ? launch_log_walks<4, true, St, true>(SSNT_FWD_ARGS)
+             : launch_log_walks<4, false, St, true>(SSNT_FWD_ARGS);
+#undef SSNT_FWD_ARGS
+}
+
+template <typename St>
+cudaError_t launch_grads_warps(int B, int T, int U, const St* le,
+                               const St* ls, const St* lf, const float* al,
+                               const int* il, const int* ol, const float* g,
+                               const float* lz, St* de, St* ds, St* df,
+                               cudaStream_t s) {
+  const uintptr_t in = (uintptr_t)le | (uintptr_t)ls | (uintptr_t)lf;
+#define SSNT_GRADS_ARGS B, T, U, le, ls, lf, al, il, ol, g, lz, de, ds, df, s
+  if (T <= 32)
+    return vec_rows<St, 1>(in, 0, T)
+               ? launch_grads_walks<St, 1, true>(SSNT_GRADS_ARGS)
+               : launch_grads_walks<St, 1, false>(SSNT_GRADS_ARGS);
+  if (T <= 64)
+    return vec_rows<St, 2>(in, 0, T)
+               ? launch_grads_walks<St, 2, true>(SSNT_GRADS_ARGS)
+               : launch_grads_walks<St, 2, false>(SSNT_GRADS_ARGS);
+  return vec_rows<St, 4>(in, 0, T)
+             ? launch_grads_walks<St, 4, true>(SSNT_GRADS_ARGS)
+             : launch_grads_walks<St, 4, false>(SSNT_GRADS_ARGS);
+#undef SSNT_GRADS_ARGS
+}
+
+// ------------------------------------------------------- block launches
+
+// A block walk's launch state: kernel<1>'s thread limit (asked once) and
+// the dynamic shared memory each instance has opted into.
+struct BlockLaunch {
+  int p1_threads = -1;
+  size_t opted[4] = {0, 0, 0, 0};
+};
+
+// Launches a block walk on `grid`: at one thread a position (k1) where its
+// registers allow threads_for(T) threads, else at the least P of 2, 4, 8
+// with ceil(T / P) <= kMaxBlock (k2, k4, k8); dynamic shared memory: the
+// two rows of T + 1 floats and past them the cells that positions past T
+// read (up to index T + 1 + threads * P).
+template <class K1, class K2, class K4, class K8, class... Args>
+cudaError_t launch_block_walk(BlockLaunch& st, K1 k1, K2 k2, K4 k4, K8 k8,
+                              dim3 grid, int T, cudaStream_t s,
+                              Args... args) {
+  if (st.p1_threads < 0) st.p1_threads = max_threads(k1);
+  int P = 1;
+  if (threads_for(T) > st.p1_threads)
+    P = T <= 2 * kMaxBlock ? 2 : T <= 4 * kMaxBlock ? 4 : 8;
+  const int n = threads_for((T + P - 1) / P);
+  const size_t smem = sizeof(float) * ((size_t)T + 2 + (size_t)n * P);
+  cudaError_t e;
+  switch (P) {
+    case 1:
+      e = opt_in(k1, smem, &st.opted[0]);
+      if (e == cudaSuccess) k1<<<grid, n, smem, s>>>(args...);
+      break;
+    case 2:
+      e = opt_in(k2, smem, &st.opted[1]);
+      if (e == cudaSuccess) k2<<<grid, n, smem, s>>>(args...);
+      break;
+    case 4:
+      e = opt_in(k4, smem, &st.opted[2]);
+      if (e == cudaSuccess) k4<<<grid, n, smem, s>>>(args...);
+      break;
+    default:
+      e = opt_in(k8, smem, &st.opted[3]);
+      if (e == cudaSuccess) k8<<<grid, n, smem, s>>>(args...);
+  }
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// The block walks of #1 and #5 (every T up to kMaxT; the warp walks take
+// T <= kWarpMaxT on the main entries).
+template <typename St>
+cudaError_t forward_alphas_blocks(int B, int T, int U, const St* le,
+                                  const St* ls, const St* lf, float* alphas,
+                                  cudaStream_t s) {
+  static BlockLaunch st;
+  return launch_block_walk(
+      st, forward_alphas_kernel<St>, forward_alphas_kernel_p<2, St>,
+      forward_alphas_kernel_p<4, St>, forward_alphas_kernel_p<8, St>,
+      dim3(B), T, s, B, T, U, le, ls, lf, alphas);
+}
+
+template <typename St>
+cudaError_t backward_grads_blocks(int B, int T, int U, const St* le,
+                                  const St* ls, const St* lf,
+                                  const float* al, const int* il,
+                                  const int* ol, const float* g,
+                                  const float* lz, St* de, St* ds, St* df,
+                                  cudaStream_t s) {
+  static BlockLaunch st;
+  return launch_block_walk(
+      st, backward_grads_kernel<St>, backward_grads_kernel_p<2, St>,
+      backward_grads_kernel_p<4, St>, backward_grads_kernel_p<8, St>,
+      dim3(B), T, s, B, T, U, le, ls, lf, al, il, ol, g, lz, de, ds, df);
+}
+
 // The warp walks take 32-bit offsets.
 bool warp_walk(int B, int T, int U) {
   return T <= kWarpMaxT && (size_t)U * B * T < (size_t{1} << 31);
 }
 
 bool bad_shape(int B, int T, int U) {
-  return B < 0 || U < 0 || T < 1 || T > kMaxT;
+  return B < 0 || U < 0 || T < 1 || T > kMaxT ||
+         (size_t)B * T > (size_t)INT_MAX;
+}
+
+// #1: the warp walk for T <= kWarpMaxT (block walk = 0), else (or with
+// block walk = 1, which only chip_smoke.py and bench_fused.py ask for) the
+// block walk.
+int forward_alphas(int block_walk, int bf16, int B, int T, int U,
+                   const void* le, const void* ls, const void* lf,
+                   void* alphas, void* stream) {
+  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || U == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* a = (float*)alphas;
+  const bool warps = !block_walk && warp_walk(B, T, U);
+  if (bf16) {
+    using S = __nv_bfloat16;
+    const S *e = (const S*)le, *h = (const S*)ls, *f = (const S*)lf;
+    return (int)(warps ? launch_alpha_warps<S>(B, T, U, e, h, f, a, s)
+                       : forward_alphas_blocks<S>(B, T, U, e, h, f, a, s));
+  }
+  const float *e = (const float*)le, *h = (const float*)ls,
+              *f = (const float*)lf;
+  return (int)(warps ? launch_alpha_warps<float>(B, T, U, e, h, f, a, s)
+                     : forward_alphas_blocks<float>(B, T, U, e, h, f, a, s));
+}
+
+// #5, as forward_alphas.
+int backward_grads(int block_walk, int bf16, int B, int T, int U,
+                   const void* le, const void* ls, const void* lf,
+                   const void* alphas, const void* il, const void* ol,
+                   const void* g, const void* logz, void* d_le, void* d_ls,
+                   void* d_lf, void* stream) {
+  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || U == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* al = (const float*)alphas;
+  const int* in_len = (const int*)il;
+  const int* out_len = (const int*)ol;
+  const float* gg = (const float*)g;
+  const float* lz = (const float*)logz;
+  const bool warps = !block_walk && warp_walk(B, T, U);
+  if (bf16) {
+    using S = __nv_bfloat16;
+    const S *e = (const S*)le, *h = (const S*)ls, *f = (const S*)lf;
+    S *de = (S*)d_le, *dh = (S*)d_ls, *df = (S*)d_lf;
+    return (int)(warps ? launch_grads_warps<S>(B, T, U, e, h, f, al, in_len,
+                                               out_len, gg, lz, de, dh, df, s)
+                       : backward_grads_blocks<S>(B, T, U, e, h, f, al,
+                                                  in_len, out_len, gg, lz, de,
+                                                  dh, df, s));
+  }
+  const float *e = (const float*)le, *h = (const float*)ls,
+              *f = (const float*)lf;
+  float *de = (float*)d_le, *dh = (float*)d_ls, *df = (float*)d_lf;
+  return (int)(warps ? launch_grads_warps<float>(B, T, U, e, h, f, al,
+                                                 in_len, out_len, gg, lz, de,
+                                                 dh, df, s)
+                     : backward_grads_blocks<float>(B, T, U, e, h, f, al,
+                                                    in_len, out_len, gg, lz,
+                                                    de, dh, df, s));
 }
 
 }  // namespace
@@ -2324,27 +3073,24 @@ int ssnt_lattice_bidir(int B, int T, int U, const void* le, const void* ls,
   if (warp_walk(B, T, U))
     return (int)launch_bidir_warps(false, B, T, U, e, h, f, in_len, out_len,
                                    a, bt, s);
-  bidir_kernel<<<dim3(B, 2), threads_for(T), 0, s>>>(B, T, U, e, h, f,
-                                                     in_len, out_len, a, bt);
-  return (int)cudaGetLastError();
+  static BlockLaunch st;
+  return (int)launch_block_walk(st, bidir_kernel, bidir_kernel_p<2>,
+                                bidir_kernel_p<4>, bidir_kernel_p<8>,
+                                dim3(B, 2), T, s, B, T, U, e, h, f, in_len,
+                                out_len, a, bt);
 }
 
 int ssnt_lattice_forward_alphas(int bf16, int B, int T, int U, const void* le,
                                 const void* ls, const void* lf, void* alphas,
                                 void* stream) {
-  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || U == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    using S = __nv_bfloat16;
-    forward_alphas_kernel<S><<<B, threads_for(T), 0, s>>>(
-        B, T, U, (const S*)le, (const S*)ls, (const S*)lf, (float*)alphas);
-  } else {
-    forward_alphas_kernel<float><<<B, threads_for(T), 0, s>>>(
-        B, T, U, (const float*)le, (const float*)ls, (const float*)lf,
-        (float*)alphas);
-  }
-  return (int)cudaGetLastError();
+  return forward_alphas(0, bf16, B, T, U, le, ls, lf, alphas, stream);
+}
+
+int ssnt_lattice_forward_alphas_block(int bf16, int B, int T, int U,
+                                      const void* le, const void* ls,
+                                      const void* lf, void* alphas,
+                                      void* stream) {
+  return forward_alphas(1, bf16, B, T, U, le, ls, lf, alphas, stream);
 }
 
 int ssnt_lattice_backward_grads(int bf16, int B, int T, int U, const void* le,
@@ -2353,25 +3099,19 @@ int ssnt_lattice_backward_grads(int bf16, int B, int T, int U, const void* le,
                                 const void* ol, const void* g,
                                 const void* logz, void* d_le, void* d_ls,
                                 void* d_lf, void* stream) {
-  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || U == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* al = (const float*)alphas;
-  const int* in_len = (const int*)il;
-  const int* out_len = (const int*)ol;
-  const float* gg = (const float*)g;
-  const float* lz = (const float*)logz;
-  if (bf16) {
-    using S = __nv_bfloat16;
-    backward_grads_kernel<S><<<B, threads_for(T), 0, s>>>(
-        B, T, U, (const S*)le, (const S*)ls, (const S*)lf, al, in_len,
-        out_len, gg, lz, (S*)d_le, (S*)d_ls, (S*)d_lf);
-  } else {
-    backward_grads_kernel<float><<<B, threads_for(T), 0, s>>>(
-        B, T, U, (const float*)le, (const float*)ls, (const float*)lf, al,
-        in_len, out_len, gg, lz, (float*)d_le, (float*)d_ls, (float*)d_lf);
-  }
-  return (int)cudaGetLastError();
+  return backward_grads(0, bf16, B, T, U, le, ls, lf, alphas, il, ol, g,
+                        logz, d_le, d_ls, d_lf, stream);
+}
+
+int ssnt_lattice_backward_grads_block(int bf16, int B, int T, int U,
+                                      const void* le, const void* ls,
+                                      const void* lf, const void* alphas,
+                                      const void* il, const void* ol,
+                                      const void* g, const void* logz,
+                                      void* d_le, void* d_ls, void* d_lf,
+                                      void* stream) {
+  return backward_grads(1, bf16, B, T, U, le, ls, lf, alphas, il, ol, g,
+                        logz, d_le, d_ls, d_lf, stream);
 }
 
 int ssnt_lattice_backward_betas(int B, int T, int U, const void* le,
@@ -2380,10 +3120,12 @@ int ssnt_lattice_backward_betas(int B, int T, int U, const void* le,
                                 void* stream) {
   if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
   if (B == 0 || U == 0) return 0;
-  backward_betas_kernel<<<B, threads_for(T), 0, (cudaStream_t)stream>>>(
-      B, T, U, (const float*)le, (const float*)ls, (const float*)lf,
-      (const int*)il, (const int*)ol, (float*)betas);
-  return (int)cudaGetLastError();
+  static BlockLaunch st;
+  return (int)launch_block_walk(
+      st, backward_betas_kernel, backward_betas_kernel_p<2>,
+      backward_betas_kernel_p<4>, backward_betas_kernel_p<8>, dim3(B), T,
+      (cudaStream_t)stream, B, T, U, (const float*)le, (const float*)ls,
+      (const float*)lf, (const int*)il, (const int*)ol, (float*)betas);
 }
 
 int ssnt_lattice_bidir_exp(int B, int T, int U, const void* le,
@@ -2400,9 +3142,11 @@ int ssnt_lattice_bidir_exp(int B, int T, int U, const void* le,
   if (warp_walk(B, T, U))
     return (int)launch_bidir_warps(true, B, T, U, e, h, f, in_len, out_len,
                                    a, bt, s);
-  bidir_exp_kernel<<<dim3(B, 2), threads_for(T), 0, s>>>(
-      B, T, U, e, h, f, in_len, out_len, a, bt);
-  return (int)cudaGetLastError();
+  static BlockLaunch st;
+  return (int)launch_block_walk(st, bidir_exp_kernel, bidir_exp_kernel_p<2>,
+                                bidir_exp_kernel_p<4>, bidir_exp_kernel_p<8>,
+                                dim3(B, 2), T, s, B, T, U, e, h, f, in_len,
+                                out_len, a, bt);
 }
 
 int ssnt_lattice_expin(int B, int T, int U, const void* E, const void* S,
@@ -2419,9 +3163,11 @@ int ssnt_lattice_expin(int B, int T, int U, const void* E, const void* S,
   if (warp_walk(B, T, U))
     return (int)launch_expin_warps(B, T, U, e, h, f, m, in_len, out_len, q,
                                    r, mm, nn, s);
-  expin_kernel<<<dim3(B, 2), threads_for(T), 0, s>>>(
-      B, T, U, e, h, f, m, in_len, out_len, q, r, mm, nn);
-  return (int)cudaGetLastError();
+  static BlockLaunch st;
+  return (int)launch_block_walk(st, expin_kernel, expin_kernel_p<2>,
+                                expin_kernel_p<4>, expin_kernel_p<8>,
+                                dim3(B, 2), T, s, B, T, U, e, h, f, m, in_len,
+                                out_len, q, r, mm, nn);
 }
 
 int ssnt_lattice_banded_max_t(int K, int backward) {

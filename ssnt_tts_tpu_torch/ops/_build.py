@@ -66,10 +66,13 @@ BEAM_V1_ARGTYPES = [_I] * 4 + [_P] * 14 + [_P]
 FUSED_V1_ARGTYPES = [_I] * 7 + [_P] * 30 + [_P]
 # ssnt_lattice_bidir(B, T, U, le, ls, lf, il, ol, alphas, betas, stream)
 LATTICE_BIDIR_ARGTYPES = [_I] * 3 + [_P] * 8
-# ssnt_lattice_forward_alphas(bf16, B, T, U, le, ls, lf, alphas, stream)
+# ssnt_lattice_forward_alphas(bf16, B, T, U, le, ls, lf, alphas, stream);
+# ssnt_lattice_forward_alphas_block takes the same (the block walk at any
+# T, for chip_smoke.py and bench_fused.py only)
 LATTICE_FWD_ARGTYPES = [_I] * 4 + [_P] * 5
 # ssnt_lattice_backward_grads(bf16, B, T, U, le, ls, lf, alphas, il, ol,
-#                             g, logz, d_le, d_ls, d_lf, stream)
+#                             g, logz, d_le, d_ls, d_lf, stream);
+# ssnt_lattice_backward_grads_block likewise
 LATTICE_BWD_ARGTYPES = [_I] * 4 + [_P] * 12
 # ssnt_lattice_backward_betas(B, T, U, le, ls, lf, il, ol, betas, stream)
 LATTICE_BETAS_ARGTYPES = [_I] * 3 + [_P] * 7
@@ -183,7 +186,9 @@ def lattice_library() -> ctypes.CDLL:
     return _load("lattice",
                  {"ssnt_lattice_bidir": LATTICE_BIDIR_ARGTYPES,
                   "ssnt_lattice_forward_alphas": LATTICE_FWD_ARGTYPES,
+                  "ssnt_lattice_forward_alphas_block": LATTICE_FWD_ARGTYPES,
                   "ssnt_lattice_backward_grads": LATTICE_BWD_ARGTYPES,
+                  "ssnt_lattice_backward_grads_block": LATTICE_BWD_ARGTYPES,
                   "ssnt_lattice_backward_betas": LATTICE_BETAS_ARGTYPES,
                   "ssnt_lattice_bidir_exp": LATTICE_BIDIR_ARGTYPES,
                   "ssnt_lattice_expin": LATTICE_EXPIN_ARGTYPES,

@@ -31,6 +31,14 @@ version, `<name>_reference`, which repeats the kernel's arithmetic in
 PyTorch column by column. The plain versions are used by the tests and by
 chip_smoke.py, and by nothing on the main path when a card is present.
 
+On the card every kernel takes 1 <= T <= MAX_T (8192) and B * T <=
+MAX_COLUMN (2^31 - 1; check_shape raises ValueError naming the limits
+before any launch): warp walks for T <= 128,
+block walks of up to 8 positions a thread above. The banded kernels keep
+one thread a position, so their limit is banded_max_t(K, backward), the
+threads their registers allow a block (under 1024), named by their
+ValueError; JAX's banded walks have no such limit.
+
 `ssnt_loss_kernels` keeps lattice_pallas._grad_mode's routing: columns
 with B * pad128(T) <= 8192 (the B=32, T=80 training shape) take the
 bidirectional kernel plus the plain-PyTorch posterior pass (XLA
@@ -86,6 +94,12 @@ from ssnt_tts_tpu_torch.ops.lattice import (
 )
 
 _FUSED_MAX_COLUMN_ELEMS = 8192
+# The kernels' source-length limit (csrc/lattice.cu kMaxT, returned by
+# ssnt_lattice_max_t): the block walks hold up to 8 positions a thread in
+# blocks of up to 1024. JAX's Pallas walks have none; 8192 covers every T
+# whose (1, B, pad128(T)) blocks fit _auto_chunk's VMEM budget at B >= 24.
+MAX_T = 8192
+MAX_COLUMN = 2**31 - 1  # B * T: csrc/lattice.cu bad_shape
 _BANDS = (2, 4, 8, 16)  # the banded kernels' K (lattice_pallas's probes)
 _AUTO_BANDED_K = 2      # bare variant="banded"
 _TINY = 1e-30  # floor of an exp-domain normalizer (lattice_pallas._TINY)
@@ -460,6 +474,16 @@ def lattice_backward_grads_banded_reference(le, ls, lf, alphas,
 _STORE = (torch.float32, torch.bfloat16)
 
 
+def check_shape(U: int, B: int, T: int) -> None:
+    """Raise ValueError, naming the limit, unless the kernels take a (U, B,
+    T) lattice: 1 <= T <= MAX_T, U >= 1 and B * T < 2^31 (a column's
+    offsets are 32-bit; no library needed)."""
+    if not 1 <= T <= MAX_T or U < 1 or B * T > MAX_COLUMN:
+        raise ValueError(f"lattice (U={U}, B={B}, T={T}): the lattice "
+                         f"kernels take 1 <= T <= {MAX_T}, U >= 1 and "
+                         f"B * T <= {MAX_COLUMN}")
+
+
 def _cuda_args(le, ls, lf, dtypes):
     """Common checks of a (U, B, T) lattice on the card; returns U, B, T
     and the device."""
@@ -467,9 +491,8 @@ def _cuda_args(le, ls, lf, dtypes):
     if dev.type != "cuda":
         raise ValueError(f"lattice kernels run on cuda or cpu, not {dev}")
     U, B, T = le.shape
+    check_shape(U, B, T)
     lib = _build.lattice_library()
-    if not 1 <= T <= lib.ssnt_lattice_max_t() or U < 1:
-        raise ValueError(f"lattice (U={U}, B={B}, T={T}) exceeds the kernel")
     for name, x in (("le", le), ("ls", ls), ("lf", lf)):
         _build.check_arg(name, x, dtypes, (U, B, T), dev)
     if not le.dtype == ls.dtype == lf.dtype:
@@ -515,7 +538,10 @@ def lattice_bidir(le, ls, lf, input_length, output_length):
 
 
 def lattice_forward_alphas(le, ls, lf):
-    """(U, B, T) f32 or bf16 lattice -> alphas (U, B, T) f32."""
+    """(U, B, T) f32 or bf16 lattice -> alphas (U, B, T) f32. On the card:
+    for T <= 128 (and U * B * T < 2^31) lattice_bidir's forward walk alone
+    (its alphas bit for bit), rows staged in the lattice's dtype; otherwise
+    one block per example (csrc/lattice.cu)."""
     if le.device.type == "cpu":
         return lattice_forward_alphas_reference(le, ls, lf)
     lib, U, B, T, dev = _cuda_args(le, ls, lf, _STORE)
@@ -532,7 +558,11 @@ def lattice_backward_grads(le, ls, lf, alphas, input_length, output_length,
                            g, logz):
     """(U, B, T) lattice (f32 or bf16) + f32 alphas, (B,) int32 lengths,
     (B,) f32 upstream cotangent g and logz -> (d_le, d_ls, d_lf) in the
-    lattice's dtype."""
+    lattice's dtype. On the card: for T <= 128 (and U * B * T < 2^31) a
+    block per example of a loader warp, ceil(T / 32) warps walking the
+    betas (lattice_bidir's beta walk) and ceil(T / 32) warps that form and
+    store the posteriors beside them; otherwise one block per example
+    (csrc/lattice.cu)."""
     if le.device.type == "cpu":
         return lattice_backward_grads_reference(
             le, ls, lf, alphas, input_length, output_length, g, logz)
@@ -620,7 +650,10 @@ def lattice_expin(E, S, F, mcol, input_length, output_length):
 
 
 @functools.lru_cache(maxsize=None)
-def _banded_max_t(K: int, backward: int) -> int:
+def banded_max_t(K: int, backward: int) -> int:
+    """The largest T the K-banded forward (backward 0) or backward (1)
+    kernels take on the card: the threads their registers allow a block,
+    one thread a position (below MAX_T)."""
     return _build.lattice_library().ssnt_lattice_banded_max_t(K, backward)
 
 
@@ -628,8 +661,10 @@ def _banded_args(le, ls, lf, K: int, backward: int):
     """_cuda_args for a K-banded kernel, whose registers may cap T below
     the other kernels' limit (asked once per K and direction)."""
     lib, U, B, T, dev = _cuda_args(le, ls, lf, torch.float32)
-    if T > _banded_max_t(K, backward):
-        raise ValueError(f"lattice T={T} exceeds the K={K} banded kernel")
+    limit = banded_max_t(K, backward)
+    if T > limit:
+        raise ValueError(f"lattice T={T}: the K={K} banded kernel takes "
+                         f"T <= {limit}")
     return lib, U, B, T, dev
 
 

@@ -52,8 +52,11 @@ STORES = [
      "for (int j = 0; j < V; ++j) " + KEEP),
     ("if (w.t0 + j < w.T) dst[j] = x[j];", KEEP),
 ]
+# The vector copy's text in either form of stage_round (before and after
+# its rows took the storage type: a copy of 4 V or of N bytes).
 COPIES = [
-    (f"cp_async_zfill<4 * V>(rows[{i}] + w.t0, {x} + o, n);", "")
+    ((f"cp_async_zfill<4 * V>(rows[{i}] + w.t0, {x} + o, n);",
+      f"cp_async_zfill<N>(rows[{i}] + w.t0, {x} + o, n);"), "")
     for i, x in enumerate("ESF")
 ] + [
     (f"cp_async_zfill<4>(rows[{i}] + w.t0 + k, {x} + o + k, n);", "")
@@ -80,10 +83,14 @@ FLOAT_DIV = [("p[j] = div_rn(x[k][j], rn);", "p[j] = x[k][j] / norm[k];"),
 
 
 def ablate(src: str, edits) -> str:
+    """src with each edit (old, new) made; old may be a tuple of texts of
+    which the first found is replaced."""
     for old, new in edits:
-        if old not in src:
+        found = [o for o in (old if isinstance(old, tuple) else (old,))
+                 if o in src]
+        if not found:
             raise SystemExit(f"probe_bidir: anchor not found: {old!r}")
-        src = src.replace(old, new)
+        src = src.replace(found[0], new)
     return src
 
 

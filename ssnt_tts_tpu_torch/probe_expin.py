@@ -47,20 +47,26 @@ RENORM = [
     ("if (k == kRenorm - 1) norm[0] = warp_renorm<V, kVec>(w, b[k]);",
      "norm[0] = 1.0f;"),
 ]
+# The vector copies in either form of stage_round (a copy of 4 V bytes, or
+# of N since its rows took the storage type).
 COPIES = [
-    ("cp_async_zfill<4 * V>(rows[0] + w.t0, E + o, n);", ""),
-    ("cp_async_zfill<4 * V>(rows[1] + w.t0, S + o, n);", ""),
-    ("cp_async_zfill<4 * V>(rows[2] + w.t0, F + o, n);", ""),
+    ((f"cp_async_zfill<4 * V>(rows[{i}] + w.t0, {x} + o, n);",
+      f"cp_async_zfill<N>(rows[{i}] + w.t0, {x} + o, n);"), "")
+    for i, x in enumerate("ESF")
 ]
 ABLATIONS = {"no stores": STORES, "no renorm": RENORM, "no copies": COPIES,
              "chain alone": STORES + RENORM + COPIES}
 
 
 def ablate(src: str, edits) -> str:
+    """src with each edit (old, new) made; old may be a tuple of texts of
+    which the first found is replaced."""
     for old, new in edits:
-        if old not in src:
+        found = [o for o in (old if isinstance(old, tuple) else (old,))
+                 if o in src]
+        if not found:
             raise SystemExit(f"probe_expin: anchor not found: {old!r}")
-        src = src.replace(old, new)
+        src = src.replace(found[0], new)
     return src
 
 

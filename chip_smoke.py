@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training (log and exp
-domains), tone and v1 paths and the banded lattice loss on one NVIDIA
-GPU.
+domains), tone and v1 paths, the banded lattice loss and the distributed
+training step on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -162,7 +162,35 @@ weights, in phases, each reported on its own line:
      B=8 ("plain"); ValueError at MAX_T + 1, the C side's limit equal to
      the wrapper's; each banded K's limit (banded_max_t) run at the limit
      against the plain versions bit for bit and refused (ValueError) at
-     the limit + 32.
+     the limit + 32;
+ 25. distribution (the sharded train step, the T-sharded lattice ring
+     and the decodes over data shards), at B=32 global on ragged lengths
+     sorted longest first (data rank 0 holds more tokens): (a) NCCL, one
+     rank, in this process: three sharded steps on a 1x1 mesh against
+     three train_steps from the same state, losses and parameters bit
+     for bit, the all_reduces a step; (b) four ranks of
+     ssnt_tts_tpu_torch.dryrun started with torch.multiprocessing
+     ("spawn"; they load the libraries built above), on gloo with every
+     rank on cuda:0 (NCCL one rank a card when there are four cards):
+     the gloo operations the port calls, on the tensors it hands them
+     (a 2-rank probe: the collectives on CUDA tensors, send / recv
+     through host memory), three
+     sharded steps on a 2x2 mesh with lattice_tshard_min_cells=0 (the
+     ring: T=80 over 2 shards, K=16) and three with it off against the
+     one-process step (losses rtol 2e-4; parameters and grad_norm bit for
+     bit the one-process step over the same two row halves,
+     dryrun.halves_step, with its lattices on a one-rank ring when the
+     ring is on; the count of parameters outside rtol 2e-3 / atol 2e-5 of
+     the whole-batch step reported), the ring's hops, the kernel launches
+     of every rank, the ring alone bit for bit ops/lattice.ssnt_loss at
+     U=400, B=16 and its fwd+bwd time, and the v2 (fused and plain
+     routes), tone and v1
+     decodes over data shards gathered and gated as phases 4 and 16 gate
+     theirs, each rank's outputs bit for bit a one-process decode of the
+     same rows, and their agreement with a one-process decode of the
+     whole batch (not gated; beside it the plain routes' agreement in
+     the bf16 model and in a float32 one).
+     Every spawned group has a 300 s deadline.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -2688,6 +2716,393 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
     } for name, (src, rep, n, err) in meta.items()]
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: distribution (the sharded train step, the T-sharded lattice ring
+# and the decodes over data shards)
+# ---------------------------------------------------------------------------
+
+# Sharded step against one process on the same global batch: JAX's own
+# tolerances (tests/test_parallel.py). Its parameter tolerance is met after
+# a step at learning rate 0 (JAX's test takes one); after a step at lr > 0
+# the one-process step misses it against itself with its batch split in
+# two (Adam turns near-zero gradients' rounding into steps of up to ~lr),
+# so phase 25b gates parameters bit for bit against that split step and
+# reports the count outside this tolerance.
+DIST_LOSS_RTOL, DIST_PARAM_RTOL, DIST_PARAM_ATOL = 2e-4, 2e-3, 2e-5
+# Every spawned group's deadline (its collectives time out after it too).
+DIST_TIMEOUT_S = 300
+
+
+def dist_batches(cfg, seed: int, n: int) -> list:
+    """n synthetic global batches of B (ragged lengths), rows sorted by
+    input length, longest first: the first data rank holds more tokens
+    than the second."""
+    from ssnt_tts_tpu_torch import data as data_lib
+
+    ds = data_lib.SyntheticTTSDataset(vocab_size=cfg.vocab_size,
+                                      mel_dim=cfg.mel_dim, seed=seed + 5)
+    out = []
+    for _ in range(n):
+        b = {k: v for k, v in ds.batch(B).items() if k != "alignment"}
+        order = np.argsort(-b["input_length"], kind="stable")
+        out.append({k: v[order] for k, v in b.items()})
+    return out
+
+
+def params_outside(got: dict, want: dict) -> tuple:
+    """(entries outside DIST_PARAM_RTOL / ATOL, entries, largest
+    |difference|) of two parameter dicts."""
+    bad = n = 0
+    worst = 0.0
+    for k, w in want.items():
+        g = torch.as_tensor(got[k]).float()
+        w = w.detach().cpu().float()
+        d = (g - w).abs()
+        bad += int((d > DIST_PARAM_ATOL + DIST_PARAM_RTOL * w.abs()).sum())
+        n += w.numel()
+        worst = max(worst, float(d.max()))
+    return bad, n, worst
+
+
+def distribution_phase(seed: int, dev, smi: str) -> None:
+    """Phase 25: (a) NCCL, one rank, in this process: three sharded steps
+    (mesh 1x1) against three train_steps from the same state, bit for bit;
+    (b) four ranks (gloo on the one card, each on cuda:0; NCCL one rank a
+    card when there are four cards): the gloo operations on the tensors
+    the port hands them, three sharded steps on a 2x2 mesh with the
+    T-sharded ring and three without against the one-process step, the
+    ring alone against the plain lattice loss, the four decodes over data
+    shards against one-process decodes, every rank's launches."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from ssnt_tts_tpu_torch import dryrun
+    from ssnt_tts_tpu_torch.ops import lattice as lattice_ops
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+    from ssnt_tts_tpu_torch.ops import lattice_sharded
+    from ssnt_tts_tpu_torch.parallel import decode as decode_lib
+    from ssnt_tts_tpu_torch.parallel import mesh as mesh_lib
+    from ssnt_tts_tpu_torch.parallel import multihost
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+    from ssnt_tts_tpu_torch.utils.config import (
+        MeshConfig, ModelConfig, TrainConfig)
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dist"
+    work.mkdir(parents=True, exist_ok=True)
+    cfg = ModelConfig(**SERVE_CFG)
+    tcfg = TrainConfig(warmup_steps=2, batch_size=B)
+    batches = dist_batches(cfg, seed, 3)
+    tokens = [int(b["input_length"][:B // 2].sum()) for b in batches]
+    log(f"[25 dist] global batches B={B} T={T} U={U} bf16, rows sorted by "
+        f"input length: data rank 0 holds {tokens} of "
+        f"{[int(b['input_length'].sum()) for b in batches]} tokens")
+
+    # ---- (a) NCCL, one rank, in this process ----
+    store = work / "nccl_rendezvous"
+    store.unlink(missing_ok=True)
+    multihost.initialize(f"file://{store}", 1, 0, backend="nccl",
+                         timeout_s=DIST_TIMEOUT_S)
+    try:
+        mesh = mesh_lib.make_mesh(MeshConfig(1, 1), device=dev)
+        sharded = train_lib.init_train_state(cfg, tcfg, seed=seed,
+                                             device=dev)
+        plain = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
+        tx = train_lib.make_optimizer(tcfg)
+        step_fn, sharded = train_lib.make_sharded_train_step(tx, mesh,
+                                                             sharded)
+        for k in lk.KERNELS:
+            k.launches = 0
+        ms = {"sharded": [], "train_step": []}
+        for b in batches:
+            batch = to_device(b, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m_s = step_fn(sharded, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, m_p = train_lib.train_step(tx, plain, batch)
+            torch.cuda.synchronize()
+            ms["sharded"].append((t1 - t0) * 1e3)
+            ms["train_step"].append((time.perf_counter() - t1) * 1e3)
+            if {k: float(v) for k, v in m_s.items()} != {
+                    k: float(v) for k, v in m_p.items()}:
+                raise AssertionError(f"25a: metrics differ: {m_s} vs {m_p}")
+        launches = lattice_counts()
+        for (k, a), b in zip(sharded.model.state_dict().items(),
+                             plain.model.state_dict().values()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"25a: parameter {k} differs")
+    finally:
+        dist.destroy_process_group()
+    if launches != (6, 0, 0, 0, 0, 0, 0, 0):
+        raise AssertionError(f"25a: launches {LAUNCH_NAMES} {launches}")
+    log(f"[25a nccl] backend {mesh.backend}, mesh 1x1, 3 sharded steps vs "
+        f"3 train_steps from the same state: losses and every parameter bit "
+        f"for bit (loss {float(m_s['loss']):.6f}); "
+        f"{step_fn.all_reduces // 3} all_reduces a step (the normalizers, "
+        f"then gradients + metrics in one flat buffer); launches "
+        f"{LAUNCH_NAMES} {launches}")
+    log(f"[25a time] {smi}: step ms (host clock), sharded "
+        + " ".join(f"{x:.1f}" for x in ms["sharded"]) + ", train_step "
+        + " ".join(f"{x:.1f}" for x in ms["train_step"]))
+
+    # ---- (b) four ranks ----
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+    log(f"[25b dist] {cards} card(s): four ranks on {backend}"
+        + (", one rank a card" if backend == "nccl" else
+           ", every rank on cuda:0"))
+    if backend == "gloo":
+        table = dryrun.launch("probe", {"mesh": (2, 1)}, 2, work / "probe",
+                              backend="gloo", timeout=DIST_TIMEOUT_S)[0]
+        log(f"[25b probe] gloo, 2 ranks on cuda:0: all_reduce "
+            f"{table['all_reduce']}, all_gather {table['all_gather']}, "
+            f"broadcast {table['broadcast']} on CUDA tensors; send/recv "
+            f"{table['send_recv']} on {table['send_recv_tensors']} tensors:"
+            f" the ring's hops go through host memory explicitly "
+            f"(Mesh.stage_p2p; gloo's send of a CUDA tensor aborts the "
+            f"process); the compute stays on the card")
+    # One-process references on the same global batches: train_step on
+    # the whole batch, and the same step over the two data ranks' row
+    # halves (gradients summed in one process: a data group's sum), with
+    # the lattice on the plain route and on a one-rank ring.
+    ref = {}
+    for name in ("whole", "halves", "halves_ring"):
+        st = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
+        txr = train_lib.make_optimizer(tcfg)
+        ms = []
+        for b in batches:
+            batch = to_device(b, dev)
+            m = (train_lib.train_step(txr, st, batch)[1] if name == "whole"
+                 else dryrun.halves_step(txr, st, batch,
+                                         ring=name == "halves_ring")[1])
+            ms.append({k: float(v) for k, v in m.items()})
+        ref[name] = (ms, st.model.state_dict())
+
+    runs = [{"cfg": dataclasses.replace(cfg, lattice_tshard_min_cells=mc),
+             "tcfg": tcfg, "seed": seed, "batches": batches}
+            for mc in (0, None)]
+    t0 = time.perf_counter()
+    ranks = dryrun.launch("steps", {"mesh": (2, 2), "runs": runs,
+                                    "ring": (U, B // 2, T)}, 4,
+                          work / "steps", backend=backend,
+                          timeout=DIST_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    K = lattice_sharded._pick_block(U)
+    hops = lattice_sharded.hops_per_walk(U, 2, K)
+    whole_loss = [m["loss"] for m in ref["whole"][0]]
+    for r in ranks:
+        for run, ring in zip(r["runs"], (True, False)):
+            what = f"25b rank {r['rank']} T-shard {'on' if ring else 'off'}"
+            losses = [s["metrics"]["loss"] for s in run["steps"]]
+            if not np.allclose(losses, whole_loss, rtol=DIST_LOSS_RTOL,
+                               atol=0):
+                raise AssertionError(f"{what}: losses {losses} vs one "
+                                     f"process {whole_loss}")
+            split = ref["halves_ring" if ring else "halves"]
+            norms = [s["metrics"]["grad_norm"] for s in run["steps"]]
+            if norms != [m["grad_norm"] for m in split[0]] or not all(
+                    torch.equal(torch.as_tensor(run["params"][k]), v.cpu())
+                    for k, v in split[1].items()):
+                raise AssertionError(
+                    f"{what}: grad_norm {norms} or parameters not bit for "
+                    f"bit the one-process step over the two row halves"
+                    + (" on a one-rank ring" if ring else ""))
+            run["outside"] = params_outside(run["params"], ref["whole"][1])
+            for s in run["steps"]:
+                want_ring = {"hops_forward": hops, "hops_backward": hops,
+                             "all_reduce": 1, "all_gather": 1} if ring else {
+                    "hops_forward": 0, "hops_backward": 0, "all_reduce": 0,
+                    "all_gather": 0}
+                bidir = s["launches"]["lattice_bidir"]
+                others = sum(v for k, v in s["launches"].items()
+                             if k != "lattice_bidir")
+                if (s["ring"] != want_ring or s["all_reduces"] != 2
+                        or bidir != (0 if ring else 1) or others):
+                    raise AssertionError(
+                        f"{what}: ring {s['ring']}, all_reduces "
+                        f"{s['all_reduces']}, launches {s['launches']}")
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for run, run0 in zip(r["runs"], r0["runs"]):
+            if not all(np.array_equal(run["params"][k], v)
+                       for k, v in run0["params"].items()):
+                raise AssertionError(f"25b: rank {r['rank']}'s parameters "
+                                     f"differ from rank 0's")
+        if not all(np.array_equal(a, b) for a, b in zip(
+                r["ring"]["grads"], r0["ring"]["grads"])):
+            raise AssertionError(f"25b: rank {r['rank']}'s ring gradients "
+                                 f"differ from rank 0's")
+    floor = params_outside({k: v.cpu() for k, v in
+                            ref["halves"][1].items()}, ref["whole"][1])
+    fmt = lambda xs: " ".join(f"{x:.6f}" for x in xs)
+    on, off = ([s["metrics"]["loss"] for s in run["steps"]]
+               for run in r0["runs"])
+    log(f"[25b steps] {backend}, mesh 2x2, 4 ranks ({secs:.1f}s with "
+        f"start-up): three steps with lattice_tshard_min_cells=0 (T={T} "
+        f"over 2 shards, K={K}, {hops} hops a forward and {hops} a "
+        f"backward, one group sum, one all_gather; no lattice kernel "
+        f"launch) and three with it off (one lattice_bidir launch a step at "
+        f"local B={B // 2}); losses against the one-process step (rtol "
+        f"{DIST_LOSS_RTOL}): on {fmt(on)}, off {fmt(off)}, one process "
+        f"{fmt(whole_loss)}; parameters and grad_norm bit for bit the "
+        f"one-process step over the same two row halves (T-shard on: its "
+        f"lattices on a one-rank ring, the same dispatch and float32 "
+        f"upcast); 2 all_reduces a step; "
+        f"every rank's parameters equal; ring send/recv through host "
+        f"memory: {r0['stage_p2p']}")
+    log(f"[25b steps] parameters after the steps outside rtol "
+        f"{DIST_PARAM_RTOL} / atol {DIST_PARAM_ATOL} of the one-process "
+        f"step on the whole batch (not gated; JAX's tolerance, whose test "
+        f"takes one step at learning rate 0): T-shard on "
+        f"{r0['runs'][0]['outside'][0]}, off {r0['runs'][1]['outside'][0]}"
+        f", the one-process step over the two row halves {floor[0]} of "
+        f"{floor[1]} (largest |d| {r0['runs'][0]['outside'][2]:.2e} / "
+        f"{r0['runs'][1]['outside'][2]:.2e} / {floor[2]:.2e}): Adam turns "
+        f"the rounding of near-zero gradients into steps of up to ~lr")
+    xs, il, ol = dryrun.ring_inputs(U, B // 2, T, dev)
+    leaves = [x.clone().requires_grad_() for x in xs]
+    want = lattice_ops.ssnt_loss(*leaves, il, ol, layout="ubt")
+    want.sum().backward()
+    want = want.detach()
+    got = r0["ring"]
+    got = [torch.as_tensor(x).to(dev) for x in [got["loss"]] + got["grads"]]
+    if not all(torch.equal(a, b) for a, b in zip(
+            got, [want] + [x.grad for x in leaves])):
+        raise AssertionError("25b ring: loss or gradients not bit for bit "
+                             "ops/lattice.ssnt_loss's")
+    log(f"[25b ring] ssnt_loss_tsharded fwd+bwd at U={U} B={B // 2} T={T} "
+        f"over 2 shards, ragged lengths: loss and gradients bit for bit "
+        f"ops/lattice.ssnt_loss's (plain, one process; the ring runs its "
+        f"column and posterior code on each slice); every rank's whole-T "
+        f"gradients equal")
+    for r in ranks:
+        log(f"[25b time] {smi}: rank {r['rank']} (data {r['data']}, model "
+            f"{r['model']}) step ms (host clock) T-shard on "
+            + " ".join(f"{s['ms']:.1f}" for s in r["runs"][0]["steps"])
+            + ", off " + " ".join(f"{s['ms']:.1f}" for s in
+                                  r["runs"][1]["steps"])
+            + f"; ring fwd+bwd alone U={U} B={B // 2} T={T} over 2 shards "
+            f"{r['ring']['ms']:.1f} ms ({2 * hops} hops)")
+
+    # The four decodes over data shards.
+    rng = np.random.default_rng(seed + 6)
+    toks, il, ol = (x.cpu().numpy() for x in make_request(
+        rng, cfg.vocab_size, dev))
+    job = {"mesh": (2, 2), "cfg": cfg, "seed": seed,
+           "batch": {"tokens": toks, "input_length": il,
+                     "output_length": ol},
+           "beam_width": W, "max_frames": U}
+    t0 = time.perf_counter()
+    dec = dryrun.launch("decode", job, 4, work / "decode", backend=backend,
+                        timeout=DIST_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    model = dryrun.make_model(cfg, None, seed, dev)
+    req = tuple(torch.as_tensor(x, device=dev) for x in (toks, il, ol))
+    halves_rows = (slice(0, B // 2), slice(B // 2, B))
+
+    def decodes(model_, toks_, il_, ol_, names=None) -> dict:
+        routes = dryrun.decode_routes(model_, toks_, il_, ol_, W, U)
+        with torch.no_grad():
+            return {k: f() for k, f in routes.items()
+                    if names is None or k in names}
+
+    want = decodes(model, *req)
+    halves = [decodes(model, *(x[rows] for x in req))
+              for rows in halves_rows]
+    expect = {"v2": ("fused_class_beam_step", T), "v2_plain": (None, 0),
+              "tone": ("fused_tone_step", T),
+              "v1": ("fused_v1_beam_step", U)}
+    for r in dec:
+        for name, (kern, n) in expect.items():
+            got = r[name + "_launches"]
+            if (kern and got[kern] != n) or sum(got.values()) != n:
+                raise AssertionError(f"25b decode rank: {name} launches "
+                                     f"{got}")
+    parts = dec[::2]  # the model-axis 0 rank of each data rank
+    if [p["rows"] for p in parts] != [slice(0, B // 2), slice(B // 2, B)]:
+        raise AssertionError("25b decode: rows")
+    gathered = {name: {k: torch.as_tensor(np.concatenate(
+        [p[name][k] for p in parts])).to(dev) for k in want[name]}
+        for name in want}
+    for name in want:
+        for k in want[name]:
+            one = torch.cat([h[name][k] for h in halves])
+            if not torch.equal(gathered[name][k], one):
+                raise AssertionError(f"25b decode {name}: {k} differs from "
+                                     f"a one-process decode of the rows")
+    il_t, ol_t = req[1], req[2]
+    shares = {}
+    for name in ("v2", "v2_plain"):
+        out = gathered[name]
+        ok = ~out["beam_emptied"]
+        if int(ok.sum()) == 0:
+            raise AssertionError(f"25b {name}: every utterance emptied")
+        if not bool((out["output_length"][ok] == ol_t[ok, None]).all()):
+            raise AssertionError(f"25b {name}: a non-emptied utterance's "
+                                 f"beams miss their output length")
+        lp = out["log_prob"][ok]
+        if not bool((lp[:, 0] == lp.max(dim=1).values).all()):
+            raise AssertionError(f"25b {name}: slot 0 is not the best")
+        shares[name] = (float((out["durations"] == want[name]["durations"])
+                              .all(2).all(1).float().mean()),
+                        int(out["beam_emptied"].sum()))
+    check_tones("25b", gathered["tone"], il_t, cfg.tone_class_size, W)
+    shares["tone"] = float((gathered["tone"]["tones"][:, 0] ==
+                            want["tone"]["tones"][:, 0]).all(1).float()
+                           .mean())
+    check_v1_request("25b v1", gathered["v1"], il_t, W)
+    shares["v1"] = float((gathered["v1"]["alignment"] ==
+                          want["v1"]["alignment"]).all(1).float().mean())
+    log(f"[25b decode] {backend}, 4 ranks ({secs:.1f}s with start-up), each "
+        f"data rank's {B // 2} rows, beams rank-local, W={W}: launches a "
+        f"rank v2 {T} #14, plain 0, tone {T} #14, v1 {U} #15 (asserted); "
+        f"gathered outputs pass the request gates (v2: exact-length "
+        f"landing, emptied {shares['v2'][1]} fused / {shares['v2_plain'][1]}"
+        f" plain of {B}; v1: steps 0/1, finite mel, slot 0 best); agreement "
+        f"with one process on the same route (not gated: bf16 products at "
+        f"B={B // 2} and B={B} may round differently; every output equals "
+        f"a one-process decode of the same {B // 2} rows bit for bit): v2 "
+        f"durations "
+        f"{shares['v2'][0]:.3f}, v2 plain {shares['v2_plain'][0]:.3f}, "
+        f"tone best beam {shares['tone']:.3f}, v1 alignment "
+        f"{shares['v1']:.3f}")
+
+    # A witness for the cause of those shares: the plain routes, in the
+    # bf16 model and in a float32 one (same weights, no TF32), the whole
+    # batch against its two halves decoded apart in this process.
+    def plain_routes(model_, toks_, il_, ol_) -> dict:
+        kw = dict(fuse_model=False, use_pallas=False)
+        with torch.no_grad():
+            return {
+                "v2": decode_lib.v2_duration_decode(
+                    model_, toks_, il_, ol_, cfg.duration_table,
+                    beam_width=W, max_frames=U, **kw)["durations"],
+                "tone": decode_lib.tone_decode(
+                    model_, toks_, il_, beam_width=W, **kw)["tones"][:, 0],
+                "v1": decode_lib.beam_decode(
+                    model_, toks_, il_, max_frames=U, beam_width=W,
+                    **kw)["alignment"],
+            }
+
+    witness = {}
+    for dt in ("bfloat16", "float32"):
+        m_ = dryrun.make_model(dataclasses.replace(cfg, dtype=dt), None,
+                               seed, dev)
+        whole = plain_routes(m_, *req)
+        parts_ = [plain_routes(m_, *(x[rows] for x in req))
+                  for rows in halves_rows]
+        same = {k: (torch.cat([p[k] for p in parts_]) == v).reshape(B, -1)
+                for k, v in whole.items()}
+        witness[dt] = " ".join(f"{k} {float(x.all(1).float().mean()):.3f}"
+                               for k, x in same.items())
+    log(f"[25b witness] plain routes, B={B} decoded at once against its "
+        f"two halves of {B // 2} decoded apart (one process, W={W}), "
+        f"agreement (not gated): bf16 model {witness['bfloat16']}; float32"
+        f" model {witness['float32']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2852,6 +3267,7 @@ def main() -> int:
     kernels += exp_phases(args.seed, dev, smi)
     kernels += banded_phases(args.seed, dev, smi)
     long_phase(args.seed, dev)
+    distribution_phase(args.seed, dev, smi)
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

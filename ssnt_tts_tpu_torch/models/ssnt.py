@@ -35,7 +35,7 @@ from ssnt_tts_tpu_torch.models.encoder import (
     TextEncoder,
 )
 from ssnt_tts_tpu_torch.models.layers import length_mask
-from ssnt_tts_tpu_torch.ops import lattice, lattice_kernels
+from ssnt_tts_tpu_torch.ops import lattice, lattice_kernels, lattice_sharded
 from ssnt_tts_tpu_torch.utils.config import ModelConfig
 from ssnt_tts_tpu_torch.utils.device import resolve_device
 
@@ -65,21 +65,35 @@ def lattice_loss(impl: str, lattice_dtype: str, quantities, input_length,
     domain's kernel route is the exp-native loss (lattice_expin); its plain
     route takes logs, log(max(x, 1e-38)) with lf = log(max(F, 1e-38)) +
     mcol, and runs the plain log-domain loss, as JAX's dispatch_exp
-    does off the TPU."""
+    does off the TPU.
+
+    Under an active ops/lattice_sharded.tshard_lattice context whose
+    threshold the lattice meets, either domain goes to the T-sharded ring
+    in float32 (the exp domain log-ified as above), as JAX's dispatch
+    does."""
     if impl not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown lattice_impl {impl!r}")
+    U, B, T = quantities[0].shape
+    ts = lattice_sharded.active_tshard(U, B, T)
     kernels = impl == "pallas" or (impl == "auto"
                                    and quantities[0].is_cuda)
     if lattice_domain == "exp":
-        if kernels:
+        if kernels and ts is None:
             return lattice_kernels.ssnt_loss_expin_kernels(
                 *quantities, input_length, output_length)
         E, S, F, mcol = quantities
         logs = [torch.log(torch.clamp(x.float(), min=1e-38))
                 for x in (E, S, F)]
         logs[2] = logs[2] + mcol[:, :, None]
+        if ts is not None:
+            return lattice_sharded.ssnt_loss_tsharded(
+                *logs, input_length, output_length, ts[0], axis=ts[1])
         return lattice.ssnt_loss(*logs, input_length, output_length,
                                  layout="ubt")
+    if ts is not None:
+        return lattice_sharded.ssnt_loss_tsharded(
+            *(x.float() for x in quantities), input_length, output_length,
+            ts[0], axis=ts[1])
     if not kernels:
         return lattice.ssnt_loss(*quantities, input_length, output_length,
                                  layout="ubt")
@@ -87,6 +101,21 @@ def lattice_loss(impl: str, lattice_dtype: str, quantities, input_length,
     return lattice_kernels.ssnt_loss_kernels(
         *quantities, input_length, output_length, variant=variant,
         layout="ubt")
+
+
+def token_mask(tokens, input_length=None) -> torch.Tensor:
+    """(B, T) bool: the positions inside each utterance."""
+    B, T = tokens.shape
+    if input_length is None:
+        return torch.ones(B, T, dtype=torch.bool, device=tokens.device)
+    return length_mask(input_length, T)
+
+
+def loss_normalizers(tokens, input_length=None) -> torch.Tensor:
+    """(2,) int64 [batch size, valid tokens]: what SSNTModel.loss divides
+    by."""
+    return torch.stack([torch.tensor(tokens.shape[0], device=tokens.device),
+                        token_mask(tokens, input_length).sum()])
 
 
 class SSNTModel(nn.Module):
@@ -97,10 +126,6 @@ class SSNTModel(nn.Module):
     def __init__(self, config: ModelConfig, *, device=None):
         super().__init__()
         cfg = self.config = config
-        if cfg.lattice_tshard_min_cells is not None:
-            raise NotImplementedError(
-                "lattice_tshard_min_cells: the T-sharded lattice is not "
-                "ported yet (ROADMAP.md, Queue 1: the distribution slice)")
         dt = self.dtype = compute_dtype(cfg)
         ldt = _dtype(cfg.lattice_dtype, "lattice dtype")
         He, H = cfg.encoder_dim, cfg.decoder_dim
@@ -171,12 +196,20 @@ class SSNTModel(nn.Module):
         return self._nll(enc, mel_target, input_length, output_length)
 
     def loss(self, tokens, mel_target, input_length=None, output_length=None,
-             duration_target=None, tone_target=None):
+             duration_target=None, tone_target=None, *, batch_size=None,
+             token_count=None):
         """Total training loss (0-d) + metrics dict of 0-d tensors.
 
         Auxiliary heads train from optional (B, T) int targets, masked by
         input_length: durations (teacher-forced AR CE, and the duration
-        lattice when config.use_duration_lattice) and tones."""
+        lattice when config.use_duration_lattice) and tones.
+
+        The per-frame NLLs are summed over the batch and divided by
+        batch_size, the token NLLs by token_count (a 0-d int tensor);
+        by default this batch's own (loss_normalizers), as JAX's mean over
+        the batch and sum over its valid tokens. A data-parallel rank
+        passes the global batch's, so that the ranks' losses sum to the
+        global batch's loss (parallel/train.make_sharded_train_step)."""
         B, U, _ = mel_target.shape
         T = tokens.shape[1]
         dev = mel_target.device
@@ -186,14 +219,15 @@ class SSNTModel(nn.Module):
             frames = torch.full((B,), float(U), device=dev)
         else:
             frames = output_length.float()
-        loss = torch.mean(nll / frames.clamp(min=1.0))
+        if batch_size is None:
+            batch_size = B
+        loss = (nll / frames.clamp(min=1.0)).sum() / batch_size
         metrics = {"nll_per_frame": loss}
 
-        if input_length is not None:
-            tmask = length_mask(input_length, T)
-        else:
-            tmask = torch.ones(B, T, dtype=torch.bool, device=dev)
-        denom = tmask.sum().clamp(min=1)
+        tmask = token_mask(tokens, input_length)
+        if token_count is None:
+            token_count = tmask.sum()
+        denom = token_count.clamp(min=1)
 
         def masked_ce(logp, target):
             nll_t = -torch.gather(logp, -1, target.long()[..., None])[..., 0]
@@ -210,7 +244,8 @@ class SSNTModel(nn.Module):
             dur_lat_nll = lattice.ssnt_duration_loss(
                 self._head_log_probs(self.duration_head, enc),
                 cfg.duration_table, input_length, output_length)
-            dur_lat = torch.mean(dur_lat_nll / frames.clamp(min=1.0))
+            dur_lat = ((dur_lat_nll / frames.clamp(min=1.0)).sum()
+                       / batch_size)
             loss = loss + cfg.duration_lattice_weight * dur_lat
             metrics["duration_lattice_nll_per_frame"] = dur_lat
         if tone_target is not None:

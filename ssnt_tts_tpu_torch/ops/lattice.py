@@ -59,6 +59,15 @@ def shift_up_t(x, fill=NEG, k=1):
     return torch.cat([x[..., k:], torch.full_like(x[..., :k], fill)], dim=-1)
 
 
+def shift_up_from(x, right=None):
+    """shift_up_t(x) with `right` (x without its T axis) at the last t in
+    place of the fill: the first column of the next slice of T, when x is
+    one slice (ops/lattice_sharded). right=None: shift_up_t(x)."""
+    if right is None:
+        return shift_up_t(x)
+    return torch.cat([x[..., 1:], right[..., None]], dim=-1)
+
+
 def _forward_alphas(le, ls, lf):
     """All alpha columns. (U, B, T) inputs -> alphas (U, B, T)."""
     U, B, T = le.shape
@@ -74,6 +83,17 @@ def _forward_alphas(le, ls, lf):
     return torch.stack(cols, dim=0)
 
 
+def beta_column(le_u, ls_u, lf_next, beta, init_col, at_last_u, right=None):
+    """One column of the beta recursion: beta_u from beta_{u+1} and
+    lf_{u+1} (B, T), re-initialized to init_col where at_last_u. right:
+    lf_{u+1} + beta_{u+1} at the position after the last (NEG when
+    None)."""
+    emit_cont = le_u + lf_next + beta
+    shift_cont = ls_u + shift_up_from(lf_next + beta, right)
+    return torch.where(at_last_u, init_col,
+                       logaddexp(emit_cont, shift_cont))
+
+
 def _backward_betas(le, ls, lf, input_length, output_length):
     """All beta columns, re-initialized per example at u == output_length-1.
     (U, B, T) inputs -> betas (U, B, T)."""
@@ -85,38 +105,49 @@ def _backward_betas(le, ls, lf, input_length, output_length):
     beta_col, lf_next = neg, neg
     cols = []
     for u in range(U - 1, -1, -1):
-        le_u, ls_u = le[u], ls[u]
-        emit_cont = le_u + lf_next + beta_col
-        shift_cont = ls_u + shift_up_t(lf_next + beta_col)
-        beta_rec = logaddexp(emit_cont, shift_cont)
-        init_col = torch.where(is_last_t, le_u, neg)
-        beta_col = torch.where(last_u == u, init_col, beta_rec)
+        beta_col = beta_column(le[u], ls[u], lf_next, beta_col,
+                               torch.where(is_last_t, le[u], neg),
+                               last_u == u)
         lf_next = lf[u]
         cols.append(beta_col)
     return torch.stack(cols[::-1], dim=0)
 
 
-def gather_logz(alphas, le, input_length, output_length):
-    """logZ (B,) = alpha + le at (t = input_length-1, u = output_length-1)."""
+def gather_logz(alphas, le, input_length, output_length, t0=0,
+                t_total=None):
+    """logZ (B,) = alpha + le at (t = input_length-1, u = output_length-1).
+
+    With t_total, alphas and le hold positions t0 .. t0 + T - 1 of a
+    lattice of t_total positions (one slice, ops/lattice_sharded): an
+    example whose t lies outside the slice gets 0."""
     U, B, T = alphas.shape
     b_idx = torch.arange(B, device=alphas.device)
     u_last = (output_length.long() - 1).clamp(0, U - 1)
-    t_last = (input_length.long() - 1).clamp(0, T - 1)
-    return alphas[u_last, b_idx, t_last] + le[u_last, b_idx, t_last].float()
+    t_last = (input_length.long() - 1).clamp(
+        0, (T if t_total is None else t_total) - 1) - t0
+    tl = t_last.clamp(0, T - 1)
+    val = alphas[u_last, b_idx, tl] + le[u_last, b_idx, tl].float()
+    if t_total is None:
+        return val
+    return torch.where((t_last >= 0) & (t_last < T), val, 0.0)
 
 
 def posterior_grads(le, ls, lf, alphas, betas, logz, input_length,
-                    output_length, g):
+                    output_length, g, t0=0, right=None):
     """d loss / d (le, ls, lf) from alphas and betas: the transition and
     occupancy posteriors times the upstream cotangent g (B,), zero outside
     the valid region and for an example with no valid path (logZ <= NEG/2).
     Mirrors ssnt_tts_tpu/ops/lattice.py:_ssnt_loss_bwd and the posterior
     pass of lattice_pallas._core_bwd (identical math). All (U, B, T)
-    float32."""
+    float32.
+
+    For one slice of T (ops/lattice_sharded): t0 is its first position,
+    right (U, B) the next slice's lf[u+1] + beta[u+1] at its first position
+    (shift_up_from)."""
     U, B, T = le.shape
     dev = le.device
     u_idx = torch.arange(U, device=dev)[:, None, None]
-    t_idx = torch.arange(T, device=dev)[None, None, :]
+    t_idx = t0 + torch.arange(T, device=dev)[None, None, :]
     in_len = input_length.long()[None, :, None]
     out_len = output_length.long()[None, :, None]
     valid = (t_idx < in_len) & (u_idx < out_len)
@@ -130,7 +161,8 @@ def posterior_grads(le, ls, lf, alphas, betas, logz, input_length,
     neg = torch.full((), NEG, device=dev)
     cont_emit = torch.where(is_last_u, torch.where(is_last_t, zero, neg),
                             lf_beta_next_u)
-    cont_shift = torch.where(is_last_u, neg, shift_up_t(lf_beta_next_u))
+    cont_shift = torch.where(is_last_u, neg,
+                             shift_up_from(lf_beta_next_u, right))
 
     logz_b = logz[None, :, None]
     keep = valid & ~(logz_b <= NEG / 2)

@@ -1,1 +1,2 @@
-"""Decode pipelines of the PyTorch port."""
+"""Decode pipelines, the train steps, the mesh and multi-process
+wiring of the PyTorch port."""

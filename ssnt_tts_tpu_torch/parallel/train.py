@@ -1,8 +1,8 @@
-"""Training step on one device (PyTorch).
+"""Training step on one device, and over a (data, model) mesh (PyTorch).
 
-Mirrors ssnt_tts_tpu/parallel/train.py without the mesh: TrainState,
-make_optimizer, init_train_state and train_step. The optimizer is optax's
-chain written out, with optax's order of operations:
+Mirrors ssnt_tts_tpu/parallel/train.py: TrainState, make_optimizer,
+init_train_state, train_step and make_sharded_train_step. The optimizer is
+optax's chain written out, with optax's order of operations:
 
   clip_by_global_norm(c): g_norm = sqrt(sum_i sum(g_i^2)); when
     g_norm >= c every g is scaled by c / g_norm (torch's clip_grad_norm_
@@ -20,18 +20,28 @@ chain written out, with optax's order of operations:
 It is written with torch._foreach_* operations (a few multi-tensor
 launches per step), not torch.optim.AdamW, whose update rounds in
 another order.
+
+The sharded step is the same step with the batch split over the mesh's
+data axis: the loss divides by the global batch's normalizers, the data
+group sums the gradients (and the metrics) in one all_reduce of one flat
+buffer, and every rank clips and updates on the global gradient. JAX gets
+there by annotating shardings and letting XLA insert the collectives
+(168 all-reduces a step); here they are written out, two a step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ssnt_tts_tpu_torch import convert
-from ssnt_tts_tpu_torch.models.ssnt import SSNTModel
+from ssnt_tts_tpu_torch.models.ssnt import SSNTModel, loss_normalizers
+from ssnt_tts_tpu_torch.ops import lattice_sharded
 from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
 
 BATCH_KEYS = ("tokens", "mel", "input_length", "output_length",
@@ -137,19 +147,90 @@ def train_step(tx: ClipAdamW, state: TrainState,
     targets may be absent). Returns (state, metrics): loss,
     nll_per_frame, the auxiliary NLLs present, and grad_norm (before
     clipping), as detached 0-d tensors."""
+    return _step(tx, state, batch)
+
+
+def _step(tx: ClipAdamW, state: TrainState, batch: Dict[str, torch.Tensor],
+          normalizers: Optional[torch.Tensor] = None, reduce=None,
+          context=contextlib.nullcontext()):
+    """train_step; with `normalizers` ([batch size, valid tokens]) the loss
+    divides by them, and `reduce(grads, metrics)` sums the gradients in
+    place and returns the summed metrics before the update."""
     model = state.model
     model.train()
     params = list(model.parameters())
     for p in params:
         p.grad = None
-    loss, metrics = model.loss(*(batch.get(k) for k in BATCH_KEYS))
-    loss.backward()
+    kw = {} if normalizers is None else dict(
+        batch_size=int(normalizers[0]), token_count=normalizers[1])
+    with context:
+        loss, metrics = model.loss(*(batch.get(k) for k in BATCH_KEYS), **kw)
+        loss.backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if reduce is not None:
+        metrics = reduce(grads, metrics)
     g_norm = tx.update(grads, state.opt_state, [p.detach() for p in params])
     for p in params:
         p.grad = None
-    metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = g_norm
     state.step += 1
     return state, metrics
+
+
+def _flat(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unflat_into(flat: torch.Tensor, tensors: List[torch.Tensor]) -> None:
+    """Copy consecutive pieces of flat back into `tensors`, in place."""
+    pieces = flat.split([t.numel() for t in tensors])
+    torch._foreach_copy_(tensors, [p.view_as(t)
+                                   for p, t in zip(pieces, tensors)])
+
+
+def make_sharded_train_step(tx: ClipAdamW, mesh, state: TrainState):
+    """The train step over `mesh` (parallel/mesh.make_mesh). Returns
+    (step_fn, state): state's parameters and optimizer state are broadcast
+    from rank 0 (one broadcast), so every rank starts equal.
+
+    step_fn(state, batch) takes this rank's rows of the global batch
+    (parallel/mesh.data_sharding; the ranks of one model group take the
+    same rows) on its device, and returns (state, metrics) as train_step
+    does, the metrics those of the global batch. A step makes two
+    all_reduces over the data group: the batch size and valid-token count
+    (the loss's normalizers), then the gradients and the metrics as one
+    flat buffer; step_fn.all_reduces counts them. With
+    ModelConfig.lattice_tshard_min_cells set, the loss runs inside
+    tshard_lattice(mesh, "model", min_cells), so lattices that meet it take
+    the ring over the model axis."""
+    opt = state.opt_state
+    owned = [t.detach() for t in list(state.model.parameters()) + opt.mu
+             + opt.nu]
+    flat = _flat(owned)
+    dist.broadcast(flat, src=0)
+    _unflat_into(flat, owned)
+    min_cells = state.model.config.lattice_tshard_min_cells
+    group = mesh.groups["data"]
+
+    def reduce(grads, metrics):
+        names = sorted(metrics)
+        flat = torch.cat([_flat(grads)] + [metrics[k].float().reshape(1)
+                                           for k in names])
+        dist.all_reduce(flat, group=group)
+        step_fn.all_reduces += 1
+        _unflat_into(flat[:-len(names)], grads)
+        return dict(zip(names, flat[-len(names):].unbind()))
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        counts = loss_normalizers(batch["tokens"], batch.get("input_length"))
+        dist.all_reduce(counts, group=group)
+        step_fn.all_reduces += 1
+        context = (lattice_sharded.tshard_lattice(mesh, "model", min_cells)
+                   if min_cells is not None else contextlib.nullcontext())
+        return _step(tx, state, batch, counts, reduce, context)
+
+    step_fn.all_reduces = 0
+    return step_fn, state

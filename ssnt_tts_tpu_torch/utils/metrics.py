@@ -1,11 +1,28 @@
-"""JSON-lines metrics sink (a copy of ssnt_tts_tpu/utils/metrics.py's
-MetricsLogger)."""
+"""JSON-lines metrics sink and the weak-scaling ratios (copies of
+ssnt_tts_tpu/utils/metrics.py's MetricsLogger and weak_scaling_efficiency,
+and scripts/weak_scaling.py's partition efficiency)."""
 
 from __future__ import annotations
 
 import json
 import time
 from typing import Dict, Optional
+
+
+def weak_scaling_efficiency(throughput_1: float, throughput_n: float,
+                            n: int) -> float:
+    """Throughput on n ranks over n times that on one, the per-rank batch
+    held constant; >= 0.9 is the north-star bar (BASELINE.md)."""
+    return throughput_n / (throughput_1 * n)
+
+
+def partition_efficiency(seconds_unsharded: float,
+                         seconds_sharded: float) -> float:
+    """t(one rank, the total batch) / t(n ranks, the same total batch):
+    what the partitioning and its collectives cost at fixed total work.
+    Where the ranks share one device it is this cost alone; it claims no
+    scaling."""
+    return seconds_unsharded / seconds_sharded
 
 
 class MetricsLogger:

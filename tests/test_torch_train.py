@@ -325,7 +325,16 @@ def test_entry_points_default_to_the_card():
         next(tdata.prefetch_to_device(iter([])))
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SSNTModel(tcfg.tiny_model_config(lattice_tshard_min_cells=10),
-                  device="cpu")
+def test_unported_options_raise(f32):
+    """lattice_tshard_min_cells was refused until the distribution slice
+    was ported. The model now takes it; outside tshard_lattice (which
+    make_sharded_train_step enters) the loss keeps its usual route, as in
+    JAX: the same NLL as the config without it."""
+    cfg, _, params, tm, batch = f32
+    sharded_cfg = _port_cfg(dataclasses.replace(cfg,
+                                                lattice_tshard_min_cells=10))
+    tm_s = SSNTModel(sharded_cfg, device="cpu")
+    tm_s.load_state_dict(convert.flax_to_torch(params, cfg))
+    args = [torch.from_numpy(batch[k]) for k in ttrain.BATCH_KEYS[:4]]
+    with torch.no_grad():
+        assert torch.equal(tm_s(*args), tm(*args))

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training (log and exp
-domains), tone and v1 paths, the banded lattice loss and the distributed
-training step on one NVIDIA GPU.
+domains), tone and v1 paths, the banded lattice loss, the distributed
+training step and the training and eval entry points on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Drives ssnt_tts_tpu_torch at the repo's benchmarked model width
 (vocab 128, mel 80, encoder 256 x 2 layers x 4 heads, decoder 256,
-joint rank 64, 10 duration classes, bfloat16 compute) with seeded random
-weights, in phases, each reported on its own line:
+joint rank 64, 10 duration classes, bfloat16 compute; phase 26 at the
+flagship ModelConfig()) with seeded random weights, in phases, each
+reported on its own line:
 
   1. device: torch's name for the card and nvidia-smi's name/power limit;
   2. build: compile csrc/fused_class_step.cu, csrc/fused_v1_step.cu,
@@ -168,7 +169,9 @@ weights, in phases, each reported on its own line:
      sorted longest first (data rank 0 holds more tokens): (a) NCCL, one
      rank, in this process: three sharded steps on a 1x1 mesh against
      three train_steps from the same state, losses and parameters bit
-     for bit, the all_reduces a step; (b) four ranks of
+     for bit, the all_reduces a step, then run_training over that mesh
+     with a checkpoint directory for 1 step and resumed to 2 (the
+     primary's saves and the end-of-run barrier on NCCL); (b) four ranks of
      ssnt_tts_tpu_torch.dryrun started with torch.multiprocessing
      ("spawn"; they load the libraries built above), on gloo with every
      rank on cuda:0 (NCCL one rank a card when there are four cards):
@@ -190,7 +193,33 @@ weights, in phases, each reported on its own line:
      same rows, and their agreement with a one-process decode of the
      whole batch (not gated; beside it the plain routes' agreement in
      the bf16 model and in a float32 one).
-     Every spawned group has a 300 s deadline.
+     Every spawned group has a 300 s deadline;
+ 26. the utilities at the flagship width (ModelConfig(): vocab 256,
+     encoder 256 x 4 layers x 4 heads, bf16): (a) the train CLI
+     (scripts.train.main) for 6 steps at B=32 with a checkpoint
+     directory, then resumed to 9: exactly one #8 launch a step taken and
+     no #1/#5, latest_step 6 then 9, restore of step 6 bit for bit the
+     state the first run saved (every parameter, mu, nu, count, step),
+     and the first step after the resume bit for bit the same step taken
+     here from the restored state on the same batch; (b)
+     materialize_synthetic of CORPUS examples into .npz shards, then
+     run_training(data_dir=) for 3 steps at B=256: one #1 and one #5
+     launch a step and no #8, padding efficiencies in (0, 1]; shard
+     sizes and times, buckets, step ms, peak memory logged; (c)
+     scripts.eval_e2e --steps 8 --corpus CORPUS --eval-batch 256 --beam
+     8: every key of JAX's record present and finite, exactly 2 x T
+     launches of the fused v2 step and T of the fused tone step; then #14
+     at that decode batch, B=256 W=8, on the eval model's width: the v2
+     step in both of eval_e2e's arms and the tone step, float32 and
+     bfloat16, at s=0/30/T-1, h and new_h within TOL of the plain step's
+     and the selection bit for bit the plain selection on the kernel's h
+     (as phases 3 and 10 at B=32); its bench_step train_step_ms beside
+     split_step_ms at the same config;
+     (d) utils/profiling.trace around one B=32 train step: the Chrome
+     trace names the lattice_bidir kernel (bidir_warp_kernel) and the
+     annotation; guard_nans passes a clean step and flags a NaN mel
+     frame; ops/checks flag an emptied v2 step and a bad upsampling length
+     on CUDA tensors and pass good ones.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -292,12 +321,12 @@ def make_model(cfg, tree, dtype: str, dev):
     return model.eval()
 
 
-def make_request(rng, vocab: int, dev):
-    il = rng.integers(40, T + 1, B)
+def make_request(rng, vocab: int, dev, Bn: int = B):
+    il = rng.integers(40, T + 1, Bn)
     il[0] = T
-    ol = np.minimum(U, np.round(il * rng.uniform(4.2, 5.0, B))).astype(int)
+    ol = np.minimum(U, np.round(il * rng.uniform(4.2, 5.0, Bn))).astype(int)
     ol[0] = U
-    toks = rng.integers(1, vocab, (B, T))
+    toks = rng.integers(1, vocab, (Bn, T))
     as_t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
     return as_t(toks), as_t(il), as_t(ol)
 
@@ -305,11 +334,12 @@ def make_request(rng, vocab: int, dev):
 def step_inputs(model, req, s: int, rng, dev):
     """Beam state for one step at step s: most beams at t = s with totals
     near the diagonal, some finished or at their last position, and
-    duplicated beams (dedup)."""
+    duplicated beams (dedup). The batch is the request's."""
     from ssnt_tts_tpu_torch.models import stepmath
     from ssnt_tts_tpu_torch.ops import beam_fused
 
     toks, il, ol = req
+    Bn = il.shape[0]
     with torch.no_grad():
         w = model.duration_step_weights()
         enc = model.encode(toks, il)
@@ -320,14 +350,14 @@ def step_inputs(model, req, s: int, rng, dev):
     D = model.config.duration_class_size
     il_n, ol_n = il.cpu().numpy(), ol.cpu().numpy()
     t = np.minimum(s, il_n)[:, None].repeat(W, 1)
-    last = rng.random((B, W)) < 0.1
+    last = rng.random((Bn, W)) < 0.1
     t[last] = il_n[np.nonzero(last)[0]] - 1
     tot = np.round(ol_n[:, None] / il_n[:, None] * t) + rng.integers(
-        -10, 10, (B, W))
-    fin = rng.random((B, W)) < 0.15
-    lp = -rng.gamma(2.0, 2.0 + s / 4, (B, W))
-    state = rng.normal(0, 0.5, (B, W, H))
-    pc = rng.integers(0, D, (B, W))
+        -10, 10, (Bn, W))
+    fin = rng.random((Bn, W)) < 0.15
+    lp = -rng.gamma(2.0, 2.0 + s / 4, (Bn, W))
+    state = rng.normal(0, 0.5, (Bn, W, H))
+    pc = rng.integers(0, D, (Bn, W))
     for a in (t, tot, fin, lp, state, pc):  # beams 0 and 1 identical
         a[::3, 1] = a[::3, 0]
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
@@ -338,13 +368,43 @@ def step_inputs(model, req, s: int, rng, dev):
             i32(t), il, ol,
             torch.tensor(model.config.duration_table, dtype=torch.int32,
                          device=dev),
-            torch.tensor(rng.random(B) < 0.1, device=dev))
+            torch.tensor(rng.random(Bn) < 0.1, device=dev))
 
 
 def same_bits(a, b) -> bool:
     return bool(torch.equal(a, b)) and (
         not a.is_floating_point()
         or bool(torch.equal(torch.signbit(a), torch.signbit(b))))
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by name."""
+    from ssnt_tts_tpu_torch.ops import beam_fused, beam_kernels
+    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
+
+    fns = list(lk.KERNELS) + [
+        beam_fused.fused_class_beam_step, beam_fused.fused_tone_step,
+        beam_fused.fused_v1_beam_step, beam_kernels.v2_beam_search_decode,
+        beam_kernels.tone_beam_search_decode,
+        beam_kernels.beam_search_step_reorder,
+        beam_kernels.beam_search_step_batched]
+    return {f.__name__: f for f in fns}
+
+
+def zero_counts() -> None:
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    """The non-zero launch counts by wrapper name."""
+    return {n: f.launches for n, f in kernel_wrappers().items()
+            if f.launches}
+
+
+def expect_counts(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, not {want}")
 
 
 def check_step(args, opts, dtype) -> tuple:
@@ -355,8 +415,8 @@ def check_step(args, opts, dtype) -> tuple:
     if opts.get("test_mode"):
         ol = torch.zeros_like(ol)
         args = args[:12] + (ol,) + args[13:]
-    dev = state.device
-    dbg_k = (torch.empty(B, W, base.shape[2], device=dev),
+    dbg_k = (torch.empty(*state.shape[:2], base.shape[2],
+                         device=state.device),
              torch.empty_like(state))
     dbg_r = tuple(torch.empty_like(x) for x in dbg_k)
     with torch.no_grad():
@@ -765,8 +825,7 @@ def train_phases(seed: int, dev, smi: str) -> list:
     counts = lattice_counts
     train = lambda *a: train_run("8 train", *a, seed, dev)
 
-    for k in lk.KERNELS:
-        k.launches = 0
+    zero_counts()
     train("b32", 10, B, cfg, (10, 0, 0, 0, 0, 0, 0, 0))
     train_tcfg = TrainConfig(warmup_steps=2, batch_size=B)
     ds = data_lib.SyntheticTTSDataset(
@@ -1107,8 +1166,7 @@ def exp_phases(seed: int, dev, smi: str) -> list:
                                  f"not {want}")
         return out
 
-    for k in lk.KERNELS:
-        k.launches = 0
+    zero_counts()
     train("exp_b32", 10, B, cfg, (0, 0, 0, 0, 0, 10, 0, 0))
     tcfg = TrainConfig(warmup_steps=EXP_WARMUP, batch_size=B)
     batch32 = to_device(data_lib.SyntheticTTSDataset(
@@ -1404,8 +1462,7 @@ def banded_phases(seed: int, dev, smi: str) -> list:
               for Bn in (B, B_LARGE)}
     refs = {Bn: fwd_bwd(x, "log") for Bn, x in inputs.items()}
     torch.cuda.synchronize()
-    for k in lk.KERNELS:
-        k.launches = 0
+    zero_counts()
     runs = {}
     for Bn, x in inputs.items():
         for K in BANDS:
@@ -1893,7 +1950,8 @@ def long_phase(seed: int, dev) -> None:
 def tone_step_inputs(model, tokens, il, s: int, rng, dev, Wn: int = W):
     """Fused tone step inputs at step s: beams at t = min(s, T_b) (past
     their length for short utterances), some finished, duplicated beams;
-    at s = 0 the decode's own first step (every beam identical)."""
+    at s = 0 the decode's own first step (every beam identical). The
+    batch is the request's."""
     from ssnt_tts_tpu_torch.models import stepmath
     from ssnt_tts_tpu_torch.ops import beam_fused
 
@@ -1905,11 +1963,12 @@ def tone_step_inputs(model, tokens, il, s: int, rng, dev, Wn: int = W):
         fw = beam_fused.prepare_fused_weights(w, model.dtype)
     H, K = model.config.decoder_dim, model.config.tone_class_size
     il_n = il.cpu().numpy()
+    Bn = il_n.shape[0]
     t = np.minimum(s, il_n)[:, None].repeat(Wn, 1)
-    fin = rng.random((B, Wn)) < 0.15
-    lp = -rng.gamma(2.0, 2.0 + s / 4, (B, Wn))
-    state = rng.normal(0, 0.5, (B, Wn, H))
-    pc = rng.integers(0, K, (B, Wn))
+    fin = rng.random((Bn, Wn)) < 0.15
+    lp = -rng.gamma(2.0, 2.0 + s / 4, (Bn, Wn))
+    state = rng.normal(0, 0.5, (Bn, Wn, H))
+    pc = rng.integers(0, K, (Bn, Wn))
     for a in (fin, lp, state, pc):  # beams 0 and 1 identical
         a[::3, 1] = a[::3, 0]
     if s == 0:
@@ -2126,8 +2185,7 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
     counters = (beam_fused.fused_class_beam_step, beam_fused.fused_tone_step,
                 bk.v2_beam_search_decode, bk.tone_beam_search_decode)
     counts = lambda: tuple(c.launches for c in counters)
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     agree_best, agree_all, dists = [], [], []
     for i, (toks, il, target) in enumerate(reqs, 1):
         routes = {}
@@ -2168,8 +2226,7 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
         + "; all beams: " + ", ".join(f"{a:.3f}" for a in agree_all)
         + "; best-beam edit distance per token to the tone targets "
         "(random weights): " + ", ".join(f"{d:.3f}" for d in dists))
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     toks, il, ol = v2_req
     with torch.no_grad():
         v2_k = decode.v2_duration_decode(
@@ -2526,8 +2583,7 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
     counters = (beam_fused.fused_v1_beam_step, bk.beam_search_step_reorder,
                 bk.beam_search_step_batched)
     counts = lambda: tuple(c.launches for c in counters)
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     agree, finished = [], []
     routes_kw = (("fused", {}), ("beam-only", {"fuse_model": False}),
                  ("plain", {"fuse_model": False, "use_pallas": False}))
@@ -2772,19 +2828,22 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
     the port hands them, three sharded steps on a 2x2 mesh with the
     T-sharded ring and three without against the one-process step, the
     ring alone against the plain lattice loss, the four decodes over data
-    shards against one-process decodes, every rank's launches."""
+    shards against one-process decodes, every rank's launches; (a) also
+    run_training with checkpoints over the NCCL mesh, then resumed."""
+    import shutil
     from pathlib import Path
 
     import torch.distributed as dist
 
     from ssnt_tts_tpu_torch import dryrun
     from ssnt_tts_tpu_torch.ops import lattice as lattice_ops
-    from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
     from ssnt_tts_tpu_torch.ops import lattice_sharded
     from ssnt_tts_tpu_torch.parallel import decode as decode_lib
     from ssnt_tts_tpu_torch.parallel import mesh as mesh_lib
     from ssnt_tts_tpu_torch.parallel import multihost
     from ssnt_tts_tpu_torch.parallel import train as train_lib
+    from ssnt_tts_tpu_torch.train_loop import run_training
+    from ssnt_tts_tpu_torch.utils import checkpoint as ckpt_lib
     from ssnt_tts_tpu_torch.utils.config import (
         MeshConfig, ModelConfig, TrainConfig)
 
@@ -2811,8 +2870,7 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         tx = train_lib.make_optimizer(tcfg)
         step_fn, sharded = train_lib.make_sharded_train_step(tx, mesh,
                                                              sharded)
-        for k in lk.KERNELS:
-            k.launches = 0
+        zero_counts()
         ms = {"sharded": [], "train_step": []}
         for b in batches:
             batch = to_device(b, dev)
@@ -2833,6 +2891,19 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
                              plain.model.state_dict().values()):
             if not torch.equal(a, b):
                 raise AssertionError(f"25a: parameter {k} differs")
+        # run_training over the NCCL mesh with checkpoints, then resumed:
+        # the primary's saves and the end-of-run barrier on NCCL.
+        ckpt = work / "nccl_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        for n in (1, 2):
+            run_training(n, cfg, tcfg, seed=seed, log_every=1,
+                         metrics_path=str(work / "nccl_run.jsonl"),
+                         mesh_config=MeshConfig(1, 1),
+                         checkpoint_dir=str(ckpt))
+            if ckpt_lib.latest_step(str(ckpt)) != n:
+                raise AssertionError(f"25a: run_training to step {n} over "
+                                     f"NCCL: latest checkpoint "
+                                     f"{ckpt_lib.latest_step(str(ckpt))}")
     finally:
         dist.destroy_process_group()
     if launches != (6, 0, 0, 0, 0, 0, 0, 0):
@@ -2843,6 +2914,9 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         f"{step_fn.all_reduces // 3} all_reduces a step (the normalizers, "
         f"then gradients + metrics in one flat buffer); launches "
         f"{LAUNCH_NAMES} {launches}")
+    log("[25a nccl] run_training over the NCCL mesh with checkpoint_dir: "
+        "step 1 saved, resumed to step 2 and saved (the end-of-run "
+        "barrier on NCCL)")
     log(f"[25a time] {smi}: step ms (host clock), sharded "
         + " ".join(f"{x:.1f}" for x in ms["sharded"]) + ", train_step "
         + " ".join(f"{x:.1f}" for x in ms["train_step"]))
@@ -3103,6 +3177,389 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         f" model {witness['float32']}")
 
 
+# ---------------------------------------------------------------- phase 26
+
+# The keys of scripts/eval_e2e.py's record (EVAL_r05.json).
+EVAL_KEYS = (
+    "config", "batch", "steps", "data_source", "corpus_examples",
+    "padding_stats", "decode_backend", "loss_first_logged", "loss_final",
+    "train_step_ms", "train_examples_per_s",
+    "mel_l2_teacher_forced_alignment", "mel_l2_v2_decoded_alignment",
+    "v2_beam_emptied_rate", "v2_beam_emptied_stderr",
+    "v2_output_length_mae_frames", "mel_l2_v2_decoded_alignment_guard",
+    "v2_beam_emptied_rate_guard", "v2_beam_emptied_stderr_guard",
+    "v2_output_length_mae_frames_guard", "eval_n",
+    "tone_edit_distance_mean", "tone_edit_distance_per_token", "wall_s")
+# Phase 26's corpora: examples materialized into .npz shards.
+CORPUS = 1024
+
+
+def state_record(state) -> dict:
+    """A detached copy of a TrainState: step, count, and its parameters, mu
+    and nu by name."""
+    named = list(state.model.named_parameters())
+    opt = state.opt_state
+    tensors = ([(n, p) for n, p in named]
+               + [(f"mu/{n}", m) for (n, _), m in zip(named, opt.mu)]
+               + [(f"nu/{n}", v) for (n, _), v in zip(named, opt.nu)])
+    return {"step": state.step, "count": opt.count,
+            "tensors": [(n, t.detach().clone()) for n, t in tensors]}
+
+
+def same_record(a: dict, b: dict, what: str) -> int:
+    """Raises unless two state_records are equal bit for bit; returns the
+    number of tensors compared."""
+    if (a["step"], a["count"]) != (b["step"], b["count"]):
+        raise AssertionError(f"{what}: step/count {a['step']}/{a['count']} "
+                             f"vs {b['step']}/{b['count']}")
+    if [n for n, _ in a["tensors"]] != [n for n, _ in b["tensors"]]:
+        raise AssertionError(f"{what}: tensor names differ")
+    for (n, x), (_, y) in zip(a["tensors"], b["tensors"]):
+        if not same_bits(x, y):
+            raise AssertionError(f"{what}: {n} differs")
+    return len(a["tensors"])
+
+
+def finite_values(record) -> bool:
+    if isinstance(record, dict):
+        return all(finite_values(v) for v in record.values())
+    if isinstance(record, (int, float)) and not isinstance(record, bool):
+        return bool(np.isfinite(record))
+    return True
+
+
+def cli_phase(work, dev) -> None:
+    """26a: the train CLI at the flagship width, then resumed."""
+    import shutil
+    from unittest import mock
+
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+    from ssnt_tts_tpu_torch.scripts import train as train_cli
+    from ssnt_tts_tpu_torch.utils import checkpoint as ckpt_lib
+    from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    ckpt = work / "cli_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    step = train_lib.train_step
+    seen = {"last": None, "resumed": None}
+
+    def recorded_step(tx, state, batch):
+        """train_step, keeping the state it trains and, in the resumed
+        run, its first batch and the state after it."""
+        state, metrics = step(tx, state, batch)
+        seen["last"] = state
+        if seen["resumed"] is None and seen.get("arm"):
+            seen["resumed"] = ({k: v.clone() for k, v in batch.items()},
+                               state_record(state), float(metrics["loss"]))
+        return state, metrics
+
+    zero_counts()
+    secs = []
+    with mock.patch.object(train_lib, "train_step", recorded_step):
+        for steps in (6, 9):
+            seen["arm"] = steps == 9
+            t0 = time.perf_counter()
+            rc = train_cli.main(["--steps", str(steps), "--batch-size",
+                                 str(B), "--ckpt", str(ckpt), "--metrics",
+                                 str(work / f"cli_{steps}.jsonl")])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if rc != 0 or ckpt_lib.latest_step(str(ckpt)) != steps:
+                raise AssertionError(f"train CLI --steps {steps}: rc {rc}, "
+                                     f"latest step "
+                                     f"{ckpt_lib.latest_step(str(ckpt))}")
+            if steps == 6:
+                saved = state_record(seen["last"])
+    counts = read_counts()
+    expect_counts("26a CLI (6 steps, then 3 resumed)", counts,
+                  {"lattice_bidir": 9})
+    # restore of step 6 against the state the first run saved
+    cfg = ModelConfig()
+    tcfg = TrainConfig(batch_size=B, warmup_steps=2)
+    like = train_lib.init_train_state(cfg, tcfg, seed=1, device=dev)
+    restored = ckpt_lib.restore(str(ckpt), like, step=6)
+    n = same_record(state_record(restored), saved, "26a restore of step 6")
+    # the resumed run's first step, taken here from the restored state
+    batch, after, loss = seen["resumed"]
+    _, metrics = train_lib.train_step(train_lib.make_optimizer(tcfg),
+                                      restored, batch)
+    same_record(state_record(restored), after,
+                "26a the first step after the resume")
+    if float(metrics["loss"]) != loss:
+        raise AssertionError(f"26a resumed step loss {loss} vs "
+                             f"{float(metrics['loss'])}")
+    rows = [json.loads(x) for x in
+            (work / "cli_9.jsonl").read_text().splitlines()]
+    n_params = sum(p.numel() for p in restored.model.parameters())
+    log(f"[26a cli] scripts.train at ModelConfig() ({n_params} parameters; "
+        f"vocab {cfg.vocab_size}, encoder {cfg.encoder_dim} x "
+        f"{cfg.encoder_layers} x {cfg.encoder_heads} heads, decoder "
+        f"{cfg.decoder_dim}, {cfg.dtype}), B={B} T={T} U={U}: 6 steps "
+        f"in {secs[0]:.1f}s, resumed to 9 in {secs[1]:.1f}s (process "
+        f"start to exit, host clock); launches {counts}; latest_step 6 "
+        f"then 9; restore of step 6 bit for bit the saved state ({n} "
+        f"tensors, step, count); step 7 after the resume bit for bit the "
+        f"same step from the restored state (loss {loss:.6f}); final loss "
+        f"{rows[-1]['loss']:.4f}")
+
+
+def files_phase(work, seed: int, dev) -> None:
+    """26b: run_training(data_dir=) at the flagship width, B=256."""
+    import shutil
+
+    from ssnt_tts_tpu_torch import data as data_lib
+    from ssnt_tts_tpu_torch import data_files
+    from ssnt_tts_tpu_torch.train_loop import run_training
+    from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    cfg = ModelConfig()
+    shards = work / "shards"
+    shutil.rmtree(shards, ignore_errors=True)
+    ds = data_lib.SyntheticTTSDataset(
+        vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+        duration_class_size=cfg.duration_class_size,
+        tone_class_size=cfg.tone_class_size, seed=seed + 4)
+    t0 = time.perf_counter()
+    paths = data_files.materialize_synthetic(ds, CORPUS, str(shards))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = data_files.NpzShardDataset(str(shards)).batches(
+        B_LARGE, shuffle_seed=seed)
+    first = next(stream)
+    t_read = time.perf_counter() - t0
+    # the shapes run_training's first steps see: its initialization draw
+    # is this stream's first batch
+    buckets = [(b["tokens"].shape[1], b["mel"].shape[1])
+               for b in (first, next(stream), next(stream))]
+    size = sum(p.stat().st_size for p in shards.glob("*.npz"))
+    metrics = work / "files.jsonl"
+    metrics.unlink(missing_ok=True)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = run_training(3, cfg, TrainConfig(batch_size=B_LARGE,
+                                            warmup_steps=2),
+                        seed=seed, device=dev, log_every=1,
+                        metrics_path=str(metrics), data_dir=str(shards))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("26b file-backed training", counts,
+                  {"lattice_forward_alphas": 3,
+                   "lattice_backward_grads": 3})
+    rows = [json.loads(x) for x in metrics.read_text().splitlines()]
+    for k in ("token_padding_efficiency", "frame_padding_efficiency"):
+        if not 0 < last[k] <= 1:
+            raise AssertionError(f"26b {k} {last[k]}")
+    if not finite_values(last):
+        raise AssertionError(f"26b metrics not finite: {last}")
+    step_ms = [1e3 * (b["t"] - a["t"]) for a, b in zip(rows, rows[1:])]
+    log(f"[26b files] materialize_synthetic {CORPUS} examples (T <= {T}, "
+        f"U <= {U}, mel {cfg.mel_dim}) into {len(paths)} shards "
+        f"({size / 1e6:.1f} MB) in {t_write:.1f}s; NpzShardDataset index + "
+        f"first B={B_LARGE} batch {t_read:.2f}s; buckets (T_pad, U_pad) of "
+        f"the first three batches {buckets}")
+    log(f"[26b files] run_training(data_dir=) ModelConfig() B={B_LARGE}, 3 "
+        f"steps in {secs:.1f}s (init, restore check and prefetch "
+        f"included); step ms from the metrics clock "
+        f"{', '.join(f'{x:.0f}' for x in step_ms)}; launches {counts}; "
+        f"padding efficiency token {last['token_padding_efficiency']:.4f} "
+        f"frame {last['frame_padding_efficiency']:.4f}; losses "
+        + " ".join(f"{r['loss']:.4f}" for r in rows)
+        + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def eval_steps(seed: int, dev) -> str:
+    """26c: #14 at eval_e2e's decode batch, B=256 W=8, on its model's width
+    (random weights from the seed), as phases 3 and 10 hold it at B=32: the
+    v2 step in both of eval_e2e's arms (defaults, final_feasible_guard) and
+    the tone step (empty_tone_id 0, tone_decode's), float32 and bfloat16,
+    at s = 0, 30, T-1. Each step's h and new_h within TOL of the plain
+    step's, its selection bit for bit the plain selection on the kernel's
+    h. Returns the log line."""
+    from ssnt_tts_tpu_torch import convert
+    from ssnt_tts_tpu_torch.utils.config import ModelConfig, V2BeamConfig
+
+    cfg = ModelConfig(**SERVE_CFG, use_duration_lattice=True)
+    tree = convert.random_flax_tree(cfg, seed + 9)
+    rng = np.random.default_rng(seed + 9)
+    arms = ({}, {"config": V2BeamConfig(final_feasible_guard=True)})
+    worst = {}
+    for dt, name in ((torch.float32, "float32"),
+                     (torch.bfloat16, "bfloat16")):
+        model = make_model(cfg, tree, name, dev)
+        req = make_request(rng, cfg.vocab_size, dev, Bn=B_LARGE)
+        v2, tone = [], []
+        for s in (0, 30, T - 1):
+            inputs = step_inputs(model, req, s, rng, dev)
+            v2 += [check_step(inputs, opts, dt) for opts in arms]
+            tone.append(check_tone_step(
+                tone_step_inputs(model, req[0], req[1], s, rng, dev), 0,
+                TOL[dt]))
+        worst[name] = (max(max(e) for e in v2), max(max(e) for e in tone),
+                       TOL[dt])
+    return (f"[26c steps] #14 at B={B_LARGE} W={W} (the eval decode's "
+            f"batch; eval model width): v2 step x 2 arms and tone step at "
+            f"s=0/30/{T - 1}, selection bit-exact against the plain "
+            f"selection on the kernel's h; max |dh|, |dnew_h| v2 / tone: "
+            + ", ".join(f"{n} {v:.3e} / {t:.3e} (tol {tol})"
+                        for n, (v, t, tol) in worst.items()))
+
+
+def eval_phase(work, seed: int, dev, smi: str) -> None:
+    """26c: scripts.eval_e2e, reduced."""
+    from ssnt_tts_tpu_torch import data as data_lib
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+    from ssnt_tts_tpu_torch.scripts import eval_e2e
+    from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    zero_counts()
+    t0 = time.perf_counter()
+    record = eval_e2e.main([
+        "--steps", "8", "--corpus", str(CORPUS), "--eval-batch",
+        str(B_LARGE), "--beam", str(W), "--data-dir",
+        str(work / "eval_shards"), "--out", str(work / "eval.json")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    missing = [k for k in EVAL_KEYS if k not in record]
+    if missing or not finite_values(record):
+        raise AssertionError(f"26c eval record: missing {missing} or not "
+                             f"finite: {record}")
+    fused = ("fused_class_beam_step", "fused_tone_step")
+    expect_counts("26c eval (v2 decode in two arms, tone decode)",
+                  {k: counts.get(k) for k in fused},
+                  dict(zip(fused, (2 * T, T))))
+    steps_line = eval_steps(seed, dev)
+    cfg = ModelConfig(**SERVE_CFG, use_duration_lattice=True)
+    tcfg = TrainConfig(batch_size=B_LARGE, warmup_steps=2)
+    state = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
+    tx = train_lib.make_optimizer(tcfg)
+    batch = to_device(data_lib.SyntheticTTSDataset(
+        vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+        duration_class_size=cfg.duration_class_size,
+        tone_class_size=cfg.tone_class_size, seed=seed + 7).batch(B_LARGE), dev)
+    split = split_step_ms(tx, state, batch)
+    log(f"[26c eval] scripts.eval_e2e --steps 8 --corpus {CORPUS} "
+        f"--eval-batch {B_LARGE} --beam {W} in {secs:.1f}s; launches "
+        f"{counts}")
+    log(steps_line)
+    log(f"[26c eval] record {json.dumps(record)}")
+    log(f"[26c eval] {smi}: train step B={B_LARGE} (eval config, duration "
+        f"lattice on): bench_step {record['train_step_ms']} ms (CUDA "
+        f"events, slope of 2- and 8-step chains); split_step_ms "
+        f"{split['total']:.1f} ms = forward {split['forward']:.1f} + "
+        f"backward {split['backward']:.1f} + optimizer "
+        f"{split['optimizer']:.1f} (host clock); emptied rates default "
+        f"{record['v2_beam_emptied_rate']} guard "
+        f"{record['v2_beam_emptied_rate_guard']} (not gated)")
+
+
+def tools_phase(work, seed: int, dev) -> None:
+    """26d: the profiler trace, the NaN guard and the checks on the
+    card."""
+    from ssnt_tts_tpu_torch import data as data_lib
+    from ssnt_tts_tpu_torch.ops import checks
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+    from ssnt_tts_tpu_torch.utils import debug, profiling
+    from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    cfg = ModelConfig()
+    tcfg = TrainConfig(batch_size=B, warmup_steps=2)
+    state = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
+    tx = train_lib.make_optimizer(tcfg)
+    batch = to_device(data_lib.SyntheticTTSDataset(
+        vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+        duration_class_size=cfg.duration_class_size,
+        tone_class_size=cfg.tone_class_size, seed=seed + 8).batch(B), dev)
+    split = split_step_ms(tx, state, batch)
+    log(f"[26d tools] train step B={B} T={T} U={U} at ModelConfig() "
+        f"(flagship; phase 9 times the smoke width): {split['total']:.1f} "
+        f"ms = forward {split['forward']:.1f} + backward "
+        f"{split['backward']:.1f} + optimizer {split['optimizer']:.1f} "
+        f"(host clock, median of 3)")
+    trace_dir = work / "trace"
+    for old in trace_dir.glob("*.json"):
+        old.unlink()
+    with profiling.trace(str(trace_dir)) as prof:
+        with profiling.annotate("ssnt_train_step"):
+            train_lib.train_step(tx, state, batch)
+        torch.cuda.synchronize()
+    files = list(trace_dir.glob("*.json"))
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    bidir = [e for e in kernels if "bidir_warp_kernel" in e.get("name", "")]
+    marked = [e for e in events if e.get("name") == "ssnt_train_step"]
+    if len(files) != 1 or not bidir or not marked:
+        raise AssertionError(f"26d trace: {len(files)} files, "
+                             f"{len(kernels)} kernel events, {len(bidir)} "
+                             f"named bidir_warp_kernel, {len(marked)} "
+                             f"annotations")
+    busy = sum(e.get("dur", 0) for e in kernels)
+    span = max(e["ts"] + e.get("dur", 0) for e in kernels) - min(
+        e["ts"] for e in kernels)
+    log(f"[26d tools] trace of one B={B} train step (ModelConfig()): "
+        f"{files[0].stat().st_size / 1e6:.1f} MB, {len(kernels)} kernel "
+        f"events, the lattice_bidir kernel as {bidir[0]['name'][:60]!r} "
+        f"({bidir[0].get('dur', 0):.1f} us), kernel time {busy / 1e3:.1f} "
+        f"ms over a {span / 1e3:.1f} ms span (busy share "
+        f"{busy / max(span, 1):.3f}); key_averages rows "
+        f"{len(prof.key_averages())}")
+
+    guarded = debug.guard_nans(
+        lambda st, b: train_lib.train_step(tx, st, b), "train_step")
+    err, _ = guarded(state, batch)
+    if err.get() is not None:
+        raise AssertionError(f"26d guard_nans on a clean step: {err.get()}")
+    bad = dict(batch)
+    bad["mel"] = batch["mel"].clone()
+    bad["mel"][0, 0, 0] = float("nan")
+    err, _ = guarded(state, bad)
+    report = debug.tree_nan_report(state.model)
+    if err.get() is None or not report:
+        raise AssertionError("26d guard_nans: the injected NaN not flagged")
+    log(f"[26d tools] guard_nans: clean step passes; a NaN mel frame "
+        f"flagged ({err.get()!r}); tree_nan_report after it: "
+        f"{len(report)} of {len(state.model.state_dict())} tensors")
+
+    W2, i32 = 2, torch.int32
+    h = torch.log(torch.full((1, W2, 2), 0.5, device=dev))
+    z = lambda dt: torch.zeros(1, W2, dtype=dt, device=dev)
+    flags = {}
+    for name, U_ in (("empty", 100), ("ok", 2)):
+        err, outs = checks.v2_beam_search_step_checked(
+            h, z(torch.float32), z(torch.bool), z(i32),
+            torch.tensor([1, 2], dtype=i32, device=dev), z(i32), z(i32),
+            torch.tensor([1], device=dev), torch.tensor([U_], device=dev),
+            zero_duration_id=0, allow_skip=False, test_mode=False)
+        flags[f"v2 {name}"] = err.get() is not None
+    dur = torch.tensor([[[2, 1]]], dtype=i32, device=dev)
+    for name, ol in (("bad", 4), ("ok", 3)):
+        err, idx = checks.upsample_source_indexes_checked(
+            dur, torch.tensor([[ol]], dtype=i32, device=dev), -1, max_u=4)
+        flags[f"upsample {name}"] = err.get() is not None
+    if flags != {"v2 empty": True, "v2 ok": False, "upsample bad": True,
+                 "upsample ok": False} or idx.device.type != "cuda":
+        raise AssertionError(f"26d checks on CUDA tensors: {flags}")
+    log(f"[26d tools] ops/checks on CUDA tensors, flagged: {flags}")
+
+
+def utilities_phase(seed: int, dev, smi: str) -> None:
+    """Phase 26: the train CLI and resume, file-backed training, the eval
+    entry point and the utilities, at the flagship width."""
+    from pathlib import Path
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "util"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    cli_phase(work, dev)
+    files_phase(work, seed, dev)
+    eval_phase(work, seed, dev, smi)
+    tools_phase(work, seed, dev)
+    log(f"[26 util] phase 26 in {time.time() - t0:.1f}s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3185,7 +3642,7 @@ def main() -> int:
     # ---- 4. serve (the main path) ----
     bf = models[torch.bfloat16]
     req_cfgs = [None, None, V2BeamConfig(final_feasible_guard=True)]
-    beam_fused.fused_class_beam_step.launches = 0
+    zero_counts()
     served = []
     for i, (req, c) in enumerate(zip(reqs, req_cfgs), 1):
         before = beam_fused.fused_class_beam_step.launches
@@ -3268,6 +3725,7 @@ def main() -> int:
     kernels += banded_phases(args.seed, dev, smi)
     long_phase(args.seed, dev)
     distribution_phase(args.seed, dev, smi)
+    utilities_phase(args.seed, dev, smi)
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

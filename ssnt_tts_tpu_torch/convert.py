@@ -7,6 +7,11 @@ maps every leaf, and raises on a missing or unknown one. Every transform
 in the mapping is linear, so a JAX gradient tree carries across the same
 way (the tests compare gradients leaf by leaf through it).
 
+`flax_train_state_to_torch(state, model_config, train_config, device)`
+carries a whole JAX TrainState across (an orbax-restored checkpoint, say):
+the step, the parameters, and optax's Adam moments mu and nu (through the
+same mapping, in model.parameters() order) with their count.
+
 `random_flax_tree(cfg, seed)` makes a numpy tree with exactly the flax
 layout, from a seed: Dense/Conv/attention kernels ~ N(0, 1/fan_in),
 embeddings ~ N(0, 1/features), zero biases, LayerNorm scale 1. It lets a
@@ -131,6 +136,44 @@ def flax_to_torch(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     if unknown:
         raise KeyError(f"unknown flax leaves: {unknown}")
     return state
+
+
+def _adam_state(opt_state):
+    """optax's ScaleByAdamState (count, mu, nu) inside a chain's state."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def flax_train_state_to_torch(state, model_config: ModelConfig,
+                              train_config, device=None):
+    """A JAX parallel/train.TrainState with numpy leaves (step, params, the
+    optax chain's state) -> the port's parallel/train.TrainState on
+    `device` (the card unless it names another): the parameters and Adam's
+    mu and nu through flax_to_torch, mu and nu in model.parameters()
+    order, Adam's count as OptState.count."""
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise KeyError("opt_state holds no Adam state (count, mu, nu)")
+    new = train_lib.init_train_state(model_config, train_config,
+                                     params=state.params, device=device)
+    names = [n for n, _ in new.model.named_parameters()]
+    dev = next(new.model.parameters()).device
+    moments = []
+    for tree in (adam.mu, adam.nu):
+        sd = flax_to_torch(tree, model_config)
+        moments.append([sd[n].to(dev) for n in names])
+    new.step = int(np.asarray(state.step))
+    new.opt_state = train_lib.OptState(count=int(np.asarray(adam.count)),
+                                       mu=moments[0], nu=moments[1])
+    return new
 
 
 def random_flax_tree(cfg: ModelConfig, seed: int) -> dict:

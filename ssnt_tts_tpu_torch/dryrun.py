@@ -27,6 +27,7 @@ pickled into the job directory) and return a picklable result per rank:
   time_steps  timed sharded steps (weak_scaling.py);
   probe       the collectives on this device, and send / recv as the
               ring does them.
+A module-level function of (job, device) may stand in for a task's name.
 The one-process references the ranks are held to: `halves_step` (the
 sharded step's arithmetic over two data ranks, with the lattice on the
 ring or not) and `decode_routes` (the four decodes by name).
@@ -503,7 +504,7 @@ TASKS = {"dryrun": dryrun_task, "lattice": lattice_task,
 # ------------------------------------------------------------- launching
 
 
-def run_rank(task: str, job_dir: Optional[str] = None, *,
+def run_rank(task, job_dir: Optional[str] = None, *,
              job: Optional[dict] = None,
              init_method: Optional[str] = None,
              world: Optional[int] = None, rank: Optional[int] = None,
@@ -511,10 +512,11 @@ def run_rank(task: str, job_dir: Optional[str] = None, *,
              timeout_s: float = 300.0):
     """One rank: initialize the process group (explicit arguments, else
     the launcher's environment; gloo for a CPU device, else
-    multihost.default_backend unless `backend` names one), run
-    TASKS[task] on `job` (else job_dir's job.pkl, else an empty job),
-    write its result to job_dir's rank<R>.pkl when there is a job_dir, and
-    leave the group. Returns the result."""
+    multihost.default_backend unless `backend` names one), run the task
+    (a name in TASKS, or a module-level function of (job, device)) on
+    `job` (else job_dir's job.pkl, else an empty job), write its result to
+    job_dir's rank<R>.pkl when there is a job_dir, and leave the group.
+    Returns the result."""
     if device is not None and torch.device(device).type == "cpu":
         torch.set_num_threads(1)
         backend = backend or "gloo"
@@ -527,7 +529,8 @@ def run_rank(task: str, job_dir: Optional[str] = None, *,
         if job is None and job_dir is not None:
             job = pickle.loads((pathlib.Path(job_dir) / "job.pkl")
                                .read_bytes())
-        result = TASKS[task](job or {}, device)
+        fn = TASKS[task] if isinstance(task, str) else task
+        result = fn(job or {}, device)
         if job_dir is not None:
             (pathlib.Path(job_dir) / f"rank{dist.get_rank()}.pkl"
              ).write_bytes(pickle.dumps(result))
@@ -543,10 +546,11 @@ def _spawned(index, task, job_dir, init_method, world, device, backend,
              timeout_s=timeout_s)
 
 
-def launch(task: str, job: dict, world: int, job_dir, *, device=None,
+def launch(task, job: dict, world: int, job_dir, *, device=None,
            backend: Optional[str] = None, timeout: float = 300.0
            ) -> List[object]:
-    """Run `task` on `world` new ranks (torch.multiprocessing, "spawn"),
+    """Run `task` (as run_rank takes it; a function is pickled by
+    reference) on `world` new ranks (torch.multiprocessing, "spawn"),
     rendezvous through a file in job_dir; returns each rank's result, in
     rank order. Raises if a rank raises or exits non-zero (the others are
     stopped), and TimeoutError (every rank killed) after `timeout`
@@ -569,7 +573,8 @@ def launch(task: str, job: dict, world: int, job_dir, *, device=None,
     try:
         while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
             if time.monotonic() >= deadline:
-                raise TimeoutError(f"{task}: {world} ranks still running "
+                raise TimeoutError(f"{getattr(task, '__name__', task)}: "
+                                   f"{world} ranks still running "
                                    f"after {timeout} s")
     finally:
         for p in ctx.processes:

@@ -43,6 +43,7 @@ def beam_search_step(
     test_mode: bool,
     config: V2BeamConfig | None = None,
     max_beam_width: int | None = None,
+    return_diagnostics: bool = False,
 ):
     """One v2 beam step for a batch.
 
@@ -53,8 +54,11 @@ def beam_search_step(
     repetition; the diagonal candidate goes to the last slot).
 
     Returns (prediction, log_prob, next_t, next_u, is_finished,
-    total_duration, beam_branch), each (B, max_beam_width), and
-    num_survivors (B,).
+    total_duration, beam_branch), each (B, max_beam_width), then with
+    return_diagnostics the (B, 4) int32 prune attribution [band, overrun,
+    exact_final, zero_skip] (per constraint, the candidates of active
+    beams that dropping that constraint alone would admit; computed in
+    test_mode too, as in JAX), and num_survivors (B,).
     """
     B, W, D = h.shape
     cfg = config if config is not None else V2BeamConfig()
@@ -129,9 +133,20 @@ def beam_search_step(
         diag_mask = flat((diff >= f(lo)) & (diff <= f(hi)))
     out = select_beams(fields, flat(valid), fields["log_prob"],
                        max_beam_width or W, _EQ_KEYS, diag_mask=diag_mask)
-    return (out["prediction"], out["log_prob"], out["next_t"], out["next_u"],
-            out["is_finished"], out["total_duration"], out["parent_branch"],
-            out["num_survivors"])
+    result = (out["prediction"], out["log_prob"], out["next_t"],
+              out["next_u"], out["is_finished"], out["total_duration"],
+              out["parent_branch"])
+    if return_diagnostics:
+        act_ok = active & skip_ok
+        no_ov = ~overrun
+        count = lambda m: m.sum(dim=(1, 2), dtype=i32)
+        result += (torch.stack([
+            count(act_ok & no_ov & final_len_ok & ~band_ok),
+            count(act_ok & band_ok & final_len_ok & overrun),
+            count(act_ok & band_ok & no_ov & ~final_len_ok),
+            count(active & ~skip_ok & band_ok & no_ov & final_len_ok),
+        ], dim=1),)
+    return result + (out["num_survivors"],)
 
 
 def beam_search_decode(
@@ -143,10 +158,12 @@ def beam_search_decode(
     test_mode: bool = False,
     config: V2BeamConfig | None = None,
     max_beam_width: int | None = None,
+    return_diagnostics: bool = False,
 ):
     """Reference Python API (ssnt_tts_tensorflow/__init__.py:33-73): in
     test_mode output_length is zeroed, like the reference wrapper.
-    Returns beam_search_step's eight outputs."""
+    Returns beam_search_step's outputs (eight, nine with
+    return_diagnostics)."""
     if test_mode:
         output_length = torch.zeros_like(output_length)
     return beam_search_step(
@@ -154,4 +171,5 @@ def beam_search_decode(
         t, u, input_length, output_length,
         zero_duration_id=zero_duration_id, allow_skip=allow_skip,
         test_mode=test_mode, config=config, max_beam_width=max_beam_width,
+        return_diagnostics=return_diagnostics,
     )

@@ -24,7 +24,8 @@ _EQ_KEYS = ("prediction", "log_prob", "next_t", "next_u", "is_finished")
 
 def beam_search_step(h, log_prob_history, is_finished, t, u, input_length,
                      *, empty_tone_id: int = 0,
-                     max_beam_width: Optional[int] = None):
+                     max_beam_width: Optional[int] = None,
+                     return_num_survivors: bool = False):
     """One tone step for a batch (JAX tone_latent.beam_search_decode).
 
     h (B, W, K) f32 per-beam tone-class log-probs; log_prob_history (B, W)
@@ -33,7 +34,8 @@ def beam_search_step(h, log_prob_history, is_finished, t, u, input_length,
     repetition).
 
     Returns (prediction, log_prob, next_t, next_u, is_finished,
-    beam_branch), each (B, max_beam_width).
+    beam_branch), each (B, max_beam_width) [, num_survivors (B,) with
+    return_num_survivors].
     """
     B, W, K = h.shape
     dev = h.device
@@ -63,5 +65,26 @@ def beam_search_step(h, log_prob_history, is_finished, t, u, input_length,
     }
     out = select_beams(fields, flat(valid), fields["log_prob"],
                        max_beam_width or W, _EQ_KEYS)
-    return (out["prediction"], out["log_prob"], out["next_t"], out["next_u"],
-            out["is_finished"], out["parent_branch"])
+    result = (out["prediction"], out["log_prob"], out["next_t"],
+              out["next_u"], out["is_finished"], out["parent_branch"])
+    if return_num_survivors:
+        return result + (out["num_survivors"],)
+    return result
+
+
+def beam_search_decode(h, log_prob_history, is_finished, t, u, input_length,
+                       beam_width: Optional[int] = None,
+                       tone_class_size: Optional[int] = None,
+                       empty_tone_id: int = 0,
+                       return_num_survivors: bool = False):
+    """The reference's Python API (ssnt_tts_tensorflow/__init__.py:99-127):
+    beam_search_step on h (B, W, K), state (B, W), input_length (B,),
+    after checking beam_width == W and tone_class_size == K (ValueError)."""
+    B, W, K = h.shape
+    if beam_width is not None and beam_width != W:
+        raise ValueError(f"beam_width {beam_width} != {W}")
+    if tone_class_size is not None and tone_class_size != K:
+        raise ValueError(f"tone_class_size {tone_class_size} != {K}")
+    return beam_search_step(h, log_prob_history, is_finished, t, u,
+                            input_length, empty_tone_id=empty_tone_id,
+                            return_num_survivors=return_num_survivors)

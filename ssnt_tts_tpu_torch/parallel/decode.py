@@ -37,7 +37,7 @@ import torch
 
 from ssnt_tts_tpu_torch.models import stepmath
 from ssnt_tts_tpu_torch.ops import backtrace, beam_fused, beam_kernels
-from ssnt_tts_tpu_torch.ops import upsample
+from ssnt_tts_tpu_torch.ops import beam_v2, upsample
 from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
 
 
@@ -104,6 +104,7 @@ def v2_duration_decode(
     test_mode: bool = False,
     use_pallas: Optional[bool] = None,
     fuse_model: Optional[bool] = None,
+    collect_diagnostics: bool = False,
     config: Optional[V2BeamConfig] = None,
 ) -> Dict[str, torch.Tensor]:
     """T steps of the v2 duration-class beam over per-beam h, then the
@@ -111,6 +112,12 @@ def v2_duration_decode(
     follows fuse_model and use_pallas (module docstring). beam_emptied
     (B,) marks utterances where some step kept no candidate, where the
     reference panics (src/v2.rs:292).
+
+    collect_diagnostics: take the plain step (no kernel; the attribution
+    lives there only, as in JAX) and add first_empty_prune_counts (B, 4)
+    int32, beam_v2's [band, overrun, exact_final, zero_skip] counts at
+    each utterance's first emptying step (0 if none), and first_empty_t
+    (B,) int32, its source position (-1 if none).
     """
     B, T = tokens.shape
     W = beam_width
@@ -131,7 +138,21 @@ def v2_duration_decode(
     tot, t, u, pc = zeros(i32), zeros(i32), zeros(i32), zeros(i32)
     state = torch.zeros(B, W, model.config.decoder_dim, device=dev)
     emptied = torch.zeros(B, dtype=torch.bool, device=dev)
-    if fuse_model is not False:
+    first_counts = torch.zeros(B, 4, dtype=i32, device=dev)
+    first_t = torch.full((B,), -1, dtype=i32, device=dev)
+    if collect_diagnostics:
+        def step(s):
+            nonlocal first_counts, first_t
+            h, new_h = model.duration_decode_step(enc, t, state, pc)
+            *o, counts, n = beam_v2.beam_search_decode(
+                h, lp, fin, tot, dtab, t, u, il, ol,
+                return_diagnostics=True, **kw)
+            new = (n == 0) & ~emptied
+            first_counts = torch.where(new[:, None], counts, first_counts)
+            first_t = torch.where(new, t[:, 0], first_t)
+            return beam_fused.V2Step(*o, n, emptied | (n == 0),
+                                     beam_fused.reorder_state(new_h, o[6]))
+    elif fuse_model is not False:
         w = model.duration_step_weights()
         xin_path, base_path = stepmath.class_decode_paths(
             w, enc, il, model.dtype, kind="v2")
@@ -161,8 +182,12 @@ def v2_duration_decode(
                                     o.state, o.emptied)
         preds.append(o.prediction)
         branches.append(o.branch)
-    return v2_postprocess(torch.stack(preds, 1), torch.stack(branches, 1),
-                          dtab, il, max_frames, lp, tot, fin, emptied)
+    out = v2_postprocess(torch.stack(preds, 1), torch.stack(branches, 1),
+                         dtab, il, max_frames, lp, tot, fin, emptied)
+    if collect_diagnostics:
+        out["first_empty_prune_counts"] = first_counts
+        out["first_empty_t"] = first_t
+    return out
 
 
 @torch.no_grad()

@@ -1,12 +1,45 @@
-"""JSON-lines metrics sink and the weak-scaling ratios (copies of
-ssnt_tts_tpu/utils/metrics.py's MetricsLogger and weak_scaling_efficiency,
-and scripts/weak_scaling.py's partition efficiency)."""
+"""Throughput counters, the weak-scaling ratios and a JSON-lines metrics
+sink (copies of ssnt_tts_tpu/utils/metrics.py's LatticeThroughput,
+DecodeThroughput, weak_scaling_efficiency and MetricsLogger, and
+scripts/weak_scaling.py's partition efficiency)."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from typing import Dict, Optional
+
+
+@dataclasses.dataclass
+class LatticeThroughput:
+    """Mcells/s for a (B, T, U) forward[-backward] lattice pass."""
+
+    batch: int
+    input_length: int
+    output_length: int
+
+    @property
+    def cells(self) -> int:
+        return self.batch * self.input_length * self.output_length
+
+    def mcells_per_s(self, seconds: float) -> float:
+        return self.cells / seconds / 1e6
+
+
+@dataclasses.dataclass
+class DecodeThroughput:
+    """Audio-seconds synthesized per wall-clock second."""
+
+    batch: int
+    frames: int
+    frame_hop_s: float = 0.0125  # 12.5 ms hop (80 frames/s)
+
+    def audio_seconds(self) -> float:
+        return self.batch * self.frames * self.frame_hop_s
+
+    def audio_s_per_s(self, seconds: float) -> float:
+        return self.audio_seconds() / seconds
 
 
 def weak_scaling_efficiency(throughput_1: float, throughput_n: float,

@@ -78,7 +78,7 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "ssnt_tts_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    banned = ("jax", "flax", "ssnt_tts_tpu")
+    banned = ("jax", "flax", "ssnt_tts_tpu", "orbax", "optax")
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

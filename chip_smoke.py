@@ -55,7 +55,10 @@ reported on its own line:
      CUDA graph; forward alphas and backward gradients also by their block
      walks), both lattice routes at both batch sizes, and the train
      step at B=32 and B=256 on both routes, split into forward, backward
-     and optimizer (host clock, each part ending in a synchronize);
+     and optimizer (host clock, each part ending in a synchronize); at
+     B=256 a step through decoder_states' chunked remat bit for bit one
+     through the loop written out without it (unchunked_decoder_states),
+     with each step's peak device memory;
  10. tone step check at B=32, W=8, K=8, H=256, float32 and bfloat16 (and
      the first step at W=16): the fused tone kernel's h and new GRU state
      against the plain step (TOL), and the plain tone selection on the
@@ -171,28 +174,36 @@ reported on its own line:
      three train_steps from the same state, losses and parameters bit
      for bit, the all_reduces a step, then run_training over that mesh
      with a checkpoint directory for 1 step and resumed to 2 (the
-     primary's saves and the end-of-run barrier on NCCL); (b) four ranks of
+     primary's saves and the end-of-run barrier on NCCL), each timed; and
+     run_training resumed on that mesh from the step-1 checkpoint that
+     four spawned ranks saved from a 2x2 mesh (parameters split over
+     "model", whole tensors gathered for the save), the checkpoint bit for
+     bit the one-process step over the two row halves and step 2 bit for
+     bit train_step from it; (b) four ranks of
      ssnt_tts_tpu_torch.dryrun started with torch.multiprocessing
      ("spawn"; they load the libraries built above), on gloo with every
-     rank on cuda:0 (NCCL one rank a card when there are four cards):
+     rank on cuda:0 (NCCL one rank a card when there are four cards), at
+     the flagship ModelConfig():
      the gloo operations the port calls, on the tensors it hands them
      (a 2-rank probe: the collectives on CUDA tensors, send / recv
-     through host memory), three
-     sharded steps on a 2x2 mesh with lattice_tshard_min_cells=0 (the
-     ring: T=80 over 2 shards, K=16) and three with it off against the
-     one-process step (losses rtol 2e-4; parameters and grad_norm bit for
-     bit the one-process step over the same two row halves,
-     dryrun.halves_step, with its lattices on a one-rank ring when the
-     ring is on; the count of parameters outside rtol 2e-3 / atol 2e-5 of
-     the whole-batch step reported), the ring's hops, the kernel launches
-     of every rank, the ring alone bit for bit ops/lattice.ssnt_loss at
-     U=400, B=16 and its fwd+bwd time, and the v2 (fused and plain
-     routes), tone and v1
+     through host memory), three sharded steps on a 2x2 and on a 1x4
+     mesh, the parameters split over the model axis
+     (mesh.param_sharding), each with lattice_tshard_min_cells=0 (the
+     ring: T=80 over 2 or 4 shards, K=16) and with it off, against the
+     one-process step with whole parameters (losses rtol 2e-4; parameters
+     and grad_norm bit for bit the one-process step over the same data
+     rows, dryrun.split_step, with its lattices on a one-rank ring when
+     the ring is on; the count of parameters outside rtol 2e-3 / atol 2e-5
+     of the whole-batch step reported), the bytes each rank stores, one
+     all_gather and two all_reduces a step, the ring's hops, the kernel
+     launches of every rank, the ring alone bit for bit
+     ops/lattice.ssnt_loss at U=400, B=16 and its fwd+bwd time, and after
+     three 2x2 sharded steps the v2 (fused and plain routes), tone and v1
      decodes over data shards gathered and gated as phases 4 and 16 gate
      theirs, each rank's outputs bit for bit a one-process decode of the
-     same rows, and their agreement with a one-process decode of the
-     whole batch (not gated; beside it the plain routes' agreement in
-     the bf16 model and in a float32 one).
+     same rows by the one-process model, and their agreement with a
+     one-process decode of the whole batch (not gated; beside it the plain
+     routes' agreement in the bf16 model and in a float32 one).
      Every spawned group has a 300 s deadline;
  26. the utilities at the flagship width (ModelConfig(): vocab 256,
      encoder 256 x 4 layers x 4 heads, bf16): (a) the train CLI
@@ -213,13 +224,17 @@ reported on its own line:
      step in both of eval_e2e's arms and the tone step, float32 and
      bfloat16, at s=0/30/T-1, h and new_h within TOL of the plain step's
      and the selection bit for bit the plain selection on the kernel's h
-     (as phases 3 and 10 at B=32); its bench_step train_step_ms beside
+     (as phases 3 and 10 at B=32; the largest |dh| and |dnew_h| logged
+     apart); its bench_step train_step_ms beside
      split_step_ms at the same config;
      (d) utils/profiling.trace around one B=32 train step: the Chrome
      trace names the lattice_bidir kernel (bidir_warp_kernel) and the
      annotation; guard_nans passes a clean step and flags a NaN mel
      frame; ops/checks flag an emptied v2 step and a bad upsampling length
-     on CUDA tensors and pass good ones.
+     on CUDA tensors and pass good ones; (e) at B=32 and B=256, a step
+     through decoder_states' chunked remat bit for bit one through the
+     loop without it, then both in turns (split_step_ms, host clock) with
+     each run's peak device memory.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -762,6 +777,96 @@ def split_step_ms(tx, state, batch, reps: int = 3) -> dict:
             "total": fwd + bwd + opt}
 
 
+def unchunked_decoder_states(model, mel_target):
+    """SSNTModel.decoder_states with its recurrence as one loop, without
+    the chunked remat (the port's loop before it, written out): autograd
+    keeps every frame's activations."""
+    from ssnt_tts_tpu_torch.models import stepmath
+
+    shifted = torch.cat([torch.zeros_like(mel_target[:, :1]),
+                         mel_target[:, :-1]], dim=1)
+    cell = model.ar_cell.cell
+    gi = stepmath.gru_input(cell.wi, cell.bi,
+                            model.ar_cell.prenet(shifted).to(model.dtype))
+    state = torch.zeros(mel_target.shape[0], model.config.decoder_dim,
+                        device=mel_target.device)
+    outs = []
+    for gi_u in gi.unbind(1):
+        state = stepmath.gru_update(gi_u, cell.wh, cell.bhn, state)
+        outs.append(state)
+    return torch.stack(outs, dim=1)
+
+
+def remat_compare(tag: str, cfg, sizes, seed: int, dev, smi: str,
+                  reps: int = 2) -> None:
+    """At each batch size, two states from the same weights: one trains
+    through decoder_states' chunked remat, the other through
+    unchunked_decoder_states (set on its model instance). One train step
+    each on the same batch: loss, grad_norm and every parameter, mu and nu
+    after it bit for bit, and each step's peak device memory
+    (max_memory_allocated after reset_peak_memory_stats; both states
+    resident); then, unless reps is 0, split_step_ms (median of `reps`
+    steps) in turns loop, remat, remat, loop, with each run's peak. Logs
+    one line per size."""
+    import types
+
+    from ssnt_tts_tpu_torch import data as data_lib
+    from ssnt_tts_tpu_torch.parallel import train as train_lib
+    from ssnt_tts_tpu_torch.utils.config import TrainConfig
+
+    for Bn in sizes:
+        tcfg = TrainConfig(warmup_steps=2, batch_size=Bn)
+        batch = to_device(data_lib.SyntheticTTSDataset(
+            vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+            duration_class_size=cfg.duration_class_size,
+            tone_class_size=cfg.tone_class_size,
+            seed=seed + 10).batch(Bn), dev)
+        tx = train_lib.make_optimizer(tcfg)
+        states, first = {}, {}
+        for name in ("loop", "remat"):
+            st = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
+            if name == "loop":
+                st.model.decoder_states = types.MethodType(
+                    unchunked_decoder_states, st.model)
+            states[name] = st
+        for name, st in states.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, m = train_lib.train_step(tx, st, batch)
+            torch.cuda.synchronize()
+            first[name] = ({k: float(v) for k, v in m.items()},
+                           torch.cuda.max_memory_allocated())
+        if first["loop"][0] != first["remat"][0]:
+            raise AssertionError(f"{tag} remat B={Bn}: metrics {first}")
+        n = same_record(state_record(states["remat"]),
+                        state_record(states["loop"]),
+                        f"{tag} remat B={Bn}: the step through the remat "
+                        f"against the loop")
+        runs = {"loop": [], "remat": []}
+        for name in ("loop", "remat", "remat", "loop")[:4 if reps else 0]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = split_step_ms(tx, states[name], batch, reps=reps)
+            runs[name].append((ms["total"], ms["backward"],
+                               torch.cuda.max_memory_allocated()))
+        gib = lambda x: f"{x / 2**30:.3f}"
+        fmt = lambda name: (
+            "step ms " + " / ".join(f"{r[0]:.1f}" for r in runs[name])
+            + " (backward " + " / ".join(f"{r[1]:.1f}" for r in runs[name])
+            + "), peak GiB " + " / ".join(gib(r[2]) for r in runs[name]))
+        log(f"[{tag} remat] {smi}: train step B={Bn} T={T} U={U} "
+            f"{cfg.dtype}, encoder {cfg.encoder_dim} x "
+            f"{cfg.encoder_layers}: one step through decoder_states' chunked "
+            f"remat (chunk 8) bit for bit the loop without it (loss "
+            f"{first['remat'][0]['loss']:.6f}, {n} tensors); peak of that "
+            f"step remat {gib(first['remat'][1])} GiB, loop "
+            f"{gib(first['loop'][1])} GiB (saved "
+            f"{(first['loop'][1] - first['remat'][1]) / 1e9:.3f} GB)"
+            + (f"; in turns loop, remat, remat, loop (host clock, median of "
+               f"{reps}): remat {fmt('remat')}; loop {fmt('loop')}"
+               if reps else ""))
+
+
 def train_run(tag, name, steps, bsz, mcfg, want, seed, dev, params=None,
               warmup_steps=2, gate_sentinel=True):
     """run_training for `steps` steps at batch `bsz` (from `params` when
@@ -960,6 +1065,7 @@ def train_phases(seed: int, dev, smi: str) -> list:
                 f"optimizer {ms['optimizer']:.1f} (host clock)")
     log(f"[9 time] peak device memory over the train-step timings: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    remat_compare("9 time", cfg, (B_LARGE,), seed, dev, smi, reps=0)
 
     err = {"lattice_bidir": e_bidir, "lattice_forward_alphas": e_fwd,
            "lattice_backward_grads": e_bwd}
@@ -2795,8 +2901,10 @@ def dist_batches(cfg, seed: int, n: int) -> list:
     than the second."""
     from ssnt_tts_tpu_torch import data as data_lib
 
-    ds = data_lib.SyntheticTTSDataset(vocab_size=cfg.vocab_size,
-                                      mel_dim=cfg.mel_dim, seed=seed + 5)
+    ds = data_lib.SyntheticTTSDataset(
+        vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+        duration_class_size=cfg.duration_class_size,
+        tone_class_size=cfg.tone_class_size, seed=seed + 5)
     out = []
     for _ in range(n):
         b = {k: v for k, v in ds.batch(B).items() if k != "alignment"}
@@ -2823,13 +2931,17 @@ def params_outside(got: dict, want: dict) -> tuple:
 def distribution_phase(seed: int, dev, smi: str) -> None:
     """Phase 25: (a) NCCL, one rank, in this process: three sharded steps
     (mesh 1x1) against three train_steps from the same state, bit for bit;
-    (b) four ranks (gloo on the one card, each on cuda:0; NCCL one rank a
-    card when there are four cards): the gloo operations on the tensors
-    the port hands them, three sharded steps on a 2x2 mesh with the
-    T-sharded ring and three without against the one-process step, the
-    ring alone against the plain lattice loss, the four decodes over data
-    shards against one-process decodes, every rank's launches; (a) also
-    run_training with checkpoints over the NCCL mesh, then resumed."""
+    run_training with checkpoints over the NCCL mesh, then resumed; and
+    run_training resumed from a checkpoint that four ranks saved from
+    split parameter storage (2x2); (b) four ranks (gloo on the one card,
+    each on cuda:0; NCCL one rank a card when there are four cards), at
+    the flagship ModelConfig(): the gloo operations on the tensors the
+    port hands them, three sharded steps on a 2x2 and on a 1x4 mesh (the
+    parameters split over the model axis), each with the T-sharded ring
+    and without, against the one-process step with whole parameters, the
+    bytes each rank stores, the ring alone against the plain lattice loss,
+    the four decodes over data shards after sharded training against
+    one-process decodes, every rank's launches."""
     import shutil
     from pathlib import Path
 
@@ -2847,10 +2959,46 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
     from ssnt_tts_tpu_torch.utils.config import (
         MeshConfig, ModelConfig, TrainConfig)
 
+    from ssnt_tts_tpu_torch import data as data_lib
+
     work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dist"
     work.mkdir(parents=True, exist_ok=True)
     cfg = ModelConfig(**SERVE_CFG)
     tcfg = TrainConfig(warmup_steps=2, batch_size=B)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+
+    # run_training over a 2x2 mesh (parameters split over "model") to step
+    # 1: the checkpoint (whole tensors) that 25a resumes on one rank.
+    layout = work / "layout_ckpt"
+    shutil.rmtree(layout, ignore_errors=True)
+    t0 = time.perf_counter()
+    dryrun.launch("run_training", {
+        "mesh": (2, 2), "cfg": cfg, "tcfg": tcfg, "steps": 1, "seed": seed,
+        "checkpoint_dir": str(layout)}, 4, work / "layout", backend=backend,
+        timeout=DIST_TIMEOUT_S)
+    t_layout = time.perf_counter() - t0
+    if ckpt_lib.latest_step(str(layout)) != 1:
+        raise AssertionError("25a: the 2x2 run_training saved no step 1")
+    # its first batch, as run_training draws it (the init draw first)
+    ds = data_lib.SyntheticTTSDataset(
+        vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
+        max_input_length=tcfg.max_input_length,
+        max_output_length=tcfg.max_output_length,
+        duration_class_size=cfg.duration_class_size,
+        tone_class_size=cfg.tone_class_size, seed=seed)
+    ds.batch(B)
+    first = to_device(ds.batch(B), dev)
+    txl = train_lib.make_optimizer(tcfg)
+    one = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
+    dryrun.split_step(txl, one, first)
+    n_layout = same_record(
+        state_record(ckpt_lib.restore(str(layout), train_lib.init_train_state(
+            cfg, tcfg, seed=seed + 1, device=dev))), state_record(one),
+        "25a: step 1 saved from 2x2 split storage against the one-process "
+        "step over the two row halves")
+    train_lib.train_step(txl, one, first)  # the resumed run replays it
+
     batches = dist_batches(cfg, seed, 3)
     tokens = [int(b["input_length"][:B // 2].sum()) for b in batches]
     log(f"[25 dist] global batches B={B} T={T} U={U} bf16, rows sorted by "
@@ -2892,18 +3040,29 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
             if not torch.equal(a, b):
                 raise AssertionError(f"25a: parameter {k} differs")
         # run_training over the NCCL mesh with checkpoints, then resumed:
-        # the primary's saves and the end-of-run barrier on NCCL.
+        # the primary's saves and the end-of-run barrier on NCCL; then
+        # resumed from the 2x2 layout's step 1.
         ckpt = work / "nccl_ckpt"
         shutil.rmtree(ckpt, ignore_errors=True)
-        for n in (1, 2):
+        run_secs = []
+        for n, where in ((1, ckpt), (2, ckpt), (2, layout)):
+            t0 = time.perf_counter()
             run_training(n, cfg, tcfg, seed=seed, log_every=1,
                          metrics_path=str(work / "nccl_run.jsonl"),
                          mesh_config=MeshConfig(1, 1),
-                         checkpoint_dir=str(ckpt))
-            if ckpt_lib.latest_step(str(ckpt)) != n:
+                         checkpoint_dir=str(where))
+            torch.cuda.synchronize()
+            run_secs.append(time.perf_counter() - t0)
+            if ckpt_lib.latest_step(str(where)) != n:
                 raise AssertionError(f"25a: run_training to step {n} over "
                                      f"NCCL: latest checkpoint "
-                                     f"{ckpt_lib.latest_step(str(ckpt))}")
+                                     f"{ckpt_lib.latest_step(str(where))}")
+        same_record(state_record(ckpt_lib.restore(
+            str(layout), train_lib.init_train_state(cfg, tcfg, seed=seed + 1,
+                                                    device=dev))),
+                    state_record(one), "25a: step 2 resumed on one rank "
+                    "from the 2x2 checkpoint against train_step from its "
+                    "step 1")
     finally:
         dist.destroy_process_group()
     if launches != (6, 0, 0, 0, 0, 0, 0, 0):
@@ -2914,19 +3073,28 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         f"{step_fn.all_reduces // 3} all_reduces a step (the normalizers, "
         f"then gradients + metrics in one flat buffer); launches "
         f"{LAUNCH_NAMES} {launches}")
-    log("[25a nccl] run_training over the NCCL mesh with checkpoint_dir: "
-        "step 1 saved, resumed to step 2 and saved (the end-of-run "
-        "barrier on NCCL)")
+    log(f"[25a nccl] run_training over the NCCL mesh with checkpoint_dir: "
+        f"step 1 saved in {run_secs[0]:.1f}s, resumed to step 2 and saved "
+        f"in {run_secs[1]:.1f}s (host clock, the end-of-run barrier on "
+        f"NCCL); run_training over a 2x2 mesh ({backend}, 4 ranks, "
+        f"parameters split over model) to step 1 in {t_layout:.1f}s with "
+        f"start-up: its checkpoint bit for bit the one-process step over "
+        f"the two row halves ({n_layout} tensors), resumed here on the 1x1 "
+        f"NCCL mesh to step 2 in {run_secs[2]:.1f}s, bit for bit train_step "
+        f"from that step 1 on the replayed batch")
     log(f"[25a time] {smi}: step ms (host clock), sharded "
         + " ".join(f"{x:.1f}" for x in ms["sharded"]) + ", train_step "
         + " ".join(f"{x:.1f}" for x in ms["train_step"]))
 
-    # ---- (b) four ranks ----
-    cards = torch.cuda.device_count()
-    backend = "nccl" if cards >= 4 else "gloo"
+    # ---- (b) four ranks, at the flagship width ----
+    cfg = ModelConfig()
+    batches = dist_batches(cfg, seed, 3)
     log(f"[25b dist] {cards} card(s): four ranks on {backend}"
         + (", one rank a card" if backend == "nccl" else
-           ", every rank on cuda:0"))
+           ", every rank on cuda:0")
+        + f"; ModelConfig() (vocab {cfg.vocab_size}, encoder "
+          f"{cfg.encoder_dim} x {cfg.encoder_layers} x {cfg.encoder_heads} "
+          f"heads, {cfg.dtype}) at global B={B} T={T} U={U}")
     if backend == "gloo":
         table = dryrun.launch("probe", {"mesh": (2, 1)}, 2, work / "probe",
                               backend="gloo", timeout=DIST_TIMEOUT_S)[0]
@@ -2937,26 +3105,34 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
             f" the ring's hops go through host memory explicitly "
             f"(Mesh.stage_p2p; gloo's send of a CUDA tensor aborts the "
             f"process); the compute stays on the card")
-    # One-process references on the same global batches: train_step on
-    # the whole batch, and the same step over the two data ranks' row
-    # halves (gradients summed in one process: a data group's sum), with
-    # the lattice on the plain route and on a one-rank ring.
+    # One-process references with whole parameters on the same global
+    # batches: train_step on the whole batch, and the same step over the
+    # data ranks' row blocks (gradients summed in one process: a data
+    # group's sum), with the lattice on the plain route or on a one-rank
+    # ring.
     ref = {}
-    for name in ("whole", "halves", "halves_ring"):
+    for name, parts, ring in (("whole", 1, False), ("whole_ring", 1, True),
+                              ("halves", 2, False),
+                              ("halves_ring", 2, True)):
         st = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
         txr = train_lib.make_optimizer(tcfg)
         ms = []
         for b in batches:
             batch = to_device(b, dev)
             m = (train_lib.train_step(txr, st, batch)[1] if name == "whole"
-                 else dryrun.halves_step(txr, st, batch,
-                                         ring=name == "halves_ring")[1])
+                 else dryrun.split_step(txr, st, batch, ring=ring,
+                                        parts=parts)[1])
             ms.append({k: float(v) for k, v in m.items()})
-        ref[name] = (ms, st.model.state_dict())
+        ref[name] = (ms, st)
 
-    runs = [{"cfg": dataclasses.replace(cfg, lattice_tshard_min_cells=mc),
-             "tcfg": tcfg, "seed": seed, "batches": batches}
-            for mc in (0, None)]
+    # (mesh, T-shard on, reference): a 2x2 rank holds its data half, a 1x4
+    # rank the whole batch.
+    layouts = [((2, 2), True, "halves_ring"), ((2, 2), False, "halves"),
+               ((1, 4), True, "whole_ring"), ((1, 4), False, "whole")]
+    runs = [{"cfg": dataclasses.replace(
+        cfg, lattice_tshard_min_cells=0 if ring else None), "tcfg": tcfg,
+        "seed": seed, "batches": batches, "mesh": mesh}
+        for mesh, ring, _ in layouts]
     t0 = time.perf_counter()
     ranks = dryrun.launch("steps", {"mesh": (2, 2), "runs": runs,
                                     "ring": (U, B // 2, T)}, 4,
@@ -2964,39 +3140,58 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
                           timeout=DIST_TIMEOUT_S)
     secs = time.perf_counter() - t0
     K = lattice_sharded._pick_block(U)
-    hops = lattice_sharded.hops_per_walk(U, 2, K)
     whole_loss = [m["loss"] for m in ref["whole"][0]]
-    for r in ranks:
-        for run, ring in zip(r["runs"], (True, False)):
-            what = f"25b rank {r['rank']} T-shard {'on' if ring else 'off'}"
+    whole_bytes = sum(p.numel() * p.element_size()
+                      for p in ref["whole"][1].model.parameters())
+    stored = {}
+    for (mesh, ring, rname), run_i in zip(layouts, range(len(layouts))):
+        d, m = mesh
+        owners = mesh_lib.param_sharding(m, cfg)
+        want_bytes = sum(
+            p.numel() * p.element_size() // (1 if owners[n] is None else m)
+            for n, p in ref["whole"][1].model.named_parameters())
+        stored[mesh] = want_bytes
+        hops = lattice_sharded.hops_per_walk(U, m, K)
+        split = ref[rname]
+        want_params = split[1].model.state_dict()
+        for r in ranks:
+            run = r["runs"][run_i]
+            what = (f"25b rank {r['rank']} mesh {d}x{m} T-shard "
+                    f"{'on' if ring else 'off'}")
             losses = [s["metrics"]["loss"] for s in run["steps"]]
             if not np.allclose(losses, whole_loss, rtol=DIST_LOSS_RTOL,
                                atol=0):
                 raise AssertionError(f"{what}: losses {losses} vs one "
                                      f"process {whole_loss}")
-            split = ref["halves_ring" if ring else "halves"]
             norms = [s["metrics"]["grad_norm"] for s in run["steps"]]
-            if norms != [m["grad_norm"] for m in split[0]] or not all(
+            if norms != [x["grad_norm"] for x in split[0]] or not all(
                     torch.equal(torch.as_tensor(run["params"][k]), v.cpu())
-                    for k, v in split[1].items()):
+                    for k, v in want_params.items()):
                 raise AssertionError(
                     f"{what}: grad_norm {norms} or parameters not bit for "
-                    f"bit the one-process step over the two row halves"
-                    + (" on a one-rank ring" if ring else ""))
-            run["outside"] = params_outside(run["params"], ref["whole"][1])
-            for s in run["steps"]:
+                    f"bit the one-process step ({rname}) with whole "
+                    f"parameters")
+            if run["stored_bytes"] != want_bytes or run["mesh"] != {
+                    "data": d, "model": m}:
+                raise AssertionError(f"{what}: stores {run['stored_bytes']}"
+                                     f" bytes, not {want_bytes}")
+            run["outside"] = params_outside(run["params"],
+                                            ref["whole"][1].model.state_dict())
+            for s_ in run["steps"]:
                 want_ring = {"hops_forward": hops, "hops_backward": hops,
                              "all_reduce": 1, "all_gather": 1} if ring else {
                     "hops_forward": 0, "hops_backward": 0, "all_reduce": 0,
                     "all_gather": 0}
-                bidir = s["launches"]["lattice_bidir"]
-                others = sum(v for k, v in s["launches"].items()
+                bidir = s_["launches"]["lattice_bidir"]
+                others = sum(v for k, v in s_["launches"].items()
                              if k != "lattice_bidir")
-                if (s["ring"] != want_ring or s["all_reduces"] != 2
+                if (s_["ring"] != want_ring or s_["all_reduces"] != 2
+                        or s_["all_gathers"] != 1
                         or bidir != (0 if ring else 1) or others):
                     raise AssertionError(
-                        f"{what}: ring {s['ring']}, all_reduces "
-                        f"{s['all_reduces']}, launches {s['launches']}")
+                        f"{what}: ring {s_['ring']}, all_reduces "
+                        f"{s_['all_reduces']}, all_gathers "
+                        f"{s_['all_gathers']}, launches {s_['launches']}")
     r0 = ranks[0]
     for r in ranks[1:]:
         for run, run0 in zip(r["runs"], r0["runs"]):
@@ -3009,32 +3204,42 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
             raise AssertionError(f"25b: rank {r['rank']}'s ring gradients "
                                  f"differ from rank 0's")
     floor = params_outside({k: v.cpu() for k, v in
-                            ref["halves"][1].items()}, ref["whole"][1])
+                            ref["halves"][1].model.state_dict().items()},
+                           ref["whole"][1].model.state_dict())
     fmt = lambda xs: " ".join(f"{x:.6f}" for x in xs)
-    on, off = ([s["metrics"]["loss"] for s in run["steps"]]
-               for run in r0["runs"])
-    log(f"[25b steps] {backend}, mesh 2x2, 4 ranks ({secs:.1f}s with "
-        f"start-up): three steps with lattice_tshard_min_cells=0 (T={T} "
-        f"over 2 shards, K={K}, {hops} hops a forward and {hops} a "
-        f"backward, one group sum, one all_gather; no lattice kernel "
-        f"launch) and three with it off (one lattice_bidir launch a step at "
-        f"local B={B // 2}); losses against the one-process step (rtol "
-        f"{DIST_LOSS_RTOL}): on {fmt(on)}, off {fmt(off)}, one process "
-        f"{fmt(whole_loss)}; parameters and grad_norm bit for bit the "
-        f"one-process step over the same two row halves (T-shard on: its "
-        f"lattices on a one-rank ring, the same dispatch and float32 "
-        f"upcast); 2 all_reduces a step; "
-        f"every rank's parameters equal; ring send/recv through host "
-        f"memory: {r0['stage_p2p']}")
+    losses = [[s_["metrics"]["loss"] for s_ in run["steps"]]
+              for run in r0["runs"]]
+    log(f"[25b steps] {backend}, 4 ranks ({secs:.1f}s with start-up), "
+        f"parameters split over the model axis (mesh.param_sharding); a "
+        f"rank stores {stored[(2, 2)]} bytes of parameters at 2x2 "
+        f"(model 2) and {stored[(1, 4)]} at 1x4 (model 4) of "
+        f"{whole_bytes} whole (asserted for every rank); Adam's mu and nu "
+        f"whole; per step 1 all_gather over the model group and 2 "
+        f"all_reduces over the data group (asserted). Three steps on each "
+        f"mesh with lattice_tshard_min_cells=0 (T={T} over the model "
+        f"axis's shards, K={K}, "
+        f"{lattice_sharded.hops_per_walk(U, 2, K)} / "
+        f"{lattice_sharded.hops_per_walk(U, 4, K)} hops a walk at 2 / 4 "
+        f"shards, one group sum, one all_gather; no lattice kernel launch) "
+        f"and with it off (one lattice_bidir launch a step at local B="
+        f"{B // 2} / {B}): parameters and grad_norm bit for bit the "
+        f"one-process step with whole parameters over the same data rows "
+        f"(2x2: the two row halves; 1x4: train_step, and the whole batch "
+        f"on a one-rank ring when the ring is on); losses against "
+        f"train_step (rtol {DIST_LOSS_RTOL}): 2x2 on {fmt(losses[0])}, off "
+        f"{fmt(losses[1])}, 1x4 on {fmt(losses[2])}, off {fmt(losses[3])}, "
+        f"one process {fmt(whole_loss)}; every rank's parameters equal; "
+        f"ring send/recv through host memory: {r0['stage_p2p']}")
     log(f"[25b steps] parameters after the steps outside rtol "
-        f"{DIST_PARAM_RTOL} / atol {DIST_PARAM_ATOL} of the one-process "
-        f"step on the whole batch (not gated; JAX's tolerance, whose test "
-        f"takes one step at learning rate 0): T-shard on "
-        f"{r0['runs'][0]['outside'][0]}, off {r0['runs'][1]['outside'][0]}"
+        f"{DIST_PARAM_RTOL} / atol {DIST_PARAM_ATOL} of train_step on the "
+        f"whole batch (not gated; JAX's tolerance, whose test takes one "
+        f"step at learning rate 0): 2x2 ring on / off "
+        f"{r0['runs'][0]['outside'][0]} / {r0['runs'][1]['outside'][0]}, "
+        f"1x4 {r0['runs'][2]['outside'][0]} / {r0['runs'][3]['outside'][0]}"
         f", the one-process step over the two row halves {floor[0]} of "
-        f"{floor[1]} (largest |d| {r0['runs'][0]['outside'][2]:.2e} / "
-        f"{r0['runs'][1]['outside'][2]:.2e} / {floor[2]:.2e}): Adam turns "
-        f"the rounding of near-zero gradients into steps of up to ~lr")
+        f"{floor[1]} (largest |d| {r0['runs'][1]['outside'][2]:.2e} / "
+        f"{floor[2]:.2e}): Adam turns the rounding of near-zero gradients "
+        f"into steps of up to ~lr")
     xs, il, ol = dryrun.ring_inputs(U, B // 2, T, dev)
     leaves = [x.clone().requires_grad_() for x in xs]
     want = lattice_ops.ssnt_loss(*leaves, il, ol, layout="ubt")
@@ -3051,28 +3256,31 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         f"ops/lattice.ssnt_loss's (plain, one process; the ring runs its "
         f"column and posterior code on each slice); every rank's whole-T "
         f"gradients equal")
+    step_ms = lambda run: " ".join(f"{s_['ms']:.1f}" for s_ in run["steps"])
     for r in ranks:
         log(f"[25b time] {smi}: rank {r['rank']} (data {r['data']}, model "
-            f"{r['model']}) step ms (host clock) T-shard on "
-            + " ".join(f"{s['ms']:.1f}" for s in r["runs"][0]["steps"])
-            + ", off " + " ".join(f"{s['ms']:.1f}" for s in
-                                  r["runs"][1]["steps"])
-            + f"; ring fwd+bwd alone U={U} B={B // 2} T={T} over 2 shards "
-            f"{r['ring']['ms']:.1f} ms ({2 * hops} hops)")
+            f"{r['model']} of the 2x2 mesh) step ms (host clock) 2x2 T-shard"
+            f" on {step_ms(r['runs'][0])}, off {step_ms(r['runs'][1])}; 1x4 "
+            f"on {step_ms(r['runs'][2])}, off {step_ms(r['runs'][3])}; ring "
+            f"fwd+bwd alone U={U} B={B // 2} T={T} over 2 shards "
+            f"{r['ring']['ms']:.1f} ms "
+            f"({2 * lattice_sharded.hops_per_walk(U, 2, K)} hops)")
 
-    # The four decodes over data shards.
+    # The four decodes over data shards, after the same three sharded steps
+    # (2x2, T-shard off), on the model made whole again.
     rng = np.random.default_rng(seed + 6)
     toks, il, ol = (x.cpu().numpy() for x in make_request(
         rng, cfg.vocab_size, dev))
     job = {"mesh": (2, 2), "cfg": cfg, "seed": seed,
            "batch": {"tokens": toks, "input_length": il,
                      "output_length": ol},
-           "beam_width": W, "max_frames": U}
+           "beam_width": W, "max_frames": U,
+           "train": {"tcfg": tcfg, "batches": batches}}
     t0 = time.perf_counter()
     dec = dryrun.launch("decode", job, 4, work / "decode", backend=backend,
                         timeout=DIST_TIMEOUT_S)
     secs = time.perf_counter() - t0
-    model = dryrun.make_model(cfg, None, seed, dev)
+    model = ref["halves"][1].model.eval()
     req = tuple(torch.as_tensor(x, device=dev) for x in (toks, il, ol))
     halves_rows = (slice(0, B // 2), slice(B // 2, B))
 
@@ -3129,7 +3337,10 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
     check_v1_request("25b v1", gathered["v1"], il_t, W)
     shares["v1"] = float((gathered["v1"]["alignment"] ==
                           want["v1"]["alignment"]).all(1).float().mean())
-    log(f"[25b decode] {backend}, 4 ranks ({secs:.1f}s with start-up), each "
+    log(f"[25b decode] {backend}, 4 ranks ({secs:.1f}s with start-up), "
+        f"after three 2x2 sharded steps with split parameters "
+        f"(train.unshard; the one-process reference: the step over the two "
+        f"row halves), each "
         f"data rank's {B // 2} rows, beams rank-local, W={W}: launches a "
         f"rank v2 {T} #14, plain 0, tone {T} #14, v1 {U} #15 (asserted); "
         f"gathered outputs pass the request gates (v2: exact-length "
@@ -3397,14 +3608,16 @@ def eval_steps(seed: int, dev) -> str:
             tone.append(check_tone_step(
                 tone_step_inputs(model, req[0], req[1], s, rng, dev), 0,
                 TOL[dt]))
-        worst[name] = (max(max(e) for e in v2), max(max(e) for e in tone),
-                       TOL[dt])
+        worst[name] = ([max(e[i] for e in v2) for i in (0, 1)],
+                       [max(e[i] for e in tone) for i in (0, 1)], TOL[dt])
     return (f"[26c steps] #14 at B={B_LARGE} W={W} (the eval decode's "
             f"batch; eval model width): v2 step x 2 arms and tone step at "
             f"s=0/30/{T - 1}, selection bit-exact against the plain "
-            f"selection on the kernel's h; max |dh|, |dnew_h| v2 / tone: "
-            + ", ".join(f"{n} {v:.3e} / {t:.3e} (tol {tol})"
-                        for n, (v, t, tol) in worst.items()))
+            f"selection on the kernel's h; max |dh| and |dnew_h|, v2 / "
+            f"tone: " + ", ".join(
+                f"{n} |dh| {v[0]:.3e} / {t[0]:.3e}, |dnew_h| {v[1]:.3e} / "
+                f"{t[1]:.3e} (tol {tol})"
+                for n, (v, t, tol) in worst.items()))
 
 
 def eval_phase(work, seed: int, dev, smi: str) -> None:
@@ -3550,6 +3763,8 @@ def utilities_phase(seed: int, dev, smi: str) -> None:
     entry point and the utilities, at the flagship width."""
     from pathlib import Path
 
+    from ssnt_tts_tpu_torch.utils.config import ModelConfig
+
     work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "util"
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
@@ -3557,6 +3772,7 @@ def utilities_phase(seed: int, dev, smi: str) -> None:
     files_phase(work, seed, dev)
     eval_phase(work, seed, dev, smi)
     tools_phase(work, seed, dev)
+    remat_compare("26e", ModelConfig(), (B, B_LARGE), seed, dev, smi)
     log(f"[26 util] phase 26 in {time.time() - t0:.1f}s")
 
 

@@ -180,10 +180,26 @@ def random_flax_tree(cfg: ModelConfig, seed: int) -> dict:
     """A seeded numpy tree with the flax SSNTModel layout
     ({"params": {...}}), for building a model without JAX."""
     rng = np.random.default_rng(seed)
+    return _flax_tree(cfg, lambda shape, fan_in: rng.normal(
+        0.0, fan_in ** -0.5, shape).astype(np.float32))
+
+
+def flax_leaf_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Every leaf's shape in the flax layout, by its "/"-joined path
+    (without the "params" collection), without drawing the weights."""
+    zero = np.float32(0)
+    tree = _flax_tree(cfg, lambda shape, fan_in: np.broadcast_to(zero,
+                                                                  shape))
+    return {k: v.shape for k, v in _flatten(tree["params"]).items()}
+
+
+def _flax_tree(cfg: ModelConfig, draw) -> dict:
+    """The flax SSNTModel layout, its kernels and embeddings from
+    draw(shape, fan_in), zero biases and unit LayerNorm scales."""
     f32 = np.float32
 
     def kernel(*shape, fan_in):
-        return rng.normal(0.0, fan_in ** -0.5, shape).astype(f32)
+        return draw(shape, fan_in)
 
     def dense(i, o):
         return {"kernel": kernel(i, o, fan_in=i), "bias": np.zeros(o, f32)}

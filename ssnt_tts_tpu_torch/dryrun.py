@@ -22,14 +22,15 @@ pickled into the job directory) and return a picklable result per rank:
   lattice     ring losses and gradients of given lattices (and the exp
               domain's hook through models/ssnt.lattice_loss);
   steps       sharded train steps of given configurations and batches;
-  decode      the four decodes on this rank's rows;
+  decode      the four decodes on this rank's rows (after sharded
+              training, when asked);
   run_training  train_loop.run_training over a mesh;
   time_steps  timed sharded steps (weak_scaling.py);
   probe       the collectives on this device, and send / recv as the
               ring does them.
 A module-level function of (job, device) may stand in for a task's name.
-The one-process references the ranks are held to: `halves_step` (the
-sharded step's arithmetic over two data ranks, with the lattice on the
+The one-process references the ranks are held to: `split_step` (the
+sharded step's arithmetic over its data ranks, with the lattice on the
 ring or not) and `decode_routes` (the four decodes by name).
 """
 
@@ -158,12 +159,13 @@ def decode_routes(model: SSNTModel, toks, il, ol, beam_width: int,
     }
 
 
-def halves_step(tx, state: train_lib.TrainState,
-                batch: Dict[str, torch.Tensor], ring: bool = False):
-    """The one-process reference of a sharded step over two data ranks:
-    the loss of each of the batch's two row halves with the whole batch's
-    normalizers, the gradients summed in autograd's buffers (the
-    arithmetic of a two-rank data group's all_reduce), the metrics summed,
+def split_step(tx, state: train_lib.TrainState,
+               batch: Dict[str, torch.Tensor], ring: bool = False,
+               parts: int = 2):
+    """The one-process reference of a sharded step over `parts` data
+    ranks: the loss of each of the batch's `parts` row blocks with the
+    whole batch's normalizers, the gradients summed in autograd's buffers
+    (the arithmetic of the data group's all_reduce), the metrics summed,
     one update. ring: every lattice goes through ops/lattice_sharded's ring
     on a one-rank mesh of this process (the sharded step's dispatch and
     float32 upcast, nothing to exchange), as under
@@ -180,7 +182,8 @@ def halves_step(tx, state: train_lib.TrainState,
                         groups={"data": None, "model": None},
                         ranks={"data": (0,), "model": (0,)})
     metrics = {}
-    for rows in (slice(0, B // 2), slice(B // 2, B)):
+    for i in range(parts):
+        rows = slice(i * B // parts, (i + 1) * B // parts)
         with (lattice_sharded.tshard_lattice(one, "model", 0) if ring
               else contextlib.nullcontext()):
             loss, m = model.loss(
@@ -240,11 +243,14 @@ def lattice_task(job, device) -> dict:
 
 def steps_task(job, device) -> dict:
     """job: mesh (d, m) or multihost (the model axis); runs: [{cfg, tcfg,
-    params or seed, batches (global numpy batches)}]. multihost runs go
-    through multihost.global_data_mesh and host_local_batch_to_global with
-    this process's rows. Per run and step: the metrics, the ring's counts,
-    kernel launches and host-clock ms; the final parameters. With
-    ring=(U, B, T): the ring alone on ring_inputs (_ring_run)."""
+    params or seed, batches (global numpy batches), and optionally a mesh
+    (d, m) of its own}]. multihost runs go through
+    multihost.global_data_mesh and host_local_batch_to_global with this
+    process's rows. Per run: the bytes of parameters this rank stores, and
+    per step the metrics, the ring's counts, all_reduces and all_gathers,
+    kernel launches and host-clock ms; the final parameters, whole
+    (train.gather_params). With ring=(U, B, T): the ring alone on
+    ring_inputs (_ring_run), on the job's mesh."""
     if "multihost" in job:
         mesh = multihost.global_data_mesh(job["multihost"], device=device)
     else:
@@ -252,23 +258,28 @@ def steps_task(job, device) -> dict:
     dev = mesh.device
     out = []
     for run in job["runs"]:
+        run_mesh = _mesh(run, device) if "mesh" in run else mesh
         cfg, tcfg = run["cfg"], run["tcfg"]
         state = train_lib.init_train_state(cfg, tcfg,
                                            params=run.get("params"),
                                            seed=run.get("seed", 0),
                                            device=dev)
         tx = train_lib.make_optimizer(tcfg)
-        step_fn, state = train_lib.make_sharded_train_step(tx, mesh, state)
+        step_fn, state = train_lib.make_sharded_train_step(tx, run_mesh,
+                                                           state)
+        stored = sum(p.numel() * p.element_size()
+                     for p in state.model.parameters())
         steps = []
         for gbatch in run["batches"]:
-            rows = mesh.rows(len(gbatch["tokens"]))
+            rows = run_mesh.rows(len(gbatch["tokens"]))
             if "multihost" in job:
                 batch = multihost.host_local_batch_to_global(
-                    {k: v[rows] for k, v in gbatch.items()}, mesh)
+                    {k: v[rows] for k, v in gbatch.items()}, run_mesh)
             else:
-                batch = {k: mesh_lib.data_sharding(mesh, v)
+                batch = {k: mesh_lib.data_sharding(run_mesh, v)
                          for k, v in gbatch.items()}
-            before, ar = launch_counts(), step_fn.all_reduces
+            before = launch_counts()
+            ar, ag = step_fn.all_reduces, step_fn.all_gathers
             lattice_sharded.reset_counts()
             _sync(dev)
             t0 = time.perf_counter()
@@ -279,9 +290,12 @@ def steps_task(job, device) -> dict:
                 "metrics": {k: float(v) for k, v in metrics.items()},
                 "ring": dict(lattice_sharded.COUNTS),
                 "all_reduces": step_fn.all_reduces - ar,
+                "all_gathers": step_fn.all_gathers - ag,
                 "launches": _delta(before)})
-        out.append({"steps": steps, "params": {
-            k: _host(v) for k, v in state.model.state_dict().items()}})
+        out.append({"steps": steps, "stored_bytes": stored,
+                    "mesh": dict(run_mesh.shape), "params": {
+                        k: _host(v) for k, v in
+                        train_lib.gather_params(state).items()}})
     res = {"runs": out, "rank": mesh.rank, "data": mesh.index("data"),
            "model": mesh.index("model"), "stage_p2p": mesh.stage_p2p}
     if "ring" in job:
@@ -324,13 +338,30 @@ def _ring_run(mesh, U: int, B: int, T: int, reps: int = 3) -> dict:
 
 def decode_task(job, device) -> dict:
     """job: mesh, cfg, params or seed, batch (global tokens,
-    input_length, output_length), beam_width, max_frames. This rank's rows
-    through the v2 decode (fused and plain routes), the tone decode and
-    the v1 beam_decode; their outputs and kernel launches."""
+    input_length, output_length), beam_width, max_frames, and optionally
+    train: {tcfg, batches (global)}. With train, the model first takes a
+    sharded train step on each batch (its parameters split over the model
+    axis when it has more than one rank) and is made whole again
+    (train.unshard). This rank's rows through the v2 decode (fused and
+    plain routes), the tone decode and the v1 beam_decode, beams
+    rank-local; their outputs and kernel launches."""
     mesh = _mesh(job, device)
     dev = mesh.device
-    model = make_model(job["cfg"], job.get("params"), job.get("seed", 0),
-                       dev)
+    if "train" in job:
+        tcfg = job["train"]["tcfg"]
+        state = train_lib.init_train_state(
+            job["cfg"], tcfg, params=job.get("params"),
+            seed=job.get("seed", 0), device=dev)
+        step_fn, state = train_lib.make_sharded_train_step(
+            train_lib.make_optimizer(tcfg), mesh, state)
+        for gbatch in job["train"]["batches"]:
+            state, _ = step_fn(state, {
+                k: mesh_lib.data_sharding(mesh, v)
+                for k, v in gbatch.items()})
+        model = train_lib.unshard(state).model.eval()
+    else:
+        model = make_model(job["cfg"], job.get("params"),
+                           job.get("seed", 0), dev)
     toks, il, ol = (mesh_lib.data_sharding(mesh, job["batch"][k]) for k in
                     ("tokens", "input_length", "output_length"))
     runs = decode_routes(model, toks, il, ol, job["beam_width"],
@@ -429,9 +460,10 @@ def dryrun_task(job, device) -> dict:
         raise AssertionError(f"non-finite loss {loss}")
     out = {"loss": loss, "mesh": dict(mesh.shape)}
     say(f"dryrun: mesh {mesh.shape} step ok, loss={loss:.4f}, "
-        f"{step_fn.all_reduces} all_reduces", flush=True)
+        f"{step_fn.all_reduces} all_reduces, {step_fn.all_gathers} "
+        f"all_gathers", flush=True)
 
-    model = state.model.eval()
+    model = train_lib.unshard(state).model.eval()
     toks, il, ol = (batch[k] for k in ("tokens", "input_length",
                                        "output_length"))
     W = 2
@@ -486,13 +518,14 @@ def dryrun_task(job, device) -> dict:
 
 
 def run_training_task(job, device) -> dict:
-    """job: mesh, cfg, tcfg, steps, seed. train_loop.run_training over the
-    mesh; its last metrics."""
+    """job: mesh, cfg, tcfg, steps, seed, and optionally checkpoint_dir.
+    train_loop.run_training over the mesh; its last metrics."""
     from ssnt_tts_tpu_torch.train_loop import run_training
 
     return run_training(job["steps"], job["cfg"], job["tcfg"],
                         seed=job["seed"], device=device, log_every=1,
-                        mesh_config=MeshConfig(*job["mesh"]))
+                        mesh_config=MeshConfig(*job["mesh"]),
+                        checkpoint_dir=job.get("checkpoint_dir"))
 
 
 TASKS = {"dryrun": dryrun_task, "lattice": lattice_task,

@@ -2,7 +2,8 @@
 
 Mirrors ssnt_tts_tpu/models/ssnt.py:
   encode -> enc (B, T, He) float32
-  decoder_states -> teacher-forced GRU states (B, U, H)
+  decoder_states -> teacher-forced GRU states (B, U, H), the recurrence
+    rematerialized in chunks of 8 frames
   lattice_quantities -> (log_emit, log_shift, log_frame), each (U, B, T),
     or in the exp domain (E, S, F, mcol)
   forward / loss -> per-example SSNT NLL / total loss + metrics, with the
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ssnt_tts_tpu_torch.models import stepmath
 from ssnt_tts_tpu_torch.models.decoder import (
@@ -103,6 +105,15 @@ def lattice_loss(impl: str, lattice_dtype: str, quantities, input_length,
         layout="ubt")
 
 
+def _gru_chunk(gi, wh, bhn, state) -> tuple:
+    """The GRU recurrence over gi's frames (B, c, 3H): each frame's state."""
+    outs = []
+    for gi_u in gi.unbind(1):
+        state = stepmath.gru_update(gi_u, wh, bhn, state)
+        outs.append(state)
+    return tuple(outs)
+
+
 def token_mask(tokens, input_length=None) -> torch.Tensor:
     """(B, T) bool: the positions inside each utterance."""
     B, T = tokens.shape
@@ -149,15 +160,21 @@ class SSNTModel(nn.Module):
     def encode(self, tokens, input_length=None):
         return self.encoder(tokens, input_length)
 
-    def decoder_states(self, mel_target):
+    def decoder_states(self, mel_target, *, chunk: int = 8):
         """Teacher-forced AR states: dec[u] summarizes frames < u.
 
         mel_target (B, U, M) -> (B, U, H) float32; frame 0 sees a zero
         frame. The prenet and the GRU's input projection do not depend on
-        the carry, so they run once over all U frames; the loop holds the
-        recurrent half only. Autograd keeps every step's activations (the
-        JAX package's chunked remat is a TPU memory measure): about ten
-        (B, H) tensors per frame, 1.0 GB at B=256, U=400, H=256."""
+        the carry, so they run once over all U frames; the recurrence runs
+        in chunks of `chunk` frames (the last one shorter when chunk does
+        not divide U), each under a non-reentrant checkpoint, as JAX's
+        nn.remat over chunks: autograd keeps each chunk's input carry
+        instead of every frame's activations (about ten (B, H) tensors a
+        frame) and recomputes one chunk at a time in the backward. The
+        recomputation runs the same operations, and the graph is the
+        unchunked loop's (each frame's state is its own output, stacked
+        once), so values and gradients are those of the plain loop bit for
+        bit."""
         B, U, M = mel_target.shape
         shifted = torch.cat(
             [torch.zeros_like(mel_target[:, :1]), mel_target[:, :-1]], dim=1)
@@ -167,9 +184,14 @@ class SSNTModel(nn.Module):
         state = torch.zeros(B, self.config.decoder_dim,
                             device=mel_target.device)
         outs = []
-        for gi_u in gi.unbind(1):
-            state = stepmath.gru_update(gi_u, cell.wh, cell.bhn, state)
-            outs.append(state)
+        for gi_c in gi.split(chunk, dim=1):
+            # The chunk draws no random numbers and its recomputation's
+            # tensors are its forward's by construction: the RNG stash and
+            # the metadata comparison (a Python call a saved tensor) go.
+            outs += checkpoint(_gru_chunk, gi_c, cell.wh, cell.bhn, state,
+                               use_reentrant=False, preserve_rng_state=False,
+                               determinism_check="none")
+            state = outs[-1]
         return torch.stack(outs, dim=1)
 
     def lattice_quantities(self, enc, dec, mel_target, input_length=None):

@@ -7,11 +7,15 @@ JAX's `reshape(data, model)` places device r.
   - batch-major arrays shard dim 0 over "data" (`data_sharding`: this
     rank's rows); gradients are summed over the data group
     (parallel/train.make_sharded_train_step);
-  - the "model" axis carries the T-shard of the lattice
-    (ops/lattice_sharded); parameters are whole on every rank
-    (`replicated`). JAX's `param_sharding` places wide matrices over
-    "model", a storage layout under which GSPMD computes the same
-    numbers; the port does not shard parameter storage (ROADMAP.md);
+  - parameter storage splits over "model" by JAX's rule
+    (`param_sharding`): every parameter whose flax leaf has ndim >= 2 and
+    a last dim that the model-axis size m divides (and >= m) splits that
+    dim into m contiguous blocks, block i on the rank at model index i;
+    every other parameter is whole on every rank. The train step gathers
+    the whole weights before its forward (parallel/train.ParamShard).
+    Adam's mu and nu stay whole, as JAX places opt_state `replicated`;
+  - the "model" axis also carries the T-shard of the lattice
+    (ops/lattice_sharded);
   - beams stay rank-local: decodes run on the data rank's rows and need
     no collective.
 
@@ -33,10 +37,12 @@ import dataclasses
 import os
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from ssnt_tts_tpu_torch.utils.config import MeshConfig
+from ssnt_tts_tpu_torch import convert
+from ssnt_tts_tpu_torch.utils.config import MeshConfig, ModelConfig
 
 AXES = ("data", "model")
 
@@ -136,3 +142,44 @@ def data_sharding(mesh: Mesh, x) -> torch.Tensor:
 def replicated(mesh: Mesh, x) -> torch.Tensor:
     """The whole array, on this rank's device."""
     return torch.as_tensor(x).to(mesh.device)
+
+
+def _leaf_owners(shape: tuple, m: int) -> np.ndarray:
+    """JAX's param_sharding rule on one flax leaf: the model index that
+    stores each element, -1 where every rank stores it (every element
+    when m is 1)."""
+    if (m > 1 and len(shape) >= 2 and shape[-1] % m == 0
+            and shape[-1] >= m):
+        block = np.arange(shape[-1]) // (shape[-1] // m)
+        return np.broadcast_to(block, shape).astype(np.int16)
+    return np.full(shape, -1, np.int16)
+
+
+def param_sharding(model_size: int, cfg: ModelConfig
+                   ) -> Dict[str, Optional[np.ndarray]]:
+    """The storage layout over a model axis of `model_size` ranks, by
+    SSNTModel parameter name: an int16 array of the parameter's shape
+    giving the model index that stores each element, or None for a
+    parameter that every rank stores whole (all of them when model_size
+    is 1).
+
+    JAX's rule (ssnt_tts_tpu/parallel/mesh.py param_sharding) is stated on
+    flax leaves; each leaf's owner ids go through the leaf's own transform
+    into the torch layout (convert._mapping), so a transposed Dense or
+    Conv kernel splits on torch dim 0, an attention q/k/v kernel on hd/m
+    rows of every head, a GRU's wi / wh on one column block per gate, an
+    embedding on dim 1. A parameter built from leaves of which some split
+    and some do not raises ValueError."""
+    out: Dict[str, Optional[np.ndarray]] = {}
+    shapes = convert.flax_leaf_shapes(cfg)
+    for key, paths, fn in convert._mapping(cfg):
+        owners = np.asarray(fn(*(_leaf_owners(shapes[p], model_size)
+                                 for p in paths)))
+        if (owners < 0).all():
+            out[key] = None
+        elif (owners < 0).any():
+            raise ValueError(f"{key}: its flax leaves {paths} split "
+                             f"unevenly over {model_size} ranks")
+        else:
+            out[key] = np.ascontiguousarray(owners)
+    return out

@@ -14,7 +14,9 @@ logged beside the training metrics). With checkpoint_dir the run resumes
 from the latest checkpoint there (utils/checkpoint) and saves every
 checkpoint_every steps and at the last one. With a mesh_config, every
 rank draws the same global batches and trains on its data rows through the
-sharded step; only the primary logs and saves, every rank restores, and
+sharded step (with its parameters split over the model axis when it has
+more than one rank); every rank joins the gather of a checkpoint's whole
+parameters, only the primary logs and saves, every rank restores, and
 every rank returns after the primary's last save.
 """
 
@@ -130,9 +132,14 @@ def run_training(num_steps: int,
                         file_ds.stats.frame_efficiency)
                 if logger is not None:
                     logger.log(i + 1, last)
-            if checkpoint_dir and primary and (
+            if checkpoint_dir and (
                     (i + 1) % checkpoint_every == 0 or i + 1 == num_steps):
-                ckpt_lib.save(checkpoint_dir, i + 1, state)
+                # Every rank joins the gather of split parameters; the
+                # primary writes.
+                params = train_lib.gather_params(state)
+                if primary:
+                    ckpt_lib.save(checkpoint_dir, i + 1, state,
+                                  params=params)
         if checkpoint_dir and mesh is not None:
             # Every rank returns once the primary's checkpoints are in
             # place, so a run that follows restores the same step on every

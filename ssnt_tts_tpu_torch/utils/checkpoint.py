@@ -8,18 +8,28 @@ the oldest steps beyond max_to_keep are deleted.
 
 `state` is a parallel/train.TrainState (its step, the model's state_dict and
 the optimizer's count, mu and nu) or any nest of dicts, lists and tuples of
-tensors (a decode carry, as the JAX package saves one).
+tensors (a decode carry, as the JAX package saves one). The parameters are
+saved whole whatever the layout they trained in: a state whose storage is
+split over a model axis (state.shard) is saved with the whole state dict
+that parallel/train.gather_params gives, a collective every rank of the
+model group joins before one rank saves; restore keeps each rank's
+elements. So a checkpoint moves between layouts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
-from ssnt_tts_tpu_torch.parallel.train import OptState, TrainState
+from ssnt_tts_tpu_torch.parallel.train import (
+    OptState,
+    TrainState,
+    load_params,
+)
 
 _FILE = "state.pt"
 
@@ -42,24 +52,32 @@ def _to_cpu(tree):
     return tree
 
 
-def _payload(state) -> dict:
+def _payload(state, params) -> dict:
     if isinstance(state, TrainState):
+        if params is None:
+            if state.shard is not None:
+                raise ValueError("a state with split parameters is saved "
+                                 "with params=train.gather_params(state)")
+            params = state.model.state_dict()
         opt = state.opt_state
         return {"kind": "train_state", "step": int(state.step),
-                "model": _to_cpu(state.model.state_dict()),
+                "model": _to_cpu(params),
                 "count": int(opt.count), "mu": _to_cpu(list(opt.mu)),
                 "nu": _to_cpu(list(opt.nu))}
     return {"kind": "tree", "tree": _to_cpu(state)}
 
 
-def save(directory: str, step: int, state: Any, max_to_keep: int = 3):
-    """Save `state` (a TrainState or a nest of tensors) at `step`."""
+def save(directory: str, step: int, state: Any, max_to_keep: int = 3, *,
+         params: Optional[Dict[str, torch.Tensor]] = None):
+    """Save `state` (a TrainState or a nest of tensors) at `step`. params:
+    the TrainState's whole state dict (parallel/train.gather_params), which
+    a state with split parameters needs; by default state.model's."""
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp-{int(step)}-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(_payload(state), os.path.join(tmp, _FILE))
+    torch.save(_payload(state, params), os.path.join(tmp, _FILE))
     final = os.path.join(directory, str(int(step)))
     shutil.rmtree(final, ignore_errors=True)
     os.rename(tmp, final)
@@ -95,8 +113,9 @@ def _restore_tree(got, like, what: str):
 def restore(directory: str, state_like: Any, step: Optional[int] = None):
     """The state saved at `step` (the latest when None), in the structure of
     `state_like`, its tensors on state_like's devices and dtypes. For a
-    TrainState the parameters are loaded into state_like.model (in place)
-    and the returned TrainState holds that model. Raises FileNotFoundError
+    TrainState the parameters are loaded into state_like.model (in place;
+    with split storage, this rank's elements) and the returned TrainState
+    holds that model. Raises FileNotFoundError
     when the directory holds no checkpoint."""
     directory = os.path.abspath(directory)
     if step is None:
@@ -112,14 +131,13 @@ def restore(directory: str, state_like: Any, step: Optional[int] = None):
         if data["kind"] != "train_state":
             raise ValueError(f"{path} holds a {data['kind']}, not a "
                              "TrainState")
-        model = state_like.model
-        model.load_state_dict(data["model"])
+        load_params(state_like, data["model"])
         opt = state_like.opt_state
         mu = _restore_tree(data["mu"], list(opt.mu), "mu")
         nu = _restore_tree(data["nu"], list(opt.nu), "nu")
-        return TrainState(step=data["step"], model=model,
-                          opt_state=OptState(count=data["count"], mu=mu,
-                                             nu=nu))
+        return dataclasses.replace(
+            state_like, step=data["step"],
+            opt_state=OptState(count=data["count"], mu=mu, nu=nu))
     if data["kind"] != "tree":
         raise ValueError(f"{path} holds a TrainState; pass one as "
                          "state_like")

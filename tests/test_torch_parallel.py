@@ -92,7 +92,7 @@ def port_single(setup):
 
 
 def _port_halves(setup, ring):
-    """dryrun.halves_step over the global batches: the port's one-process
+    """dryrun.split_step over the global batches: the port's one-process
     step over the two data ranks' row halves (the lattice on a one-rank
     ring when `ring`). grad_norms and the final parameters."""
     cfg, _, train_cfg, batches, state = setup
@@ -103,7 +103,7 @@ def _port_halves(setup, ring):
     tx = ttrain.make_optimizer(tc)
     norms = []
     for b in batches:
-        st, m = dryrun.halves_step(
+        st, m = dryrun.split_step(
             tx, st, {k: torch.from_numpy(v) for k, v in b.items()},
             ring=ring)
         norms.append(float(m["grad_norm"]))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training (log and exp
 domains), tone and v1 paths, the banded lattice loss, the distributed
-training step and the training and eval entry points on one NVIDIA GPU.
+training step, the training and eval entry points, and the decodes at
+wide beams and at B=2048 on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -234,7 +235,29 @@ reported on its own line:
      on CUDA tensors and pass good ones; (e) at B=32 and B=256, a step
      through decoder_states' chunked remat bit for bit one through the
      loop without it, then both in turns (split_step_ms, host clock) with
-     each run's peak device memory.
+     each run's peak device memory;
+ 27. beam widths and the decode at scale: (a) the libraries' MAX_BEAMS /
+     MAX_CANDIDATES equal ops/beam_fused's, and every beam kernel wrapper
+     refuses W = MAX_BEAMS + 1 (v2 / tone / v1 max_beam_width too) and
+     MAX_CANDIDATES + 1 candidates with a ValueError before any launch; #12
+     / #13 and #11 / #10 against their plain versions bit for bit at W in
+     WIDTHS (D=10, K=8), at W=128 with D=K=16 (2048 candidates), with
+     max_beam_width widening 8 -> 128, 17 -> 40 with odd F and narrowing 64
+     -> 10; #14 (v2 and tone, float32 and bfloat16) at each W and at W=128
+     with 16 classes, and #15 at each W on a request's carry, against the
+     plain steps as phases 3, 10 and 14 hold them; one v2, tone and v1
+     request at W=W_WIDE on each route (exact launch counts, beam-only
+     equal to plain bit for bit, the gates of phases 4 and 16, the fused
+     route's agreement); each beam kernel's device time a step under a CUDA
+     graph at each W against its bound (the JSON line's entries gain
+     max_beams, max_candidates and the times at W=32 and W=128); (b)
+     scripts.decode_scale at B=2048 and B=256 (smoke width, T=80, U=400,
+     W=8, bf16, fused route), the B=2048 decode bit for bit its rows
+     decoded in 8 slices of 256 and over 4 data ranks (gloo on the card),
+     ms, audio-seconds per second, emptied rate, peak device memory; (c) a
+     reduced scripts.triage_empty_beam (steps 4 and 8 at B=64, smoke
+     width): JAX's record keys, every sweep (beam_x4 at W=32), and its
+     final checkpoint decoded at W=32 on the fused and beam-only routes.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -247,6 +270,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -346,10 +370,10 @@ def make_request(rng, vocab: int, dev, Bn: int = B):
     return as_t(toks), as_t(il), as_t(ol)
 
 
-def step_inputs(model, req, s: int, rng, dev):
+def step_inputs(model, req, s: int, rng, dev, Wn: int = W):
     """Beam state for one step at step s: most beams at t = s with totals
     near the diagonal, some finished or at their last position, and
-    duplicated beams (dedup). The batch is the request's."""
+    duplicated beams (dedup). The batch is the request's; Wn beams."""
     from ssnt_tts_tpu_torch.models import stepmath
     from ssnt_tts_tpu_torch.ops import beam_fused
 
@@ -364,15 +388,15 @@ def step_inputs(model, req, s: int, rng, dev):
     H = model.config.decoder_dim
     D = model.config.duration_class_size
     il_n, ol_n = il.cpu().numpy(), ol.cpu().numpy()
-    t = np.minimum(s, il_n)[:, None].repeat(W, 1)
-    last = rng.random((Bn, W)) < 0.1
+    t = np.minimum(s, il_n)[:, None].repeat(Wn, 1)
+    last = rng.random((Bn, Wn)) < 0.1
     t[last] = il_n[np.nonzero(last)[0]] - 1
     tot = np.round(ol_n[:, None] / il_n[:, None] * t) + rng.integers(
-        -10, 10, (Bn, W))
-    fin = rng.random((Bn, W)) < 0.15
-    lp = -rng.gamma(2.0, 2.0 + s / 4, (Bn, W))
-    state = rng.normal(0, 0.5, (Bn, W, H))
-    pc = rng.integers(0, D, (Bn, W))
+        -10, 10, (Bn, Wn))
+    fin = rng.random((Bn, Wn)) < 0.15
+    lp = -rng.gamma(2.0, 2.0 + s / 4, (Bn, Wn))
+    state = rng.normal(0, 0.5, (Bn, Wn, H))
+    pc = rng.integers(0, D, (Bn, Wn))
     for a in (t, tot, fin, lp, state, pc):  # beams 0 and 1 identical
         a[::3, 1] = a[::3, 0]
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
@@ -3776,6 +3800,477 @@ def utilities_phase(seed: int, dev, smi: str) -> None:
     log(f"[26 util] phase 26 in {time.time() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------- phase 27
+
+# Phase 27a's beam widths (16 the narrow instances' last; above it the
+# wide ones) and the width of its requests (JAX's triage's beam_x4).
+WIDTHS = (16, 17, 32, 64, 128)
+W_WIDE = 32
+# The beam kernels' entries of the JSON line.
+BEAM_ENTRIES = ("fused_v2_step", "fused_tone_step", "v2_beam_step",
+                "tone_beam_step", "fused_v1_step", "beam_v1_step_reorder",
+                "beam_v1_step")
+
+
+def v2_gates(what: str, out, il, ol, Wn: int) -> int:
+    """Phase 4's gates for one v2 decode at width Wn (every utterance of
+    the batch); returns the emptied count."""
+    ok = ~out["beam_emptied"]
+    if not bool(ok.any()):
+        raise AssertionError(f"{what}: every utterance emptied")
+    if not bool((out["output_length"][ok] == ol[ok, None]).all()):
+        raise AssertionError(f"{what}: a non-emptied utterance's beams miss "
+                             f"their output length")
+    lp = out["log_prob"][ok]
+    if not bool((lp[:, 0] == lp.max(dim=1).values).all()):
+        raise AssertionError(f"{what}: slot 0 is not the best beam")
+    br = out["beam_branch"]
+    if br.shape[2] != Wn or not bool(((br >= 0) & (br < Wn)).all()):
+        raise AssertionError(f"{what}: beam_branch shape or range")
+    return int((~ok).sum())
+
+
+def check_limits(rng, dev, models, req) -> None:
+    """The libraries' limits equal the Python constants, and each kernel
+    wrapper refuses W = MAX_BEAMS + 1 (v2 / tone also max_beam_width) and
+    MAX_CANDIDATES + 1 candidates with a ValueError before any launch."""
+    from ssnt_tts_tpu_torch.ops import _build, beam_fused
+    from ssnt_tts_tpu_torch.ops import beam_kernels as bk
+
+    MB, MC = beam_fused.MAX_BEAMS, beam_fused.MAX_CANDIDATES
+    lib_b = _build.beam_step_library()
+    lib_c = _build.fused_class_library()
+    lib_v = _build.fused_v1_library()
+    got = {"beam_step": (lib_b.ssnt_beam_step_max_beams(),
+                         lib_b.ssnt_beam_step_max_candidates()),
+           "fused_class_step": (lib_c.ssnt_fused_step_max_beams(),
+                                lib_c.ssnt_fused_step_max_candidates()),
+           "fused_v1_step": (lib_v.ssnt_fused_v1_max_beams(),
+                             lib_v.ssnt_fused_v1_max_candidates())}
+    want = {"beam_step": (MB, MC), "fused_class_step": (MB, MC),
+            "fused_v1_step": (MB, 2 * MB)}
+    if got != want:
+        raise AssertionError(f"library limits {got}, not {want}")
+    bf = models[torch.bfloat16]
+    cfg = bf.config
+    H, D, K = cfg.decoder_dim, cfg.duration_class_size, cfg.tone_class_size
+    _, il, ol = req
+    dtab = torch.tensor(cfg.duration_table, dtype=torch.int32, device=dev)
+    zero_counts()
+    refused = []
+
+    def refuse(what, match, fn):
+        try:
+            fn()
+        except ValueError as e:
+            if match not in str(e):
+                raise
+            refused.append(what)
+            return
+        raise AssertionError(f"{what}: no ValueError")
+
+    x = beam_only_inputs(rng, 0, MB + 1, D, K, H, il, ol, dev)
+    v2a = (x["h"], x["lp"], x["fin"], x["tot"], dtab, x["t"], x["u"],
+           x["il"], x["ol"])
+    tonea = (x["h_tone"], x["lp"], x["fin"], x["t"], x["u"], x["il"])
+    refuse("#12 W=129", "MAX_BEAMS",
+           lambda: bk.v2_beam_search_decode(*v2a, state=x["state"]))
+    refuse("#13 W=129", "MAX_BEAMS",
+           lambda: bk.tone_beam_search_decode(*tonea, state=x["state"]))
+    x8 = beam_only_inputs(rng, 0, W, D, K, H, il, ol, dev)
+    refuse("#12 W_out=129", "MAX_BEAMS", lambda: bk.v2_beam_search_decode(
+        x8["h"], x8["lp"], x8["fin"], x8["tot"], dtab, x8["t"], x8["u"],
+        x8["il"], x8["ol"], state=x8["state"], max_beam_width=MB + 1))
+    # 2049 = 3 x 683 candidates: a tone step of K = 683 classes at W = 3.
+    x3 = beam_only_inputs(rng, 0, 3, D, (MC + 1) // 3, H, il, ol, dev)
+    refuse("#13 C=2049", "MAX_CANDIDATES", lambda: bk.tone_beam_search_decode(
+        x3["h_tone"], x3["lp"], x3["fin"], x3["t"], x3["u"], x3["il"],
+        state=x3["state"]))
+    F = H + 2 * cfg.mel_dim + 2
+    xv = v1_beam_only_inputs(rng, 0, MB + 1, il, F, dev)
+    v1a = (xv["h"], xv["lp"], xv["fin"], xv["t"], xv["u"], xv["il"])
+    refuse("#11 W=129", "MAX_BEAMS",
+           lambda: bk.beam_search_step_reorder(*v1a, xv["state"]))
+    refuse("#10 W=129", "MAX_BEAMS", lambda: bk.beam_search_step_batched(*v1a))
+    xv8 = v1_beam_only_inputs(rng, 0, W, il, F, dev)
+    refuse("#10 W_out=129", "MAX_BEAMS", lambda: bk.beam_search_step_batched(
+        xv8["h"], xv8["lp"], xv8["fin"], xv8["t"], xv8["u"], xv8["il"],
+        max_beam_width=MB + 1))
+    args = step_inputs(bf, req, 0, rng, dev, Wn=MB + 1)
+    refuse("#14 v2 W=129", "MAX_BEAMS",
+           lambda: beam_fused.fused_class_beam_step(*args))
+    a3 = step_inputs(bf, req, 0, rng, dev, Wn=3)
+    base = torch.zeros(T, B, (MC + 1) // 3, device=dev)
+    tone3 = (a3[0], a3[1], base, *a3[3:8], a3[9], a3[10], a3[11])
+    refuse("#14 tone C=2049", "MAX_CANDIDATES",
+           lambda: beam_fused.fused_tone_step(*tone3))
+    pack, fw, kept = v1_carries(bf, req[0], il, (0,), 1, dev)
+    z = lambda dt, *shape: torch.zeros(B, MB + 1, *shape, dtype=dt,
+                                       device=dev)
+    i32 = torch.int32
+    refuse("#15 W=129", "MAX_BEAMS", lambda: beam_fused.fused_v1_beam_step(
+        pack, z(i32), z(i32), z(torch.float32), z(torch.bool), il,
+        z(torch.float32, cfg.mel_dim), z(torch.float32, H), fw))
+    torch.cuda.synchronize()
+    if read_counts():
+        raise AssertionError(f"launches after the refused calls: "
+                             f"{read_counts()}")
+    log(f"[27a limits] every library's MAX_BEAMS / MAX_CANDIDATES equals "
+        f"ops/beam_fused's ({MB} / {MC}; v1: {MB} / {2 * MB}); ValueError "
+        f"before any launch for {', '.join(refused)}; launch counts 0")
+
+
+def wide_phase(seed: int, dev, smi: str, models) -> dict:
+    """Phase 27a; returns, by entry name of the JSON line, the keys it adds
+    to the beam kernels' entries."""
+    from ssnt_tts_tpu_torch import convert
+    from ssnt_tts_tpu_torch.ops import beam_fused
+    from ssnt_tts_tpu_torch.ops import beam_kernels as bk
+    from ssnt_tts_tpu_torch.parallel import decode
+    from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
+
+    t_phase = time.time()
+    rng = np.random.default_rng(seed + 27)
+    bf = models[torch.bfloat16]
+    cfg = bf.config
+    H, M, D, K = (cfg.decoder_dim, cfg.mel_dim, cfg.duration_class_size,
+                  cfg.tone_class_size)
+    F = H + 2 * M + 2
+    mid = min(30, T - 1)
+    req = make_request(rng, cfg.vocab_size, dev)
+    toks, il, ol = req
+    check_limits(rng, dev, models, req)
+
+    # 16 duration and 16 tone classes: 2048 candidates at W = 128.
+    cfg16 = dataclasses.replace(cfg, duration_class_size=16,
+                                tone_class_size=16,
+                                duration_table=tuple(range(16)))
+    tree16 = convert.random_flax_tree(cfg16, seed + 27)
+    models16 = {dt: make_model(cfg16, tree16, name, dev) for dt, name in
+                ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))}
+    dtabs = {n: torch.tensor(tuple(range(n)), dtype=torch.int32, device=dev)
+             for n in (D, 16)}
+    option_sets = (({}, 0),
+                   ({"config": V2BeamConfig(final_feasible_guard=True)}, 3),
+                   ({"allow_skip": True}, 0), ({"test_mode": True}, 3))
+
+    # ---- beam-only #12 / #13 and #11 / #10 against their plain versions
+    n_bo = 0
+    cases = ([(Wn, D, K, None, H) for Wn in WIDTHS]
+             + [(128, 16, 16, None, H), (W, D, K, 128, H),
+                (17, D, K, 40, H - 1), (64, D, K, 10, H)])
+    for Wn, Dn, Kn, w_out, Fn in cases:
+        for s in (0, mid, T - 1):
+            x = beam_only_inputs(rng, s, Wn, Dn, Kn, Fn, il, ol, dev)
+            for opts, empty in option_sets:
+                check_beam_only(x, dtabs[Dn], opts, empty, w_out)
+                n_bo += 1
+    v1_cases = ([(Wn, None, F) for Wn in WIDTHS]
+                + [(W, 128, F), (17, 40, F - 1), (128, 128, F - 1),
+                   (64, 10, F)])
+    n_v1 = 0
+    for Wn, w_out, Fn in v1_cases:
+        for s in (0, 40, T - 1):
+            check_v1_beam_only(v1_beam_only_inputs(rng, s, Wn, il, Fn, dev),
+                               w_out)
+            n_v1 += 1
+    log(f"[27a beam-only] #12 / #13 at (W, D, K, W_out, F) in "
+        f"{[c for c in cases]} ({n_bo} checks, 4 option sets) and #11 / #10 "
+        f"at (W, W_out, F) in {v1_cases} ({n_v1} checks), s=0/{mid}/"
+        f"{T - 1}, ragged lengths: every output bit-exact against the plain "
+        f"versions")
+
+    # ---- fused #14 (v2, tone) and #15 against the plain steps ----
+    carries = {}
+    for dt, model in models.items():
+        errs_v2, errs_tone, errs_v1 = [], [], []
+        for Wn in WIDTHS:
+            for s in (0, mid, T - 1):
+                inputs = step_inputs(model, req, s, rng, dev, Wn=Wn)
+                for opts, _ in option_sets:
+                    errs_v2.append(check_step(inputs, opts, dt))
+                for empty in (0, 3):
+                    errs_tone.append(check_tone_step(tone_step_inputs(
+                        model, toks, il, s, rng, dev, Wn), empty, TOL[dt]))
+            pack, fw, kept = v1_carries(model, toks, il, (0, 100), Wn, dev)
+            for f, c in kept.items():
+                errs_v1.append(check_v1_step(pack, fw, c, il, TOL[dt]))
+                if f > 0:
+                    errs_v1.append(check_v1_step(
+                        pack, fw, v1_perturb(c, il, rng, dev), il, TOL[dt]))
+            if dt == torch.bfloat16:
+                carries[Wn] = (pack, fw, kept[100])
+        m16 = models16[dt]
+        for s in (0, mid, T - 1):
+            inputs = step_inputs(m16, req, s, rng, dev, Wn=128)
+            for opts, _ in option_sets:
+                errs_v2.append(check_step(inputs, opts, dt))
+            errs_tone.append(check_tone_step(tone_step_inputs(
+                m16, toks, il, s, rng, dev, 128), 3, TOL[dt]))
+        log(f"[27a fused] {str(dt)[6:]}: #14 v2 ({len(errs_v2)} steps: W in "
+            f"{WIDTHS} at D={D}, s=0/{mid}/{T - 1}, 4 option sets; W=128 at "
+            f"D=16, C=2048), #14 tone ({len(errs_tone)}: K={K}, empty 0 / 3; "
+            f"W=128 at K=16), #15 ({len(errs_v1)}: a request's carry at "
+            f"frames 0/100, perturbed at 100): selection and reorder "
+            f"bit-exact; max |dh|, |dnew_h| v2 "
+            f"{max(max(e) for e in errs_v2):.3e}, tone "
+            f"{max(max(e) for e in errs_tone):.3e}, #15 |dh|, |dnew_h|, "
+            f"|dmel| {max(errs_v1):.3e} (tol {TOL[dt]})")
+
+    # ---- one v2, tone and v1 request at W_WIDE on each route ----
+    counters = (beam_fused.fused_class_beam_step, beam_fused.fused_tone_step,
+                beam_fused.fused_v1_beam_step, bk.v2_beam_search_decode,
+                bk.tone_beam_search_decode, bk.beam_search_step_reorder)
+    counts = lambda: tuple(c.launches for c in counters)
+    routes = (("fused", {}), ("beam-only", {"fuse_model": False}),
+              ("plain", {"fuse_model": False, "use_pallas": False}))
+    tone_toks, tone_il, _ = tone_requests(cfg, seed + 27, dev, n=1)[0]
+    runs = {
+        "v2": (lambda kw: decode.v2_duration_decode(
+            bf, toks, il, ol, cfg.duration_table, beam_width=W_WIDE,
+            max_frames=U, **kw), ("durations", "output_length",
+                                  "beam_emptied"),
+            {"fused": (T, 0, 0, 0, 0, 0), "beam-only": (0, 0, 0, T, 0, 0)}),
+        "tone": (lambda kw: decode.tone_decode(
+            bf, tone_toks, tone_il, beam_width=W_WIDE, **kw), ("tones",),
+            {"fused": (0, T, 0, 0, 0, 0), "beam-only": (0, 0, 0, 0, T, 0)}),
+        "v1": (lambda kw: decode.beam_decode(
+            bf, toks, il, max_frames=U, beam_width=W_WIDE, **kw),
+            ("alignment", "num_frames", "mel"),
+            {"fused": (0, 0, U, 0, 0, 0), "beam-only": (0, 0, 0, 0, 0, U)}),
+    }
+    agree = {}
+    with torch.no_grad():
+        for kind, (fn, keys, want) in runs.items():
+            outs = {}
+            for name, kw in routes:
+                before = counts()
+                outs[name] = fn(kw)
+                torch.cuda.synchronize()
+                got = tuple(a - b for a, b in zip(counts(), before))
+                if got != want.get(name, (0,) * 6):
+                    raise AssertionError(f"{kind} W={W_WIDE} {name}: "
+                                         f"launches {got}")
+                what = f"{kind} request W={W_WIDE} {name}"
+                if kind == "v2":
+                    v2_gates(what, outs[name], il, ol, W_WIDE)
+                elif kind == "v1":
+                    check_v1_request(what, outs[name], il, W_WIDE)
+            for k in keys:
+                if not same_bits(outs["beam-only"][k], outs["plain"][k]):
+                    raise AssertionError(f"{kind} W={W_WIDE}: beam-only and "
+                                         f"plain routes differ on {k}")
+            k0 = keys[0]
+            agree[kind] = (outs["fused"][k0] == outs["plain"][k0]).reshape(
+                B, -1).all(1).float().mean().item()
+    log(f"[27a requests] W={W_WIDE}, B={B}, bf16: v2 (T={T}), tone and v1 "
+        f"({U} frames) on the fused, beam-only and plain routes, with exact "
+        f"launch counts (T #14 / T #12; T #14 tone / T #13; {U} #15 / {U} "
+        f"#11); beam-only outputs equal the plain route's bit for bit; "
+        f"gates of phases 4 and 16 passed. Not gated (random weights): "
+        f"fused vs plain, share of utterances that agree: v2 durations "
+        f"{agree['v2']:.3f}, tones {agree['tone']:.3f}, v1 alignment "
+        f"{agree['v1']:.3f}")
+
+    # ---- device time a step under a CUDA graph at each W, and bounds ----
+    R = cfg.joint_rank
+    macs = M * H + H * H + 2 * H * 3 * H + H * R + R * 2 * R + H * M + 2 * H
+    times = {n: {} for n in BEAM_ENTRIES}
+    with torch.no_grad():
+        for Wn in WIDTHS:
+            v2s = step_inputs(bf, req, mid, rng, dev, Wn=Wn)
+            ts = tone_step_inputs(bf, toks, il, mid, rng, dev, Wn)
+            pack, fw, c = carries[Wn]
+            fa = (pack, c["t"], c["u"], c["lp"], c["fin"], il, c["pm"],
+                  c["state"])
+            x = beam_only_inputs(rng, mid, Wn, D, K, H, il, ol, dev)
+            v2a = (x["h"], x["lp"], x["fin"], x["tot"], dtabs[D], x["t"],
+                   x["u"], x["il"], x["ol"])
+            tonea = (x["h_tone"], x["lp"], x["fin"], x["t"], x["u"],
+                     x["il"])
+            xv = v1_beam_only_inputs(rng, 40, Wn, il, F, dev)
+            v1a = (xv["h"], xv["lp"], xv["fin"], xv["t"], xv["u"], xv["il"])
+            fns = {
+                "fused_v2_step": (
+                    lambda: beam_fused.fused_class_beam_step(*v2s),
+                    nbytes(v2s[1][mid], v2s[2][mid], *v2s[3], *v2s[4:]),
+                    2 * B * Wn * H * 3 * H * 2 + 2 * B * Wn * H * D,
+                    BF16_OPS),
+                "fused_tone_step": (
+                    lambda: beam_fused.fused_tone_step(*ts),
+                    nbytes(ts[1][mid], ts[2][mid], *ts[3], *ts[4:]),
+                    2 * B * Wn * H * 3 * H * 2 + 2 * B * Wn * H * K,
+                    BF16_OPS),
+                "fused_v1_step": (
+                    lambda: beam_fused.fused_v1_beam_step(*fa, fw),
+                    nbytes(*fw) + B * Wn * pack.shape[2] * 4
+                    + nbytes(*fa[1:]), 2 * B * Wn * macs, BF16_OPS),
+                "v2_beam_step": (
+                    lambda: bk.v2_beam_search_decode(*v2a,
+                                                     state=x["state"]),
+                    nbytes(*v2a, x["state"]), 2 * B * (Wn * D) ** 2,
+                    F32_OPS),
+                "tone_beam_step": (
+                    lambda: bk.tone_beam_search_decode(*tonea,
+                                                       state=x["state"]),
+                    nbytes(*tonea, x["state"]), 2 * B * (Wn * K) ** 2,
+                    F32_OPS),
+                "beam_v1_step_reorder": (
+                    lambda: bk.beam_search_step_reorder(*v1a, xv["state"]),
+                    nbytes(*v1a, xv["state"]), 2 * B * (2 * Wn) ** 2,
+                    F32_OPS),
+                "beam_v1_step": (
+                    lambda: bk.beam_search_step_batched(*v1a),
+                    nbytes(*v1a), 2 * B * (2 * Wn) ** 2, F32_OPS),
+            }
+            for name, (fn, in_bytes, ops, rate) in fns.items():
+                out_bytes = nbytes(*(o for o in fn() if o is not None))
+                times[name][Wn] = (graph_ms(fn),
+                                   bound(in_bytes + out_bytes, ops, rate))
+            log(f"[27a time] {smi}: W={Wn}, B={B}, bf16 model, device time "
+                f"a step (CUDA graph) against its bound: "
+                + "; ".join(f"{n} {times[n][Wn][0]:.4f} ms (bound "
+                            f"{times[n][Wn][1][0] * 1e3:.3f} us, "
+                            f"{times[n][Wn][1][1]})" for n in fns))
+    log(f"[27a] done in {time.time() - t_phase:.1f}s")
+    MB = beam_fused.MAX_BEAMS
+    return {name: {
+        "max_beams": MB,
+        "max_candidates": (2 * MB if "v1" in name  # C = 2W
+                           else beam_fused.MAX_CANDIDATES),
+        **{f"ms_w{Wn}": times[name][Wn][0] for Wn in (32, 128)},
+        **{f"bound_ms_w{Wn}": times[name][Wn][1][0] for Wn in (32, 128)},
+    } for name in BEAM_ENTRIES}
+
+
+# The keys of scripts/decode_scale.py's record (DECODE_SCALE_r05.json)
+# and of scripts/triage_empty_beam.py's (TRIAGE_EMPTYBEAM_r04.json).
+SCALE_KEYS = ("config", "platform", "T", "U", "beam", "sharding", "runs",
+              "scaling_note", "wall_s")
+TRIAGE_KEYS = ("eval_batch", "beam", "train_batch", "checkpoints",
+               "sweeps_at_final", "wall_s")
+TRIAGE_ENTRY_KEYS = ("emptied_rate", "n_emptied", "rescued_by",
+                     "first_empty_t_relative", "output_length_mae_frames")
+B_SCALE, B_SCALE_SLICE, SCALE_RANKS = 2048, 256, 4
+
+
+def scale_phase(dev, smi: str) -> None:
+    """Phase 27b: scripts.decode_scale at B_SCALE (one process, and over
+    SCALE_RANKS data ranks) and B_SCALE_SLICE, the fused route; the
+    B_SCALE decode bit for bit its rows decoded in slices of B_SCALE_SLICE
+    and the ranks' decode."""
+    from ssnt_tts_tpu_torch.ops import beam_fused
+    from ssnt_tts_tpu_torch.scripts import decode_scale
+
+    t_phase = time.time()
+    work = pathlib.Path("build") / "chip_smoke" / "scale"
+    got = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = beam_fused.fused_class_beam_step.launches
+    rec = decode_scale.main(
+        ["--batch", str(B_SCALE), "--small-batch", str(B_SCALE_SLICE),
+         "--seq", str(T), str(U), "--beam", str(W), "--reps", "2",
+         "--ranks", str(SCALE_RANKS), "--job-dir", str(work / "ranks"),
+         "--json", str(work / "scale.json")], outputs=got)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = beam_fused.fused_class_beam_step.launches - before
+    if tuple(rec) != SCALE_KEYS:
+        raise AssertionError(f"decode_scale record keys {tuple(rec)}")
+    # B=256 and B=2048 in this process: one warm decode and two timed each.
+    if n != 3 * 2 * T:
+        raise AssertionError(f"decode_scale: {n} #14 launches in this "
+                             f"process, not {3 * 2 * T}")
+    for r, got_l in enumerate(got["sharded_launches"]):  # its first decode
+        if got_l["fused_class_beam_step"] != T:
+            raise AssertionError(f"decode_scale rank {r}: launches {got_l}")
+    one = {k: v.cpu() for k, v in got["one"].items()}
+    model, batch = got["model"], got["batch"]
+    dec = decode_scale.decoder
+    for i in range(B_SCALE // B_SCALE_SLICE):
+        rows = slice(i * B_SCALE_SLICE, (i + 1) * B_SCALE_SLICE)
+        with torch.no_grad():
+            part = dec(model, {k: v[rows] for k, v in batch.items()}, W, U,
+                       False)()
+        for k, v in part.items():
+            if not same_bits(v.cpu(), one[k][rows]):
+                raise AssertionError(f"B={B_SCALE}: rows {rows} differ on "
+                                     f"{k} from their slice's decode")
+    for k, v in got["sharded"].items():
+        if not same_bits(torch.as_tensor(v), one[k]):
+            raise AssertionError(f"B={B_SCALE} over {SCALE_RANKS} ranks "
+                                 f"differs on {k} from one process")
+    runs = {(r["B"], r["sharded"]): r for r in rec["runs"]}
+    big, small = runs[(B_SCALE, False)], runs[(B_SCALE_SLICE, False)]
+    sh = runs[(B_SCALE, True)]
+    log(f"[27b decode_scale] {smi}: v2_duration_decode (fused #14) T={T} "
+        f"U={U} W={W} bf16, host clock, mean of 2 after a warm one: "
+        f"B={B_SCALE} {big['ms_per_decode']} ms "
+        f"({big['audio_s_per_s']} audio-s/s, emptied rate "
+        f"{big['beam_emptied_rate']}), B={B_SCALE_SLICE} "
+        f"{small['ms_per_decode']} ms ({small['audio_s_per_s']} audio-s/s), "
+        f"B={B_SCALE} over {SCALE_RANKS} ranks ({rec['sharding']['mesh']}) "
+        f"{sh['ms_per_decode']} ms ({sh['audio_s_per_s']} audio-s/s); peak "
+        f"device memory of this process {peak / 2**30:.3f} GiB; B={B_SCALE} "
+        f"bit for bit its {B_SCALE // B_SCALE_SLICE} slices of "
+        f"{B_SCALE_SLICE} and the {SCALE_RANKS}-rank run; "
+        f"{rec['scaling_note']}")
+    log(f"[27b decode_scale] record: {json.dumps(rec)}")
+    log(f"[27b] done in {time.time() - t_phase:.1f}s")
+
+
+def triage_phase(dev) -> None:
+    """Phase 27c: a reduced scripts.triage_empty_beam at the smoke width
+    (JAX's keys, every sweep, beam_x4 at W = 4 --beam), then its final
+    checkpoint decoded at that width on the fused and beam-only routes,
+    beside the plain step's sweep."""
+    from ssnt_tts_tpu_torch.ops import beam_fused
+    from ssnt_tts_tpu_torch.ops import beam_kernels as bk
+    from ssnt_tts_tpu_torch.parallel import decode
+    from ssnt_tts_tpu_torch.scripts import triage_empty_beam
+
+    t_phase = time.time()
+    got = {}
+    rec = triage_empty_beam.main(
+        ["--steps", "4", "8", "--batch", "64", "--eval-batch", "64",
+         "--beam", str(W), "--out",
+         "build/chip_smoke/triage/triage.json"], outputs=got)
+    entries = list(rec["checkpoints"].values()) + list(
+        rec["sweeps_at_final"].values())
+    if (tuple(rec) != TRIAGE_KEYS
+            or tuple(rec["checkpoints"]) != ("4", "8")
+            or tuple(rec["sweeps_at_final"]) != (
+                "allow_skip", "band_x2", "band_x4", "beam_x2", "beam_x4")
+            or any(tuple(e)[:5] != TRIAGE_ENTRY_KEYS for e in entries)):
+        raise AssertionError(f"triage record: keys {json.dumps(rec)[:400]}")
+    log(f"[27c triage] record: {json.dumps(rec)}")
+    model, toks, il, ol = (got[k] for k in ("model", "tokens", "il", "ol"))
+    Wn = 4 * W
+    line = []
+    with torch.no_grad():
+        for name, kw, kern in (
+                ("fused", {}, beam_fused.fused_class_beam_step),
+                ("beam-only", {"fuse_model": False},
+                 bk.v2_beam_search_decode)):
+            before = kern.launches
+            out = decode.v2_duration_decode(
+                model, toks, il, ol, model.config.duration_table,
+                beam_width=Wn, max_frames=got["max_frames"], **kw)
+            torch.cuda.synchronize()
+            if kern.launches - before != toks.shape[1]:
+                raise AssertionError(f"triage W={Wn} {name}: launches")
+            e = out["beam_emptied"].cpu().numpy()
+            mae = (out["output_length"][:, 0] - ol).abs().float().mean()
+            line.append(f"{name} emptied rate {e.mean():.4f} "
+                        f"({int(e.sum())}), output_length MAE "
+                        f"{float(mae):.2f} frames")
+    log(f"[27c triage] final checkpoint at W={Wn} (B={toks.shape[0]}): "
+        + "; ".join(line) + f"; plain step (the record's beam_x4): "
+        f"{rec['sweeps_at_final']['beam_x4']['emptied_rate']:.4f} "
+        f"({rec['sweeps_at_final']['beam_x4']['n_emptied']}), MAE "
+        f"{rec['sweeps_at_final']['beam_x4']['output_length_mae_frames']}")
+    log(f"[27c] done in {time.time() - t_phase:.1f}s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3822,7 +4317,7 @@ def main() -> int:
                 log(f"[2 build] {name} ptxas: {ln.strip()}")
     lib_c, lib_v1 = _build.fused_class_library(), _build.fused_v1_library()
     for bf16 in (0, 1):
-        for Wn in (1, W, 16):
+        for Wn in (1, W, 16, 32, 128):
             log(f"[2 build] fused steps {('f32', 'bf16')[bf16]} W={Wn}: "
                 f"cluster of {lib_c.ssnt_fused_cluster_blocks()} blocks per "
                 f"utterance ({B * lib_c.ssnt_fused_cluster_blocks()} blocks "
@@ -3942,6 +4437,11 @@ def main() -> int:
     long_phase(args.seed, dev)
     distribution_phase(args.seed, dev, smi)
     utilities_phase(args.seed, dev, smi)
+    extra = wide_phase(args.seed, dev, smi, models)
+    for entry in kernels:
+        entry.update(extra.get(entry["name"], {}))
+    scale_phase(dev, smi)
+    triage_phase(dev)
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

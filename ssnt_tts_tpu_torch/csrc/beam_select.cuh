@@ -8,7 +8,9 @@
 //     and the v2 diagonal re-injection: by the whole block (select_beams,
 //     the fused steps; block_select, the beam-only steps above 32
 //     candidates) or by one warp without block barriers (warp_select,
-//     C <= 32; the beam-only steps).
+//     C <= 32; the beam-only steps); above kMaxW slots or kMaxC
+//     candidates, by the whole block at up to kMaxP candidates a thread
+//     (wide_select, every step's wide instance).
 //
 // Candidates are in generation order c = w*D + d (beam-major, class-minor),
 // one thread per candidate, with the semantics of ops/beam_v2.py,
@@ -31,8 +33,15 @@
 namespace ssnt_beam {
 
 constexpr int kThreads = 256;
+// The narrow instances (select_beams, block_select, warp_select and the
+// kernels built on them): up to kMaxW slots, one thread per candidate.
 constexpr int kMaxW = 16;
-constexpr int kMaxC = kThreads;  // one thread per candidate
+constexpr int kMaxC = kThreads;
+// The wide instances (wide_select): up to kMaxBeams slots and kMaxCands
+// candidates, kMaxP a thread (ops/beam_fused.MAX_BEAMS, MAX_CANDIDATES).
+constexpr int kMaxBeams = 128;
+constexpr int kMaxCands = 2048;
+constexpr int kMaxP = kMaxCands / kThreads;
 constexpr int kNone = 0x7fffffff;
 
 // One candidate's fields. `tot` is 0 for tone candidates, so the
@@ -360,6 +369,151 @@ __device__ __forceinline__ int block_select(BlockSmem& s, const Cand& x,
     if (lane == Wo - 1 && s.first_diag != kNone) k = s.order[s.first_diag];
   }
   *src = k;
+  return n;
+}
+
+// Candidate fields and scratch of wide_select, carved from dynamic shared
+// memory (wide_sel_bytes(C) at a 16-byte aligned base): C4 = C rounded up
+// to a multiple of 4 entries each.
+struct WideSel {
+  float* lp;
+  int* valid;
+  int* pred; int* nt; int* nu; int* tot; int* fin; int* diag;
+  int* order;       // sorted position -> candidate
+  int* surv;        // survivor rank -> candidate (valid's place)
+  int* wcount;      // (kMaxP, warps) kept candidates of each warp's positions
+  int* src;         // output slot -> candidate (kMaxBeams)
+  int* misc;        // [0] first kept diagonal position, [1] valid count
+};
+
+__host__ __device__ inline size_t wide_sel_bytes(int C) {
+  const size_t c4 = (size_t)((C + 3) & ~3);
+  return sizeof(int) * (9 * c4 + kMaxP * (kThreads / 32) + kMaxBeams + 4);
+}
+
+__device__ __forceinline__ WideSel wide_sel_at(unsigned char* base, int C) {
+  const int c4 = (C + 3) & ~3;
+  int* p = reinterpret_cast<int*>(base);
+  WideSel s;
+  s.lp = reinterpret_cast<float*>(p);
+  s.valid = p + c4; s.pred = p + 2 * c4; s.nt = p + 3 * c4;
+  s.nu = p + 4 * c4; s.tot = p + 5 * c4; s.fin = p + 6 * c4;
+  s.diag = p + 7 * c4; s.order = p + 8 * c4;
+  s.surv = s.valid;
+  s.wcount = p + 9 * c4;
+  s.src = s.wcount + kMaxP * (kThreads / 32);
+  s.misc = s.src + kMaxBeams;
+  return s;
+}
+
+__device__ __forceinline__ void store_wide(const WideSel& s, int c,
+                                           const Cand& x) {
+  s.lp[c] = x.lp; s.valid[c] = x.valid; s.pred[c] = x.pred; s.nt[c] = x.nt;
+  s.nu[c] = x.nu; s.tot[c] = x.tot; s.fin[c] = x.fin; s.diag[c] = x.diag;
+}
+
+// select_beams for up to kMaxCands candidates and kMaxBeams slots, with
+// the same order, dedup, pad and re-injection: thread t holds the
+// P = ceil(C / kThreads) candidates c = k kThreads + t (k < P), and then
+// the sorted positions p = k kThreads + t. The caller has stored the C
+// candidates with store_wide; every thread of the block calls it. The
+// ranks read four candidates a load, P ranks a pass; survivor ranks are
+// ballots within a warp plus the counts of the positions before it. Leaves
+// the slots' candidates in s.src[0 .. Wo) and returns the survivor count;
+// begins and ends with a barrier.
+__device__ __forceinline__ int wide_select(const WideSel& s, int C, int Wo,
+                                           bool use_diag) {
+  constexpr int kW = kThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C4 = (C + 3) & ~3, P = (C + kThreads - 1) / kThreads;
+  if (tid < C4 - C) {
+    s.lp[C + tid] = 0.0f;
+    s.valid[C + tid] = 0;
+  }
+  if (tid == 0) {
+    s.misc[0] = kNone;
+    s.misc[1] = 0;
+  }
+  __syncthreads();
+  float li[kMaxP];
+  int r[kMaxP];
+  bool vi[kMaxP];
+  int nv = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxP; ++k) {
+    const int c = k * kThreads + tid;
+    vi[k] = k < P && c < C && s.valid[c];
+    li[k] = vi[k] ? s.lp[c] : 0.0f;
+    r[k] = 0;
+    nv += vi[k];
+  }
+  // stable rank among valid candidates
+#pragma unroll 2
+  for (int j = 0; j < C4; j += 4) {
+    const float4 l = *reinterpret_cast<const float4*>(s.lp + j);
+    const int4 v = *reinterpret_cast<const int4*>(s.valid + j);
+#pragma unroll
+    for (int k = 0; k < kMaxP; ++k) {
+      if (k >= P) break;
+      const int c = k * kThreads + tid;
+      r[k] += v.x && (l.x > li[k] || (l.x == li[k] && j < c));
+      r[k] += v.y && (l.y > li[k] || (l.y == li[k] && j + 1 < c));
+      r[k] += v.z && (l.z > li[k] || (l.z == li[k] && j + 2 < c));
+      r[k] += v.w && (l.w > li[k] || (l.w == li[k] && j + 3 < c));
+    }
+  }
+  nv = __reduce_add_sync(0xffffffffu, nv);
+  if (lane == 0 && nv) atomicAdd(&s.misc[1], nv);
+#pragma unroll
+  for (int k = 0; k < kMaxP; ++k)
+    if (vi[k]) s.order[r[k]] = k * kThreads + tid;
+  __syncthreads();
+  const int nvalid = s.misc[1];
+  // Sorted position p: adjacent dedup on every field but the parent.
+  unsigned m[kMaxP];
+  int cand[kMaxP];
+#pragma unroll
+  for (int k = 0; k < kMaxP; ++k) {
+    const int p = k * kThreads + tid;
+    bool keep = false;
+    cand[k] = 0;
+    if (k < P && p < nvalid) {
+      const int c = s.order[p];
+      cand[k] = c;
+      keep = true;
+      if (p > 0) {
+        const int q = s.order[p - 1];
+        keep = !(s.pred[q] == s.pred[c] && s.lp[q] == s.lp[c] &&
+                 s.nt[q] == s.nt[c] && s.nu[q] == s.nu[c] &&
+                 s.fin[q] == s.fin[c] && s.tot[q] == s.tot[c]);
+      }
+      if (use_diag && keep && s.diag[c]) atomicMin(&s.misc[0], p);
+    }
+    m[k] = k < P ? __ballot_sync(0xffffffffu, keep) : 0u;
+    if (k < P && lane == 0) s.wcount[k * kW + warp] = __popc(m[k]);
+  }
+  __syncthreads();
+  // survivor ranks: the kept positions before p, warp by warp
+  int n = 0;
+  for (int i = 0; i < P * kW; ++i) n += s.wcount[i];
+#pragma unroll
+  for (int k = 0; k < kMaxP; ++k) {
+    if (k >= P) break;
+    if ((m[k] >> lane) & 1u) {
+      int before = __popc(m[k] & ((1u << lane) - 1u));
+      for (int i = 0; i < k * kW + warp; ++i) before += s.wcount[i];
+      s.surv[before] = cand[k];
+    }
+  }
+  __syncthreads();
+  const int first_diag = s.misc[0];
+  for (int j = tid; j < Wo; j += kThreads) {
+    int k = 0;
+    if (n > 0) k = s.surv[j < n ? j : (j - n) % n];
+    if (j == Wo - 1 && first_diag != kNone) k = s.order[first_diag];
+    s.src[j] = k;
+  }
+  __syncthreads();
   return n;
 }
 

@@ -13,8 +13,9 @@
 //     kernel _v1_kernel :211), the same with a null state (F = 0).
 // Semantics: ops/beam_v2.beam_search_step, ops/tone_latent.
 // beam_search_step and ops/beam_v1.beam_search_step followed by the state
-// gather, with W_out = max_beam_width output slots (1 to kMaxW; survivors
-// pad by repetition, v2's diagonal candidate goes to slot W_out - 1);
+// gather, with W_out = max_beam_width output slots (1 to kMaxBeams;
+// survivors pad by repetition, v2's diagonal candidate goes to slot
+// W_out - 1); W up to kMaxBeams and W*D up to kMaxCands candidates;
 // candidates and selection come from beam_select.cuh, which the fused
 // steps share. The TPU v1 kernels pick their outputs by one-hot sums (a
 // selected -0.0 comes back +0.0); these copy.
@@ -48,7 +49,14 @@
 //     the v1 rows' F = 418 start 16-byte aligned only every other row, so
 //     they go a value at a time).
 // One block barrier remains on the warp path: it publishes the mbarrier's
-// initialisation. Measured by bench_fused.py (device time under a CUDA
+// initialisation. Those are the narrow instance's (W and W_out <= kMaxW,
+// C <= kMaxC, the rows in shared memory); anything wider takes the wide
+// instance (beam_step_wide_kernel): wide_select over up to kMaxP
+// candidates a thread, the slots' parents in shared memory, and as much of
+// the rows' span staged by the bulk copy as fits beside the selection's
+// fields, the rest read from global memory by the reorder (at the
+// decodes' widths all of it fits: v1 at W=128 stages 214 KB of F=418 rows
+// beside 10 KB of fields, v2 at W=128, D=16 131 KB beside 75 KB). Measured by bench_fused.py (device time under a CUDA
 // graph, B=32, W=8; NVIDIA H100 80GB HBM3, 700 W): v1 with F = 418 rows
 // 3.2 us, tone 3.4 us, v2 3.9 us (the design before it: 6.8, 6.7, 7.8),
 // against a 1.3 us launch floor; probe_beam.py's stamps put the v1 rows'
@@ -86,6 +94,7 @@ struct BeamArgs {
   float* o_state;
   V2Opts v2;
   int empty_id;  // tone only
+  int stage;     // wide instance: the most row values staged (a multiple of 4)
 };
 
 enum Kind { kV2 = 0, kTone = 1, kV1 = 2 };
@@ -116,17 +125,19 @@ struct Span {
   }
 };
 
-// out (W_out, H) row j = the span row of slot j's parent, which lane j of
-// every warp holds (`parent`). Warp w copies rows w, w + kWarps, ...: each
-// lane reads the row's values from shared memory at a stride of 32 and
-// stores them, 16 bytes at a time where the row's width is a multiple of 4
-// and its source and destination are 16-byte aligned, else one value at a
-// time (coalesced either way).
-__device__ __forceinline__ void reorder_span(const Span& sp, int parent,
-                                             int Wo, int H, float* out) {
+// out (W_out, H) row j = the span row of slot j's parent, parent_of(j)
+// (the same in every lane of the warp). Warp w copies rows w, w + kWarps,
+// ...: each lane reads the row's values from shared memory at a stride of
+// 32 and stores them, 16 bytes at a time where the row's width is a
+// multiple of 4 and its source and destination are 16-byte aligned and
+// staged, else one value at a time (coalesced either way).
+template <typename ParentOf>
+__device__ __forceinline__ void reorder_span(const Span& sp,
+                                             ParentOf parent_of, int Wo,
+                                             int H, float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int j = warp; j < Wo; j += kWarps) {
-    const int s0 = __shfl_sync(0xffffffffu, parent, j) * H;
+    const int s0 = parent_of(j) * H;
     float* dst = out + (size_t)j * H;
     if ((H & 3) == 0 && ((sp.lead + s0) & 3) == 0 &&
         ((uintptr_t)dst & 15) == 0 && s0 >= sp.i0 &&
@@ -217,42 +228,81 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(BeamArgs a) {
   // 4. The reorder, from shared memory once the copy has landed.
   if (a.state) {
     if (sp.nb) mbar_wait(&bar, 0);
-    reorder_span(sp, src / D, Wo, H, a.o_state + (size_t)b * Wo * H);
+    const int parent = src / D;  // slot `lane`'s parent
+    reorder_span(sp,
+                 [&](int j) { return __shfl_sync(0xffffffffu, parent, j); },
+                 Wo, H, a.o_state + (size_t)b * Wo * H);
   }
 }
 
-// Static shared memory of the largest instance (read once).
-int static_smem() {
-  static int bytes = -1;
-  if (bytes < 0) {
-    const void* k[] = {(const void*)beam_step_kernel<kV2>,
-                       (const void*)beam_step_kernel<kTone>,
-                       (const void*)beam_step_kernel<kV1>};
-    bytes = 0;
-    for (const void* f : k) {
-      cudaFuncAttributes at;
-      if (cudaFuncGetAttributes(&at, f) != cudaSuccess) return -1;
-      if ((int)at.sharedSizeBytes > bytes) bytes = (int)at.sharedSizeBytes;
+// The wide instance: W or W_out above kMaxW, more than kMaxC candidates,
+// or rows past the narrow instance's shared memory. The candidates go
+// through wide_select (up to kMaxP a thread, fields in dynamic shared
+// memory); the first a.stage values of the rows' span are staged by the
+// bulk copy behind them, the rest read from global memory by the reorder.
+template <int KIND>
+__global__ void __launch_bounds__(kThreads) beam_step_wide_kernel(BeamArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ uint64_t bar;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int W = a.W, Wo = a.Wo, D = a.D, H = a.H, C = W * D;
+  const bool use_diag = KIND == kV2 && !a.v2.test_mode;
+  const WideSel sel = wide_sel_at(dyn, C);
+  float* rows = reinterpret_cast<float*>(dyn + wide_sel_bytes(C));
+
+  // 1. The rows (their first a.stage values), in flight from the start.
+  Span sp{nullptr, rows, 0, 0, 0};
+  if (a.state) {
+    const int n = W * H;
+    sp.g = a.state + (size_t)b * n;
+    sp.lead = (int)(((uintptr_t)sp.g >> 2) & 3);
+    sp.i0 = min((4 - sp.lead) & 3, n);
+    sp.nb = min((n - sp.i0) & ~3, a.stage);
+    if (tid == 0) {
+      mbar_init(&bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (sp.nb)
+        bulk_copy(rows + sp.lead + sp.i0, sp.g + sp.i0, 4u * sp.nb, &bar);
     }
   }
-  return bytes;
+
+  // 2. Candidates, 3. selection (its first barrier publishes the
+  // mbarrier's initialisation).
+  for (int c = tid; c < C; c += kThreads)
+    store_wide(sel, c, candidate<KIND>(a, b, c));
+  const int n = wide_select(sel, C, Wo, use_diag);
+  for (int j = tid; j < Wo; j += kThreads) {
+    const int src = sel.src[j];
+    const size_t i = (size_t)b * Wo + j;
+    a.out.pred[i] = sel.pred[src];
+    a.out.lp[i] = sel.lp[src];
+    a.out.nt[i] = sel.nt[src];
+    a.out.nu[i] = sel.nu[src];
+    a.out.fin[i] = (uint8_t)sel.fin[src];
+    if (a.out.tot) a.out.tot[i] = sel.tot[src];
+    a.out.branch[i] = src / D;
+  }
+  if (KIND == kV2 && tid == 0) a.o_nsurv[b] = n;
+
+  // 4. The reorder.
+  if (a.state) {
+    if (sp.nb) mbar_wait(&bar, 0);
+    reorder_span(sp, [&](int j) { return sel.src[j] / D; }, Wo, H,
+                 a.o_state + (size_t)b * Wo * H);
+  }
 }
 
-// The most dynamic shared memory a block may take: the device's opt-in
-// limit less the static part.
-int max_dynamic_smem() {
-  static int bytes = -1;
-  if (bytes < 0) {
-    int dev = 0, optin = 0;
-    const int st = static_smem();
-    if (st < 0 || cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess)
-      return 0;
-    bytes = optin - st;
-  }
-  return bytes;
+// The most dynamic shared memory a block of `kern` may take: the device's
+// opt-in limit less its static part (-1 on an error).
+int max_dynamic_smem(const void* kern) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes at;
+  if (cudaFuncGetAttributes(&at, kern) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  return optin - (int)at.sharedSizeBytes;
 }
 
 // Bytes of dynamic shared memory for (W, H) rows: the span and up to 3
@@ -261,25 +311,53 @@ size_t rows_smem(const BeamArgs& a) {
   return a.state ? sizeof(float) * ((size_t)a.W * a.H + 4) : 0;
 }
 
-template <int KIND>
-cudaError_t launch(const BeamArgs& a, cudaStream_t stream) {
-  static bool opted = false;
-  const size_t smem = rows_smem(a);
-  if (smem > (size_t)max_dynamic_smem()) return cudaErrorInvalidValue;
-  if (smem > 0 && !opted) {  // once, to the limit (outside graph captures)
-    cudaError_t e = cudaFuncSetAttribute(
-        beam_step_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        max_dynamic_smem());
-    if (e != cudaSuccess) return e;
-    opted = true;
+// Opts `kern` in to its whole dynamic shared memory, once per instance
+// (outside graph captures after the first call); returns that size.
+template <typename Kern>
+int opt_in(Kern kern, int& limit) {
+  if (limit < 0) {
+    const int m = max_dynamic_smem((const void*)kern);
+    if (m < 0 ||
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             m) != cudaSuccess)
+      return -1;
+    limit = m;
   }
-  beam_step_kernel<KIND><<<a.B, kThreads, smem, stream>>>(a);
+  return limit;
+}
+
+// The narrow instance where it takes the step (W, W_out <= kMaxW, C <=
+// kMaxC, the rows in its shared memory), else the wide one.
+template <int KIND>
+cudaError_t launch(BeamArgs a, cudaStream_t stream) {
+  static int narrow_limit = -1, wide_limit = -1;
+  const size_t smem = rows_smem(a);
+  const int nl = opt_in(beam_step_kernel<KIND>, narrow_limit);
+  if (nl < 0) return cudaErrorInvalidValue;
+  if (a.W <= kMaxW && a.Wo <= kMaxW && a.W * a.D <= kMaxC &&
+      smem <= (size_t)nl) {
+    beam_step_kernel<KIND><<<a.B, kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  const int wl = opt_in(beam_step_wide_kernel<KIND>, wide_limit);
+  const size_t sel = wide_sel_bytes(a.W * a.D);
+  if (wl < 0 || sel + 16 * sizeof(float) > (size_t)wl)
+    return cudaErrorInvalidValue;
+  // The rows' values that fit after the selection's fields and the lead.
+  const size_t room = ((size_t)wl - sel) / sizeof(float) - 4;
+  a.stage = a.state ? (int)(((size_t)a.W * a.H < room ? (size_t)a.W * a.H
+                                                      : room) & ~(size_t)3)
+                    : 0;
+  const size_t dyn = sel + (a.state ? sizeof(float) * ((size_t)a.stage + 4)
+                                    : 0);
+  beam_step_wide_kernel<KIND><<<a.B, kThreads, dyn, stream>>>(a);
   return cudaGetLastError();
 }
 
 bool bad_shape(int B, int W, int Wo, int D, int H) {
-  return B < 1 || W < 1 || W > kMaxW || Wo < 1 || Wo > kMaxW || D < 1 ||
-         W * D > kMaxC || H < 1;
+  return B < 1 || W < 1 || W > kMaxBeams || Wo < 1 || Wo > kMaxBeams ||
+         D < 1 || (long long)W * D > kMaxCands || H < 1 ||
+         (long long)B * W * H >= (1ll << 31);
 }
 
 void set_common(BeamArgs& a, int B, int W, int Wo, int D, int H,
@@ -296,17 +374,13 @@ void set_common(BeamArgs& a, int B, int W, int Wo, int D, int H,
   a.out.fin = (uint8_t*)o_fin; a.out.tot = nullptr;
   a.out.branch = (int*)o_branch;
   a.o_state = (float*)o_state;
+  a.stage = 0;
 }
 
 }  // namespace
 
-extern "C" int ssnt_beam_step_max_candidates() { return kMaxC; }
-extern "C" int ssnt_beam_step_max_beams() { return kMaxW; }
-// The largest (W, H) state span in bytes a step can stage.
-extern "C" int ssnt_beam_step_max_state_bytes() {
-  const int m = max_dynamic_smem() - 16;
-  return m > 0 ? m : 0;
-}
+extern "C" int ssnt_beam_step_max_candidates() { return kMaxCands; }
+extern "C" int ssnt_beam_step_max_beams() { return kMaxBeams; }
 
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ssnt_beam_v2_step(

@@ -48,6 +48,11 @@
 //     rank order, so both blocks hold the same log-probs and run the same
 //     selection; block 0 writes the beam outputs, each block reorders its
 //     own state columns.
+// Beams: the narrow instances take W <= kMaxW = 16 and W*D <= kMaxC in
+// one beam tile (mma N tiles of 8 beams: 8 or 16); wider steps, up to
+// kMaxBeams = 128 and kMaxCands = 2048 candidates, take
+// fused_class_wide_kernel, a loop over tiles of 16 beams (one pass of the
+// weight stream each) and wide_select.
 // What holds it now (ssnt_tts_tpu_torch/probe_fused.py; numbers in
 // PERF.md): the weight stream, at the rate one SM pulls from L2 into
 // shared memory; the prologue's loads; the selection; and the code that
@@ -111,6 +116,42 @@ ClassSmem class_smem(int WN, int D, int H, int csize) {
   return s;
 }
 
+// The wide step's dynamic shared memory (W > kMaxW or W D > kMaxC), byte
+// offsets: one beam tile's buffers, which the selection's fields take
+// over after the last tile, then the whole utterance's class sums.
+struct ClassWideSmem {
+  size_t x, hb, stf, nh, stg, sel, bias, hk, hp, h, scr, bar, ring, total;
+  int nst, chunk;
+};
+
+ClassWideSmem class_wide_smem(int W, int D, int H, int csize) {
+  const Layer g = gru_layer(H, 0);
+  const int U = g.MT / 6 * 16, WN = kTileBeams, C = W * D;
+  const size_t act = (size_t)WN * act_ld(H) * csize;
+  Carve c;
+  ClassWideSmem s;
+  s.x = c.take(act);
+  s.hb = c.take(act);
+  s.stf = csize == 4 ? s.hb : c.take((size_t)WN * act_ld(H) * sizeof(float));
+  s.nh = c.take(sizeof(float) * WN * U);
+  s.stg = c.take(sizeof(float) * g.MT * 16 * WN);
+  s.sel = 0;
+  const size_t sel = wide_sel_bytes(C);
+  if (c.at < sel) c.take(sel - c.at);
+  s.bias = c.take(sizeof(float) * (4 * H + D));  // bi, bhn, out_b
+  s.hk = c.take(sizeof(float) * U * D);
+  s.hp = c.take(sizeof(float) * kCL * C);
+  s.h = c.take(sizeof(float) * C);
+  s.scr = c.take(sizeof(float) * kThreads);
+  s.bar = c.take(sizeof(uint64_t) * kMaxStages);
+  s.ring = c.at;
+  const RingShape r = ring_shape(s.ring, kStaticSmemWide);
+  s.nst = r.nst;
+  s.chunk = r.chunk;
+  s.total = s.ring + (size_t)s.nst * s.chunk;
+  return s;
+}
+
 struct StepArgs {
   int B, W, D, H, s;
   const void* xin_path; const float* base_path;
@@ -127,6 +168,7 @@ struct StepArgs {
   int empty_id;  // tone only
   Stream st;
   ClassSmem sm;
+  ClassWideSmem wsm;
 };
 
 // One block per SM (minBlocks 1): ptxas may keep the accumulators of six
@@ -266,6 +308,184 @@ fused_class_step_kernel(const __grid_constant__ StepArgs a) {
   }
 }
 
+// The wide step: the narrow kernel's stages over tiles of kTileBeams beams
+// (the GRU's accumulators of 128 beams do not fit in registers). Each tile
+// loads its beams' inputs, runs the GRU over one pass of the weight stream
+// (the ring runs ceil(W / kTileBeams) passes), writes its new_h, before
+// the reorder, to a.dbg_newh (a scratch the wrapper provides when the
+// caller does not) and keeps the rank's partial class sums of its beams;
+// then the partials are exchanged as in the narrow step, and the
+// selection (wide_select) and the reorder (from a.dbg_newh, the block's
+// own columns) cover every beam.
+template <int KIND, typename CT>
+__global__ void __cluster_dims__(kCL, 1, 1) __launch_bounds__(kThreads, 1)
+fused_class_wide_kernel(const __grid_constant__ StepArgs a) {
+  constexpr int NTN = kTileBeams / 8, WN = kTileBeams;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int b = blockIdx.x / kCL, tid = threadIdx.x;
+  const int B = a.B, W = a.W, D = a.D, H = a.H, C = W * D;
+  const int U = a.st.l[0].MT / 6 * 16, k0 = rank * U;
+  const int nu = max(0, min(U, H - k0)), lds = act_ld(H);
+  const CT* xin = static_cast<const CT*>(a.xin_path);
+  const CT* embed = static_cast<const CT*>(a.embed);
+  float* newh = a.dbg_newh + (size_t)b * W * H;  // (W, H) before the reorder
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  CT* x_s = reinterpret_cast<CT*>(smem + a.wsm.x);    // (WN, lds) GRU input
+  CT* hb_s = reinterpret_cast<CT*>(smem + a.wsm.hb);  // (WN, lds) rnd(state)
+  float* stf_s = reinterpret_cast<float*>(smem + a.wsm.stf);  // (WN, lds)
+  float* nh_s = reinterpret_cast<float*>(smem + a.wsm.nh);  // (WN, U) new_h
+  float* stg = reinterpret_cast<float*>(smem + a.wsm.stg);
+  float* bias_s = reinterpret_cast<float*>(smem + a.wsm.bias);  // bi|bhn|out_b
+  float* hk_s = reinterpret_cast<float*>(smem + a.wsm.hk);  // (U, D) out_k rows
+  float* hp_s = reinterpret_cast<float*>(smem + a.wsm.hp);  // (kCL, C)
+  float* h_s = reinterpret_cast<float*>(smem + a.wsm.h);    // (W, D)
+  float* scr = reinterpret_cast<float*>(smem + a.wsm.scr);
+  __shared__ Stream st_s;     // the weight stream's layers
+  __shared__ BeamInWide bin;  // the beams' carry
+
+  if (tid == 0) st_s = a.st;
+  Ring<CT> ring{reinterpret_cast<CT*>(smem + a.wsm.ring),
+                reinterpret_cast<uint64_t*>(smem + a.wsm.bar),
+                static_cast<const CT*>(a.wpack) +
+                    (size_t)rank * a.st.tiles * kTile,
+                &st_s, a.wsm.nst, 0};
+  ring.passes = (W + WN - 1) / WN;
+  ring.start();
+  load_beams(bin, b, W, a.lp, a.fin, a.t, a.u, a.tot, a.prev_class, a.il,
+             a.ol);
+  load_segs(bias_s, Segs<CT, 3>{{a.bi, a.bhn, a.out_b},
+                                {3 * H, H, D},
+                                {0, 3 * H, 4 * H},
+                                {false, false, true}});
+  load_segs(hk_s, Segs<CT, 1>{{a.out_k + (size_t)k0 * D}, {nu * D}, {0},
+                              {true}});
+  cluster_arrive();  // this block's buffers are ready for its peers
+  __syncthreads();
+
+  // ---- 1. AR class cell, a tile of beams at a time ----
+  const Layer& gl = st_s.l[0];
+  for (int w0 = 0; w0 < W; w0 += WN) {
+    const int Wt = min(WN, W - w0);
+#pragma unroll 4
+    for (int i = tid; i < WN * lds; i += kThreads) {
+      const int w = i / lds, k = i - w * lds;
+      float xv = 0.0f, sv = 0.0f;
+      if (w < Wt && k < H) {
+        xv = rnd<CT>(__fadd_rn(ld(embed, (size_t)bin.pc[w0 + w] * H + k),
+                               ld(xin, ((size_t)a.s * B + b) * H + k)));
+        sv = a.state[((size_t)b * W + w0 + w) * H + k];
+      }
+      x_s[i] = st<CT>(xv);
+      stf_s[i] = sv;  // in float32 compute this is hb_s, rnd(state) itself
+      hb_s[i] = st<CT>(rnd<CT>(sv));
+    }
+    __syncthreads();
+    dot_layer<CT, NTN>(ring, gl, x_s, hb_s, lds, stg);
+    gru_epilogue<CT, WN>(gl, stg, rank, Wt, bias_s, bias_s + 3 * H, stf_s,
+                         lds, nh_s, newh + (size_t)w0 * H,
+                         [](int, int, float) {});
+    __syncthreads();
+    // The rank's partial new_h . out_k (float32) of the tile's beams.
+    for (int o0 = 0; o0 < Wt * D; o0 += kThreads)
+      block_sums(min(kThreads, Wt * D - o0), nu, scr, h_s + w0 * D + o0,
+                 [&](int o, int i, float acc) {
+                   const int q = o0 + o, w = q / D, d = q - w * D;
+                   return __fmaf_rn(nh_s[w * U + i], hk_s[i * D + d], acc);
+                 });
+  }
+
+  // The partials to every block, added in rank order, then base + (sum +
+  // out_b) and the log_softmax.
+  cluster_wait();
+  {
+    const Bcast<float> hp = bcast_of(hp_s);
+    for (int c = tid; c < C; c += kThreads)
+      hp.put((size_t)rank * C + c, h_s[c]);
+  }
+  cluster_sync();
+  for (int c = tid; c < C; c += kThreads) {
+    const int d = c % D;
+    float sum = hp_s[c];
+    for (int r = 1; r < kCL; ++r) sum = __fadd_rn(sum, hp_s[r * C + c]);
+    h_s[c] = __fadd_rn(a.base_path[((size_t)a.s * B + b) * D + d],
+                       __fadd_rn(sum, bias_s[4 * H + d]));
+  }
+  __syncthreads();
+  if (tid < W) {  // log_softmax: shifted - log(sum(exp(shifted)))
+    float* row = h_s + tid * D;
+    float m = row[0];
+    for (int d = 1; d < D; ++d) m = fmaxf(m, row[d]);
+    float sum = 0.0f;
+    for (int d = 0; d < D; ++d) sum = __fadd_rn(sum, expf(__fsub_rn(row[d], m)));
+    const float ls = logf(sum);
+    for (int d = 0; d < D; ++d) {
+      row[d] = __fsub_rn(__fsub_rn(row[d], m), ls);
+      if (a.dbg_h && rank == 0) a.dbg_h[((size_t)b * W + tid) * D + d] = row[d];
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. candidate grid, 3. selection (every block, on the same h) ----
+  const WideSel sel = wide_sel_at(smem + a.wsm.sel, C);
+  for (int c = tid; c < C; c += kThreads) {
+    const int w = c / D, d = c - w * D;
+    store_wide(sel, c, KIND == kV2
+        ? v2_candidate(d, D, h_s[c], bin.lp[w], bin.fin[w], bin.tot[w],
+                       bin.t[w], bin.u[w], bin.il, bin.ol, a.dtab, a.v2)
+        : tone_candidate(d, h_s[c], bin.lp[w], bin.fin[w], bin.t[w],
+                         bin.u[w], bin.il, a.empty_id));
+  }
+  const int n = wide_select(sel, C, W, KIND == kV2 && !a.v2.test_mode);
+  if (rank == 0) {
+    for (int j = tid; j < W; j += kThreads) {
+      const int src = sel.src[j];
+      const size_t i = (size_t)b * W + j;
+      a.out.pred[i] = sel.pred[src];
+      a.out.lp[i] = sel.lp[src];
+      a.out.nt[i] = sel.nt[src];
+      a.out.nu[i] = sel.nu[src];
+      a.out.fin[i] = (uint8_t)sel.fin[src];
+      if (a.out.tot) a.out.tot[i] = sel.tot[src];
+      a.out.branch[i] = src / D;
+    }
+    if (KIND == kV2 && tid == 0) {
+      a.o_nsurv[b] = n;
+      a.o_emptied[b] = (uint8_t)(a.emptied[b] || n == 0);
+    }
+  }
+
+  // ---- 4. parent-pointer reorder of the rank's state columns ----
+  for (int i = tid; i < W * nu; i += kThreads) {
+    const int j = i / nu, c = i - j * nu;
+    a.o_state[((size_t)b * W + j) * H + k0 + c] =
+        newh[(size_t)(sel.src[j] / D) * H + k0 + c];
+  }
+}
+
+template <int KIND, typename CT>
+cudaError_t launch_wide(StepArgs a, cudaStream_t stream) {
+  if (a.dbg_newh == nullptr) return cudaErrorInvalidValue;
+  a.wsm = class_wide_smem(a.W, a.D, a.H, sizeof(CT));
+  a.st.n = 1;
+  a.st.l[0] = gru_layer(a.H, 0);
+  finish_stream(a.st, a.wsm.chunk, sizeof(CT));
+  if (a.wsm.nst < 2) return cudaErrorInvalidValue;
+  auto kern = fused_class_wide_kernel<KIND, CT>;
+  static size_t opted = 0;
+  if (a.wsm.total > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.wsm.total);
+    if (e != cudaSuccess) return e;
+    opted = a.wsm.total;
+  }
+  kern<<<a.B * kCL, kThreads, a.wsm.total, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The wide step takes W > kMaxW or more than kMaxC candidates.
+bool is_wide(int W, int D) { return W > kMaxW || W * D > kMaxC; }
+
 template <int KIND, typename CT, int NTN>
 cudaError_t launch(StepArgs a, cudaStream_t stream) {
   a.sm = class_smem(NTN * 8, a.D, a.H, sizeof(CT));
@@ -289,6 +509,9 @@ cudaError_t launch(StepArgs a, cudaStream_t stream) {
 
 template <int KIND>
 cudaError_t dispatch(int compute_bf16, const StepArgs& a, cudaStream_t st) {
+  if (is_wide(a.W, a.D))
+    return compute_bf16 ? launch_wide<KIND, __nv_bfloat16>(a, st)
+                        : launch_wide<KIND, float>(a, st);
   if (compute_bf16) {
     if (a.W <= 8) return launch<KIND, __nv_bfloat16, 1>(a, st);
     return launch<KIND, __nv_bfloat16, 2>(a, st);
@@ -298,8 +521,9 @@ cudaError_t dispatch(int compute_bf16, const StepArgs& a, cudaStream_t st) {
 }
 
 bool bad_shape(int B, int W, int D, int H) {
-  return B < 1 || W < 1 || W > kMaxW || D < 1 || W * D > kMaxC || H < 1 ||
-         gru_layer(H, 0).MT > kMaxMT;
+  return B < 1 || W < 1 || W > kMaxBeams || D < 1 ||
+         (long long)W * D > kMaxCands || H < 1 ||
+         gru_layer(H, 0).MT > kMaxMT || (long long)B * W * H >= (1ll << 31);
 }
 
 void set_common(StepArgs& a, int B, int W, int D, int H, int s,
@@ -328,15 +552,23 @@ void set_common(StepArgs& a, int B, int W, int D, int H, int s,
 
 }  // namespace
 
-extern "C" int ssnt_fused_step_max_candidates() { return kMaxC; }
-extern "C" int ssnt_fused_step_max_beams() { return kMaxW; }
+extern "C" int ssnt_fused_step_max_candidates() { return kMaxCands; }
+extern "C" int ssnt_fused_step_max_beams() { return kMaxBeams; }
 extern "C" int ssnt_fused_cluster_blocks() { return kCL; }
+// 1 where the step at (W, D) takes the wide instance, which writes new_h
+// before the reorder to the debug output (the wrapper's scratch when the
+// caller gives none).
+extern "C" int ssnt_fused_class_is_wide(int W, int D) {
+  return (int)is_wide(W, D);
+}
 
 // Dynamic shared memory (bytes) of one block at these widths, the weight
 // ring's 16 or 32 KB slots included.
 extern "C" int ssnt_fused_class_smem_bytes(int compute_bf16, int W, int D,
                                            int H) {
-  return (int)class_smem(W <= 8 ? 8 : 16, D, H, compute_bf16 ? 2 : 4).total;
+  const int cs = compute_bf16 ? 2 : 4;
+  if (is_wide(W, D)) return (int)class_wide_smem(W, D, H, cs).total;
+  return (int)class_smem(W <= 8 ? 8 : 16, D, H, cs).total;
 }
 
 // Returns a cudaError_t: 0 when the launch was accepted.

@@ -58,6 +58,10 @@
 //     blocks from the same q: both hold the same log-probs and run the same
 //     selection. Block 0 writes the beam outputs; each block reorders its
 //     own state and mel columns.
+// Beams: W <= kMaxW = 16 in one beam tile (8 or 16); up to kMaxBeams =
+// 128 the wide instance (fused_v1_wide_kernel) runs the frame's model step
+// a tile of 16 beams at a time (the whole weight stream a tile), then
+// wide_select over the 2W candidates.
 // What holds it now (ssnt_tts_tpu_torch/probe_fused.py; numbers in
 // PERF.md): the GRU's weight stream, at the rate one SM pulls from L2
 // into shared memory; the prologue; and the single-slot layers (prenet,
@@ -169,6 +173,33 @@ V1Smem v1_smem(int WN, int H, int M, int R, int csize) {
   return s;
 }
 
+// The wide step's dynamic shared memory (W > kMaxW), byte offsets: the
+// narrow layout of one beam tile (kTileBeams beams), whose buffers the
+// selection's fields take over after the last tile, and the log-probs of
+// every beam.
+struct V1WideSmem {
+  V1Smem t;      // the tile's buffers (t.h unused)
+  size_t sel, h, total;
+};
+
+V1WideSmem v1_wide_smem(int W, int H, int M, int R, int csize) {
+  V1WideSmem s;
+  s.t = v1_smem(kTileBeams, H, M, R, csize);
+  Carve c;
+  c.at = s.t.bar;  // the tile's buffers end at its barriers
+  s.sel = 0;
+  const size_t sel = wide_sel_bytes(2 * W);
+  if (c.at < sel) c.take(sel - c.at);
+  s.h = c.take(sizeof(float) * 2 * W);
+  s.t.bar = c.take(sizeof(uint64_t) * kMaxStages);
+  s.t.ring = c.at;
+  const RingShape r = ring_shape(s.t.ring, kStaticSmemWide);
+  s.t.nst = r.nst;
+  s.t.chunk = r.chunk;
+  s.t.total = s.total = s.t.ring + (size_t)s.t.nst * s.t.chunk;
+  return s;
+}
+
 struct V1Args {
   int B, W, T, H, M, R;
   const float* enc_pack; const int* t; const int* u; const float* lp;
@@ -182,6 +213,7 @@ struct V1Args {
   float* dbg_h; float* dbg_newh; float* dbg_mel;
   Stream st;
   V1Smem sm;
+  V1WideSmem wsm;
 };
 
 // minBlocks 1 as in fused_class_step.cu: one block per SM.
@@ -399,6 +431,255 @@ fused_v1_step_kernel(const __grid_constant__ V1Args a) {
   }
 }
 
+// The wide step: the narrow kernel's model step over tiles of kTileBeams
+// beams, the weight stream run once a tile (the ring's passes). Each tile
+// writes its new_h and mel, before the reorder, to a.dbg_newh and
+// a.dbg_mel (scratch the wrapper provides when the caller does not) and
+// its log-probs to h_s; then the candidates of every beam, wide_select,
+// and the reorders from the scratch (the block's own columns).
+template <typename CT>
+__global__ void __cluster_dims__(kCL, 1, 1) __launch_bounds__(kThreads, 1)
+fused_v1_wide_kernel(const __grid_constant__ V1Args a) {
+  constexpr int NTN = kTileBeams / 8, WN = kTileBeams, kDbp = 2 * WN;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int b = blockIdx.x / kCL, tid = threadIdx.x;
+  const int W = a.W, T = a.T, H = a.H, M = a.M, R = a.R;
+  const int R2 = 2 * R, P = R2 + 2 + M, C = 2 * W;
+  const size_t bw = (size_t)b * W;
+  const Layer* L = a.st.l;  // scalars only; the ring reads st_s
+  const int U = L[kGru].MT / 6 * 16, k0 = rank * U;
+  const int nu = max(0, min(U, H - k0));
+  const int UM = L[kMel].MT * 16, m0 = rank * UM;
+  const int nm = max(0, min(UM, M - m0));
+  const int ldm = act_ld(M), ldh = act_ld(H), ldr = act_ld(R);
+  const V1Smem& sm = a.wsm.t;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto f32 = [&](size_t off) { return reinterpret_cast<float*>(smem + off); };
+  auto act = [&](size_t off) { return reinterpret_cast<CT*>(smem + off); };
+  CT* x0_s = act(sm.x0);    // (WN, ldm) rnd(prev_mel)
+  CT* x1_s = act(sm.x1);    // (WN, ldh) prenet hidden
+  CT* x_s = act(sm.x);      // (WN, ldh) GRU input
+  CT* hb_s = act(sm.hb);    // (WN, ldh) rnd(state)
+  CT* hn_s = act(sm.hn);    // (WN, ldh) rnd(new_h), in x1's place
+  float* stf_s = f32(sm.stf);  // (WN, ldh) state
+  float* bias_s = f32(sm.bias);
+  const V1Bias bo = v1_bias(H, M, R);
+  CT* pre_s = act(sm.pre);  // (WN, ldr) pre
+  float* q_s = f32(sm.q);   // (WN, 2R) q
+  float* g_s = f32(sm.g);   // (WN, P) gathered enc_pack rows
+  float* nh_s = f32(sm.nh);    // (WN, U) the rank's new_h
+  float* stg = f32(sm.stg);
+  float* dbk_s = f32(sm.dbk);  // (U, 2) the rank's dec_bias_k rows
+  float* dbp_s = f32(sm.dbp);  // (kCL, 2 WN) dec_bias partials
+  float* scr = f32(sm.scr);
+  float* sums_s = f32(sm.sums);
+  float* part_s = f32(sm.part);
+  float* h_s = f32(a.wsm.h);   // (W, 2) logits, then log-probs
+  float* newh = a.dbg_newh + bw * H;  // (W, H) before the reorder
+  float* melb = a.dbg_mel + bw * M;   // (W, M) before the reorder
+  __shared__ Stream st_s;     // the weight stream's layers
+  __shared__ BeamInWide bin;  // the beams' carry
+
+  if (tid == 0) st_s = a.st;
+  Ring<CT> ring{act(sm.ring), reinterpret_cast<uint64_t*>(smem + sm.bar),
+                static_cast<const CT*>(a.wpack) +
+                    (size_t)rank * a.st.tiles * kTile,
+                &st_s, sm.nst, 0};
+  ring.passes = (W + WN - 1) / WN;
+  ring.start();
+  load_beams(bin, b, W, a.lp, a.fin, a.t, a.u, nullptr, nullptr, a.il,
+             nullptr);
+  load_segs(bias_s, Segs<CT, 8>{
+      {a.pb1, a.pb2, a.bi, a.bhn, a.dpre_b, a.dproj_b, a.dmel_b, a.dbias_b},
+      {H, H, 3 * H, H, R, 2 * R, M, 2},
+      {bo.b1, bo.b2, bo.bi, bo.bhn, bo.pre, bo.proj, bo.mel, bo.db},
+      {false, false, false, false, false, false, false, true}});
+  load_segs(dbk_s, Segs<CT, 1>{{a.dbias_k + k0 * 2}, {nu * 2}, {0}, {true}});
+
+  for (int w0 = 0; w0 < W; w0 += WN) {
+    const int Wt = min(WN, W - w0), Ct = 2 * Wt;
+    const size_t tw = bw + w0;  // the tile's first beam row
+    __syncthreads();  // bin; the previous tile's reads of g_s
+    // ---- 0. the tile's loads (zero padding: beams >= Wt, inputs past
+    // the width) ----
+#pragma unroll 4
+    for (int i = tid; i < WN * ldm; i += kThreads) {
+      const int w = i / ldm, k = i - w * ldm;
+      x0_s[i] = st<CT>(w < Wt && k < M
+                           ? rnd<CT>(a.prev_mel[(tw + w) * M + k]) : 0.0f);
+    }
+#pragma unroll 4
+    for (int i = tid; i < WN * ldh; i += kThreads) {
+      const int w = i / ldh, k = i - w * ldh;
+      const float sv = w < Wt && k < H ? a.state[(tw + w) * H + k] : 0.0f;
+      stf_s[i] = sv;  // in float32 compute this is hb_s, rnd(state) itself
+      hb_s[i] = st<CT>(rnd<CT>(sv));
+      x1_s[i] = x_s[i] = st<CT>(0.0f);
+    }
+    for (int i = tid; i < WN * ldr; i += kThreads) pre_s[i] = st<CT>(0.0f);
+#pragma unroll 4
+    for (int i = tid; i < Wt * P; i += kThreads) {
+      const int w = i / P, j = i - w * P;
+      const int row = min(max(bin.t[w0 + w], 0), T - 1);
+      g_s[i] = a.enc_pack[((size_t)b * T + row) * P + j];
+    }
+    cluster_arrive();  // this block's buffers are ready for its peers
+    __syncthreads();
+
+    // ---- 1. model step of the tile's beams ----
+    dot_layer<CT, NTN>(ring, st_s.l[kPre1], x0_s, x0_s, ldm, stg);
+    cluster_wait();
+    {
+      const Bcast<CT> o = bcast_of(x1_s);
+      dense_epilogue<CT, WN, kRelu>(
+          L[kPre1], stg, rank, Wt, bias_s + bo.b1,
+          [&](int w, int n, int, float y) {
+            o.put((size_t)w * ldh + n, st<CT>(y));
+          });
+    }
+    cluster_sync();
+    dot_layer<CT, NTN>(ring, st_s.l[kPre2], x1_s, x1_s, ldh, stg);
+    {
+      const Bcast<CT> o = bcast_of(x_s);
+      dense_epilogue<CT, WN, kRelu>(
+          L[kPre2], stg, rank, Wt, bias_s + bo.b2,
+          [&](int w, int n, int, float y) {
+            o.put((size_t)w * ldh + n, st<CT>(y));
+          });
+    }
+    cluster_sync();
+    dot_layer<CT, NTN>(ring, st_s.l[kGru], x_s, hb_s, ldh, stg);
+    {
+      const Bcast<CT> o = bcast_of(hn_s);
+      gru_epilogue<CT, WN>(L[kGru], stg, rank, Wt, bias_s + bo.bi,
+                           bias_s + bo.bhn, stf_s, ldh, nh_s,
+                           newh + (size_t)w0 * H,
+                           [&](int w, int k, float nh) {
+                             o.put((size_t)w * ldh + k, st<CT>(rnd<CT>(nh)));
+                           });
+    }
+    __syncthreads();
+    block_sums(Ct, nu, scr, part_s, [&](int o, int i, float acc) {
+      return __fmaf_rn(nh_s[(o >> 1) * U + i], dbk_s[i * 2 + (o & 1)], acc);
+    });
+    {
+      const Bcast<float> o = bcast_of(dbp_s);
+      if (tid < Ct) o.put((size_t)rank * kDbp + tid, part_s[tid]);
+    }
+    cluster_sync();
+    dot_layer<CT, NTN>(ring, st_s.l[kDecPre], hn_s, hn_s, ldh, stg);
+    {
+      const Bcast<CT> o = bcast_of(pre_s);
+      dense_epilogue<CT, WN, kTanh>(
+          L[kDecPre], stg, rank, Wt, bias_s + bo.pre,
+          [&](int w, int n, int, float y) {
+            o.put((size_t)w * ldr + n, st<CT>(y));
+          });
+    }
+    dot_layer<CT, NTN>(ring, st_s.l[kMel], hn_s, hn_s, ldh, stg);
+    dense_epilogue<CT, WN, kLinear>(
+        L[kMel], stg, rank, Wt, bias_s + bo.mel,
+        [&](int w, int n, int, float y) {
+          melb[(size_t)(w0 + w) * M + n] =
+              rnd<CT>(__fadd_rn(rnd<CT>(g_s[w * P + R2 + 2 + n]), y));
+        });
+    cluster_sync();
+    dot_layer<CT, NTN>(ring, st_s.l[kProj], pre_s, pre_s, ldr, stg);
+    {
+      const Bcast<float> o = bcast_of(q_s);
+      dense_epilogue<CT, WN, kLinear>(
+          L[kProj], stg, rank, Wt, bias_s + bo.proj,
+          [&](int w, int n, int, float y) { o.put((size_t)w * R2 + n, y); });
+    }
+    cluster_sync();
+    block_sums(Ct, R, scr, sums_s, [&](int o, int i, float acc) {
+      const int w = o >> 1, r = (o & 1) * R + i;
+      return __fadd_rn(acc, rnd<CT>(__fmul_rn(rnd<CT>(g_s[w * P + r]),
+                                              q_s[w * R2 + r])));
+    });
+    if (tid < Ct) {
+      const int w = tid >> 1, c = tid & 1;
+      float db = dbp_s[tid];
+      for (int r = 1; r < kCL; ++r) db = __fadd_rn(db, dbp_s[r * kDbp + tid]);
+      db = __fadd_rn(db, bias_s[bo.db + c]);
+      h_s[2 * w0 + tid] =
+          __fadd_rn(__fadd_rn(sums_s[tid], g_s[w * P + R2 + c]), db);
+    }
+  }
+  __syncthreads();
+  if (tid < W) {  // log_softmax: shifted - log(exp + exp)
+    const float le = h_s[2 * tid], ls = h_s[2 * tid + 1];
+    const float m = fmaxf(le, ls);
+    const float she = __fsub_rn(le, m), shs = __fsub_rn(ls, m);
+    const float lse = logf(__fadd_rn(expf(she), expf(shs)));
+    h_s[2 * tid] = __fsub_rn(she, lse);
+    h_s[2 * tid + 1] = __fsub_rn(shs, lse);
+    if (a.dbg_h && rank == 0) {
+      a.dbg_h[2 * (bw + tid)] = h_s[2 * tid];
+      a.dbg_h[2 * (bw + tid) + 1] = h_s[2 * tid + 1];
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. candidates, 3. selection (every block, on the same h) ----
+  const WideSel sel = wide_sel_at(smem + a.wsm.sel, C);
+  for (int c = tid; c < C; c += kThreads) {
+    const int w = c >> 1, k = c & 1;
+    store_wide(sel, c, v1_candidate(k, h_s[c], bin.lp[w], bin.fin[w],
+                                    bin.t[w], bin.u[w], bin.il));
+  }
+  wide_select(sel, C, W, false);
+  if (rank == 0) {
+    for (int j = tid; j < W; j += kThreads) {
+      const int src = sel.src[j];
+      const size_t i = bw + j;
+      a.out.pred[i] = sel.pred[src];
+      a.out.lp[i] = sel.lp[src];
+      a.out.nt[i] = sel.nt[src];
+      a.out.nu[i] = sel.nu[src];
+      a.out.fin[i] = (uint8_t)sel.fin[src];
+      a.out.branch[i] = src / 2;
+      a.o_thist[i] = bin.t[src / 2];
+    }
+  }
+
+  // ---- 4. reorders of the rank's columns, finished-beam keep ----
+  for (int i = tid; i < W * nu; i += kThreads) {
+    const int j = i / nu, c = i - j * nu;
+    a.o_state[(bw + j) * H + k0 + c] =
+        newh[(size_t)(sel.src[j] / 2) * H + k0 + c];
+  }
+  for (int i = tid; i < W * nm; i += kThreads) {
+    const int j = i / nm, c = i - j * nm;
+    const int src = sel.src[j], parent = src / 2;
+    const bool keep = sel.fin[src] && bin.fin[parent];
+    a.o_mel[(bw + j) * M + m0 + c] =
+        keep ? a.prev_mel[(bw + parent) * M + m0 + c]
+             : melb[(size_t)parent * M + m0 + c];
+  }
+}
+
+template <typename CT>
+cudaError_t launch_wide(V1Args a, cudaStream_t stream) {
+  if (a.dbg_newh == nullptr || a.dbg_mel == nullptr)
+    return cudaErrorInvalidValue;
+  a.wsm = v1_wide_smem(a.W, a.H, a.M, a.R, sizeof(CT));
+  a.st = v1_stream(a.H, a.M, a.R);
+  finish_stream(a.st, a.wsm.t.chunk, sizeof(CT));
+  if (a.wsm.t.nst < 2) return cudaErrorInvalidValue;
+  auto kern = fused_v1_wide_kernel<CT>;
+  static size_t opted = 0;
+  if (a.wsm.total > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.wsm.total);
+    if (e != cudaSuccess) return e;
+    opted = a.wsm.total;
+  }
+  kern<<<a.B * kCL, kThreads, a.wsm.total, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename CT, int NTN>
 cudaError_t launch(V1Args a, cudaStream_t stream) {
   a.sm = v1_smem(NTN * 8, a.H, a.M, a.R, sizeof(CT));
@@ -421,12 +702,14 @@ cudaError_t launch(V1Args a, cudaStream_t stream) {
 
 template <typename CT>
 cudaError_t dispatch(const V1Args& a, cudaStream_t st) {
+  if (a.W > kMaxW) return launch_wide<CT>(a, st);
   if (a.W <= 8) return launch<CT, 1>(a, st);
   return launch<CT, 2>(a, st);
 }
 
 bool bad_shape(int B, int W, int T, int H, int M, int R) {
-  if (B < 1 || W < 1 || W > kMaxW || T < 1 || H < 1 || M < 1 || R < 1)
+  if (B < 1 || W < 1 || W > kMaxBeams || T < 1 || H < 1 || M < 1 || R < 1 ||
+      (long long)B * W * (H > M ? H : M) >= (1ll << 31))
     return true;
   const Stream s = v1_stream(H, M, R);
   for (int i = 0; i < s.n; ++i)
@@ -436,13 +719,21 @@ bool bad_shape(int B, int W, int T, int H, int M, int R) {
 
 }  // namespace
 
-extern "C" int ssnt_fused_v1_max_beams() { return kMaxW; }
+extern "C" int ssnt_fused_v1_max_beams() { return kMaxBeams; }
+// Candidates of the widest step (2 a beam).
+extern "C" int ssnt_fused_v1_max_candidates() { return 2 * kMaxBeams; }
+// 1 where the step at W takes the wide instance, which writes new_h and
+// mel before the reorder to the debug outputs (the wrapper's scratch when
+// the caller gives none).
+extern "C" int ssnt_fused_v1_is_wide(int W) { return (int)(W > kMaxW); }
 
 // Dynamic shared memory (bytes) of one block at these widths, the weight
 // ring's 16 or 32 KB slots included.
 extern "C" int ssnt_fused_v1_smem_bytes(int compute_bf16, int W, int H, int M,
                                         int R) {
-  return (int)v1_smem(W <= 8 ? 8 : 16, H, M, R, compute_bf16 ? 2 : 4).total;
+  const int cs = compute_bf16 ? 2 : 4;
+  if (W > kMaxW) return (int)v1_wide_smem(W, H, M, R, cs).total;
+  return (int)v1_smem(W <= 8 ? 8 : 16, H, M, R, cs).total;
 }
 
 // Returns a cudaError_t: 0 when the launch was accepted.

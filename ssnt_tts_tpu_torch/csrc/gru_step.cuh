@@ -186,12 +186,14 @@ template <typename T> __device__ __forceinline__ Bcast<T> bcast_of(T* local) {
 
 // The weight ring: nst slots of st->tps tiles, one mbarrier each. Every
 // thread walks the pieces in order (`piece`); thread 0 issues the copies.
+// The stream runs `passes` times over (the wide steps' beam tiles).
 template <typename CT> struct Ring {
   CT* slots;
   uint64_t* full;
   const CT* src;  // this rank's stream in global memory
   const Stream* st;
   int nst, piece;
+  int passes = 1;
 
   // Piece p's first tile in the stream and its tile count.
   __device__ void locate(int p, int& tile, int& cnt) const {
@@ -210,7 +212,7 @@ template <typename CT> struct Ring {
 
   __device__ void issue(int p) {
     int tile, cnt;
-    locate(p, tile, cnt);
+    locate(passes > 1 ? p % st->pieces : p, tile, cnt);
     const int s = p % nst;
     bulk_copy(slots + (size_t)s * st->tps * kTile, src + (size_t)tile * kTile,
               cnt * kTile * sizeof(CT), &full[s]);
@@ -225,7 +227,7 @@ template <typename CT> struct Ring {
     }
     __syncthreads();
     if (threadIdx.x == 0)
-      for (int p = 0; p < min(nst, st->pieces); ++p) issue(p);
+      for (int p = 0; p < min(nst, st->pieces * passes); ++p) issue(p);
   }
 
   // Wait for the current piece; returns its slot.
@@ -239,7 +241,7 @@ template <typename CT> struct Ring {
   // the piece nst ahead.
   __device__ void release() {
     __syncthreads();
-    if (threadIdx.x == 0 && piece + nst < st->pieces) {
+    if (threadIdx.x == 0 && piece + nst < st->pieces * passes) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       issue(piece + nst);
     }
@@ -491,16 +493,20 @@ __device__ __forceinline__ void block_sums(int n_out, int n, float* scratch,
 }
 
 // One utterance's beam carry, read into shared memory at the step's
-// start (the candidates, the t history and the mel keep read it late).
-struct BeamIn {
-  float lp[ssnt_beam::kMaxW];
-  int t[ssnt_beam::kMaxW], u[ssnt_beam::kMaxW], tot[ssnt_beam::kMaxW];
-  int fin[ssnt_beam::kMaxW], pc[ssnt_beam::kMaxW];
+// start (the candidates, the t history and the mel keep read it late):
+// up to N beams (kMaxW for the narrow steps, kMaxBeams for the wide ones).
+template <int N> struct BeamCarry {
+  float lp[N];
+  int t[N], u[N], tot[N], fin[N], pc[N];
   int il, ol;
 };
+using BeamIn = BeamCarry<ssnt_beam::kMaxW>;
+using BeamInWide = BeamCarry<ssnt_beam::kMaxBeams>;
+static_assert(ssnt_beam::kMaxBeams <= kThreads, "a thread a beam");
 
 // Threads < W load utterance b's rows (tot, prev_class and ol may be null).
-__device__ __forceinline__ void load_beams(BeamIn& s, int b, int W,
+template <int N>
+__device__ __forceinline__ void load_beams(BeamCarry<N>& s, int b, int W,
                                            const float* lp,
                                            const uint8_t* fin, const int* t,
                                            const int* u, const int* tot,
@@ -545,9 +551,14 @@ __device__ __forceinline__ void load_segs(float* dst, const Segs<CT, NS>& g) {
   }
 }
 
-// Static shared memory of a fused step kernel besides its dynamic part.
+// Static shared memory of a fused step kernel besides its dynamic part
+// (narrow; wide: the selection's fields are dynamic).
 constexpr size_t kStaticSmem =
     sizeof(ssnt_beam::SelectSmem) + sizeof(Stream) + sizeof(BeamIn);
+constexpr size_t kStaticSmemWide = sizeof(Stream) + sizeof(BeamInWide);
+
+// The wide steps' beam tile: the beams of one pass over the weights.
+constexpr int kTileBeams = 16;
 
 // Shared-memory carving: 128-byte aligned pieces, offsets in bytes.
 struct Carve {
@@ -565,8 +576,8 @@ struct Carve {
 struct RingShape {
   int nst, chunk;
 };
-inline RingShape ring_shape(size_t used) {
-  const size_t room = kSmemMax - 1024 - kStaticSmem;
+inline RingShape ring_shape(size_t used, size_t static_smem = kStaticSmem) {
+  const size_t room = kSmemMax - 1024 - static_smem;
   const size_t free = room > used ? room - used : 0;
   const int chunk = free / kChunkBig >= 3 ? kChunkBig : kChunkSmall;
   const size_t n = free / chunk;

@@ -339,12 +339,15 @@ def _ring_run(mesh, U: int, B: int, T: int, reps: int = 3) -> dict:
 def decode_task(job, device) -> dict:
     """job: mesh, cfg, params or seed, batch (global tokens,
     input_length, output_length), beam_width, max_frames, and optionally
-    train: {tcfg, batches (global)}. With train, the model first takes a
+    train: {tcfg, batches (global)}, routes (names of decode_routes; all
+    four by default) and reps. With train, the model first takes a
     sharded train step on each batch (its parameters split over the model
     axis when it has more than one rank) and is made whole again
     (train.unshard). This rank's rows through the v2 decode (fused and
     plain routes), the tone decode and the v1 beam_decode, beams
-    rank-local; their outputs and kernel launches."""
+    rank-local; their outputs and kernel launches. With reps, each route
+    is then run reps times more between two barriers of the group, and
+    <route>_ms is this rank's mean host-clock time a decode."""
     mesh = _mesh(job, device)
     dev = mesh.device
     if "train" in job:
@@ -367,13 +370,23 @@ def decode_task(job, device) -> dict:
     runs = decode_routes(model, toks, il, ol, job["beam_width"],
                          job["max_frames"])
     out = {"rows": mesh.rows(len(job["batch"]["tokens"]))}
+    reps = job.get("reps", 0)
     with torch.no_grad():
-        for name, fn in runs.items():
+        for name in job.get("routes") or list(runs):
+            fn = runs[name]
             before = launch_counts()
             res = fn()
             _sync(dev)
             out[name] = {k: _host(v) for k, v in res.items()}
             out[name + "_launches"] = _delta(before)
+            if reps:
+                dist.barrier()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                _sync(dev)
+                out[name + "_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+                dist.barrier()
     return out
 
 

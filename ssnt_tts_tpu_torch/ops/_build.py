@@ -157,7 +157,8 @@ def fused_class_library() -> ctypes.CDLL:
     return _load("fused_class_step",
                  {"ssnt_fused_v2_step": FUSED_V2_ARGTYPES,
                   "ssnt_fused_tone_step": FUSED_TONE_ARGTYPES,
-                  "ssnt_fused_class_smem_bytes": [_I] * 4},
+                  "ssnt_fused_class_smem_bytes": [_I] * 4,
+                  "ssnt_fused_class_is_wide": [_I] * 2},
                  ("ssnt_fused_step_max_candidates",
                   "ssnt_fused_step_max_beams", "ssnt_fused_cluster_blocks"))
 
@@ -166,8 +167,9 @@ def fused_class_library() -> ctypes.CDLL:
 def fused_v1_library() -> ctypes.CDLL:
     return _load("fused_v1_step",
                  {"ssnt_fused_v1_step": FUSED_V1_ARGTYPES,
-                  "ssnt_fused_v1_smem_bytes": [_I] * 5},
-                 ("ssnt_fused_v1_max_beams",))
+                  "ssnt_fused_v1_smem_bytes": [_I] * 5,
+                  "ssnt_fused_v1_is_wide": [_I]},
+                 ("ssnt_fused_v1_max_beams", "ssnt_fused_v1_max_candidates"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,8 +179,7 @@ def beam_step_library() -> ctypes.CDLL:
                   "ssnt_beam_tone_step": BEAM_TONE_ARGTYPES,
                   "ssnt_beam_v1_step": BEAM_V1_ARGTYPES},
                  ("ssnt_beam_step_max_candidates",
-                  "ssnt_beam_step_max_beams",
-                  "ssnt_beam_step_max_state_bytes"))
+                  "ssnt_beam_step_max_beams"))
 
 
 @functools.lru_cache(maxsize=None)

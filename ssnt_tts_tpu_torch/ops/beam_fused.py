@@ -47,6 +47,26 @@ from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
 # stream has one row per block.
 CLUSTER = 2
 
+# The widths every beam kernel takes (csrc/beam_select.cuh kMaxBeams,
+# kMaxCands; each library reports its own): beams in and slots out, and
+# candidates a step (v2 W*D, tone W*K, v1 2W). JAX sizes its blocks to
+# VMEM and takes any width; at D=10, H=256 its fused step admits W up to
+# about 128. The plain versions take every width.
+MAX_BEAMS = 128
+MAX_CANDIDATES = 2048
+
+
+def check_beam_shape(W: int, W_out: int, C: int) -> None:
+    """Raise ValueError unless a beam kernel takes W beams, W_out output
+    slots and C candidates (the kernels' limits; callable on any
+    device, before a launch)."""
+    if not 1 <= W <= MAX_BEAMS or not 1 <= W_out <= MAX_BEAMS:
+        raise ValueError(f"beam width {W}, output width {W_out}: the beam "
+                         f"kernels take 1 to MAX_BEAMS = {MAX_BEAMS}")
+    if C > MAX_CANDIDATES:
+        raise ValueError(f"{C} candidates a step: the beam kernels take at "
+                         f"most MAX_CANDIDATES = {MAX_CANDIDATES}")
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -236,7 +256,8 @@ def _check_model_args(s, xin_path, base_path, fw, prev_class, state,
                       log_prob, is_finished, t, u, input_length, debug_out):
     """Raise unless the fused kernel can take these (CUDA) tensors; the
     weights were checked and packed by prepare_fused_weights. Returns
-    (library, compute dtype, B, W, D, H, debug pointers)."""
+    (library, compute dtype, B, W, D, H, debug outputs: the caller's, the
+    wide kernel's scratch or None)."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"fused class step runs on cuda or cpu, not {dev}")
@@ -246,11 +267,9 @@ def _check_model_args(s, xin_path, base_path, fw, prev_class, state,
                          f"{dev}; prepare them with prepare_fused_weights")
     B, W, H = state.shape
     T, D = base_path.shape[0], base_path.shape[2]
+    check_beam_shape(W, W, W * D)
     ct = packed.dtype
     lib = _build.fused_class_library()
-    if W > lib.ssnt_fused_step_max_beams() or (
-            W * D > lib.ssnt_fused_step_max_candidates()):
-        raise ValueError(f"beam width {W} x classes {D} exceeds the kernel")
     if not 0 <= s < T:
         raise ValueError(f"step {s} out of range [0, {T})")
     if fw.embed.shape != (D, H):
@@ -271,8 +290,15 @@ def _check_model_args(s, xin_path, base_path, fw, prev_class, state,
     if debug_out is not None:
         _build.check_arg("debug h", debug_out[0], f32, (B, W, D), dev)
         _build.check_arg("debug new_h", debug_out[1], f32, (B, W, H), dev)
-        dbg = tuple(x.data_ptr() for x in debug_out)
+        dbg = tuple(debug_out)
+    elif lib.ssnt_fused_class_is_wide(W, D):
+        # The wide kernel keeps new_h before the reorder in device memory.
+        dbg = (None, torch.empty(B, W, H, dtype=f32, device=dev))
     return lib, ct, B, W, D, H, dbg
+
+
+def _ptr_or_null(x):
+    return None if x is None else x.data_ptr()
 
 
 def _weight_ptrs(fw: FusedWeights):
@@ -341,7 +367,7 @@ def fused_class_beam_step(
         *map(ptr, (prev_class, state, log_prob, is_finished, total_duration,
                    t, u, input_length, output_length, duration_table,
                    emptied)),
-        *map(ptr, out), *dbg,
+        *map(ptr, out), *map(_ptr_or_null, dbg),
         int(zero_duration_id), int(bool(allow_skip)), int(bool(test_mode)),
         int(cfg.overrun_multiplier), int(bool(cfg.final_feasible_guard)),
         float(cfg.band_lower_frac), float(cfg.band_upper_frac),
@@ -403,7 +429,7 @@ def fused_tone_step(
         int(ct == torch.bfloat16), B, W, K, H, int(s),
         ptr(xin_path), ptr(base_path), *_weight_ptrs(fw),
         *map(ptr, args[4:]),
-        *map(ptr, out), *dbg, int(empty_tone_id),
+        *map(ptr, out), *map(_ptr_or_null, dbg), int(empty_tone_id),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -549,12 +575,12 @@ def fused_v1_beam_step(
     T, P = enc_pack.shape[1], enc_pack.shape[2]
     M = prev_mel.shape[2]
     R = fw.dec_pre_k.shape[1]
+    check_beam_shape(W, W, 2 * W)
     ct = packed.dtype
     lib = _build.fused_v1_library()
-    if W > lib.ssnt_fused_v1_max_beams() or P != 2 * R + 2 + M or (
-            fw.prenet_w1.shape != (M, H)):
-        raise ValueError(f"beam width {W}, row width {P} or widths (H, M) = "
-                         f"({H}, {M}) do not fit the kernel and weights")
+    if P != 2 * R + 2 + M or fw.prenet_w1.shape != (M, H):
+        raise ValueError(f"row width {P} or widths (H, M) = ({H}, {M}) do "
+                         f"not fit the kernel and weights")
     i32, f32 = torch.int32, torch.float32
     for name, x, dt, shape in (
         ("enc_pack", enc_pack, f32, (B, T, P)), ("t", t, i32, (B, W)),
@@ -571,7 +597,12 @@ def fused_v1_beam_step(
                                   debug_out, ((B, W, 2), (B, W, H),
                                               (B, W, M))):
             _build.check_arg(name, x, f32, shape, dev)
-        dbg = tuple(x.data_ptr() for x in debug_out)
+        dbg = tuple(debug_out)
+    elif lib.ssnt_fused_v1_is_wide(W):
+        # The wide kernel keeps new_h and mel before the reorder in device
+        # memory.
+        dbg = (None, *(torch.empty(B, W, n, dtype=f32, device=dev)
+                       for n in (H, M)))
     new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
     out = V1FusedStep(
         prediction=new(i32), log_prob=new(f32), next_t=new(i32),
@@ -584,7 +615,8 @@ def fused_v1_beam_step(
     rc = lib.ssnt_fused_v1_step(
         int(ct == torch.bfloat16), B, W, T, H, M, R,
         *map(ptr, args), ptr(packed),
-        *(ptr(getattr(fw, k)) for k in V1_UNPACKED), *map(ptr, out), *dbg,
+        *(ptr(getattr(fw, k)) for k in V1_UNPACKED), *map(ptr, out),
+        *map(_ptr_or_null, dbg),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

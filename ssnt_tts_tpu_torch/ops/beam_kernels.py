@@ -17,9 +17,12 @@ own `.launches` per launch. For CPU tensors it runs the plain version
 (`*_reference`): the plain beam_v2 / tone_latent / beam_v1 step, then the
 gather of the rows by parent pointer.
 
-Each writes W_out = max_beam_width (W by default) output slots, 1 to
-MAX_BEAMS, as JAX's kernels do: the survivors pad by repetition when
-W_out exceeds them, and v2's diagonal candidate goes to slot W_out - 1.
+Each writes W_out = max_beam_width (W by default) output slots, as JAX's
+kernels do: the survivors pad by repetition when W_out exceeds them, and
+v2's diagonal candidate goes to slot W_out - 1. The kernels take W and
+W_out up to MAX_BEAMS and up to MAX_CANDIDATES candidates (check_beam_shape
+raises before a launch above them); the plain versions take every width,
+as JAX's XLA steps do.
 """
 
 from __future__ import annotations
@@ -29,7 +32,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from ssnt_tts_tpu_torch.ops import _build, beam_v1, beam_v2, tone_latent
-from ssnt_tts_tpu_torch.ops.beam_fused import ToneStep, reorder_state
+from ssnt_tts_tpu_torch.ops.beam_fused import (  # noqa: F401 (re-exported)
+    MAX_BEAMS,
+    MAX_CANDIDATES,
+    ToneStep,
+    check_beam_shape,
+    reorder_state,
+)
 from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
 
 
@@ -49,17 +58,9 @@ class V2BeamStep(NamedTuple):
     state: torch.Tensor
 
 
-MAX_BEAMS = 16  # csrc/beam_select.cuh kMaxW: the most slots a kernel writes
-
-
 def _out_width(W: int, max_beam_width: Optional[int]) -> int:
-    """W_out = max_beam_width, W when it is None; ValueError outside
-    1..MAX_BEAMS (the kernels' limit, for the plain versions too)."""
-    W_out = W if max_beam_width is None else int(max_beam_width)
-    if not 1 <= W_out <= MAX_BEAMS:
-        raise ValueError(f"output width {W_out}: the beam-only steps write "
-                         f"1 to {MAX_BEAMS} slots")
-    return W_out
+    """W_out = max_beam_width, W when it is None."""
+    return W if max_beam_width is None else int(max_beam_width)
 
 
 def v2_beam_search_decode_reference(
@@ -103,6 +104,9 @@ def v2_beam_search_decode(
         return v2_beam_search_decode_reference(*args, **kw)
     B, W, D = h.shape
     H = state.shape[-1]
+    if D > 64:  # JAX's limit (beam_pallas.v2_beam_search_decode)
+        raise ValueError(f"duration_class_size {D} > 64 breaks eq-key "
+                         f"packing injectivity")
     lib, W_out = _check_common(h, log_prob_history, is_finished, t, u,
                                input_length, state, max_beam_width)
     if not 0 <= zero_duration_id < D:
@@ -301,19 +305,13 @@ def _check_common(h, log_prob, is_finished, t, u, input_length, state,
                   max_beam_width):
     """Raise unless a beam-only kernel can take these (CUDA) tensors
     (state may be None); returns the kernel library and W_out."""
+    B, W, D = h.shape
+    W_out = _out_width(W, max_beam_width)
+    check_beam_shape(W, W_out, W * D)
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"beam-only step runs on cuda or cpu, not {dev}")
-    B, W, D = h.shape
-    W_out = _out_width(W, max_beam_width)
     lib = _build.beam_step_library()
-    if W > lib.ssnt_beam_step_max_beams() or (
-            W * D > lib.ssnt_beam_step_max_candidates()):
-        raise ValueError(f"beam width {W} x classes {D} exceeds the kernel")
-    if state is not None and (state.shape[-1] * W * 4
-                              > lib.ssnt_beam_step_max_state_bytes()):
-        raise ValueError(f"state rows ({W}, {state.shape[-1]}) exceed the "
-                         f"kernel's shared memory")
     i32, f32 = torch.int32, torch.float32
     for name, x, dt, shape in (
         ("h", h, f32, (B, W, D)), ("log_prob", log_prob, f32, (B, W)),

@@ -75,6 +75,15 @@ def beam_search_step(h, log_prob_history, is_finished, t, u, input_length,
             out["is_finished"], out["parent_branch"])
 
 
+def beam_search_decode_batched(h, log_prob_history, is_finished, t, u,
+                               input_length, *, max_beam_width=None):
+    """JAX's batched v1 step (beam_v1.beam_search_decode_batched): h
+    (B, W, 2), state (B, W), input_length (B,); beam_search_step's
+    outputs."""
+    return beam_search_step(h, log_prob_history, is_finished, t, u,
+                            input_length, max_beam_width=max_beam_width)
+
+
 def beam_search_decode(h, log_prob_history, is_finished, t, u, max_t,
                        beam_width: Optional[int] = None):
     """Reference-parity unbatched wrapper (ssnt_tts_tensorflow/__init__.py

@@ -61,6 +61,9 @@ def beam_search_step(
     test_mode too, as in JAX), and num_survivors (B,).
     """
     B, W, D = h.shape
+    if D > 64:  # JAX's limit, kept though no key is packed here
+        raise ValueError(f"duration_class_size {D} > 64 breaks eq-key "
+                         f"packing injectivity")
     cfg = config if config is not None else V2BeamConfig()
     dev = h.device
     i32, f32 = torch.int32, torch.float32

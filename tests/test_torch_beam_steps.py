@@ -409,14 +409,25 @@ def test_beam_only_wrappers_match_jax_at_other_widths(kind, dw):
 @pytest.mark.parametrize("golden", [_v2_golden, _tone_golden],
                          ids=["v2", "tone"])
 def test_beam_only_wrappers_bound_the_output_width(golden):
-    """1 <= max_beam_width <= 16, the kernels' slot limit, on the plain
-    versions too: outside it, ValueError."""
+    """1 <= max_beam_width <= MAX_BEAMS, the kernels' slot limit: outside
+    it the kernel path (tensors off the CPU) raises ValueError before
+    anything else; at 17 it gets as far as the device check. The plain
+    versions (CPU tensors) take 17, as JAX's XLA step does."""
     x, _, names, step = golden()
     B, W = x["lph"].shape
-    for bad in (0, 17):
-        with pytest.raises(ValueError, match="output width"):
-            step(*(torch.from_numpy(x[k]) for k in names),
-                 state=torch.zeros(B, W, 3), max_beam_width=bad)
+    meta = lambda a: torch.from_numpy(np.asarray(a)).to("meta")
+    for bad in (0, beam_kernels.MAX_BEAMS + 1):
+        with pytest.raises(ValueError, match="MAX_BEAMS"):
+            step(*(meta(x[k]) for k in names),
+                 state=torch.zeros(B, W, 3, device="meta"),
+                 max_beam_width=bad)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        step(*(meta(x[k]) for k in names),
+             state=torch.zeros(B, W, 3, device="meta"), max_beam_width=17)
+    out = step(*(torch.from_numpy(x[k]) for k in names),
+               state=torch.zeros(B, W, 3), max_beam_width=17)
+    assert out.state.shape == (B, 17, 3)
+    assert all(a.shape[:2] == (B, 17) for a in out if a.ndim >= 2)
 
 
 @pytest.mark.parametrize("golden", [_v2_golden, _tone_golden],

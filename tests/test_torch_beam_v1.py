@@ -291,19 +291,28 @@ def _wrapper_args(device="cpu"):
 
 
 def test_beam_only_v1_wrappers_bound_the_output_width():
-    """max_beam_width from 1 to 16 (the kernel's slot limit), on the plain
-    versions too; tests/test_torch_beam_steps.py compares the widths with
-    JAX's kernels."""
-    args, state = _wrapper_args()
-    for bad in (0, 17):
-        with pytest.raises(ValueError, match="output width"):
-            beam_kernels.beam_search_step_reorder(*args, state,
+    """max_beam_width from 1 to MAX_BEAMS (the kernel's slot limit): the
+    kernel path (tensors off the CPU) raises ValueError outside it before
+    anything else, and at 17 gets as far as the device check; the plain
+    versions (CPU tensors) take 17. tests/test_torch_beam_steps.py and
+    tests/test_torch_wide_beam.py compare the widths with JAX's kernels."""
+    meta_args, meta_state = _wrapper_args("meta")
+    for bad in (0, beam_kernels.MAX_BEAMS + 1):
+        with pytest.raises(ValueError, match="MAX_BEAMS"):
+            beam_kernels.beam_search_step_reorder(*meta_args, meta_state,
                                                   max_beam_width=bad)
-        with pytest.raises(ValueError, match="output width"):
-            beam_kernels.beam_search_step_batched(*args, max_beam_width=bad)
+        with pytest.raises(ValueError, match="MAX_BEAMS"):
+            beam_kernels.beam_search_step_batched(*meta_args,
+                                                  max_beam_width=bad)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        beam_kernels.beam_search_step_reorder(*meta_args, meta_state,
+                                              max_beam_width=17)
+    args, state = _wrapper_args()
     out = beam_kernels.beam_search_step_reorder(*args, state,
-                                                max_beam_width=16)
-    assert out.state.shape == (3, 16, state.shape[-1])
+                                                max_beam_width=17)
+    assert out.state.shape == (3, 17, state.shape[-1])
+    out = beam_kernels.beam_search_step_batched(*args, max_beam_width=17)
+    assert out.prediction.shape == (3, 17)
 
 
 def test_beam_only_v1_wrappers_reject_other_devices():

@@ -257,7 +257,30 @@ reported on its own line:
      ms, audio-seconds per second, emptied rate, peak device memory; (c) a
      reduced scripts.triage_empty_beam (steps 4 and 8 at B=64, smoke
      width): JAX's record keys, every sweep (beam_x4 at W=32), and its
-     final checkpoint decoded at W=32 on the fused and beam-only routes.
+     final checkpoint decoded at W=32 on the fused and beam-only routes;
+     27a also decodes a float32 model's W=32 request on the fused and
+     plain routes and prints, for both models, the best-beam and the
+     all-beams agreement shares (where a float32 best beam parts, the
+     first utterance and step and the scores there);
+ 28. the tools that split the decode step, the ring and the gloo step
+     (tools_slice_phase), every count zeroed before and read after, every
+     record on its own line with the card: (a) scripts.profile_decode at
+     JAX's width (B=32, W=8, T=80, U=400, bf16) on the beam-only and
+     plain routes, PROFILE_ROUNDS rounds, with a trace, then its full
+     step run over 400 frames bit
+     for bit beam_decode on the same route (short utterances finish, so
+     the mel keep is taken), #10 and #11 launched exactly the steps the
+     tool ran; (b) scripts.tshard_bench at U=400, B=8, T=64 over
+     TSHARD_DEVICES ranks and TSHARD_BLOCKS (gloo on the card; shard
+     counts, blocks and timed calls cut for time, TOOL_STEPS): every
+     run's loss and gradients bit for bit the plain unsharded loss (as
+     25b's ring check), which the unsharded kernel loss (#8, launched
+     exactly once a timed call) meets by phase 24's rule; (c)
+     scripts.weak_scaling_triage at ModelConfig(), 4 ranks, per-rank batch
+     8, seq 32 80, 3 steps: each arm's lattice launches a call exactly its
+     route's (grad_mode); (d) scripts.weak_scaling_proof at ModelConfig(),
+     n = 1, 2, 4, total batch 32, TOOL_STEPS timed steps:
+     total_flops_vs_unsharded within 1e-3 of 1, 2 all_reduces a step.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
@@ -3920,6 +3943,89 @@ def check_limits(rng, dev, models, req) -> None:
         f"before any launch for {', '.join(refused)}; launch counts 0")
 
 
+def route_shares(kind: str, f: dict, p: dict) -> tuple:
+    """(best-beam share, all-beams share) of utterances on which two
+    routes' decodes agree: v2 durations and tones of slot 0 / of every
+    beam; v1 the best path's alignment / every beam's t_history."""
+    if kind == "v1":
+        best = (f["alignment"] == p["alignment"]).all(1)
+        every = (f["t_history"] == p["t_history"]).flatten(1).all(1)
+    else:
+        k = "durations" if kind == "v2" else "tones"
+        best = (f[k][:, 0] == p[k][:, 0]).all(1)
+        every = (f[k] == p[k]).flatten(1).all(1)
+    return best.float().mean().item(), every.float().mean().item()
+
+
+def share_text(agree: dict) -> str:
+    names = {"v2": "v2 durations", "tone": "tones", "v1": "v1 alignment"}
+    return ", ".join(f"{names[k]} {a:.3f} / {e:.3f}"
+                     for k, (a, e) in agree.items())
+
+
+# The step each decode route calls once a step, by (kind, route): the
+# module holding it and its name there.
+STEP_FNS = {("v2", "fused"): ("beam_fused", "fused_class_beam_step"),
+            ("tone", "fused"): ("beam_fused", "fused_tone_step"),
+            ("v1", "fused"): ("beam_fused", "fused_v1_beam_step"),
+            ("v2", "plain"): ("beam_kernels",
+                              "v2_beam_search_decode_reference"),
+            ("tone", "plain"): ("beam_kernels",
+                                "tone_beam_search_decode_reference"),
+            ("v1", "plain"): ("beam_kernels",
+                              "beam_search_step_reorder_reference")}
+
+
+def step_scores(kind: str, route: str, run):
+    """run()'s outputs, and the log-probs (B, W) each step of the decode
+    selected, in step order: the route's step wrapped for the call (a
+    kernel wrapper counts its launches through its module's name, so the
+    count moves to the stand-in and back)."""
+    import importlib
+
+    mod_name, fn_name = STEP_FNS[(kind, route)]
+    mod = importlib.import_module(f"ssnt_tts_tpu_torch.ops.{mod_name}")
+    orig = getattr(mod, fn_name)
+    kept = []
+
+    def wrapped(*a, **k):
+        out = orig(*a, **k)
+        kept.append(out.log_prob.clone())
+        return out
+
+    wrapped.launches = getattr(orig, "launches", 0)
+    setattr(mod, fn_name, wrapped)
+    try:
+        return run(), kept
+    finally:
+        setattr(mod, fn_name, orig)
+        if hasattr(orig, "launches"):
+            orig.launches = wrapped.launches
+
+
+def parting(kind: str, outs: dict, scores: dict) -> str:
+    """Where the routes' best beams part in the first utterance on which
+    they do: the first step whose selection differs, and the scores
+    there."""
+    f, p = outs["fused"], outs["plain"]
+    if kind == "v1":
+        best = (f["alignment"] == p["alignment"]).all(1)
+    else:
+        k = "durations" if kind == "v2" else "tones"
+        best = (f[k][:, 0] == p[k][:, 0]).all(1)
+    b = int((~best).nonzero()[0, 0])
+    same = ((f["prediction"][b] == p["prediction"][b])
+            & (f["beam_branch"][b] == p["beam_branch"][b])).all(-1)
+    s = int((~same).nonzero()[0, 0]) if not bool(same.all()) else -1
+    at = lambda r, i: scores[r][i][b]
+    gap = lambda i: float((at("fused", i) - at("plain", i)).abs().max())
+    before = f"{gap(s - 1):.3e}" if s > 0 else "none (first step)"
+    return (f"{kind}: utterance {b}, step {s}: slot 0 score fused "
+            f"{float(at('fused', s)[0]):.6f}, plain "
+            f"{float(at('plain', s)[0]):.6f}; largest |fused - plain| over "
+            f"the beams there {gap(s):.3e}, at the step before {before}")
+
+
 def wide_phase(seed: int, dev, smi: str, models) -> dict:
     """Phase 27a; returns, by entry name of the JSON line, the keys it adds
     to the beam kernels' entries."""
@@ -4026,16 +4132,16 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
               ("plain", {"fuse_model": False, "use_pallas": False}))
     tone_toks, tone_il, _ = tone_requests(cfg, seed + 27, dev, n=1)[0]
     runs = {
-        "v2": (lambda kw: decode.v2_duration_decode(
-            bf, toks, il, ol, cfg.duration_table, beam_width=W_WIDE,
+        "v2": (lambda m, kw: decode.v2_duration_decode(
+            m, toks, il, ol, cfg.duration_table, beam_width=W_WIDE,
             max_frames=U, **kw), ("durations", "output_length",
                                   "beam_emptied"),
             {"fused": (T, 0, 0, 0, 0, 0), "beam-only": (0, 0, 0, T, 0, 0)}),
-        "tone": (lambda kw: decode.tone_decode(
-            bf, tone_toks, tone_il, beam_width=W_WIDE, **kw), ("tones",),
+        "tone": (lambda m, kw: decode.tone_decode(
+            m, tone_toks, tone_il, beam_width=W_WIDE, **kw), ("tones",),
             {"fused": (0, T, 0, 0, 0, 0), "beam-only": (0, 0, 0, 0, T, 0)}),
-        "v1": (lambda kw: decode.beam_decode(
-            bf, toks, il, max_frames=U, beam_width=W_WIDE, **kw),
+        "v1": (lambda m, kw: decode.beam_decode(
+            m, toks, il, max_frames=U, beam_width=W_WIDE, **kw),
             ("alignment", "num_frames", "mel"),
             {"fused": (0, 0, U, 0, 0, 0), "beam-only": (0, 0, 0, 0, 0, U)}),
     }
@@ -4045,7 +4151,7 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
             outs = {}
             for name, kw in routes:
                 before = counts()
-                outs[name] = fn(kw)
+                outs[name] = fn(bf, kw)
                 torch.cuda.synchronize()
                 got = tuple(a - b for a, b in zip(counts(), before))
                 if got != want.get(name, (0,) * 6):
@@ -4060,17 +4166,32 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
                 if not same_bits(outs["beam-only"][k], outs["plain"][k]):
                     raise AssertionError(f"{kind} W={W_WIDE}: beam-only and "
                                          f"plain routes differ on {k}")
-            k0 = keys[0]
-            agree[kind] = (outs["fused"][k0] == outs["plain"][k0]).reshape(
-                B, -1).all(1).float().mean().item()
+            agree[kind] = route_shares(kind, outs["fused"], outs["plain"])
     log(f"[27a requests] W={W_WIDE}, B={B}, bf16: v2 (T={T}), tone and v1 "
         f"({U} frames) on the fused, beam-only and plain routes, with exact "
         f"launch counts (T #14 / T #12; T #14 tone / T #13; {U} #15 / {U} "
         f"#11); beam-only outputs equal the plain route's bit for bit; "
         f"gates of phases 4 and 16 passed. Not gated (random weights): "
-        f"fused vs plain, share of utterances that agree: v2 durations "
-        f"{agree['v2']:.3f}, tones {agree['tone']:.3f}, v1 alignment "
-        f"{agree['v1']:.3f}")
+        f"fused vs plain, share of utterances that agree, best beam / all "
+        f"beams: " + share_text(agree))
+    # The same requests in a float32 model: the routes' class steps round
+    # alike, so a drift of the wide fused kernels shows as a share below 1.
+    f32 = models[torch.float32]
+    agree32, parted = {}, []
+    with torch.no_grad():
+        for kind, (fn, _, _) in runs.items():
+            outs, scores = {}, {}
+            for name, kw in routes[::2]:  # fused, plain
+                outs[name], scores[name] = step_scores(
+                    kind, name, lambda: fn(f32, kw))
+            agree32[kind] = route_shares(kind, outs["fused"], outs["plain"])
+            if agree32[kind][0] < 1.0:
+                parted.append(parting(kind, outs, scores))
+    log(f"[27a requests] W={W_WIDE}, B={B}, float32 model, fused vs plain, "
+        f"share of utterances that agree, best beam / all beams: "
+        + share_text(agree32)
+        + ("" if not parted else "; where a best beam parts: "
+           + "; ".join(parted)))
 
     # ---- device time a step under a CUDA graph at each W, and bounds ----
     R = cfg.joint_rank
@@ -4271,6 +4392,231 @@ def triage_phase(dev) -> None:
     log(f"[27c] done in {time.time() - t_phase:.1f}s")
 
 
+# Phase 28: profile_decode's rounds (the host clock drifts between
+# components); the ring's shard counts and blocks, and the timed calls of
+# the ring and of the proof's step. Cut for the run's time from JAX's
+# tool's defaults (shards 2 4 8, blocks 1 8 16 40 80 100, 6 calls; the
+# proof's 10 steps), which phase 28 run alone measured (PERF.md, section
+# 6).
+PROFILE_ROUNDS = 2
+TSHARD_DEVICES = (2, 4)
+TSHARD_BLOCKS = (1, 8, 40)
+TSHARD_SHAPE = (400, 8, 64)
+TOOL_STEPS = 2
+# Wrapper name -> its entry in the JSON line, for the kernels phase 28
+# launches in this process.
+TOOL_ENTRIES = {"beam_search_step_batched": "beam_v1_step",
+                "beam_search_step_reorder": "beam_v1_step_reorder",
+                "lattice_bidir": "lattice_bidir"}
+
+
+def lattice_launches(rows: int, Tn: int, grad: bool) -> dict:
+    """The lattice kernels one loss call launches at `rows` examples of T
+    columns (ops/lattice_kernels' routing): the bidirectional kernel, or
+    forward alphas and backward gradients, with gradients; forward alphas
+    alone without."""
+    from ssnt_tts_tpu_torch.ops import lattice_kernels
+
+    if not grad:
+        return {"lattice_forward_alphas": 1}
+    if lattice_kernels.grad_mode("log", rows, Tn)[0] == "fused":
+        return {"lattice_bidir": 1}
+    return {"lattice_forward_alphas": 1, "lattice_backward_grads": 1}
+
+
+def profile_phase(work, dev, smi: str) -> dict:
+    """28a; returns the launches the phase should count, by wrapper."""
+    from ssnt_tts_tpu_torch.parallel import decode
+    from ssnt_tts_tpu_torch.scripts import profile_decode
+
+    want = {}
+    for route in profile_decode.ROUTES:
+        got = {}
+        rec = profile_decode.main(
+            ["--route", route, "--rounds", str(PROFILE_ROUNDS), "--trace",
+             str(work / f"trace_{route}"), "--json",
+             str(work / f"profile_{route}.json")], outputs=got)
+        if (tuple(rec)[:6] != profile_decode.COMPONENTS
+                + ("components_sum", "unattributed")
+                or (rec["B"], rec["W"], rec["T"], rec["U"]) != (B, W, T, U)):
+            raise AssertionError(f"profile_decode record: {rec}")
+        log(f"[28a profile_decode] {smi}: record ({route}): "
+            f"{json.dumps(rec)}")
+        model, toks = got["model"], got["tokens"]
+        il = got["input_length"].clone()
+        il[:4] = torch.tensor([2, 3, 5, 8], dtype=torch.int32)
+        kw = {"fuse_model": False}
+        if route == "plain":
+            kw["use_pallas"] = False
+        with torch.no_grad():
+            frames = profile_decode.decode_by_frames(model, toks, il, U, W,
+                                                     route)
+            ref = decode.beam_decode(model, toks, il, max_frames=U,
+                                     beam_width=W, **kw)
+        torch.cuda.synchronize()
+        kept = frames.pop("kept")
+        for k, v in ref.items():
+            if not same_bits(frames[k], v):
+                raise AssertionError(f"28a {route}: the full step over {U} "
+                                     f"frames differs from beam_decode on "
+                                     f"{k}")
+        if kept == 0:
+            raise AssertionError(f"28a {route}: no finished beam kept its "
+                                 f"mel: the gate did not reach the keep")
+        log(f"[28a profile_decode] {route}: the full step run over {U} "
+            f"frames (B={B}, W={W}, utterances of 2/3/5/8 tokens and the "
+            f"rest of {T}) bit for bit beam_decode's {route} route "
+            f"(alignment, log-probs, mel and every other output); "
+            f"{kept} beam-frames took the finished-beam mel keep")
+        if route == "beam-only":
+            want = {"beam_search_step_batched": rec["steps"]["beam"],
+                    "beam_search_step_reorder": rec["steps"]["full"]
+                    + rec["steps"]["traced"] + 2 * U}
+    return want
+
+
+def tshard_phase(work, dev, smi: str) -> dict:
+    """28b; returns the launches the phase should count, by wrapper."""
+    from ssnt_tts_tpu_torch.ops import lattice as lattice_ops
+    from ssnt_tts_tpu_torch.scripts import tshard_bench
+
+    got = {}
+    steps = TOOL_STEPS
+    rec = tshard_bench.main(
+        ["--devices", *map(str, TSHARD_DEVICES), "--shape",
+         *map(str, TSHARD_SHAPE), "--blocks", *map(str, TSHARD_BLOCKS),
+         "--steps", str(steps), "--job-dir", str(work / "tshard"),
+         "--json", str(work / "tshard.json")], outputs=got)
+    x = got["inputs"]
+    xs = [torch.tensor(x[k], device=dev, requires_grad=True)
+          for k in ("le", "ls", "lf")]
+    il, ol = (torch.as_tensor(x[k], device=dev) for k in ("il", "ol"))
+    plain = lattice_ops.ssnt_loss(*xs, il, ol, layout="ubt")
+    plain.sum().backward()
+    plain = [plain.detach()] + [v.grad for v in xs]
+    k_loss, k_grads = got["unsharded"]
+    for run, res in zip(rec["runs"], got["runs"]):
+        ring = [torch.as_tensor(a).to(dev) for a in [res["loss"]]
+                + res["grads"]]
+        if not all(same_bits(a, b) for a, b in zip(ring, plain)):
+            raise AssertionError(f"28b n={run['shards']} block="
+                                 f"{run['block']}: ring loss or gradients "
+                                 f"not bit for bit the plain unsharded "
+                                 f"loss's")
+    # The rings are the plain loss bit for bit, so one comparison holds
+    # them all to the kernel loss, by phase 24's rule for the kernel
+    # route against the plain one.
+    rel = float(((k_loss - plain[0]).abs() / plain[0].abs()).max())
+    gerr, ulps = route_grads_err(k_grads, plain[1:], plain[0])
+    if not (rel <= ROUTE_LOSS_RTOL and gerr <= BANDED_GRAD_ATOL):
+        raise AssertionError(f"28b: the unsharded kernel loss against the "
+                             f"plain one: loss {rel} relative, gradients "
+                             f"{gerr} past the tolerance ({ulps:.1f} eps "
+                             f"|logZ|)")
+    log(f"[28b tshard_bench] {smi}: record: {json.dumps(rec)}")
+    log(f"[28b tshard_bench] {len(rec['runs'])} runs (n in "
+        f"{TSHARD_DEVICES}, blocks {TSHARD_BLOCKS}, {steps} timed calls; "
+        f"cut from JAX's 2 4 8, 1 8 16 40 80 100 and 6 for time; U, B, T = "
+        f"{TSHARD_SHAPE}): every ring loss and gradient bit for bit the "
+        f"plain unsharded loss's (25b's check), which the unsharded kernel "
+        f"loss (#8) meets within {rel:.2e} relative (tol "
+        f"{ROUTE_LOSS_RTOL}) and its gradients within {ulps:.2f} eps "
+        f"|logZ| (tol max({BANDED_GRAD_RTOL}, {GRAD_ULPS} eps |logZ|) + "
+        f"{BANDED_GRAD_ATOL}, phase 24's rule); hops a walk U/K + n - 1 "
+        f"asserted by the tool")
+    return {"lattice_bidir": steps + 1}
+
+
+def triage_tool_phase(work, smi: str) -> None:
+    """28c."""
+    from ssnt_tts_tpu_torch.scripts import weak_scaling_triage as triage
+
+    n, per, (Tn, Un) = 4, 8, (32, 80)
+    got = {}
+    rec = triage.main(
+        ["--devices", str(n), "--per-device-batch", str(per), "--seq",
+         str(Tn), str(Un), "--steps", "3", "--full", "--job-dir",
+         str(work / "triage"), "--json", str(work / "triage.json")],
+        outputs=got)
+    rows = {"sharded": per, "unsharded": per * n}
+    routes = []
+    for name, ranks in got.items():
+        for arm in (triage.ARMS if name == "sharded"
+                    else triage.UNSHARDED_ARMS):
+            r = rows[name] * (4 if arm == "D_train_4x_batch" else 1) * (
+                2 if arm == "E_data_x_model" else 1)
+            want = ({} if arm in ("C_allreduce", "G_optimizer_only",
+                                  "I_model_grad_no_lattice")
+                    else lattice_launches(r, Tn, arm != "B_fwd_only"))
+            for rank in ranks:
+                lat = {k: v for k, v in rank[arm]["launches"].items()
+                       if k.startswith("lattice_")}
+                if lat != want:
+                    raise AssertionError(f"28c {name} {arm}: lattice "
+                                         f"launches a call {lat}, not "
+                                         f"{want}")
+            routes.append(f"{name} {arm} {triage.lattice_route(want)}")
+    log(f"[28c weak_scaling_triage] {smi}: record: {json.dumps(rec)}")
+    log(f"[28c weak_scaling_triage] ModelConfig(), {n} ranks x {per} rows, "
+        f"T={Tn} U={Un}: each arm's lattice launches a call, every rank, "
+        f"exactly its route's: " + "; ".join(routes))
+
+
+def proof_tool_phase(work, smi: str) -> None:
+    """28d."""
+    from ssnt_tts_tpu_torch.scripts import weak_scaling_proof
+
+    got = {}
+    rec = weak_scaling_proof.main(
+        ["--devices", "1", "2", "4", "--per-device-batch", "8", "--seq",
+         "32", "80", "--steps", str(TOOL_STEPS), "--full", "--job-dir",
+         str(work / "proof"), "--json", str(work / "proof.json")],
+        outputs=got)
+    for run in rec["runs"]:
+        n = run["devices"]
+        if (abs(run["total_flops_vs_unsharded"] - 1) > 1e-3
+                or run["allreduce_ops"] != 2):
+            raise AssertionError(f"28d n={n}: {run}")
+        for rank in got[n]:
+            if rank["launches"] != lattice_launches(32 // n, 32, True):
+                raise AssertionError(f"28d n={n}: the counted step's "
+                                     f"launches {rank['launches']}")
+    log(f"[28d weak_scaling_proof] {smi}: record: {json.dumps(rec)}")
+    log(f"[28d weak_scaling_proof] {TOOL_STEPS} timed steps (JAX's 10, cut "
+        f"for time); total counted FLOPs at n = 2, 4 within "
+        f"1e-3 of n = 1's (the matrix products only: the lattice kernels "
+        f"and elementwise operations are not counted); 2 all_reduces a "
+        f"step; one #8 launch in each rank's counted step")
+
+
+def tools_slice_phase(dev, smi: str) -> dict:
+    """Phase 28: profile_decode, tshard_bench, weak_scaling_triage and
+    weak_scaling_proof on the card. Every count is zeroed before and read
+    after; returns the JSON line's additions by entry name."""
+    t_phase = time.time()
+    work = pathlib.Path("build") / "chip_smoke" / "tools"
+    work.mkdir(parents=True, exist_ok=True)
+    zero_counts()
+    want = {}
+    for name, fn in (("28a", lambda: profile_phase(work, dev, smi)),
+                     ("28b", lambda: tshard_phase(work, dev, smi)),
+                     ("28c", lambda: triage_tool_phase(work, smi)),
+                     ("28d", lambda: proof_tool_phase(work, smi))):
+        t0 = time.time()
+        want.update(fn() or {})
+        log(f"[{name}] done in {time.time() - t0:.1f}s")
+    got = read_counts()
+    expect_counts("phase 28", got, want)
+    log(f"[28 launches] phase 28's own path, counted apart from phases "
+        f"1-27 (this process; the ranks' launches are checked above): "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; #10 beam_search_step_batched's first launches on a path")
+    log(f"[28] done in {time.time() - t_phase:.1f}s")
+    out = {TOOL_ENTRIES[k]: {"launches_phase28": v} for k, v in got.items()}
+    out["beam_v1_step"]["launches"] = got["beam_search_step_batched"]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4442,6 +4788,9 @@ def main() -> int:
         entry.update(extra.get(entry["name"], {}))
     scale_phase(dev, smi)
     triage_phase(dev)
+    extra = tools_slice_phase(dev, smi)
+    for entry in kernels:
+        entry.update(extra.get(entry["name"], {}))
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,11 @@ pickled into the job directory) and return a picklable result per rank:
   run_training  train_loop.run_training over a mesh;
   time_steps  timed sharded steps (weak_scaling.py);
   probe       the collectives on this device, and send / recv as the
-              ring does them.
+              ring does them;
+  tshard_bench, triage, proof
+              the sharded arms of scripts/tshard_bench.py,
+              scripts/weak_scaling_triage.py and
+              scripts/weak_scaling_proof.py (each module's rank_task).
 A module-level function of (job, device) may stand in for a task's name.
 The one-process references the ranks are held to: `split_step` (the
 sharded step's arithmetic over its data ranks, with the lattice on the
@@ -541,10 +545,26 @@ def run_training_task(job, device) -> dict:
                         checkpoint_dir=job.get("checkpoint_dir"))
 
 
+def _tool_task(module: str):
+    """The task of a tool's module (its rank_task), imported when a rank
+    runs it: the tools import this module."""
+
+    def task(job, device):
+        import importlib
+
+        return importlib.import_module(module).rank_task(job, device)
+
+    return task
+
+
 TASKS = {"dryrun": dryrun_task, "lattice": lattice_task,
          "steps": steps_task, "decode": decode_task,
          "run_training": run_training_task,
-         "time_steps": time_steps_task, "probe": probe_task}
+         "time_steps": time_steps_task, "probe": probe_task,
+         "tshard_bench": _tool_task("ssnt_tts_tpu_torch.scripts.tshard_bench"),
+         "triage": _tool_task(
+             "ssnt_tts_tpu_torch.scripts.weak_scaling_triage"),
+         "proof": _tool_task("ssnt_tts_tpu_torch.scripts.weak_scaling_proof")}
 
 
 # ------------------------------------------------------------- launching

@@ -297,6 +297,15 @@ def ssnt_loss_tsharded(log_emit, log_shift, log_frame, input_length,
     return _RingLoss.apply(le, ls, lf, il, ol, _Ring(mesh, axis, block))
 
 
+def ring_hop(x: torch.Tensor, mesh, axis: str = "model"):
+    """One hop of the alpha walk alone: x to the right neighbour on
+    `axis`, the left neighbour's tensor like x back (None on the first
+    shard), through host memory where mesh.stage_p2p; counted as a forward
+    hop. Every rank of the axis calls it together."""
+    ring = _Ring(mesh, axis, 1)
+    return ring.hop(x, ring.right, ring.left, "hops_forward")
+
+
 def hops_per_walk(U: int, n: int, block: int) -> int:
     """Ring hops of one walk (forward or backward): U for block 1, else
     U/block + n - 1; none on one shard."""

@@ -264,6 +264,31 @@ def v1_postprocess(branches, t_hists, mels, preds, lp, u
     }
 
 
+def v1_beam_only_step(model, enc, input_length, t, u, log_prob,
+                      is_finished, state, prev_mel, beam_step
+                      ) -> beam_fused.V1FusedStep:
+    """One frame of beam_decode on its beam-only and plain routes (the
+    scan body of JAX's beam_decode without the fused kernel):
+    SSNTModel.decode_step at each beam's t, then `beam_step`
+    (beam_kernels.beam_search_step_reorder, or its plain version) over h
+    with [state | mel | prev_mel | fin | t] as one float32 row a beam, then
+    the finished-beam mel keep. Returns the step as the fused v1 step
+    does."""
+    H = model.config.decoder_dim
+    M = model.config.mel_dim
+    h, new_state, mel = model.decode_step(enc, t, state, prev_mel)
+    rows = torch.cat([new_state, mel, prev_mel,
+                      is_finished.float()[..., None], t.float()[..., None]],
+                     dim=-1)
+    o = beam_step(h, log_prob, is_finished, t, u, input_length, rows)
+    r = o.state
+    return beam_fused.V1FusedStep(
+        *o[:6], r[..., -1].to(torch.int32),
+        beam_fused.keep_finished_mel(r[..., H:H + M], r[..., H + M:-2],
+                                     o.is_finished, r[..., -2] != 0),
+        r[..., :H].contiguous())
+
+
 @torch.no_grad()
 def beam_decode(
     model,
@@ -315,17 +340,8 @@ def beam_decode(
                      else beam_kernels.beam_search_step_reorder)
 
         def step():
-            h, new_state, mel = model.decode_step(enc, t, state, prev_mel)
-            rows = torch.cat([new_state, mel, prev_mel, fin.float()[..., None],
-                              t.float()[..., None]], dim=-1)
-            o = beam_step(h, lp, fin, t, u, il, rows)
-            r = o.state
-            return beam_fused.V1FusedStep(
-                *o[:6], r[..., -1].to(i32),
-                beam_fused.keep_finished_mel(
-                    r[..., H:H + M], r[..., H + M:-2], o.is_finished,
-                    r[..., -2] != 0),
-                r[..., :H].contiguous())
+            return v1_beam_only_step(model, enc, il, t, u, lp, fin, state,
+                                     prev_mel, beam_step)
 
     branches, t_hists, mels, preds = [], [], [], []
     for _ in range(max_frames):

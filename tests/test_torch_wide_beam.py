@@ -5,8 +5,11 @@ weights (carried across by convert.flax_to_torch) and inputs: JAX's fused
 and beam-only routes (Pallas, interpreted, as tests/test_beam_fused.py and
 tests/test_beam_pallas.py run them) at W = 17 and 32, its XLA route
 (fuse_model=False, use_pallas=False) at every width; the beam-only
-wrappers at max_beam_width 17 and 40 against JAX's beam kernels; and
-check_beam_shape, the kernels' limits.
+wrappers at max_beam_width 17 and 40 against JAX's beam kernels; the wide
+selection's range: the plain route against JAX's XLA route at W=128 with
+16 duration and tone classes (2048 candidates a step; v1 256), and the
+beam-only wrappers at W = max_beam_width = 128 against JAX's eager steps;
+and check_beam_shape, the kernels' limits.
 
 Integer outputs exactly equal; log-probs and mel frames within the
 tolerances of tests/test_torch_decode.py, test_torch_tone.py and
@@ -29,7 +32,13 @@ from ssnt_tts_tpu_torch.models.ssnt import SSNTModel
 from ssnt_tts_tpu_torch.ops import beam_fused, beam_kernels
 from ssnt_tts_tpu_torch.parallel import decode
 from ssnt_tts_tpu_torch.utils import config as tcfg
-from test_torch_beam_steps import _assert_same, _other_width_case
+from ssnt_tts_tpu.ops import beam_v1 as jbeam_v1
+from ssnt_tts_tpu.ops import beam_v2 as jbeam_v2
+from ssnt_tts_tpu.ops import tone_latent as jtone
+from test_torch_beam_steps import (
+    _TONE_ARGS, _V2_ARGS, _assert_same, _gathered, _other_width_case,
+    _tone_inputs, _v1_inputs, _v2_inputs,
+)
 
 B, T, FRAMES = 3, 6, 12
 IL = [6, 5, 4]
@@ -193,6 +202,141 @@ def test_beam_only_wrappers_match_jax_at_wide_outputs(kind, W_out):
         assert compared >= 0.8 * total
     finally:
         jbeam_pallas._INTERPRET = False
+
+
+# The wide selection's range: W = 128 beams of 16 classes, the kernels'
+# MAX_BEAMS and MAX_CANDIDATES (2048).
+W_MAX, CLASSES = 128, 16
+
+
+@pytest.fixture(scope="module")
+def models16():
+    """JAX and port models with 16 duration classes (table 0..15 on both
+    sides) and 16 tone classes, on the same weights."""
+    torch.set_num_threads(1)
+    cfg = jcfg.tiny_model_config(dtype="float32",
+                                 duration_class_size=CLASSES,
+                                 tone_class_size=CLASSES,
+                                 duration_table=tuple(range(CLASSES)))
+    jm = JaxModel(cfg)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(1, cfg.vocab_size, (B, T)).astype(np.int32)
+    mel = jnp.asarray(rng.normal(0, 1, (B, max(OL), cfg.mel_dim)),
+                      jnp.float32)
+    dd = jnp.zeros((B, T), jnp.int32)
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(toks), mel,
+                     jnp.asarray(IL, jnp.int32), jnp.asarray(OL, jnp.int32),
+                     dd, dd, method=jm.loss)
+    tm = SSNTModel(tcfg.ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
+    tm.load_state_dict(convert.flax_to_torch(jax.device_get(params), cfg))
+    return cfg, jm, params, toks, tm.eval()
+
+
+@pytest.mark.parametrize("kind", ["v2", "tone", "v1"])
+def test_wide_selection_matches_jax_xla(models16, kind):
+    """The port's plain route against JAX's XLA route at W = 128 with 16
+    classes: 2048 candidates a step for v2 and tone (the top of
+    wide_select's range on the card), 256 for v1. Integers exact,
+    log-probs (and v1 mel) within 1e-4."""
+    cfg, jm, params, toks, _ = models16
+    assert cfg.duration_table == tuple(range(CLASSES))
+    plain = ROUTES["plain"]
+    dtab = jnp.asarray(cfg.duration_table, jnp.int32)
+    want = jax.jit(_jax_fn(kind, jm, dtab, W_MAX, plain[1]))(
+        params, jnp.asarray(toks))
+    want = {k: np.asarray(v) for k, v in want.items()}
+    got = _port_decode(models16, kind, W_MAX, plain[0])
+    assert set(got) == set(want)
+    for k in INT_KEYS[kind]:
+        np.testing.assert_array_equal(got[k], want[k],
+                                      err_msg=f"{kind} W={W_MAX} {k}")
+    for k in FLOAT_KEYS[kind]:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=TOL,
+                                   err_msg=f"{kind} W={W_MAX} {k}")
+    assert got["beam_branch"].shape[-1] == W_MAX
+    # Every slot was selected: more than 256 distinct (branch, class)
+    # candidates a step reach the selection.
+    if kind != "v1":
+        assert len(np.unique(got["prediction"])) > 1
+    if kind == "v2":
+        ok = ~got["beam_emptied"]
+        assert ok.any()
+        np.testing.assert_array_equal(
+            got["output_length"][ok],
+            np.asarray(OL)[ok, None].repeat(W_MAX, 1))
+
+
+def _wide_case(kind, seed):
+    """(port wrapper output, JAX eager step output with its rows gathered)
+    of one beam-only step at W = max_beam_width = 128: v2 and tone over 16
+    classes (2048 candidates), v1 over 256."""
+    W = W_MAX
+    if kind.startswith("v1"):
+        x = _v1_inputs(seed, B=6, W=W)
+        names = _TONE_ARGS
+    elif kind == "tone":
+        x = _tone_inputs(seed, B=6, W=W, K=CLASSES)
+        names = _TONE_ARGS
+    else:
+        x = _v2_inputs(seed, B=6, W=W, D=CLASSES)
+        x["dtab"] = np.array([0, 1, 2, 3, 5, 7, 4, 6, 8, 9, 11, 10, 12, 15,
+                              13, 14], np.int32)
+        names = _V2_ARGS
+    tx = [torch.from_numpy(np.asarray(x[k])) for k in names]
+    jx = [jnp.asarray(x[k]) for k in names]
+    state = x["state"]
+    np_ = lambda out: tuple(np.asarray(a) for a in out)
+    if kind == "v1_batched":
+        got = beam_kernels.beam_search_step_batched(*tx, max_beam_width=W)
+        xla = jbeam_v1.beam_search_decode_batched(*jx, max_beam_width=W)
+        return np_(got[:6]), np_(xla)
+    if kind == "v1_reorder":
+        got = beam_kernels.beam_search_step_reorder(
+            *tx, torch.from_numpy(state), max_beam_width=W)
+        xla = jbeam_v1.beam_search_decode_batched(*jx, max_beam_width=W)
+        return np_(got), np_(xla) + (_gathered(state, xla[5]),)
+    if kind == "tone":
+        got = beam_kernels.tone_beam_search_decode(
+            *tx, state=torch.from_numpy(state), empty_tone_id=1,
+            max_beam_width=W)
+        xla = jax.vmap(lambda *a: jtone.beam_search_step(
+            *a, empty_tone_id=1, max_beam_width=W))(*jx)
+        return np_(got), np_(xla) + (_gathered(state, xla[5]),)
+    test_mode = kind == "v2_test_mode"
+    kw = dict(zero_duration_id=0, allow_skip=False, test_mode=test_mode)
+    got = beam_kernels.v2_beam_search_decode(
+        *tx, state=torch.from_numpy(state), max_beam_width=W, **kw)
+    with jax.disable_jit():
+        h, lph, fin, tot, dtab, t, u, il, ol = jx
+        if test_mode:
+            ol = jnp.zeros_like(ol)
+        xla = jax.vmap(
+            lambda h_, lp_, f_, tt_, t_, u_, il_, ol_: jbeam_v2.
+            beam_search_step(h_, lp_, f_, tt_, dtab, t_, u_, il_, ol_,
+                             max_beam_width=W, return_num_survivors=True,
+                             **kw))(h, lph, fin, tot, t, u, il, ol)
+    return np_(got), np_(xla) + (_gathered(state, xla[6]),)
+
+
+@pytest.mark.parametrize("kind", ["v1_batched", "v1_reorder", "v2",
+                                  "v2_test_mode", "tone"])
+def test_beam_only_wrappers_match_jax_at_max_width(kind):
+    """Each beam-only wrapper's plain version (CPU tensors, no launch) at
+    W = max_beam_width = 128 against JAX's eager step, bit for bit: ties
+    among 2048 candidates (dyadic log-probs), duplicates, finished and
+    past-the-end beams, and a first step whose copies collapse."""
+    torch.set_num_threads(1)
+    counters = (beam_kernels.v2_beam_search_decode,
+                beam_kernels.tone_beam_search_decode,
+                beam_kernels.beam_search_step_reorder,
+                beam_kernels.beam_search_step_batched)
+    before = [c.launches for c in counters]
+    for seed in range(2):
+        got, xla = _wide_case(kind, seed)
+        assert all(g.shape[1] == W_MAX for g in got if g.ndim >= 2)
+        _assert_same(got, {f"field {i}": a for i, a in enumerate(xla)},
+                     f"{kind} W={W_MAX} seed {seed}")
+    assert [c.launches for c in counters] == before
 
 
 @pytest.mark.parametrize("W,W_out,C,ok", [

@@ -249,8 +249,10 @@ reported on its own line:
      request at W=W_WIDE on each route (exact launch counts, beam-only
      equal to plain bit for bit, the gates of phases 4 and 16, the fused
      route's agreement); each beam kernel's device time a step under a CUDA
-     graph at each W against its bound (the JSON line's entries gain
-     max_beams, max_candidates and the times at W=32 and W=128); (b)
+     graph at each W against its bound and its share of it (the JSON
+     line's entries gain max_beams, max_candidates, the times and bounds
+     at W=32 and W=128, and the fused entries the launches of their W=32
+     request); (b)
      scripts.decode_scale at B=2048 and B=256 (smoke width, T=80, U=400,
      W=8, bf16, fused route), the B=2048 decode bit for bit its rows
      decoded in 8 slices of 256 and over 4 data ranks (gloo on the card),
@@ -3826,8 +3828,9 @@ def utilities_phase(seed: int, dev, smi: str) -> None:
 # ---------------------------------------------------------------- phase 27
 
 # Phase 27a's beam widths (16 the narrow instances' last; above it the
-# wide ones) and the width of its requests (JAX's triage's beam_x4).
-WIDTHS = (16, 17, 32, 64, 128)
+# wide ones: 17, 24 and 100 pad the fused steps' wgmma N to a multiple of
+# 8) and the width of its requests (JAX's triage's beam_x4).
+WIDTHS = (16, 17, 24, 32, 64, 100, 128)
 W_WIDE = 32
 # The beam kernels' entries of the JSON line.
 BEAM_ENTRIES = ("fused_v2_step", "fused_tone_step", "v2_beam_step",
@@ -4145,7 +4148,7 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
             ("alignment", "num_frames", "mel"),
             {"fused": (0, 0, U, 0, 0, 0), "beam-only": (0, 0, 0, 0, 0, U)}),
     }
-    agree = {}
+    agree, wide_launches = {}, {}
     with torch.no_grad():
         for kind, (fn, keys, want) in runs.items():
             outs = {}
@@ -4157,6 +4160,8 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
                 if got != want.get(name, (0,) * 6):
                     raise AssertionError(f"{kind} W={W_WIDE} {name}: "
                                          f"launches {got}")
+                if name == "fused":
+                    wide_launches[f"fused_{kind}_step"] = max(got)
                 what = f"{kind} request W={W_WIDE} {name}"
                 if kind == "v2":
                     v2_gates(what, outs[name], il, ol, W_WIDE)
@@ -4249,10 +4254,13 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
                 times[name][Wn] = (graph_ms(fn),
                                    bound(in_bytes + out_bytes, ops, rate))
             log(f"[27a time] {smi}: W={Wn}, B={B}, bf16 model, device time "
-                f"a step (CUDA graph) against its bound: "
+                f"a step (CUDA graph) against its bound, and the bound's "
+                f"share of it: "
                 + "; ".join(f"{n} {times[n][Wn][0]:.4f} ms (bound "
                             f"{times[n][Wn][1][0] * 1e3:.3f} us, "
-                            f"{times[n][Wn][1][1]})" for n in fns))
+                            f"{times[n][Wn][1][1]}, share "
+                            f"{times[n][Wn][1][0] / times[n][Wn][0]:.4f})"
+                            for n in fns))
     log(f"[27a] done in {time.time() - t_phase:.1f}s")
     MB = beam_fused.MAX_BEAMS
     return {name: {
@@ -4261,6 +4269,8 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
                            else beam_fused.MAX_CANDIDATES),
         **{f"ms_w{Wn}": times[name][Wn][0] for Wn in (32, 128)},
         **{f"bound_ms_w{Wn}": times[name][Wn][1][0] for Wn in (32, 128)},
+        **({f"launches_w{W_WIDE}_request": wide_launches[name]}
+           if name in wide_launches else {}),
     } for name in BEAM_ENTRIES}
 
 

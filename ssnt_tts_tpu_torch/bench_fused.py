@@ -7,9 +7,10 @@ For each root (a checkout of this repository; default the one this file
 is in), in the order given, the fused steps at chip_smoke.py's model
 (decoder 256, mel 80, joint rank 64, bf16, random weights from seed 0)
 and batch (B=32, T=80):
-  - #15 fused_v1_beam_step at W=1, 8 and 16 on a request's own carry at
-    frame 100;
-  - #14 fused_class_beam_step (v2) and fused_tone_step at W=8, step 30;
+  - #15 fused_v1_beam_step at W=1, 8 and 16 (the narrow instances) and
+    at W=32 and 128 (the wide ones) on a request's own carry at frame 100;
+  - #14 fused_class_beam_step (v2) and fused_tone_step at W=8, 32 and
+    128, step 30;
   - the beam-only steps at W=8: #11 beam_search_step_reorder (F = 418
     rows), #13 tone (K=8, H=256) and #12 v2 (D=10, H=256);
 each as device time per call under a CUDA graph (chip_smoke.graph_ms),
@@ -39,6 +40,12 @@ instead prints #2's and #6's device time by CUDA kernel at each K and B
 passes of the split design, or the one kernel of the design before it).
 Give it a process of its own: after a few profiler sessions in one
 process the later ones record nothing.
+
+After the timings, the fused wide steps' float outputs at fixed inputs,
+the same for every root: #14 v2 and tone at W=32 (step 30, h and new_h)
+and #15 at W=24 on a carry driven 20 frames by the plain step (h, new_h,
+mel), each root's largest difference from the plain step and from the
+first root's outputs (0 where two roots agree bit for bit).
 
 Prints one JSON object per root and call, then the card's name and power
 limit; --json writes them all. Needs one CUDA device.
@@ -87,7 +94,7 @@ def load(root: Path):
     return cs, beam_fused
 
 
-def bench_root(root: Path, dev) -> dict:
+def bench_root(root: Path, dev) -> tuple:
     import numpy as np
     import torch
 
@@ -102,17 +109,20 @@ def bench_root(root: Path, dev) -> dict:
     req = cs.make_request(rng, cfg.vocab_size, dev)
     toks, il, _ = req
     fns = {}
-    for Wn in (1, 8, 16):
+    for Wn in (1, 8, 16, 32, 128):
         pack, fw, kept = cs.v1_carries(model, toks, il, (100,), Wn, dev)
         c = kept[100]
         args = (pack, c["t"], c["u"], c["lp"], c["fin"], il, c["pm"],
                 c["state"], fw)
         fns[f"fused_v1_step W={Wn}"] = (
             lambda a=args: beam_fused.fused_v1_beam_step(*a))
-    sa = cs.step_inputs(model, req, 30, rng, dev)
-    fns["fused_v2_step W=8"] = lambda: beam_fused.fused_class_beam_step(*sa)
-    ta = cs.tone_step_inputs(model, toks, il, 30, rng, dev)
-    fns["fused_tone_step W=8"] = lambda: beam_fused.fused_tone_step(*ta)
+    for Wn in (8, 32, 128):
+        sa = cs.step_inputs(model, req, 30, rng, dev, Wn=Wn)
+        fns[f"fused_v2_step W={Wn}"] = (
+            lambda a=sa: beam_fused.fused_class_beam_step(*a))
+        ta = cs.tone_step_inputs(model, toks, il, 30, rng, dev, Wn)
+        fns[f"fused_tone_step W={Wn}"] = (
+            lambda a=ta: beam_fused.fused_tone_step(*a))
     fns.update(beam_only_fns(cs, cfg, req, rng, dev))
     out = {}
     with torch.no_grad():
@@ -124,7 +134,70 @@ def bench_root(root: Path, dev) -> dict:
         out["launch floor"] = {"graph_ms": cs.graph_ms(lambda: one.add_(1))}
         for name, fn in lattice_fns(cs, rng, dev).items():
             out[name] = {"graph_ms": cs.graph_ms(fn, k=20, reps=10)}
-    return out
+    return out, wide_outputs(cs, beam_fused, model, req, dev)
+
+
+def wide_outputs(cs, beam_fused, model, req, dev) -> dict:
+    """The wide steps' (kernel, plain) float outputs at inputs every root
+    builds alike: #14 v2 / tone at W=32, step 30, and #15 at W=24 on the
+    carry after 20 frames of the plain step."""
+    import numpy as np
+    import torch
+
+    toks, il, _ = req
+    rng = np.random.default_rng(1)
+    kinds = {
+        "fused_v2_step W=32": (beam_fused.fused_class_beam_step,
+                               beam_fused.fused_class_beam_step_reference,
+                               cs.step_inputs(model, req, 30, rng, dev, Wn=32)),
+        "fused_tone_step W=32": (beam_fused.fused_tone_step,
+                                 beam_fused.fused_tone_step_reference,
+                                 cs.tone_step_inputs(model, toks, il, 30, rng,
+                                                     dev, 32)),
+    }
+    pack, fw, kept = cs.v1_carries(model, toks, il, (0,), 24, dev)
+    c = kept[0]
+    for _ in range(20):
+        o = beam_fused.fused_v1_beam_step_reference(
+            pack, c["t"], c["u"], c["lp"], c["fin"], il, c["pm"], c["state"],
+            fw)
+        c = dict(t=o.next_t, u=o.next_u, lp=o.log_prob, fin=o.is_finished,
+                 pm=o.mel, state=o.state)
+    out = {}
+    with torch.no_grad():
+        for name, (kern, ref, args) in kinds.items():
+            B, W, H = args[5].shape
+            dbg = lambda: (torch.empty(B, W, args[2].shape[2], device=dev),
+                           torch.empty(B, W, H, device=dev))
+            k, r = dbg(), dbg()
+            kern(*args, debug_out=k)
+            ref(*args, debug_out=r)
+            out[name] = (k, r)
+        fa = (pack, c["t"], c["u"], c["lp"], c["fin"], il, c["pm"], c["state"])
+        dims = (2, c["state"].shape[2], c["pm"].shape[2])
+        k = tuple(torch.empty(*c["t"].shape, n, device=dev) for n in dims)
+        r = tuple(torch.empty_like(x) for x in k)
+        beam_fused.fused_v1_beam_step(*fa, fw, debug_out=k)
+        beam_fused.fused_v1_beam_step_reference(*fa, fw, debug_out=r)
+        out["fused_v1_step W=24 frame 20"] = (k, r)
+        torch.cuda.synchronize()
+    return {n: tuple(tuple(x.cpu() for x in t) for t in v)
+            for n, v in out.items()}
+
+
+def parity(outputs: list) -> list:
+    """Per root and wide step: the largest |kernel - plain| and |kernel -
+    first root's kernel| of each float output."""
+    rows = []
+    for i, outs in enumerate(outputs):
+        for name, (k, r) in outs.items():
+            first = outputs[0][name][0]
+            rows.append({
+                "root": i, "step": name,
+                "vs_plain": [float((a - b).abs().max()) for a, b in zip(k, r)],
+                "vs_first_root": [float((a - b).abs().max())
+                                  for a, b in zip(k, first)]})
+    return rows
 
 
 def split_root(root: Path, dev) -> dict:
@@ -286,21 +359,27 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    results = []
+    results, outputs = [], []
     for i, root in enumerate(args.roots):
         t0 = time.time()
-        bench = split_root if args.split else bench_root
-        r = {"call": i, "root": root,
-             "kernels": bench(Path(root).resolve(), dev),
+        if args.split:
+            kernels = split_root(Path(root).resolve(), dev)
+        else:
+            kernels, wide = bench_root(Path(root).resolve(), dev)
+            outputs.append(wide)
+        r = {"call": i, "root": root, "kernels": kernels,
              "seconds": time.time() - t0}
         print(json.dumps(r), flush=True)
         results.append(r)
+    rows = parity(outputs)
+    for row in rows:
+        print(json.dumps({"parity": row}), flush=True)
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
-            {"card": smi, "runs": results}, indent=1))
+            {"card": smi, "runs": results, "parity": rows}, indent=1))
     return 0
 
 

@@ -50,9 +50,15 @@
 //     own state columns.
 // Beams: the narrow instances take W <= kMaxW = 16 and W*D <= kMaxC in
 // one beam tile (mma N tiles of 8 beams: 8 or 16); wider steps, up to
-// kMaxBeams = 128 and kMaxCands = 2048 candidates, take
-// fused_class_wide_kernel, a loop over tiles of 16 beams (one pass of the
-// weight stream each) and wide_select.
+// kMaxBeams = 128 and kMaxCands = 2048 candidates, take a wide instance
+// and wide_select. In bfloat16 that is fused_class_wgmma_kernel
+// (wide_step.cuh): the beams as the N side of wgmma m64nNk16, the rank's
+// wide stream crossing L2 into shared memory once a step whatever W,
+// the gates folded in registers, new_h kept in shared memory up to the
+// reorder (the tile loop it replaced ran a weight pass a tile of 16
+// beams, 8 passes at W = 128). In float32 (TF32 is not float32) it is
+// fused_class_wide_kernel, the narrow step's FMAs a tile of 16 beams at a
+// time, a weight pass each.
 // What holds it now (ssnt_tts_tpu_torch/probe_fused.py; numbers in
 // PERF.md): the weight stream, at the rate one SM pulls from L2 into
 // shared memory; the prologue's loads; the selection; and the code that
@@ -63,7 +69,9 @@
 // base_path (T, B, D) f32; embed (D, H), bi (3H), bhn (H) compute dtype;
 // wpack (kCL, tiles x 256) compute dtype: wi/wh (H, 3H) packed by
 // ops/beam_fused.pack_gru (gru_step.cuh's tile layout, one stream per
-// cluster rank); out_k (H, D), out_b (D) f32; prev_class/t/u (B, W) i32;
+// cluster rank; the bfloat16 wide instance: (kCL, tiles x 1024) packed by
+// pack_wide_gru, wide_step.cuh's layout); out_k (H, D), out_b (D) f32;
+// prev_class/t/u (B, W) i32;
 // log_prob (B, W) f32; is_finished (B, W) bool (1 byte); state (B, W, H)
 // f32; input_length (B,) i32. v2 only: total (B, W) i32, output length
 // (B,) i32, duration table (D,) i32, emptied (B,) bool. Optional debug
@@ -76,11 +84,14 @@
 
 #include "beam_select.cuh"
 #include "gru_step.cuh"
+#include "wide_step.cuh"
 
 namespace {
 
 using namespace ssnt_beam;
 using namespace ssnt_gru;
+using ssnt_wide::WideRing;
+using ssnt_wide::WideStream;
 
 enum Kind { kV2 = 0, kTone = 1 };
 
@@ -463,6 +474,231 @@ fused_class_wide_kernel(const __grid_constant__ StepArgs a) {
   }
 }
 
+// The wide step for a bfloat16 compute dtype (wide_step.cuh): the GRU's
+// six gate rounds over every beam of the utterance at once (N = W rounded
+// up to a multiple of 8 on the N side of wgmma m64nNk16), the rank's wide
+// stream (384 KB at H = 256) crossing L2 into shared memory once a step;
+// the gates folded in registers; new_h kept in shared memory, in the GRU
+// input's place, up to the reorder; the class sums, their exchange, the
+// log_softmax, wide_select and the reorder as in fused_class_wide_kernel.
+struct ClassWgSmem {
+  size_t x, bias, hk, hp, h, scr, bar, hb, ring, sel, total;
+  int nst, chunk, ldn;
+};
+
+ClassWgSmem class_wg_smem(int W, int D, int H) {
+  const int N = cdiv(W, 8) * 8, Kp = cdiv(H, 16) * 16, C = W * D;
+  const int U = ssnt_wide::share(H);
+  const size_t act = (size_t)N * Kp * sizeof(__nv_bfloat16);
+  ClassWgSmem s;
+  s.ldn = U + 4;  // new_h rows: the four beams of a store in distinct banks
+  Carve c;
+  const size_t nh = sizeof(float) * N * s.ldn;
+  s.x = c.take(act > nh ? act : nh);  // the GRU input, then new_h
+  s.bias = c.take(sizeof(float) * (4 * H + D));  // bi, bhn, out_b
+  s.hk = c.take(sizeof(float) * U * D);
+  s.hp = c.take(sizeof(float) * kCL * C);
+  s.h = c.take(sizeof(float) * C);
+  s.scr = c.take(sizeof(float) * kThreads);
+  s.bar = c.take(sizeof(uint64_t) * kMaxStages);
+  // rnd(state), then z (bfloat16, ldn a beam), then the selection's fields
+  const size_t z = sizeof(__nv_bfloat16) * N * s.ldn;
+  s.hb = c.take(act > z ? act : z);
+  s.ring = c.at;
+  const RingShape r = ring_shape(s.ring, ssnt_wide::kStaticSmemWg);
+  s.nst = r.nst;
+  s.chunk = r.chunk;
+  s.sel = s.hb;
+  const size_t ring_end = s.ring + (size_t)s.nst * s.chunk;
+  const size_t sel_end = s.sel + wide_sel_bytes(C);
+  s.total = ring_end > sel_end ? ring_end : sel_end;
+  return s;
+}
+
+struct ClassWgArgs : StepArgs {
+  WideStream ws;
+  ClassWgSmem gsm;
+};
+
+template <int KIND>
+__global__ void __cluster_dims__(kCL, 1, 1) __launch_bounds__(kThreads, 1)
+fused_class_wgmma_kernel(const __grid_constant__ ClassWgArgs a) {
+  using bf16 = __nv_bfloat16;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int b = blockIdx.x / kCL, tid = threadIdx.x;
+  const int B = a.B, W = a.W, D = a.D, H = a.H, C = W * D;
+  const int N8 = cdiv(W, 8), N = 8 * N8, Kp = cdiv(H, 16) * 16;
+  const int U = ssnt_wide::share(H), k0 = rank * U;
+  const int nu = max(0, min(U, H - k0)), ldn = a.gsm.ldn;
+  const bf16* xin = static_cast<const bf16*>(a.xin_path);
+  const bf16* embed = static_cast<const bf16*>(a.embed);
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* x_s = reinterpret_cast<bf16*>(smem + a.gsm.x);     // (N, Kp) x
+  float* nh_s = reinterpret_cast<float*>(smem + a.gsm.x);  // (N, ldn) new_h
+  bf16* hb_s = reinterpret_cast<bf16*>(smem + a.gsm.hb);   // (N, Kp)
+  float* bias_s = reinterpret_cast<float*>(smem + a.gsm.bias);  // bi|bhn|out_b
+  float* hk_s = reinterpret_cast<float*>(smem + a.gsm.hk);  // (U, D) out_k rows
+  float* hp_s = reinterpret_cast<float*>(smem + a.gsm.hp);  // (kCL, C)
+  float* h_s = reinterpret_cast<float*>(smem + a.gsm.h);    // (W, D)
+  float* scr = reinterpret_cast<float*>(smem + a.gsm.scr);
+  __shared__ WideStream st_s;  // the wide stream's rounds
+  __shared__ BeamInWide bin;   // the beams' carry
+
+  if (tid == 0) st_s = a.ws;
+  WideRing ring{reinterpret_cast<bf16*>(smem + a.gsm.ring),
+                reinterpret_cast<uint64_t*>(smem + a.gsm.bar),
+                static_cast<const bf16*>(a.wpack) +
+                    (size_t)rank * a.ws.tiles * ssnt_wide::kTileA,
+                &st_s, a.gsm.nst, 0};
+  load_beams(bin, b, W, a.lp, a.fin, a.t, a.u, a.tot, a.prev_class, a.il,
+             a.ol);
+  load_segs(bias_s, Segs<bf16, 3>{{a.bi, a.bhn, a.out_b},
+                                  {3 * H, H, D},
+                                  {0, 3 * H, 4 * H},
+                                  {false, false, true}});
+  load_segs(hk_s, Segs<bf16, 1>{{a.out_k + (size_t)k0 * D}, {nu * D}, {0},
+                                {true}});
+  __syncthreads();  // bin.pc
+
+  // ---- 1. AR class cell: x = rnd(embed[prev_class] + xin_path[s]) and
+  // rnd(state) for every beam (zero past W and H), eight inputs a thread
+  // at a time ----
+  ssnt_wide::with_vec((H & 15) == 0, [&](auto vec) {
+    constexpr bool V = decltype(vec)::value;
+    const int K8 = Kp / 8;
+    const bf16* xr = xin + ((size_t)a.s * B + b) * H;
+#pragma unroll 4
+    for (int i = tid; i < N * K8; i += kThreads) {
+      const int w = i / K8, k = (i - w * K8) * 8, wr = w < W ? w : 0;
+      float xv[8], ev[8], sv[8];
+      ssnt_wide::row8<V>(embed + (size_t)bin.pc[wr] * H, k, H, w < W, ev);
+      ssnt_wide::row8<V>(xr, k, H, w < W, xv);
+      ssnt_wide::row8<V>(a.state + ((size_t)b * W + wr) * H, k, H, w < W, sv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        xv[e] = rnd<bf16>(__fadd_rn(ev[e], xv[e]));
+        sv[e] = rnd<bf16>(sv[e]);
+      }
+      ssnt_wide::act8(x_s, w, k, Kp, xv);
+      ssnt_wide::act8(hb_s, w, k, Kp, sv);
+    }
+  });
+  ssnt_wide::async_fence();
+  // The weight stream starts after the loads above: its copies would
+  // queue ahead of them.
+  ring.start();
+  cluster_arrive();  // this block's buffers are ready for its peers
+  __syncthreads();
+
+  // new_h into x's place, z in rnd(state)'s (the rounds read neither
+  // again)
+  ssnt_wide::gru_rounds(ring, 0, x_s, hb_s, Kp, N8, rank, H, bias_s,
+                        bias_s + 3 * H, nh_s, hb_s, ldn);
+  ssnt_wide::gru_new_h(nh_s, hb_s, ldn, a.state + (size_t)b * W * H, W, N, H,
+                       U, k0);
+  if (a.dbg_newh)
+    for (int i = tid; i < W * nu; i += kThreads) {
+      const int w = i / nu, c = i - w * nu;
+      a.dbg_newh[((size_t)b * W + w) * H + k0 + c] = nh_s[w * ldn + c];
+    }
+  // The rank's partial new_h . out_k (float32) of every beam.
+  ssnt_wide::tile_sums(W, D, nu, scr, h_s, [&](int q, int i, float acc) {
+    const int w = q / D, d = q - w * D;
+    return __fmaf_rn(nh_s[w * ldn + i], hk_s[i * D + d], acc);
+  });
+
+  // The partials to every block, added in rank order, then base + (sum +
+  // out_b) and the log_softmax.
+  cluster_wait();
+  {
+    const Bcast<float> hp = bcast_of(hp_s);
+    for (int c = tid; c < C; c += kThreads)
+      hp.put((size_t)rank * C + c, h_s[c]);
+  }
+  cluster_sync();
+  for (int c = tid; c < C; c += kThreads) {
+    const int d = c % D;
+    float sum = hp_s[c];
+    for (int r = 1; r < kCL; ++r) sum = __fadd_rn(sum, hp_s[r * C + c]);
+    h_s[c] = __fadd_rn(a.base_path[((size_t)a.s * B + b) * D + d],
+                       __fadd_rn(sum, bias_s[4 * H + d]));
+  }
+  __syncthreads();
+  if (tid < W) {  // log_softmax: shifted - log(sum(exp(shifted)))
+    float* row = h_s + tid * D;
+    float m = row[0];
+    for (int d = 1; d < D; ++d) m = fmaxf(m, row[d]);
+    float sum = 0.0f;
+    for (int d = 0; d < D; ++d) sum = __fadd_rn(sum, expf(__fsub_rn(row[d], m)));
+    const float ls = logf(sum);
+    for (int d = 0; d < D; ++d) {
+      row[d] = __fsub_rn(__fsub_rn(row[d], m), ls);
+      if (a.dbg_h && rank == 0) a.dbg_h[((size_t)b * W + tid) * D + d] = row[d];
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. candidate grid, 3. selection (every block, on the same h) ----
+  const WideSel sel = wide_sel_at(smem + a.gsm.sel, C);
+  for (int c = tid; c < C; c += kThreads) {
+    const int w = c / D, d = c - w * D;
+    store_wide(sel, c, KIND == kV2
+        ? v2_candidate(d, D, h_s[c], bin.lp[w], bin.fin[w], bin.tot[w],
+                       bin.t[w], bin.u[w], bin.il, bin.ol, a.dtab, a.v2)
+        : tone_candidate(d, h_s[c], bin.lp[w], bin.fin[w], bin.t[w],
+                         bin.u[w], bin.il, a.empty_id));
+  }
+  const int n = wide_select(sel, C, W, KIND == kV2 && !a.v2.test_mode);
+  if (rank == 0) {
+    for (int j = tid; j < W; j += kThreads) {
+      const int src = sel.src[j];
+      const size_t i = (size_t)b * W + j;
+      a.out.pred[i] = sel.pred[src];
+      a.out.lp[i] = sel.lp[src];
+      a.out.nt[i] = sel.nt[src];
+      a.out.nu[i] = sel.nu[src];
+      a.out.fin[i] = (uint8_t)sel.fin[src];
+      if (a.out.tot) a.out.tot[i] = sel.tot[src];
+      a.out.branch[i] = src / D;
+    }
+    if (KIND == kV2 && tid == 0) {
+      a.o_nsurv[b] = n;
+      a.o_emptied[b] = (uint8_t)(a.emptied[b] || n == 0);
+    }
+  }
+
+  // ---- 4. parent-pointer reorder of the rank's state columns ----
+  for (int i = tid; i < W * nu; i += kThreads) {
+    const int j = i / nu, c = i - j * nu;
+    a.o_state[((size_t)b * W + j) * H + k0 + c] =
+        nh_s[(sel.src[j] / D) * ldn + c];
+  }
+}
+
+template <int KIND>
+cudaError_t launch_wgmma(const StepArgs& s, cudaStream_t stream) {
+  ClassWgArgs a;
+  static_cast<StepArgs&>(a) = s;
+  a.gsm = class_wg_smem(a.W, a.D, a.H);
+  a.ws = WideStream{};
+  if (!ssnt_wide::wide_gru(a.ws, a.H)) return cudaErrorInvalidValue;
+  ssnt_wide::wide_finish(a.ws, a.gsm.chunk);
+  if (a.gsm.nst < 2 || a.ws.nr != 6 ||
+      a.gsm.total + ssnt_wide::kStaticSmemWg + 1024 > kSmemMax)
+    return cudaErrorInvalidValue;
+  auto kern = fused_class_wgmma_kernel<KIND>;
+  static size_t opted = 0;
+  if (a.gsm.total > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.gsm.total);
+    if (e != cudaSuccess) return e;
+    opted = a.gsm.total;
+  }
+  kern<<<a.B * kCL, kThreads, a.gsm.total, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int KIND, typename CT>
 cudaError_t launch_wide(StepArgs a, cudaStream_t stream) {
   if (a.dbg_newh == nullptr) return cudaErrorInvalidValue;
@@ -510,7 +746,7 @@ cudaError_t launch(StepArgs a, cudaStream_t stream) {
 template <int KIND>
 cudaError_t dispatch(int compute_bf16, const StepArgs& a, cudaStream_t st) {
   if (is_wide(a.W, a.D))
-    return compute_bf16 ? launch_wide<KIND, __nv_bfloat16>(a, st)
+    return compute_bf16 ? launch_wgmma<KIND>(a, st)
                         : launch_wide<KIND, float>(a, st);
   if (compute_bf16) {
     if (a.W <= 8) return launch<KIND, __nv_bfloat16, 1>(a, st);
@@ -555,11 +791,16 @@ void set_common(StepArgs& a, int B, int W, int D, int H, int s,
 extern "C" int ssnt_fused_step_max_candidates() { return kMaxCands; }
 extern "C" int ssnt_fused_step_max_beams() { return kMaxBeams; }
 extern "C" int ssnt_fused_cluster_blocks() { return kCL; }
-// 1 where the step at (W, D) takes the wide instance, which writes new_h
-// before the reorder to the debug output (the wrapper's scratch when the
-// caller gives none).
+// 1 where the step at (W, D) takes a wide instance. In float32 compute it
+// writes new_h before the reorder to the debug output (the wrapper's
+// scratch when the caller gives none).
 extern "C" int ssnt_fused_class_is_wide(int W, int D) {
   return (int)is_wide(W, D);
+}
+// 1 where the step takes the bfloat16 wide instance, which reads the wide
+// stream (ops/beam_fused.pack_wide_gru) and needs no scratch.
+extern "C" int ssnt_fused_class_wide_stream(int compute_bf16, int W, int D) {
+  return (int)(compute_bf16 && is_wide(W, D));
 }
 
 // Dynamic shared memory (bytes) of one block at these widths, the weight
@@ -567,7 +808,9 @@ extern "C" int ssnt_fused_class_is_wide(int W, int D) {
 extern "C" int ssnt_fused_class_smem_bytes(int compute_bf16, int W, int D,
                                            int H) {
   const int cs = compute_bf16 ? 2 : 4;
-  if (is_wide(W, D)) return (int)class_wide_smem(W, D, H, cs).total;
+  if (is_wide(W, D))
+    return (int)(compute_bf16 ? class_wg_smem(W, D, H).total
+                              : class_wide_smem(W, D, H, cs).total);
   return (int)class_smem(W <= 8 ? 8 : 16, D, H, cs).total;
 }
 

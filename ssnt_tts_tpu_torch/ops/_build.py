@@ -9,11 +9,11 @@ without nvcc, or when the build fails, this raises.
 
 One library per source: csrc/fused_class_step.cu (the fused v2 and tone
 decode steps), csrc/fused_v1_step.cu (the fused v1 decode step; both
-fused sources include csrc/gru_step.cuh), csrc/beam_step.cu (the
-beam-only v2, tone and v1 steps; the three beam sources include
-csrc/beam_select.cuh) and csrc/lattice.cu (the SSNT lattice
-forward-backward, log and exp domains, and the K-banded walks); build_all
-starts one nvcc per source at once.
+fused sources include csrc/gru_step.cuh and csrc/wide_step.cuh),
+csrc/beam_step.cu (the beam-only v2, tone and v1 steps; the three beam
+sources include csrc/beam_select.cuh) and csrc/lattice.cu (the SSNT
+lattice forward-backward, log and exp domains, and the K-banded walks);
+build_all starts one nvcc per source at once.
 
 Flags: -fmad=false keeps every float32 multiply and add separately
 rounded (the beam band edges depend on it; the dot products use explicit
@@ -158,7 +158,8 @@ def fused_class_library() -> ctypes.CDLL:
                  {"ssnt_fused_v2_step": FUSED_V2_ARGTYPES,
                   "ssnt_fused_tone_step": FUSED_TONE_ARGTYPES,
                   "ssnt_fused_class_smem_bytes": [_I] * 4,
-                  "ssnt_fused_class_is_wide": [_I] * 2},
+                  "ssnt_fused_class_is_wide": [_I] * 2,
+                  "ssnt_fused_class_wide_stream": [_I] * 3},
                  ("ssnt_fused_step_max_candidates",
                   "ssnt_fused_step_max_beams", "ssnt_fused_cluster_blocks"))
 
@@ -168,7 +169,8 @@ def fused_v1_library() -> ctypes.CDLL:
     return _load("fused_v1_step",
                  {"ssnt_fused_v1_step": FUSED_V1_ARGTYPES,
                   "ssnt_fused_v1_smem_bytes": [_I] * 5,
-                  "ssnt_fused_v1_is_wide": [_I]},
+                  "ssnt_fused_v1_is_wide": [_I],
+                  "ssnt_fused_v1_wide_stream": [_I] * 2},
                  ("ssnt_fused_v1_max_beams", "ssnt_fused_v1_max_candidates"))
 
 

@@ -19,13 +19,16 @@ and the mel frames.
     step (class_step_from_paths, v1_step_math), then the plain beam_v2 /
     tone_latent / beam_v1 step, then gathers by parent pointer.
   - `prepare_fused_weights` / `prepare_v1_fused_weights` cast and check
-    the weights once per decode and pack the kernels' matrices
-    (`pack_dense`, `pack_gru`) into the tile stream the kernels read
-    (`.packed`, beside the fields): one stream per block of an
-    utterance's cluster, 16x16 tiles in mma.sync fragment order
-    (csrc/gru_step.cuh). The wrappers then check only the per-step
-    tensors; weights built by hand run the plain version on the CPU and
-    are refused on the card.
+    the weights once per decode and pack the kernels' matrices into the
+    streams the kernels read, beside the fields: `.packed` (`pack_dense`,
+    `pack_gru`: one stream per block of an utterance's cluster, 16x16
+    tiles in mma.sync fragment order, csrc/gru_step.cuh), which the narrow
+    instances and the float32 wide ones read, and `.packed_wide`
+    (`pack_wide_dense`, `pack_wide_gru`: rounds of 64-column tiles in
+    wgmma's canonical layout, csrc/wide_step.cuh), which the bfloat16 wide
+    instances (W > 16, or more than 256 class candidates) read. The
+    wrappers then check only the per-step tensors; weights built by hand
+    run the plain version on the CPU and are refused on the card.
 
 The TPU kernel's carry layouts ((B, 1, W) lane rows, (B, W, 1) prev_class,
 a kernel-emitted step counter) are dropped: beam state is (B, W), and the
@@ -122,6 +125,95 @@ def pack_gru(wi: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     return _tiles(a.permute(3, 1, 4, 0, 5, 2)).reshape(CLUSTER, -1)
 
 
+def _share(N: int) -> int:
+    """A block's share of a layer of N outputs: its 16-column tiles."""
+    return _cdiv(_cdiv(N, 16), CLUSTER) * 16
+
+
+def _wide_tiles(a: torch.Tensor) -> torch.Tensor:
+    """(..., 64 m, 16 k) A tiles -> (..., 1024) in wgmma's K-major
+    canonical order without swizzle (csrc/wide_step.cuh): (m, k) at
+    ((m//8) 2 + k//8) 64 + (m%8) 8 + k%8."""
+    lead = a.shape[:-2]
+    return a.reshape(*lead, 8, 8, 2, 8).transpose(-3, -2).reshape(*lead, 1024)
+
+
+def _wide_blocks(w: torch.Tensor) -> torch.Tensor:
+    """A dense kernel w (K, N) as each block's 64-column m-tiles:
+    (CLUSTER, MT, KT*16, 64), block r's share of columns r*UN ..
+    r*UN + UN - 1 (UN = _share(N)) from its first m-tile on, zero past
+    K, the share and N."""
+    K, N = w.shape
+    UN = _share(N)
+    MT, KT = _cdiv(UN, 64), _cdiv(K, 16)
+    p = w.new_zeros(KT * 16, CLUSTER, MT * 64)
+    for r in range(CLUSTER):
+        n = max(0, min(UN, N - r * UN))
+        p[:K, r, :n] = w[:, r * UN:r * UN + n]
+    return p.reshape(KT * 16, CLUSTER, MT, 64).permute(1, 2, 0, 3)
+
+
+def _wide_pairs(blocks: torch.Tensor) -> list:
+    """(CLUSTER, T, Kp, 64) m-tiles -> the rounds that take them, two a
+    round (warpgroups 0 and 1), the last round one when T is odd."""
+    return [blocks[:, i:i + 2] for i in range(0, blocks.shape[1], 2)]
+
+
+def _wide_stream(rounds: list) -> torch.Tensor:
+    """Rounds, each (CLUSTER, nwg, Kp, 64), -> the wide stream
+    (CLUSTER, tiles * 1024): a round's A tiles input-tile-major, its
+    warpgroups' tiles of an input tile side by side."""
+    out = []
+    for r in rounds:
+        CL, nwg, Kp, _ = r.shape
+        a = r.reshape(CL, nwg, Kp // 16, 16, 64).transpose(-1, -2)
+        out.append(_wide_tiles(a).transpose(1, 2).reshape(CL, -1))
+    return torch.cat(out, 1)
+
+
+def pack_wide_dense(w: torch.Tensor) -> torch.Tensor:
+    """A dense kernel w (K, N) as the bfloat16 wide instances stream it
+    (csrc/wide_step.cuh): (CLUSTER, tiles * 1024), the block's m-tiles
+    (_wide_blocks) two a round."""
+    return _wide_stream(_wide_pairs(_wide_blocks(w)))
+
+
+# The GRU's gate rounds (csrc/wide_step.cuh gru_gate), by index into
+# [wi_r, wi_z, wi_n, wh_r, wh_z, wh_n].
+_WIDE_GRU_GATES = (0, 3, 5, 2, 1, 4)
+
+
+def _wide_gru_rounds(wi: torch.Tensor, wh: torch.Tensor) -> list:
+    H = wh.shape[0]
+    gates = [_wide_blocks(w[:, g * H:(g + 1) * H])
+             for w in (wi, wh) for g in range(3)]
+    UG = gates[0].shape[1]
+    return [gates[j][:, p:p + 2] for p in range(0, UG, 2)
+            for j in _WIDE_GRU_GATES]
+
+
+def pack_wide_gru(wi: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """The GRU kernels wi, wh (H, 3H) [r|z|n] as the bfloat16 wide
+    instances stream them: for each pair of the block's 64-unit groups
+    (its share of the hidden units, _share(H)), six rounds, the gates in
+    _WIDE_GRU_GATES' order (r, then n, then z), warpgroup g taking unit
+    group g of the pair."""
+    return _wide_stream(_wide_gru_rounds(wi, wh))
+
+
+def pack_wide_v1(f: dict) -> torch.Tensor:
+    """The v1 step's six matrices as its bfloat16 wide instance streams
+    them (csrc/fused_v1_step.cu v1_wide_stream): prenet w1, w2, the GRU,
+    dec_pre and dec_mel as one group of m-tiles (dec_pre's first),
+    dec_proj."""
+    dense = lambda k: _wide_pairs(_wide_blocks(f[k]))
+    heads = torch.cat([_wide_blocks(f["dec_pre_k"]),
+                       _wide_blocks(f["dec_mel_k"])], 1)
+    return _wide_stream(dense("prenet_w1") + dense("prenet_w2")
+                        + _wide_gru_rounds(f["wi"], f["wh"])
+                        + _wide_pairs(heads) + dense("dec_proj_k"))
+
+
 def _check_weights(what, fields, shapes, dtypes) -> None:
     """Raise unless each field has its shape and dtype."""
     for name, x in fields.items():
@@ -153,16 +245,20 @@ class FusedWeights(NamedTuple):
 class _Packed:
     """Weights as prepare_*_fused_weights return them: the NamedTuple's
     fields (the plain step's; iterating gives exactly those) and, beside
-    them, the kernel's stream `packed`, (CLUSTER, tiles * 256)."""
+    them, the kernels' streams `packed`, (CLUSTER, tiles * 256), and
+    `packed_wide`, (CLUSTER, tiles * 1024)."""
 
-    def __new__(cls, packed: torch.Tensor, **fields):
+    def __new__(cls, packed: torch.Tensor, packed_wide: torch.Tensor,
+                **fields):
         self = super().__new__(cls, **fields)
         self.packed = packed
+        self.packed_wide = packed_wide
         return self
 
 
 class PackedFusedWeights(_Packed, FusedWeights):
-    """FusedWeights with packed = pack_gru(wi, wh)."""
+    """FusedWeights with packed = pack_gru(wi, wh) and packed_wide =
+    pack_wide_gru(wi, wh)."""
 
 
 def prepare_fused_weights(w: stepmath.ClassStepWeights,
@@ -182,7 +278,9 @@ def prepare_fused_weights(w: stepmath.ClassStepWeights,
                   bhn=(H,), out_k=(H, D), out_b=(D,))
     _check_weights("class step weights", fields, shapes,
                    {k: f32 if k.startswith("out") else dtype for k in fields})
-    return PackedFusedWeights(pack_gru(fields["wi"], fields["wh"]), **fields)
+    return PackedFusedWeights(
+        pack_gru(fields["wi"], fields["wh"]),
+        pack_wide_gru(fields["wi"], fields["wh"]).contiguous(), **fields)
 
 
 class V2Step(NamedTuple):
@@ -257,7 +355,8 @@ def _check_model_args(s, xin_path, base_path, fw, prev_class, state,
     """Raise unless the fused kernel can take these (CUDA) tensors; the
     weights were checked and packed by prepare_fused_weights. Returns
     (library, compute dtype, B, W, D, H, debug outputs: the caller's, the
-    wide kernel's scratch or None)."""
+    float32 wide kernel's scratch or None, the weight stream the launch
+    reads)."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"fused class step runs on cuda or cpu, not {dev}")
@@ -286,25 +385,28 @@ def _check_model_args(s, xin_path, base_path, fw, prev_class, state,
         ("input_length", input_length, i32, (B,)),
     ):
         _build.check_arg(name, x, dt, shape, dev)
+    wide = bool(lib.ssnt_fused_class_wide_stream(int(ct == torch.bfloat16),
+                                                 W, D))
     dbg = (None, None)
     if debug_out is not None:
         _build.check_arg("debug h", debug_out[0], f32, (B, W, D), dev)
         _build.check_arg("debug new_h", debug_out[1], f32, (B, W, H), dev)
         dbg = tuple(debug_out)
-    elif lib.ssnt_fused_class_is_wide(W, D):
-        # The wide kernel keeps new_h before the reorder in device memory.
+    elif lib.ssnt_fused_class_is_wide(W, D) and not wide:
+        # The float32 wide kernel keeps new_h before the reorder in device
+        # memory.
         dbg = (None, torch.empty(B, W, H, dtype=f32, device=dev))
-    return lib, ct, B, W, D, H, dbg
+    return lib, ct, B, W, D, H, dbg, fw.packed_wide if wide else packed
 
 
 def _ptr_or_null(x):
     return None if x is None else x.data_ptr()
 
 
-def _weight_ptrs(fw: FusedWeights):
+def _weight_ptrs(fw: FusedWeights, stream: torch.Tensor):
     """The kernels' weight arguments: embed, the packed GRU stream, bi,
     bhn, out_k, out_b."""
-    return tuple(x.data_ptr() for x in (fw.embed, fw.packed, fw.bi, fw.bhn,
+    return tuple(x.data_ptr() for x in (fw.embed, stream, fw.bi, fw.bhn,
                                         fw.out_k, fw.out_b))
 
 
@@ -335,7 +437,7 @@ def fused_class_beam_step(
     dev = state.device
     if dev.type == "cpu":
         return fused_class_beam_step_reference(*args, **kw)
-    lib, ct, B, W, D, H, dbg = _check_model_args(
+    lib, ct, B, W, D, H, dbg, stream = _check_model_args(
         s, xin_path, base_path, fw, prev_class, state, log_prob,
         is_finished, t, u, input_length, debug_out)
     if not 0 <= zero_duration_id < D:
@@ -363,7 +465,7 @@ def fused_class_beam_step(
     ptr = lambda x: x.data_ptr()
     rc = lib.ssnt_fused_v2_step(
         int(ct == torch.bfloat16), B, W, D, H, int(s),
-        ptr(xin_path), ptr(base_path), *_weight_ptrs(fw),
+        ptr(xin_path), ptr(base_path), *_weight_ptrs(fw, stream),
         *map(ptr, (prev_class, state, log_prob, is_finished, total_duration,
                    t, u, input_length, output_length, duration_table,
                    emptied)),
@@ -416,7 +518,7 @@ def fused_tone_step(
     if dev.type == "cpu":
         return fused_tone_step_reference(
             *args, empty_tone_id=empty_tone_id, debug_out=debug_out)
-    lib, ct, B, W, K, H, dbg = _check_model_args(*args, debug_out)
+    lib, ct, B, W, K, H, dbg, stream = _check_model_args(*args, debug_out)
     new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
     i32 = torch.int32
     out = ToneStep(
@@ -427,7 +529,7 @@ def fused_tone_step(
     ptr = lambda x: x.data_ptr()
     rc = lib.ssnt_fused_tone_step(
         int(ct == torch.bfloat16), B, W, K, H, int(s),
-        ptr(xin_path), ptr(base_path), *_weight_ptrs(fw),
+        ptr(xin_path), ptr(base_path), *_weight_ptrs(fw, stream),
         *map(ptr, args[4:]),
         *map(ptr, out), *map(_ptr_or_null, dbg), int(empty_tone_id),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -454,7 +556,8 @@ V1FusedWeights = NamedTuple("V1FusedWeights", [
 
 
 class PackedV1FusedWeights(_Packed, V1FusedWeights):
-    """V1FusedWeights with packed = the six matrices in V1_PACKED's order."""
+    """V1FusedWeights with packed = the six matrices in V1_PACKED's order
+    and packed_wide = pack_wide_v1 of them."""
 
 
 # The v1 kernel's stream: the dense matrices and the GRU in the order the
@@ -492,7 +595,8 @@ def prepare_v1_fused_weights(w: stepmath.V1StepWeights,
     packed = torch.cat([
         pack_gru(fields["wi"], fields["wh"]) if k == "gru"
         else pack_dense(fields[k]) for k in V1_PACKED], dim=1).contiguous()
-    return PackedV1FusedWeights(packed, **fields)
+    return PackedV1FusedWeights(packed, pack_wide_v1(fields).contiguous(),
+                                **fields)
 
 
 class V1FusedStep(NamedTuple):
@@ -591,6 +695,7 @@ def fused_v1_beam_step(
         ("state", state, f32, (B, W, H)),
     ):
         _build.check_arg(name, x, dt, shape, dev)
+    wide = bool(lib.ssnt_fused_v1_wide_stream(int(ct == torch.bfloat16), W))
     dbg = (None, None, None)
     if debug_out is not None:
         for name, x, shape in zip(("debug h", "debug new_h", "debug mel"),
@@ -598,9 +703,9 @@ def fused_v1_beam_step(
                                               (B, W, M))):
             _build.check_arg(name, x, f32, shape, dev)
         dbg = tuple(debug_out)
-    elif lib.ssnt_fused_v1_is_wide(W):
-        # The wide kernel keeps new_h and mel before the reorder in device
-        # memory.
+    elif lib.ssnt_fused_v1_is_wide(W) and not wide:
+        # The float32 wide kernel keeps new_h and mel before the reorder in
+        # device memory.
         dbg = (None, *(torch.empty(B, W, n, dtype=f32, device=dev)
                        for n in (H, M)))
     new = lambda dt: torch.empty(B, W, dtype=dt, device=dev)
@@ -614,7 +719,7 @@ def fused_v1_beam_step(
     ptr = lambda x: x.data_ptr()
     rc = lib.ssnt_fused_v1_step(
         int(ct == torch.bfloat16), B, W, T, H, M, R,
-        *map(ptr, args), ptr(packed),
+        *map(ptr, args), ptr(fw.packed_wide if wide else packed),
         *(ptr(getattr(fw, k)) for k in V1_UNPACKED), *map(ptr, out),
         *map(_ptr_or_null, dbg),
         torch.cuda.current_stream(dev).cuda_stream,

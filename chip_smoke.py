@@ -3838,6 +3838,57 @@ BEAM_ENTRIES = ("fused_v2_step", "fused_tone_step", "v2_beam_step",
                 "beam_v1_step")
 
 
+# Phase 27a's tie-heavy grids through the wide selection: the beam-only
+# steps at (W, D = K) with C = 2048 candidates (a power of two) and 2047
+# (not one), and the fused steps at W=128 on the 16-class model (C = 2048)
+# and W=100 on the smoke model (v2 C = 1000, tone 800). Scores take these
+# values: ties, +-0.0 (which tie), -inf and a score near the JAX
+# kernels' sentinel, which the port keeps valid.
+TIE_BEAM_ONLY = ((128, 16), (89, 23))
+TIE_SCORES = (0.0, -0.0, -0.25, -0.5, -1.0, -float("inf"), -2.7e38)
+
+
+def tie_values(rng, shape, dev):
+    """A tensor of `shape` drawn from TIE_SCORES."""
+    pick = rng.integers(0, len(TIE_SCORES), shape)
+    return torch.tensor(TIE_SCORES, dtype=torch.float32)[
+        torch.from_numpy(pick)].to(dev)
+
+
+def copy_beams(x, Wn: int):
+    """x (B, Wn, ...) with every other utterance's beams copies of its
+    first four (candidates equal on every field but the parent)."""
+    x = x.clone()
+    x[::2] = x[::2][:, torch.arange(Wn, device=x.device) % 4]
+    return x
+
+
+def tie_beam_only_inputs(rng, s: int, Wn: int, D: int, H: int, il, ol,
+                         dev):
+    """beam_only_inputs (K = D) with ties the rule: class log-probs and
+    beam scores from TIE_SCORES and copied beams."""
+    x = beam_only_inputs(rng, s, Wn, D, D, H, il, ol, dev)
+    for k in ("h", "h_tone", "lp"):
+        x[k] = tie_values(rng, tuple(x[k].shape), dev)
+    for k in ("h", "h_tone", "lp", "fin", "tot", "t", "u", "state"):
+        x[k] = copy_beams(x[k], Wn)
+    return x
+
+
+def tie_step(args, rng):
+    """A fused step's inputs (step_inputs or tone_step_inputs) with beam
+    scores from TIE_SCORES, a third of the beams finished (their padding
+    candidates keep the score: +-0.0 ties) and copied beams."""
+    out = list(args)
+    Bn, Wn = out[6].shape
+    out[6] = tie_values(rng, (Bn, Wn), out[6].device)
+    out[7] = torch.from_numpy(rng.random((Bn, Wn)) < 0.35).to(out[7].device)
+    for i in range(4, len(out)):
+        if out[i].dim() >= 2 and tuple(out[i].shape[:2]) == (Bn, Wn):
+            out[i] = copy_beams(out[i], Wn)
+    return tuple(out)
+
+
 def v2_gates(what: str, out, il, ol, Wn: int) -> int:
     """Phase 4's gates for one v2 decode at width Wn (every utterance of
     the batch); returns the emptied count."""
@@ -4058,7 +4109,7 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
     models16 = {dt: make_model(cfg16, tree16, name, dev) for dt, name in
                 ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))}
     dtabs = {n: torch.tensor(tuple(range(n)), dtype=torch.int32, device=dev)
-             for n in (D, 16)}
+             for n in (D, 16, 23)}
     option_sets = (({}, 0),
                    ({"config": V2BeamConfig(final_feasible_guard=True)}, 3),
                    ({"allow_skip": True}, 0), ({"test_mode": True}, 3))
@@ -4125,6 +4176,33 @@ def wide_phase(seed: int, dev, smi: str, models) -> dict:
             f"{max(max(e) for e in errs_v2):.3e}, tone "
             f"{max(max(e) for e in errs_tone):.3e}, #15 |dh|, |dnew_h|, "
             f"|dmel| {max(errs_v1):.3e} (tol {TOL[dt]})")
+
+    # ---- tie-heavy grids through the wide selection, bit for bit ----
+    n_bo = 0
+    for Wn, Dn in TIE_BEAM_ONLY:
+        for s in (0, mid):
+            x = tie_beam_only_inputs(rng, s, Wn, Dn, H, il, ol, dev)
+            for opts, empty in option_sets:
+                for w_out in (None, 1):
+                    check_beam_only(x, dtabs[Dn], opts, empty, w_out)
+                    n_bo += 1
+    n_fused = 0
+    for dt, model in models.items():
+        for m, Wn in ((models16[dt], 128), (model, 100)):
+            inputs = tie_step(step_inputs(m, req, mid, rng, dev, Wn=Wn), rng)
+            for opts, _ in option_sets:
+                check_step(inputs, opts, dt)
+            tone = tie_step(tone_step_inputs(m, toks, il, mid, rng, dev, Wn),
+                            rng)
+            for empty in (0, 3):
+                check_tone_step(tone, empty, TOL[dt])
+            n_fused += len(option_sets) + 2
+    log(f"[27a ties] scores from {TIE_SCORES}, copied beams: #12 / #13 at "
+        f"(W, D = K) in {TIE_BEAM_ONLY} (C = 2048, 2047), s=0/{mid}, 4 "
+        f"option sets, W_out = W and 1 ({n_bo} checks); #14 v2 / tone at "
+        f"W=128 on the 16-class model and W=100 on the smoke model, f32 and "
+        f"bf16 ({n_fused} steps): selection and reorder bit-exact against "
+        f"the plain versions")
 
     # ---- one v2, tone and v1 request at W_WIDE on each route ----
     counters = (beam_fused.fused_class_beam_step, beam_fused.fused_tone_step,

@@ -11,8 +11,13 @@ and batch (B=32, T=80):
     at W=32 and 128 (the wide ones) on a request's own carry at frame 100;
   - #14 fused_class_beam_step (v2) and fused_tone_step at W=8, 32 and
     128, step 30;
-  - the beam-only steps at W=8: #11 beam_search_step_reorder (F = 418
-    rows), #13 tone (K=8, H=256) and #12 v2 (D=10, H=256);
+  - the beam-only steps at W=8, 32 and 128 (above 16 the wide instance,
+    csrc/beam_select.cuh wide_select): #11 beam_search_step_reorder (F =
+    418 rows), #10 beam_search_step_batched, #13 tone (K=8, H=256) and #12
+    v2 (D=10 and D=16, H=256);
+  - torch.sort(stable=True) of (B=32, L) float32 keys at the sort lengths
+    of those wide grids (L = 512 and 2048), a yardstick for the wide
+    selection's sort stage alone (no call of the port makes it);
 each as device time per call under a CUDA graph (chip_smoke.graph_ms),
 eager time per call with a synchronize at the end (chip_smoke.eager_ms)
 and host time per call (the wrapper's own cost: the median of 5 runs of
@@ -239,28 +244,41 @@ def kernel_split(fns, n: int = 10) -> dict:
 
 
 def beam_only_fns(cs, cfg, req, rng, dev) -> dict:
-    """#11, #13 and #12 at chip_smoke's shapes (B=32, W=8)."""
+    """#11, #10, #13 and #12 (D = 10 and 16) at chip_smoke's batch (B=32)
+    and W = 8, 32 and 128, and torch.sort beside them."""
     import torch
 
     bk = importlib.import_module("ssnt_tts_tpu_torch.ops.beam_kernels")
     H, M = cfg.decoder_dim, cfg.mel_dim
     D, K = cfg.duration_class_size, cfg.tone_class_size
     _, il, ol = req
-    x1 = cs.v1_beam_only_inputs(rng, 40, cs.W, il, H + 2 * M + 2, dev)
-    x2 = cs.beam_only_inputs(rng, 30, cs.W, D, K, H, il, ol, dev)
-    dtab = torch.tensor(cfg.duration_table, dtype=torch.int32, device=dev)
-    a1 = (x1["h"], x1["lp"], x1["fin"], x1["t"], x1["u"], x1["il"])
-    a2 = (x2["h"], x2["lp"], x2["fin"], x2["tot"], dtab, x2["t"], x2["u"],
-          x2["il"], x2["ol"])
-    at = (x2["h_tone"], x2["lp"], x2["fin"], x2["t"], x2["u"], x2["il"])
-    return {
-        "beam_v1_step_reorder W=8 F=418":
-            lambda: bk.beam_search_step_reorder(*a1, x1["state"]),
-        "tone_beam_step W=8": lambda: bk.tone_beam_search_decode(
-            *at, state=x2["state"]),
-        "v2_beam_step W=8": lambda: bk.v2_beam_search_decode(
-            *a2, state=x2["state"]),
-    }
+    fns = {}
+    for Wn in (8, 32, 128):
+        x1 = cs.v1_beam_only_inputs(rng, 40, Wn, il, H + 2 * M + 2, dev)
+        a1 = (x1["h"], x1["lp"], x1["fin"], x1["t"], x1["u"], x1["il"])
+        fns[f"beam_v1_step_reorder W={Wn} F=418"] = (
+            lambda a=a1, st=x1["state"]: bk.beam_search_step_reorder(*a, st))
+        fns[f"beam_v1_step W={Wn}"] = (
+            lambda a=a1: bk.beam_search_step_batched(*a))
+        for Dn in (D, 16):
+            x2 = cs.beam_only_inputs(rng, 30, Wn, Dn, K, H, il, ol, dev)
+            dtab = torch.arange(Dn, dtype=torch.int32, device=dev)
+            if Dn == D:
+                at = (x2["h_tone"], x2["lp"], x2["fin"], x2["t"], x2["u"],
+                      x2["il"])
+                fns[f"tone_beam_step W={Wn}"] = (
+                    lambda a=at, st=x2["state"]:
+                    bk.tone_beam_search_decode(*a, state=st))
+            a2 = (x2["h"], x2["lp"], x2["fin"], x2["tot"], dtab, x2["t"],
+                  x2["u"], x2["il"], x2["ol"])
+            fns[f"v2_beam_step W={Wn}" + ("" if Dn == D else f" D={Dn}")] = (
+                lambda a=a2, st=x2["state"]:
+                bk.v2_beam_search_decode(*a, state=st))
+    for L in (512, 2048):
+        keys = torch.randn(cs.B, L, device=dev)
+        fns[f"torch.sort stable B={cs.B} L={L}"] = (
+            lambda k=keys: torch.sort(k, dim=1, descending=True, stable=True))
+    return fns
 
 
 def lattice_fns(cs, rng, dev) -> dict:

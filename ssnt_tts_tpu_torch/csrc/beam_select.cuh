@@ -9,8 +9,10 @@
 //     the fused steps; block_select, the beam-only steps above 32
 //     candidates) or by one warp without block barriers (warp_select,
 //     C <= 32; the beam-only steps); above kMaxW slots or kMaxC
-//     candidates, by the whole block at up to kMaxP candidates a thread
-//     (wide_select, every step's wide instance).
+//     candidates, by the whole block through a bitonic network over
+//     (score, generation) keys at up to kMaxP a thread (wide_select, every
+//     step's wide instance; JAX's _select_bitonic orders its steps the
+//     same way, beam_pallas.py:500-649).
 //
 // Candidates are in generation order c = w*D + d (beam-major, class-minor),
 // one thread per candidate, with the semantics of ops/beam_v2.py,
@@ -374,21 +376,41 @@ __device__ __forceinline__ int block_select(BlockSmem& s, const Cand& x,
 
 // Candidate fields and scratch of wide_select, carved from dynamic shared
 // memory (wide_sel_bytes(C) at a 16-byte aligned base): C4 = C rounded up
-// to a multiple of 4 entries each.
+// to a multiple of 4 entries each. `valid` and `order` are dead while the
+// network sorts (the keys are in registers, `order` not yet written), so
+// its shared-memory exchange overlays them, at 8 bytes a key of the
+// wide_sort_len(C) it sorts; that is the 8 C4 bytes of the two for a C
+// that is a power of two, and grows the region otherwise.
 struct WideSel {
   float* lp;
-  int* valid;
   int* pred; int* nt; int* nu; int* tot; int* fin; int* diag;
+  int* valid;
   int* order;       // sorted position -> candidate
   int* surv;        // survivor rank -> candidate (valid's place)
+  uint64_t* keys;   // the network's exchange (valid's and order's place)
   int* wcount;      // (kMaxP, warps) kept candidates of each warp's positions
   int* src;         // output slot -> candidate (kMaxBeams)
   int* misc;        // [0] first kept diagonal position, [1] valid count
 };
 
+// The keys wide_select sorts: C rounded up to a power of two.
+__host__ __device__ inline int wide_sort_len(int C) {
+  int L = 1;
+  while (L < C) L <<= 1;
+  return L;
+}
+
+// Bytes of the region the keys share with `valid` and `order`.
+__host__ __device__ inline size_t wide_key_bytes(int C) {
+  const size_t c4 = (size_t)((C + 3) & ~3);
+  const size_t keys = sizeof(uint64_t) * (size_t)wide_sort_len(C);
+  return keys > 2 * sizeof(int) * c4 ? keys : 2 * sizeof(int) * c4;
+}
+
 __host__ __device__ inline size_t wide_sel_bytes(int C) {
   const size_t c4 = (size_t)((C + 3) & ~3);
-  return sizeof(int) * (9 * c4 + kMaxP * (kThreads / 32) + kMaxBeams + 4);
+  return sizeof(int) * (7 * c4 + kMaxP * (kThreads / 32) + kMaxBeams + 4) +
+         wide_key_bytes(C);
 }
 
 __device__ __forceinline__ WideSel wide_sel_at(unsigned char* base, int C) {
@@ -396,11 +418,12 @@ __device__ __forceinline__ WideSel wide_sel_at(unsigned char* base, int C) {
   int* p = reinterpret_cast<int*>(base);
   WideSel s;
   s.lp = reinterpret_cast<float*>(p);
-  s.valid = p + c4; s.pred = p + 2 * c4; s.nt = p + 3 * c4;
-  s.nu = p + 4 * c4; s.tot = p + 5 * c4; s.fin = p + 6 * c4;
-  s.diag = p + 7 * c4; s.order = p + 8 * c4;
+  s.pred = p + c4; s.nt = p + 2 * c4; s.nu = p + 3 * c4;
+  s.tot = p + 4 * c4; s.fin = p + 5 * c4; s.diag = p + 6 * c4;
+  s.valid = p + 7 * c4; s.order = p + 8 * c4;
   s.surv = s.valid;
-  s.wcount = p + 9 * c4;
+  s.keys = reinterpret_cast<uint64_t*>(s.valid);
+  s.wcount = p + 7 * c4 + wide_key_bytes(C) / sizeof(int);
   s.src = s.wcount + kMaxP * (kThreads / 32);
   s.misc = s.src + kMaxBeams;
   return s;
@@ -412,61 +435,170 @@ __device__ __forceinline__ void store_wide(const WideSel& s, int c,
   s.nu[c] = x.nu; s.tot[c] = x.tot; s.fin[c] = x.fin; s.diag[c] = x.diag;
 }
 
+// A candidate's sort key: an ascending sort of the keys is the selection's
+// order. The high word is lp mapped to a u32 that falls as lp rises (-0.0
+// first made +0.0, so that the two tie as IEEE compares them; NaN is
+// outside the contract), the low word the generation index, so that equal
+// scores keep generation order and no two keys are equal. Invalid
+// candidates and the pads up to wide_sort_len take kNoKey and sort last.
+constexpr uint64_t kNoKey = ~0ull;
+
+__device__ __forceinline__ uint64_t wide_key(float lp, int c) {
+  const uint32_t u = __float_as_uint(lp == 0.0f ? 0.0f : lp);
+  const uint32_t hi = (u & 0x80000000u) ? u : (~u & 0x7fffffffu);
+  return ((uint64_t)hi << 32) | (uint32_t)c;
+}
+
+// The network's strides below P: both keys are the thread's own. Keys k
+// and k | J of thread t (indices t P + k, t P + (k | J)) go ascending where
+// index & K is 0: for K < P that is k & K, else `up`, the thread's own.
+template <int P, int J>
+__device__ __forceinline__ void sort_in_thread(uint64_t (&key)[P], int K,
+                                               bool up) {
+  if constexpr (J < P) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (k & J) continue;
+      const uint64_t a = key[k], b = key[k | J];
+      const bool swap = (b < a) == (K < P ? (k & K) == 0 : up);
+      key[k] = swap ? b : a;
+      key[k | J] = swap ? a : b;
+    }
+  }
+}
+
+// Sorts the L keys of the block ascending, P a thread: thread t holds
+// indices t P + k (k < P) in key[]. L = 256 P for P > 1; for P = 1, L is
+// any power of two up to 256 (threads at or past L hold kNoKey and sit
+// out). A bitonic network (JAX's _bitonic_sort_desc): index i meets
+// i ^ j in the phase that merges runs of K, ascending where i & K is 0.
+// Strides below P run in registers, below 32 P by shuffles (lane ^ j / P),
+// the rest through s.keys (key k of thread t at k kThreads + t: a warp's
+// 32 keys are 256 contiguous bytes) behind two barriers a stride. From
+// stride P up, a thread's keys all sit on one side of their pairs, so it
+// keeps the smaller of each (`lo`) or the larger. Every thread of the
+// block calls it. The first exchange's leading barrier also ends the reads
+// of `valid` that built the keys (buf overlays it); it ends with a
+// barrier.
+template <int P>
+__device__ __forceinline__ void wide_sort(uint64_t (&key)[P], uint64_t* buf,
+                                          int L) {
+  const int t = threadIdx.x, i0 = t * P;
+  for (int K = 2; K <= L; K <<= 1) {
+    const bool up = (i0 & K) == 0;
+    for (int j = K >> 1; j > 0; j >>= 1) {
+      if (j < P) {
+        if (j == 1) sort_in_thread<P, 1>(key, K, up);
+        else if (j == 2) sort_in_thread<P, 2>(key, K, up);
+        else sort_in_thread<P, 4>(key, K, up);
+        continue;
+      }
+      const bool lo = ((i0 & j) == 0) == up;
+      if (j < 32 * P) {
+        const int m = j / P;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const uint64_t o = __shfl_xor_sync(0xffffffffu, key[k], m);
+          key[k] = (o < key[k]) == lo ? o : key[k];
+        }
+      } else {
+        const int pt = t ^ (j / P);
+        __syncthreads();  // the last readers of buf (or of valid) are done
+        if (i0 < L) {
+#pragma unroll
+          for (int k = 0; k < P; ++k) buf[k * kThreads + t] = key[k];
+        }
+        __syncthreads();
+        if (i0 < L) {
+#pragma unroll
+          for (int k = 0; k < P; ++k) {
+            const uint64_t o = buf[k * kThreads + pt];
+            key[k] = (o < key[k]) == lo ? o : key[k];
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The sorted order of the C candidates stored in `s`, P keys a thread
+// (P = wide_sort_len(C) / kThreads, at least 1): s.order[p] for the nvalid
+// valid candidates (and garbage up to L for P >= 4, where the keys' loads
+// and the order's stores take 16 bytes a thread), which it counts into
+// s.misc[1].
+template <int P>
+__device__ __forceinline__ void wide_order(const WideSel& s, int C) {
+  const int t = threadIdx.x, i0 = t * P;
+  uint64_t key[P];
+  int nv = 0;
+  if constexpr (P >= 4) {
+#pragma unroll
+    for (int k = 0; k < P; k += 4) {
+      float4 l = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      int4 v = make_int4(0, 0, 0, 0);
+      if (i0 + k < C) {  // a multiple of 4 below C: inside the C4 entries
+        l = *reinterpret_cast<const float4*>(s.lp + i0 + k);
+        v = *reinterpret_cast<const int4*>(s.valid + i0 + k);
+      }
+      const float lv[4] = {l.x, l.y, l.z, l.w};
+      const int vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = i0 + k + q;
+        const bool ok = c < C && vv[q];
+        key[k + q] = ok ? wide_key(lv[q], c) : kNoKey;
+        nv += ok;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int c = i0 + k;
+      const bool ok = c < C && s.valid[c];
+      key[k] = ok ? wide_key(s.lp[c], c) : kNoKey;
+      nv += ok;
+    }
+  }
+  nv = __reduce_add_sync(0xffffffffu, nv);
+  if ((t & 31) == 0 && nv) atomicAdd(&s.misc[1], nv);
+  wide_sort<P>(key, s.keys, wide_sort_len(C));
+  if constexpr (P >= 4) {
+#pragma unroll
+    for (int k = 0; k < P; k += 4)
+      *reinterpret_cast<int4*>(s.order + i0 + k) = make_int4(
+          (int)(uint32_t)key[k], (int)(uint32_t)key[k + 1],
+          (int)(uint32_t)key[k + 2], (int)(uint32_t)key[k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (key[k] != kNoKey) s.order[i0 + k] = (int)(uint32_t)key[k];
+  }
+}
+
 // select_beams for up to kMaxCands candidates and kMaxBeams slots, with
-// the same order, dedup, pad and re-injection: thread t holds the
-// P = ceil(C / kThreads) candidates c = k kThreads + t (k < P), and then
-// the sorted positions p = k kThreads + t. The caller has stored the C
-// candidates with store_wide; every thread of the block calls it. The
-// ranks read four candidates a load, P ranks a pass; survivor ranks are
-// ballots within a warp plus the counts of the positions before it. Leaves
-// the slots' candidates in s.src[0 .. Wo) and returns the survivor count;
-// begins and ends with a barrier.
+// the same order, dedup, pad and re-injection: the candidates' keys sorted
+// by wide_sort (P = 1, 2, 4 or 8 a thread), then sorted positions
+// p = k kThreads + t for thread t (k < ceil(C / kThreads)). The caller has
+// stored the C candidates with store_wide; every thread of the block calls
+// it. Survivor ranks are ballots within a warp plus a scan of the rows'
+// counts. Leaves the slots' candidates in s.src[0 .. Wo) and returns the
+// survivor count; begins and ends with a barrier.
 __device__ __forceinline__ int wide_select(const WideSel& s, int C, int Wo,
                                            bool use_diag) {
   constexpr int kW = kThreads / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int C4 = (C + 3) & ~3, P = (C + kThreads - 1) / kThreads;
-  if (tid < C4 - C) {
-    s.lp[C + tid] = 0.0f;
-    s.valid[C + tid] = 0;
-  }
+  const int P = (C + kThreads - 1) / kThreads;
   if (tid == 0) {
     s.misc[0] = kNone;
     s.misc[1] = 0;
   }
   __syncthreads();
-  float li[kMaxP];
-  int r[kMaxP];
-  bool vi[kMaxP];
-  int nv = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxP; ++k) {
-    const int c = k * kThreads + tid;
-    vi[k] = k < P && c < C && s.valid[c];
-    li[k] = vi[k] ? s.lp[c] : 0.0f;
-    r[k] = 0;
-    nv += vi[k];
-  }
-  // stable rank among valid candidates
-#pragma unroll 2
-  for (int j = 0; j < C4; j += 4) {
-    const float4 l = *reinterpret_cast<const float4*>(s.lp + j);
-    const int4 v = *reinterpret_cast<const int4*>(s.valid + j);
-#pragma unroll
-    for (int k = 0; k < kMaxP; ++k) {
-      if (k >= P) break;
-      const int c = k * kThreads + tid;
-      r[k] += v.x && (l.x > li[k] || (l.x == li[k] && j < c));
-      r[k] += v.y && (l.y > li[k] || (l.y == li[k] && j + 1 < c));
-      r[k] += v.z && (l.z > li[k] || (l.z == li[k] && j + 2 < c));
-      r[k] += v.w && (l.w > li[k] || (l.w == li[k] && j + 3 < c));
-    }
-  }
-  nv = __reduce_add_sync(0xffffffffu, nv);
-  if (lane == 0 && nv) atomicAdd(&s.misc[1], nv);
-#pragma unroll
-  for (int k = 0; k < kMaxP; ++k)
-    if (vi[k]) s.order[r[k]] = k * kThreads + tid;
+  const int L = wide_sort_len(C);
+  if (L <= kThreads) wide_order<1>(s, C);
+  else if (L == 2 * kThreads) wide_order<2>(s, C);
+  else if (L == 4 * kThreads) wide_order<4>(s, C);
+  else wide_order<8>(s, C);
   __syncthreads();
   const int nvalid = s.misc[1];
   // Sorted position p: adjacent dedup on every field but the parent.
@@ -493,17 +625,29 @@ __device__ __forceinline__ int wide_select(const WideSel& s, int C, int Wo,
     if (k < P && lane == 0) s.wcount[k * kW + warp] = __popc(m[k]);
   }
   __syncthreads();
-  // survivor ranks: the kept positions before p, warp by warp
-  int n = 0;
-  for (int i = 0; i < P * kW; ++i) n += s.wcount[i];
+  // survivor ranks: the kept positions before p. Every warp scans the
+  // P kW (<= 64) counts of the rows (k, warp), two a lane.
+  constexpr unsigned kAll = 0xffffffffu;
+  int c0 = lane < P * kW ? s.wcount[lane] : 0;
+  int c1 = lane + 32 < P * kW ? s.wcount[lane + 32] : 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y0 = __shfl_up_sync(kAll, c0, d);
+    const int y1 = __shfl_up_sync(kAll, c1, d);
+    if (lane >= d) {
+      c0 += y0;
+      c1 += y1;
+    }
+  }
+  c1 += __shfl_sync(kAll, c0, 31);
+  const int n = __shfl_sync(kAll, c1, 31);
 #pragma unroll
   for (int k = 0; k < kMaxP; ++k) {
     if (k >= P) break;
-    if ((m[k] >> lane) & 1u) {
-      int before = __popc(m[k] & ((1u << lane) - 1u));
-      for (int i = 0; i < k * kW + warp; ++i) before += s.wcount[i];
-      s.surv[before] = cand[k];
-    }
+    const int row = k * kW + warp;  // kept positions up to this row's end
+    const int upto = __shfl_sync(kAll, row < 32 ? c0 : c1, row & 31);
+    if ((m[k] >> lane) & 1u)
+      s.surv[upto - __popc(m[k] >> lane)] = cand[k];
   }
   __syncthreads();
   const int first_diag = s.misc[0];

@@ -51,17 +51,18 @@
 // One block barrier remains on the warp path: it publishes the mbarrier's
 // initialisation. Those are the narrow instance's (W and W_out <= kMaxW,
 // C <= kMaxC, the rows in shared memory); anything wider takes the wide
-// instance (beam_step_wide_kernel): wide_select over up to kMaxP
-// candidates a thread, the slots' parents in shared memory, and as much of
-// the rows' span staged by the bulk copy as fits beside the selection's
-// fields, the rest read from global memory by the reorder (at the
-// decodes' widths all of it fits: v1 at W=128 stages 214 KB of F=418 rows
-// beside 10 KB of fields, v2 at W=128, D=16 131 KB beside 75 KB). Measured by bench_fused.py (device time under a CUDA
-// graph, B=32, W=8; NVIDIA H100 80GB HBM3, 700 W): v1 with F = 418 rows
-// 3.2 us, tone 3.4 us, v2 3.9 us (the design before it: 6.8, 6.7, 7.8),
-// against a 1.3 us launch floor; probe_beam.py's stamps put the v1 rows'
-// landing at ~1.5 us after the block's start, the selection done at ~1.3
-// and the reorder's end at ~2.3.
+// instance (beam_step_wide_kernel): wide_select (a bitonic network over
+// up to kMaxP keys a thread), the slots' parents in shared memory, and as
+// much of the rows' span staged by the bulk copy as fits beside the
+// selection's fields, the rest read from global memory by the reorder (at
+// the decodes' widths all of it fits: v1 at W=128 stages 214 KB of F=418
+// rows beside 10 KB of fields, v2 at W=128, D=16 131 KB beside 75 KB).
+// Measured by bench_fused.py (device time under a CUDA graph, B=32, W=8;
+// NVIDIA H100 80GB HBM3, 700 W): v1 with F = 418 rows 3.2 us, tone 3.4
+// us, v2 3.9 us (the design before it: 6.8, 6.7, 7.8), against a 1.3 us
+// launch floor; probe_beam.py's stamps put the v1 rows' landing at ~1.5
+// us after the block's start, the selection done at ~1.3 and the
+// reorder's end at ~2.3.
 //
 // Layouts (row-major, contiguous): h (B, W, D) f32 (v1: D = 2, [emit,
 // shift]); log_prob (B, W) f32; is_finished (B, W) bool (1 byte); t/u
@@ -237,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(BeamArgs a) {
 
 // The wide instance: W or W_out above kMaxW, more than kMaxC candidates,
 // or rows past the narrow instance's shared memory. The candidates go
-// through wide_select (up to kMaxP a thread, fields in dynamic shared
+// through wide_select (up to kMaxP keys a thread, fields in dynamic shared
 // memory); the first a.stage values of the rows' span are staged by the
 // bulk copy behind them, the rest read from global memory by the reorder.
 template <int KIND>

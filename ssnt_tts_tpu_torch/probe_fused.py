@@ -22,7 +22,14 @@ time under a CUDA graph; for a wide instance, a step split into the
 prologue, the weight stream (the rounds' time outside their pieces'
 products), the dots (the pieces' products), the epilogues and barriers
 between rounds, wide_select and the reorder; with the toolkit's
-cuobjdump, each kernel's SASS instruction count.
+cuobjdump, each kernel's SASS instructions, local-memory loads and
+stores, barriers, shuffles and loops (sass_counts).
+
+    python3 -m ssnt_tts_tpu_torch.probe_fused --sass-roots DIR ... [--json OUT]
+
+only builds each root's csrc/ (a checkout of this repository) and prints
+those SASS counts for every kernel of csrc/fused_class_step.cu,
+csrc/fused_v1_step.cu and csrc/beam_step.cu.
 
 --no-dot skips the tile products (the weight stream, the barriers and the
 rest remain); --cluster N packs and builds for N blocks per utterance.
@@ -35,6 +42,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -233,23 +241,64 @@ def stage_report(name: str, fn, lib, graph_ms) -> dict:
     return out
 
 
+# The sources sass_counts reads, and the opcodes it counts in each kernel
+# instance: local-memory loads and stores (spills, or a register array
+# indexed at run time), block barriers and warp shuffles.
+SASS_SOURCES = ("fused_class_step", "fused_v1_step", "beam_step")
+SASS_OPS = ("LDL", "STL", "BAR.SYNC", "SHFL")
+SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s*(.*?);")
+
+
 def sass_counts() -> dict:
-    """SASS instructions of each kernel instance, where cuobjdump exists."""
+    """Each kernel instance's SASS (the libraries _build gives now, where
+    cuobjdump exists): instructions, SASS_OPS, and loops (branches back
+    to an earlier address)."""
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
     counts = {}
-    for src in ("fused_class_step", "fused_v1_step"):
+    for src in SASS_SOURCES:
         r = subprocess.run([str(tool), "-sass", str(_build.build(src))],
                            capture_output=True, text=True, check=False)
         cur = None
         for ln in r.stdout.splitlines():
             if "Function :" in ln:
-                cur = f"{src}:{ln.split('Function :')[1].strip()}"
-                counts[cur] = 0
-            elif cur and ln.strip().startswith("/*") and "*/" in ln:
-                counts[cur] += 1
+                cur = {"instructions": 0, "loops": 0,
+                       **{op: 0 for op in SASS_OPS}}
+                counts[f"{src}:{ln.split('Function :')[1].strip()}"] = cur
+                continue
+            m = SASS_LINE.match(ln)
+            if cur is None or not m:
+                continue
+            cur["instructions"] += 1
+            words = [w for w in m.group(2).split() if not w.startswith("@")]
+            op = words[0] if words else ""
+            for name in SASS_OPS:
+                cur[name] += op == name or op.startswith(name + ".")
+            if op.startswith("BRA") and len(words) > 1:
+                target = words[-1].strip("`()")
+                if (target.startswith("0x")
+                        and int(target, 16) <= int(m.group(1), 16)):
+                    cur["loops"] += 1
     return counts
+
+
+def sass_roots(roots, out_json) -> int:
+    """sass_counts of each root's csrc/ (a checkout of this repository),
+    built under build/probe_fused/sass/<i>; no kernel runs."""
+    out = {}
+    for i, root in enumerate(roots):
+        _build.CSRC = Path(root).resolve() / "ssnt_tts_tpu_torch" / "csrc"
+        _build.BUILD_DIR = OUT_DIR / "sass" / str(i)
+        _build.build_all(list(SASS_SOURCES))
+        out[root] = sass_counts()
+        for k, v in out[root].items():
+            print(f"SASS {root} {k}: " + ", ".join(
+                f"{n} {c}" for n, c in v.items()), flush=True)
+    if out_json:
+        Path(out_json).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_json).write_text(json.dumps(out, indent=1))
+    return 0
 
 
 def main() -> int:
@@ -258,7 +307,10 @@ def main() -> int:
     ap.add_argument("--cluster", type=int, default=beam_fused.CLUSTER)
     ap.add_argument("--widths", type=int, nargs="+", default=list(WIDTHS))
     ap.add_argument("--json", default=None)
+    ap.add_argument("--sass-roots", nargs="+", default=None)
     args = ap.parse_args()
+    if args.sass_roots:
+        return sass_roots(args.sass_roots, args.json)
     if not torch.cuda.is_available():
         print("probe_fused: no CUDA device", file=sys.stderr)
         return 1
@@ -312,9 +364,9 @@ def main() -> int:
     out = {"card": smi, "variant": tag, "stages": {
         name: stage_report(name, fn, lib, cs.graph_ms)
         for name, (fn, lib) in steps.items()}}
-    out["sass_instructions"] = sass_counts()
-    for k, v in out["sass_instructions"].items():
-        print(f"   SASS {k}: {v} instructions")
+    out["sass"] = sass_counts()
+    for k, v in out["sass"].items():
+        print(f"   SASS {k}: " + ", ".join(f"{n} {c}" for n, c in v.items()))
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(out, indent=1))

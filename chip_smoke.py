@@ -45,9 +45,9 @@ reported on its own line:
      bench_fused.py call; the forward's float32 alphas bit for bit the
      bidirectional kernel's; whether the gradients equal the plain
      version's bit for bit is printed);
-  8. train (the training path): run_training at B=32 for 10 steps (one
+  8. train (the training path): run_training at B=32 for 3 steps (one
      bidirectional launch each), one no-grad loss (one forward-alphas
-     launch), run_training at B=256 for 2 steps in float32 and 2 in
+     launch), run_training at B=256 for 1 step in float32 and 1 in
      bfloat16 lattice storage (one forward and one backward launch each),
      and one B=32 step through the plain lattice route from the same
      weights and batch as a kernel-route step (no launches; loss and
@@ -116,22 +116,24 @@ reported on its own line:
  18. exp-domain lattice check on the same ragged lengths (and an example
      whose emit probability is 0 everywhere): the exp-native pass (#9)
      and the exp-domain bidirectional pass (#4) at B=32 and B=256 (their
-     warp walks), the betas-only pass (#3) at B=32 (bit for bit
-     lattice_bidir's warp-walk betas), each against its plain version
-     (LAT_REL; -inf cells equal; #9 and #4 also bit for bit), #9's and
+     warp walks), the betas-only pass (#3, its warp walk) at B=32 and
+     B=256 (bit for bit its block walk and lattice_bidir's warp-walk
+     betas), each against its plain version (LAT_REL; -inf cells equal;
+     #9, #4 and #3 also bit for bit), #9's and
      #4's block walks at T=T_BLOCK_WALK, B=8, the same way, and the
      gradients after the plain backward (GRAD_F32; degenerate examples'
      exactly 0);
  19. exp-domain training (the exp path, lattice_domain="exp", frame
-     log_sigma EXP_LOG_SIGMA): run_training at B=32 for 10 steps (one #9
-     launch each), one no-grad loss (one), run_training at B=256 for 2
-     steps (two); one B=32 step in the exp domain against one in the log
+     log_sigma EXP_LOG_SIGMA): run_training at B=32 for 3 steps (one #9
+     launch each), one no-grad loss (one), run_training at B=256 for 1
+     step (one); one B=32 step in the exp domain against one in the log
      domain from the same weights and batch (loss rtol 1e-4, gradient
      cosine > 0.999); ssnt_loss_kernels(variant="exp") forward and
      backward at B=32 and B=256 (one #4 launch each; loss within 5e-4 of
      variant="log", the degenerate example +inf);
  20. timings: #9, #4 and #3 against their plain versions (device time
-     under a CUDA graph), the lattice loss fwd+bwd for variant "exp",
+     under a CUDA graph; #3's block walk beside it), the lattice loss
+     fwd+bwd for variant "exp",
      "fused" and "plain", and the exp-domain train step at B=32 and B=256
      split into forward, backward and optimizer (host clock);
  21. banded check on the same ragged lengths, at B=32 and B=256 and each
@@ -171,8 +173,8 @@ reported on its own line:
  25. distribution (the sharded train step, the T-sharded lattice ring
      and the decodes over data shards), at B=32 global on ragged lengths
      sorted longest first (data rank 0 holds more tokens): (a) NCCL, one
-     rank, in this process: three sharded steps on a 1x1 mesh against
-     three train_steps from the same state, losses and parameters bit
+     rank, in this process: two sharded steps on a 1x1 mesh against
+     two train_steps from the same state, losses and parameters bit
      for bit, the all_reduces a step, then run_training over that mesh
      with a checkpoint directory for 1 step and resumed to 2 (the
      primary's saves and the end-of-run barrier on NCCL), each timed; and
@@ -187,7 +189,7 @@ reported on its own line:
      the flagship ModelConfig():
      the gloo operations the port calls, on the tensors it hands them
      (a 2-rank probe: the collectives on CUDA tensors, send / recv
-     through host memory), three sharded steps on a 2x2 and on a 1x4
+     through host memory), DIST_STEPS sharded steps on a 2x2 and on a 1x4
      mesh, the parameters split over the model axis
      (mesh.param_sharding), each with lattice_tshard_min_cells=0 (the
      ring: T=80 over 2 or 4 shards, K=16) and with it off, against the
@@ -208,9 +210,9 @@ reported on its own line:
      Every spawned group has a 300 s deadline;
  26. the utilities at the flagship width (ModelConfig(): vocab 256,
      encoder 256 x 4 layers x 4 heads, bf16): (a) the train CLI
-     (scripts.train.main) for 6 steps at B=32 with a checkpoint
-     directory, then resumed to 9: exactly one #8 launch a step taken and
-     no #1/#5, latest_step 6 then 9, restore of step 6 bit for bit the
+     (scripts.train.main) for 2 steps at B=32 with a checkpoint
+     directory, then resumed to 3: exactly one #8 launch a step taken and
+     no #1/#5, latest_step 2 then 3, restore of step 2 bit for bit the
      state the first run saved (every parameter, mu, nu, count, step),
      and the first step after the resume bit for bit the same step taken
      here from the restored state on the same batch; (b)
@@ -218,8 +220,9 @@ reported on its own line:
      run_training(data_dir=) for 3 steps at B=256: one #1 and one #5
      launch a step and no #8, padding efficiencies in (0, 1]; shard
      sizes and times, buckets, step ms, peak memory logged; (c)
-     scripts.eval_e2e --steps 8 --corpus CORPUS --eval-batch 256 --beam
-     8: every key of JAX's record present and finite, exactly 2 x T
+     scripts.eval_e2e --steps EVAL_STEPS --corpus CORPUS --eval-batch 256
+     --beam 8 (bench_step's chains run BENCH_REPEATS times): every key of
+     JAX's record present and finite, exactly 2 x T
      launches of the fused v2 step and T of the fused tone step; then #14
      at that decode batch, B=256 W=8, on the eval model's width: the v2
      step in both of eval_e2e's arms and the tone step, float32 and
@@ -234,8 +237,8 @@ reported on its own line:
      frame; ops/checks flag an emptied v2 step and a bad upsampling length
      on CUDA tensors and pass good ones; (e) at B=32 and B=256, a step
      through decoder_states' chunked remat bit for bit one through the
-     loop without it, then both in turns (split_step_ms, host clock) with
-     each run's peak device memory;
+     loop without it, with each step's peak device memory, then at B=256
+     both in turns (split_step_ms, host clock) with each run's peak;
  27. beam widths and the decode at scale: (a) the libraries' MAX_BEAMS /
      MAX_CANDIDATES equal ops/beam_fused's, and every beam kernel wrapper
      refuses W = MAX_BEAMS + 1 (v2 / tone / v1 max_beam_width too) and
@@ -257,7 +260,7 @@ reported on its own line:
      W=8, bf16, fused route), the B=2048 decode bit for bit its rows
      decoded in 8 slices of 256 and over 4 data ranks (gloo on the card),
      ms, audio-seconds per second, emptied rate, peak device memory; (c) a
-     reduced scripts.triage_empty_beam (steps 4 and 8 at B=64, smoke
+     reduced scripts.triage_empty_beam (steps 2 and 4 at B=64, smoke
      width): JAX's record keys, every sweep (beam_x4 at W=32), and its
      final checkpoint decoded at W=32 on the fused and beam-only routes;
      27a also decodes a float32 model's W=32 request on the fused and
@@ -268,7 +271,9 @@ reported on its own line:
      (tools_slice_phase), every count zeroed before and read after, every
      record on its own line with the card: (a) scripts.profile_decode at
      JAX's width (B=32, W=8, T=80, U=400, bf16) on the beam-only and
-     plain routes, PROFILE_ROUNDS rounds, with a trace, then its full
+     plain routes, PROFILE_ROUNDS rounds of at most PROFILE_MAX_ITERS
+     steps a chain (each chain run BENCH_REPEATS times), with a trace,
+     then its full
      step run over 400 frames bit
      for bit beam_decode on the same route (short utterances finish, so
      the mel keep is taken), #10 and #11 launched exactly the steps the
@@ -279,9 +284,9 @@ reported on its own line:
      25b's ring check), which the unsharded kernel loss (#8, launched
      exactly once a timed call) meets by phase 24's rule; (c)
      scripts.weak_scaling_triage at ModelConfig(), 4 ranks, per-rank batch
-     8, seq 32 80, 3 steps: each arm's lattice launches a call exactly its
-     route's (grad_mode); (d) scripts.weak_scaling_proof at ModelConfig(),
-     n = 1, 2, 4, total batch 32, TOOL_STEPS timed steps:
+     8, seq 32 80, TRIAGE_STEPS steps: each arm's lattice launches a call
+     exactly its route's (grad_mode); (d) scripts.weak_scaling_proof at ModelConfig(),
+     n in PROOF_DEVICES, total batch 32, TOOL_STEPS timed steps:
      total_flops_vs_unsharded within 1e-3 of 1, 2 all_reduces a step.
 
 Then one JSON line describing the kernels, and as the last line
@@ -294,11 +299,28 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
+import importlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
 import time
+
+if __name__ in ("__main__", "__mp_main__"):
+    # The bytecode of every module this run compiles goes to build/pycache,
+    # for this process and the ranks it spawns (which start from this
+    # environment and import this file again). An interpreter told not to
+    # write bytecode (PYTHONDONTWRITEBYTECODE) beside sources that have
+    # none would compile PyTorch's Python modules anew in every process:
+    # seconds for `import torch`, and more for the torch._dynamo import
+    # that the first step through torch.utils.checkpoint makes.
+    _PYC = str(pathlib.Path(__file__).resolve().parent / "build" / "pycache")
+    sys.pycache_prefix = _PYC
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = _PYC
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 import numpy as np
 import torch
@@ -363,6 +385,18 @@ SERVE_CFG = dict(vocab_size=128, mel_dim=80, encoder_dim=256,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_LAP = [time.time(), time.time()]  # (start of the run, end of the last lap)
+
+
+def lap(phase: str) -> None:
+    """Logs the seconds since the last lap as `phase`'s, and since the
+    start of the run (main resets the clock)."""
+    now = time.time()
+    log(f"[seconds] phase {phase}: {now - _LAP[1]:.1f} s ({now - _LAP[0]:.1f} "
+        f"s into the run)")
+    _LAP[1] = now
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -679,6 +713,21 @@ def block_forward_alphas(le, ls, lf):
     return a
 
 
+def block_backward_betas(le, ls, lf, il, ol):
+    """#3 by its block walk at any T (ssnt_lattice_backward_betas_block)."""
+    from ssnt_tts_tpu_torch.ops import _build
+
+    U, Bn, Tn = le.shape
+    b = torch.empty((U, Bn, Tn), device=le.device)
+    rc = _build.lattice_library().ssnt_lattice_backward_betas_block(
+        Bn, Tn, U, le.data_ptr(), ls.data_ptr(), lf.data_ptr(),
+        il.data_ptr(), ol.data_ptr(), b.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"backward betas block walk: cudaError {rc}")
+    return b
+
+
 def block_backward_grads(le, ls, lf, a, il, ol, g, z):
     """#5 by its block walk at any T (ssnt_lattice_backward_grads_block)."""
     from ssnt_tts_tpu_torch.ops import _build
@@ -796,7 +845,7 @@ def to_device(batch, dev):
             if k != "alignment"}
 
 
-def split_step_ms(tx, state, batch, reps: int = 3) -> dict:
+def split_step_ms(tx, state, batch, reps: int = 1) -> dict:
     """Host-clock ms of train_step's parts (model.loss, backward, the
     optimizer), each ending in a synchronize; median of `reps` steps."""
     from ssnt_tts_tpu_torch.parallel import train as train_lib
@@ -974,13 +1023,14 @@ def train_phases(seed: int, dev, smi: str) -> list:
     # ---- 7. lattice kernels against their plain versions ----
     e_bidir, e_fwd, e_bwd = check_lattice(rng, dev)
 
+    lap("7")
     # ---- 8. train (the main path) ----
     cfg = ModelConfig(**SERVE_CFG)
     counts = lattice_counts
     train = lambda *a: train_run("8 train", *a, seed, dev)
 
     zero_counts()
-    train("b32", 10, B, cfg, (10, 0, 0, 0, 0, 0, 0, 0))
+    train("b32", 3, B, cfg, (3, 0, 0, 0, 0, 0, 0, 0))
     train_tcfg = TrainConfig(warmup_steps=2, batch_size=B)
     ds = data_lib.SyntheticTTSDataset(
         vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim, seed=seed + 2)
@@ -998,10 +1048,10 @@ def train_phases(seed: int, dev, smi: str) -> list:
         raise AssertionError("no-grad loss: not B finite values")
     log(f"[8 train] no-grad loss B={B}: 1 forward-alphas launch, mean NLL "
         f"per utterance {float(nll.mean()):.3f}")
-    train("b256", 2, B_LARGE, cfg, (0, 2, 2, 0, 0, 0, 0, 0))
-    train("b256_bf16_lattice", 2, B_LARGE,
+    train("b256", 1, B_LARGE, cfg, (0, 1, 1, 0, 0, 0, 0, 0))
+    train("b256_bf16_lattice", 1, B_LARGE,
           dc.replace(cfg, lattice_dtype="bfloat16"),
-          (0, 2, 2, 0, 0, 0, 0, 0))
+          (0, 1, 1, 0, 0, 0, 0, 0))
     cfg_plain = dc.replace(cfg, lattice_impl="xla")
     state_p = train_lib.init_train_state(cfg_plain, train_tcfg, seed=seed,
                                          device=dev)
@@ -1026,9 +1076,10 @@ def train_phases(seed: int, dev, smi: str) -> list:
         f"vs {float(mp['grad_norm']):.5f} (rtol {ROUTE_LOSS_RTOL}, "
         f"{ROUTE_NORM_RTOL}); the plain step launched no kernel")
     main_launches = counts()
-    if main_launches != (11, 5, 4, 0, 0, 0, 0, 0):
+    if main_launches != (4, 3, 2, 0, 0, 0, 0, 0):
         raise AssertionError(f"train phase launches {main_launches}")
 
+    lap("8")
     # ---- 9. timings ----
     lat_rows = []
     for name, Bn, dtype in (("bidir", B, torch.float32),
@@ -1167,8 +1218,9 @@ def check_expin_bits(x, il, ol, what: str):
 
 
 def check_exp_lattice(rng, dev) -> dict:
-    """Phase 18: #9 and #4 at B=32 and B=256, #3 at B=32, each against
-    its plain version, and #9's block walk (T above the warp walk's).
+    """Phase 18: #9, #4 and #3 at B=32 and B=256, each against its plain
+    version (#3 also against its block walk and #8's betas), and #9's and
+    #4's block walks (T above the warp walks').
     Returns each kernel's max abs error."""
     from ssnt_tts_tpu_torch.ops import lattice as lat
     from ssnt_tts_tpu_torch.ops import lattice_kernels as lk
@@ -1230,28 +1282,32 @@ def check_exp_lattice(rng, dev) -> dict:
             f"({n_inf[0]} alphas, {n_inf[1]} betas), grads after the "
             f"posterior pass {e_gex:.3e} (tol {LAT_REL}, {GRAD_F32}); "
             f"degenerate examples' grads exactly 0")
-        if Bn != B:
-            continue
+        # #3: its warp walk bit for bit its block walk and #8's betas.
         le, ls, lf = logs
         with torch.no_grad():
             kb = lk.lattice_backward_betas(le, ls, lf, il, ol)
+            bb = block_backward_betas(le, ls, lf, il, ol)
             ra, rb = lk.lattice_bidir_reference(le, ls, lf, il, ol)
             _, bidir_b = lk.lattice_bidir(le, ls, lf, il, ol)
             torch.cuda.synchronize()
-            if not same_bits(kb, bidir_b):
-                raise AssertionError("backward_betas: not lattice_bidir's "
-                                     "betas bit for bit")
-            e_b = lattice_err(kb, rb, "backward_betas")
+            if not (same_bits(kb, bb) and same_bits(kb, bidir_b)
+                    and same_bits(kb, rb)):
+                raise AssertionError(f"backward_betas B={Bn}: the warp walk "
+                                     f"is not the block walk's, "
+                                     f"lattice_bidir's and the plain "
+                                     f"version's betas bit for bit")
+            e_b = lattice_err(kb, rb, f"backward_betas B={Bn}")
             rz = lat.gather_logz(ra, le, il, ol)
             e_gb = grad_err(
                 lat.posterior_grads(le, ls, lf, ra, kb, rz, il, ol, g),
                 lat.posterior_grads(le, ls, lf, ra, rb, rz, il, ol, g),
-                GRAD_F32, "backward_betas grads")
-        err["lattice_backward_betas"] = e_b[0]
-        log(f"[18 exp lattice] backward_betas B={B} f32: bit for bit "
-            f"lattice_bidir's betas; max abs err {e_b[0]:.3e}, rel err "
-            f"{e_b[1]:.3e} against the plain version, grads after the "
-            f"posterior pass {e_gb:.3e}; degenerate grads exactly 0")
+                GRAD_F32, f"backward_betas grads B={Bn}")
+        err["lattice_backward_betas"] = max(err["lattice_backward_betas"],
+                                            e_b[0])
+        log(f"[18 exp lattice] backward_betas (warp walk) B={Bn} f32: bit "
+            f"for bit its block walk's, lattice_bidir's and the plain "
+            f"version's betas; grads after the posterior pass {e_gb:.3e}; "
+            f"degenerate grads exactly 0")
     # #9's block walk: T above the warp walk's 128.
     x, _, (il, ol) = exp_lattice_inputs(rng, 8, dev, T_BLOCK_WALK)
     with torch.no_grad():
@@ -1298,6 +1354,7 @@ def exp_phases(seed: int, dev, smi: str) -> list:
     # ---- 18. exp-domain kernels against their plain versions ----
     err = check_exp_lattice(rng, dev)
 
+    lap("18")
     # ---- 19. exp-domain training (the main path) ----
     # From the random tree with a wider frame sigma, at TrainConfig's
     # default warmup (EXP_LOG_SIGMA).
@@ -1322,7 +1379,7 @@ def exp_phases(seed: int, dev, smi: str) -> list:
         return out
 
     zero_counts()
-    train("exp_b32", 10, B, cfg, (0, 0, 0, 0, 0, 10, 0, 0))
+    train("exp_b32", 3, B, cfg, (0, 0, 0, 0, 0, 3, 0, 0))
     tcfg = TrainConfig(warmup_steps=EXP_WARMUP, batch_size=B)
     batch32 = to_device(data_lib.SyntheticTTSDataset(
         vocab_size=cfg.vocab_size, mel_dim=cfg.mel_dim,
@@ -1339,7 +1396,7 @@ def exp_phases(seed: int, dev, smi: str) -> list:
                              "the sentinel")
     log(f"[19 exp train] no-grad loss B={B}: 1 expin launch, mean NLL per "
         f"utterance {float(nll.mean()):.3f}")
-    train("exp_b256", 2, B_LARGE, cfg, (0, 0, 0, 0, 0, 2, 0, 0))
+    train("exp_b256", 1, B_LARGE, cfg, (0, 0, 0, 0, 0, 1, 0, 0))
 
     # One step's loss and gradients, exp domain against log domain, from
     # the same weights and batch.
@@ -1428,9 +1485,10 @@ def exp_phases(seed: int, dev, smi: str) -> list:
             f"{EXP_VARIANT_RTOL}); degenerate example +inf in the kernel "
             f"and plain routes, gradients finite, its own exactly 0")
     main = lattice_counts()
-    if main != (1, 3, 0, 0, 2, 18, 0, 0):
+    if main != (1, 3, 0, 0, 2, 10, 0, 0):
         raise AssertionError(f"exp phase launches {main}")
 
+    lap("19")
     # ---- 20. timings ----
     rows = {}
     for Bn in (B, B_LARGE):
@@ -1461,6 +1519,11 @@ def exp_phases(seed: int, dev, smi: str) -> list:
                     f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (device "
                     f"time, CUDA graph); bound {bd[0] * 1e3:.2f} us "
                     f"({bd[1]}, {nb / 1e6:.1f} MB)")
+            b_ms = graph_ms(lambda: block_backward_betas(*logs, il, ol),
+                            k=20, reps=10)
+            log(f"[20 time] {smi}: lattice_backward_betas block walk "
+                f"B={Bn} T={T} U={U} f32: {b_ms:.4f} ms (device time, CUDA "
+                f"graph); chain floor U x 120 ns = {U * 120e-6:.4f} ms")
     for Bn in (B, B_LARGE):
         (le, ls, lf), (il, ol) = lattice_inputs(rng, Bn, torch.float32, dev)
         for variant in ("exp", "fused", "plain"):
@@ -1604,6 +1667,7 @@ def banded_phases(seed: int, dev, smi: str) -> list:
     # ---- 21. banded kernels against their plain versions ----
     err = check_banded(rng, dev)
 
+    lap("21")
     # ---- 22. the banded path ----
     def fwd_bwd(x, variant):
         (le, ls, lf), (il, ol) = x
@@ -1672,6 +1736,7 @@ def banded_phases(seed: int, dev, smi: str) -> list:
         f"per banded fwd+bwd and one #2 per no-grad forward, at each K and "
         f"B; variant=scan none")
 
+    lap("22")
     # ---- 23. timings ----
     rows = {}
     for Bn in (B, B_LARGE):
@@ -1876,8 +1941,8 @@ GUARD = 4096
 
 
 def guard_check(rng, dev) -> str:
-    """#1 and #5 (float32 and bfloat16 storage; the entries' walks and the
-    block walks' _block entries), #3 and #8, called through their C
+    """#1 and #5 (float32 and bfloat16 storage), #3 (the entries' walks and
+    the block walks' _block entries) and #8, called through their C
     entries at T = 80 (warp walks; block walks at one thread a position),
     1100, 3000 and MAX_T (2, 4 and 8 positions a thread), twice: on plain
     tensors and with every tensor in the middle of a buffer whose GUARD
@@ -1959,13 +2024,14 @@ def guard_check(rng, dev) -> str:
                               (bf16, Bn, Tn, Un), [*x, a, il, ol, g, z],
                               [d, d, d])
                 runs += 2
-        cells += call("ssnt_lattice_backward_betas", (Bn, Tn, Un),
-                      [le, ls, lf, il, ol], [f32])
+        for block in ("", "_block"):
+            cells += call(f"ssnt_lattice_backward_betas{block}",
+                          (Bn, Tn, Un), [le, ls, lf, il, ol], [f32])
         cells += call("ssnt_lattice_bidir", (Bn, Tn, Un),
                       [le, ls, lf, il, ol], [f32, f32])
-        runs += 2
-    return (f"{runs} guarded calls of #1, #5 (f32, bf16; walk and block "
-            f"walk), #3, #8 at T = {T}, 1100, 3000, {lk.MAX_T}: guard "
+        runs += 3
+    return (f"{runs} guarded calls of #1, #5 (f32, bf16), #3 (walk and "
+            f"block walk), #8 at T = {T}, 1100, 3000, {lk.MAX_T}: guard "
             f"bands of {GUARD} elements intact, all {cells} output cells "
             f"written, bit for bit the unguarded runs")
 
@@ -2296,6 +2362,7 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
             f"selection and reorder bit-exact; max |dh|, |dnew_h| "
             f"{worst[dt]:.3e} (tol {TOL[dt]})")
 
+    lap("10")
     # ---- 11. beam-only kernels against their plain versions ----
     from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
 
@@ -2336,6 +2403,7 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
         f"against the plain versions; the overrun utterance emptied in "
         f"all {emptied} non-test_mode v2 checks")
 
+    lap("11")
     # ---- 12. tone serve (the tone path) ----
     counters = (beam_fused.fused_class_beam_step, beam_fused.fused_tone_step,
                 bk.v2_beam_search_decode, bk.tone_beam_search_decode)
@@ -2407,6 +2475,7 @@ def tone_phases(seed: int, dev, smi: str, models, v2_req) -> list:
         f"durations equal the plain route's bit for bit; emptied "
         f"{n_empty}/{B}")
 
+    lap("12")
     # ---- 13. timings ----
     toks, il, target = reqs[0]
     targs = tone_step_inputs(bf, toks, il, mid, rng, dev)
@@ -2716,6 +2785,7 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
             f"mel keep bit-exact; max |dh|, |dnew_h|, |dmel| "
             f"{worst[dt]:.3e} (tol {TOL[dt]})")
 
+    lap("14")
     # ---- 15. beam-only v1 kernels against their plain versions ----
     n15 = 0
     for Wn in (1, W, 16):
@@ -2734,6 +2804,7 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
         f"lengths ({n15} checks each): every output bit-exact against the "
         f"plain versions")
 
+    lap("15")
     # ---- 16. v1 serve (the v1 path) ----
     counters = (beam_fused.fused_v1_beam_step, bk.beam_search_step_reorder,
                 bk.beam_search_step_batched)
@@ -2806,6 +2877,7 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
         + ", ".join(f"{n}/{B}" for n in finished)
         + f" (greedy {g_fin}/{B})")
 
+    lap("16")
     # ---- 17. timings ----
     pack, fw, c = carry100
     fargs = (pack, c["t"], c["u"], c["lp"], c["fin"], il, c["pm"],
@@ -2942,6 +3014,9 @@ def v1_phases(seed: int, dev, smi: str, models) -> list:
 DIST_LOSS_RTOL, DIST_PARAM_RTOL, DIST_PARAM_ATOL = 2e-4, 2e-3, 2e-5
 # Every spawned group's deadline (its collectives time out after it too).
 DIST_TIMEOUT_S = 300
+# Phase 25b's sharded steps on each mesh (cut from 3 for time); its
+# decodes follow 3 (with 2, every utterance of the plain route empties).
+DIST_STEPS = 2
 
 
 def dist_batches(cfg, seed: int, n: int) -> list:
@@ -2978,15 +3053,15 @@ def params_outside(got: dict, want: dict) -> tuple:
 
 
 def distribution_phase(seed: int, dev, smi: str) -> None:
-    """Phase 25: (a) NCCL, one rank, in this process: three sharded steps
+    """Phase 25: (a) NCCL, one rank, in this process: two sharded steps
     (mesh 1x1) against three train_steps from the same state, bit for bit;
     run_training with checkpoints over the NCCL mesh, then resumed; and
     run_training resumed from a checkpoint that four ranks saved from
     split parameter storage (2x2); (b) four ranks (gloo on the one card,
     each on cuda:0; NCCL one rank a card when there are four cards), at
     the flagship ModelConfig(): the gloo operations on the tensors the
-    port hands them, three sharded steps on a 2x2 and on a 1x4 mesh (the
-    parameters split over the model axis), each with the T-sharded ring
+    port hands them, DIST_STEPS sharded steps on a 2x2 and on a 1x4 mesh
+    (the parameters split over the model axis), each with the T-sharded ring
     and without, against the one-process step with whole parameters, the
     bytes each rank stores, the ring alone against the plain lattice loss,
     the four decodes over data shards after sharded training against
@@ -3048,7 +3123,7 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         "step over the two row halves")
     train_lib.train_step(txl, one, first)  # the resumed run replays it
 
-    batches = dist_batches(cfg, seed, 3)
+    batches = dist_batches(cfg, seed, 2)
     tokens = [int(b["input_length"][:B // 2].sum()) for b in batches]
     log(f"[25 dist] global batches B={B} T={T} U={U} bf16, rows sorted by "
         f"input length: data rank 0 holds {tokens} of "
@@ -3114,12 +3189,14 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
                     "step 1")
     finally:
         dist.destroy_process_group()
-    if launches != (6, 0, 0, 0, 0, 0, 0, 0):
+    if launches != (2 * len(batches), 0, 0, 0, 0, 0, 0, 0):
         raise AssertionError(f"25a: launches {LAUNCH_NAMES} {launches}")
-    log(f"[25a nccl] backend {mesh.backend}, mesh 1x1, 3 sharded steps vs "
-        f"3 train_steps from the same state: losses and every parameter bit "
-        f"for bit (loss {float(m_s['loss']):.6f}); "
-        f"{step_fn.all_reduces // 3} all_reduces a step (the normalizers, "
+    log(f"[25a nccl] backend {mesh.backend}, mesh 1x1, {len(batches)} "
+        f"sharded steps vs {len(batches)} train_steps from the same state: "
+        f"losses and every parameter bit for bit (loss "
+        f"{float(m_s['loss']):.6f}); "
+        f"{step_fn.all_reduces // len(batches)} all_reduces a step (the "
+        f"normalizers, "
         f"then gradients + metrics in one flat buffer); launches "
         f"{LAUNCH_NAMES} {launches}")
     log(f"[25a nccl] run_training over the NCCL mesh with checkpoint_dir: "
@@ -3135,6 +3212,7 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         + " ".join(f"{x:.1f}" for x in ms["sharded"]) + ", train_step "
         + " ".join(f"{x:.1f}" for x in ms["train_step"]))
 
+    lap("25a")
     # ---- (b) four ranks, at the flagship width ----
     cfg = ModelConfig()
     batches = dist_batches(cfg, seed, 3)
@@ -3154,11 +3232,15 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
             f" the ring's hops go through host memory explicitly "
             f"(Mesh.stage_p2p; gloo's send of a CUDA tensor aborts the "
             f"process); the compute stays on the card")
+    lap("25b probe")
     # One-process references with whole parameters on the same global
     # batches: train_step on the whole batch, and the same step over the
     # data ranks' row blocks (gradients summed in one process: a data
     # group's sum), with the lattice on the plain route or on a one-rank
     # ring.
+    # Each keeps (metrics a step, parameters, state) after the sharded
+    # arms' steps; the halves' state then takes the decode's last step.
+    steps = batches[:DIST_STEPS]
     ref = {}
     for name, parts, ring in (("whole", 1, False), ("whole_ring", 1, True),
                               ("halves", 2, False),
@@ -3166,13 +3248,18 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         st = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
         txr = train_lib.make_optimizer(tcfg)
         ms = []
-        for b in batches:
+        for i, b in enumerate(batches if name == "halves" else steps):
+            if i == len(steps):
+                ref[name] = (ms, {k: v.detach().clone() for k, v in
+                                  st.model.state_dict().items()}, st)
             batch = to_device(b, dev)
             m = (train_lib.train_step(txr, st, batch)[1] if name == "whole"
                  else dryrun.split_step(txr, st, batch, ring=ring,
                                         parts=parts)[1])
-            ms.append({k: float(v) for k, v in m.items()})
-        ref[name] = (ms, st)
+            if i < len(steps):
+                ms.append({k: float(v) for k, v in m.items()})
+        if name != "halves":
+            ref[name] = (ms, st.model.state_dict(), st)
 
     # (mesh, T-shard on, reference): a 2x2 rank holds its data half, a 1x4
     # rank the whole batch.
@@ -3180,8 +3267,9 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
                ((1, 4), True, "whole_ring"), ((1, 4), False, "whole")]
     runs = [{"cfg": dataclasses.replace(
         cfg, lattice_tshard_min_cells=0 if ring else None), "tcfg": tcfg,
-        "seed": seed, "batches": batches, "mesh": mesh}
+        "seed": seed, "batches": steps, "mesh": mesh}
         for mesh, ring, _ in layouts]
+    lap("25b one-process references")
     t0 = time.perf_counter()
     ranks = dryrun.launch("steps", {"mesh": (2, 2), "runs": runs,
                                     "ring": (U, B // 2, T)}, 4,
@@ -3191,18 +3279,18 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
     K = lattice_sharded._pick_block(U)
     whole_loss = [m["loss"] for m in ref["whole"][0]]
     whole_bytes = sum(p.numel() * p.element_size()
-                      for p in ref["whole"][1].model.parameters())
+                      for p in ref["whole"][2].model.parameters())
     stored = {}
     for (mesh, ring, rname), run_i in zip(layouts, range(len(layouts))):
         d, m = mesh
         owners = mesh_lib.param_sharding(m, cfg)
         want_bytes = sum(
             p.numel() * p.element_size() // (1 if owners[n] is None else m)
-            for n, p in ref["whole"][1].model.named_parameters())
+            for n, p in ref["whole"][2].model.named_parameters())
         stored[mesh] = want_bytes
         hops = lattice_sharded.hops_per_walk(U, m, K)
         split = ref[rname]
-        want_params = split[1].model.state_dict()
+        want_params = split[1]
         for r in ranks:
             run = r["runs"][run_i]
             what = (f"25b rank {r['rank']} mesh {d}x{m} T-shard "
@@ -3224,8 +3312,7 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
                     "data": d, "model": m}:
                 raise AssertionError(f"{what}: stores {run['stored_bytes']}"
                                      f" bytes, not {want_bytes}")
-            run["outside"] = params_outside(run["params"],
-                                            ref["whole"][1].model.state_dict())
+            run["outside"] = params_outside(run["params"], ref["whole"][1])
             for s_ in run["steps"]:
                 want_ring = {"hops_forward": hops, "hops_backward": hops,
                              "all_reduce": 1, "all_gather": 1} if ring else {
@@ -3253,8 +3340,7 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
             raise AssertionError(f"25b: rank {r['rank']}'s ring gradients "
                                  f"differ from rank 0's")
     floor = params_outside({k: v.cpu() for k, v in
-                            ref["halves"][1].model.state_dict().items()},
-                           ref["whole"][1].model.state_dict())
+                            ref["halves"][1].items()}, ref["whole"][1])
     fmt = lambda xs: " ".join(f"{x:.6f}" for x in xs)
     losses = [[s_["metrics"]["loss"] for s_ in run["steps"]]
               for run in r0["runs"]]
@@ -3264,7 +3350,8 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         f"(model 2) and {stored[(1, 4)]} at 1x4 (model 4) of "
         f"{whole_bytes} whole (asserted for every rank); Adam's mu and nu "
         f"whole; per step 1 all_gather over the model group and 2 "
-        f"all_reduces over the data group (asserted). Three steps on each "
+        f"all_reduces over the data group (asserted). {len(steps)} steps "
+        f"on each "
         f"mesh with lattice_tshard_min_cells=0 (T={T} over the model "
         f"axis's shards, K={K}, "
         f"{lattice_sharded.hops_per_walk(U, 2, K)} / "
@@ -3315,8 +3402,10 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
             f"{r['ring']['ms']:.1f} ms "
             f"({2 * lattice_sharded.hops_per_walk(U, 2, K)} hops)")
 
-    # The four decodes over data shards, after the same three sharded steps
-    # (2x2, T-shard off), on the model made whole again.
+    lap("25b steps")
+    # The four decodes over data shards, after three sharded steps (2x2,
+    # T-shard off; the one-process halves' state took the same three), on
+    # the model made whole again.
     rng = np.random.default_rng(seed + 6)
     toks, il, ol = (x.cpu().numpy() for x in make_request(
         rng, cfg.vocab_size, dev))
@@ -3329,7 +3418,7 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
     dec = dryrun.launch("decode", job, 4, work / "decode", backend=backend,
                         timeout=DIST_TIMEOUT_S)
     secs = time.perf_counter() - t0
-    model = ref["halves"][1].model.eval()
+    model = ref["halves"][2].model.eval()
     req = tuple(torch.as_tensor(x, device=dev) for x in (toks, il, ol))
     halves_rows = (slice(0, B // 2), slice(B // 2, B))
 
@@ -3387,7 +3476,7 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
     shares["v1"] = float((gathered["v1"]["alignment"] ==
                           want["v1"]["alignment"]).all(1).float().mean())
     log(f"[25b decode] {backend}, 4 ranks ({secs:.1f}s with start-up), "
-        f"after three 2x2 sharded steps with split parameters "
+        f"after {len(batches)} 2x2 sharded steps with split parameters "
         f"(train.unshard; the one-process reference: the step over the two "
         f"row halves), each "
         f"data rank's {B // 2} rows, beams rank-local, W={W}: launches a "
@@ -3403,6 +3492,7 @@ def distribution_phase(seed: int, dev, smi: str) -> None:
         f"tone best beam {shares['tone']:.3f}, v1 alignment "
         f"{shares['v1']:.3f}")
 
+    lap("25b decode")
     # A witness for the cause of those shares: the plain routes, in the
     # bf16 model and in a float32 one (same weights, no TF32), the whole
     # batch against its two halves decoded apart in this process.
@@ -3450,8 +3540,13 @@ EVAL_KEYS = (
     "v2_beam_emptied_rate_guard", "v2_beam_emptied_stderr_guard",
     "v2_output_length_mae_frames_guard", "eval_n",
     "tone_edit_distance_mean", "tone_edit_distance_per_token", "wall_s")
-# Phase 26's corpora: examples materialized into .npz shards.
-CORPUS = 1024
+# Phase 26's corpora (examples materialized into .npz shards: two
+# batches of B_LARGE, cut from 1024 for time) and eval_e2e's training
+# steps (cut from 8); the runs of each chain that utils/timing.bench_step
+# times in eval_e2e (26c) and profile_decode (28a), its default 3.
+CORPUS = 512
+EVAL_STEPS = 2
+BENCH_REPEATS = 1
 
 
 def state_record(state) -> dict:
@@ -3516,8 +3611,8 @@ def cli_phase(work, dev) -> None:
     zero_counts()
     secs = []
     with mock.patch.object(train_lib, "train_step", recorded_step):
-        for steps in (6, 9):
-            seen["arm"] = steps == 9
+        for steps in (2, 3):
+            seen["arm"] = steps == 3
             t0 = time.perf_counter()
             rc = train_cli.main(["--steps", str(steps), "--batch-size",
                                  str(B), "--ckpt", str(ckpt), "--metrics",
@@ -3528,17 +3623,17 @@ def cli_phase(work, dev) -> None:
                 raise AssertionError(f"train CLI --steps {steps}: rc {rc}, "
                                      f"latest step "
                                      f"{ckpt_lib.latest_step(str(ckpt))}")
-            if steps == 6:
+            if steps == 2:
                 saved = state_record(seen["last"])
     counts = read_counts()
-    expect_counts("26a CLI (6 steps, then 3 resumed)", counts,
-                  {"lattice_bidir": 9})
-    # restore of step 6 against the state the first run saved
+    expect_counts("26a CLI (2 steps, then 1 resumed)", counts,
+                  {"lattice_bidir": 3})
+    # restore of step 2 against the state the first run saved
     cfg = ModelConfig()
     tcfg = TrainConfig(batch_size=B, warmup_steps=2)
     like = train_lib.init_train_state(cfg, tcfg, seed=1, device=dev)
-    restored = ckpt_lib.restore(str(ckpt), like, step=6)
-    n = same_record(state_record(restored), saved, "26a restore of step 6")
+    restored = ckpt_lib.restore(str(ckpt), like, step=2)
+    n = same_record(state_record(restored), saved, "26a restore of step 2")
     # the resumed run's first step, taken here from the restored state
     batch, after, loss = seen["resumed"]
     _, metrics = train_lib.train_step(train_lib.make_optimizer(tcfg),
@@ -3549,16 +3644,16 @@ def cli_phase(work, dev) -> None:
         raise AssertionError(f"26a resumed step loss {loss} vs "
                              f"{float(metrics['loss'])}")
     rows = [json.loads(x) for x in
-            (work / "cli_9.jsonl").read_text().splitlines()]
+            (work / "cli_3.jsonl").read_text().splitlines()]
     n_params = sum(p.numel() for p in restored.model.parameters())
     log(f"[26a cli] scripts.train at ModelConfig() ({n_params} parameters; "
         f"vocab {cfg.vocab_size}, encoder {cfg.encoder_dim} x "
         f"{cfg.encoder_layers} x {cfg.encoder_heads} heads, decoder "
-        f"{cfg.decoder_dim}, {cfg.dtype}), B={B} T={T} U={U}: 6 steps "
-        f"in {secs[0]:.1f}s, resumed to 9 in {secs[1]:.1f}s (process "
-        f"start to exit, host clock); launches {counts}; latest_step 6 "
-        f"then 9; restore of step 6 bit for bit the saved state ({n} "
-        f"tensors, step, count); step 7 after the resume bit for bit the "
+        f"{cfg.decoder_dim}, {cfg.dtype}), B={B} T={T} U={U}: 2 steps "
+        f"in {secs[0]:.1f}s, resumed to 3 in {secs[1]:.1f}s (process "
+        f"start to exit, host clock); launches {counts}; latest_step 2 "
+        f"then 3; restore of step 2 bit for bit the saved state ({n} "
+        f"tensors, step, count); step 3 after the resume bit for bit the "
         f"same step from the restored state (loss {loss:.6f}); final loss "
         f"{rows[-1]['loss']:.4f}")
 
@@ -3671,17 +3766,22 @@ def eval_steps(seed: int, dev) -> str:
 
 def eval_phase(work, seed: int, dev, smi: str) -> None:
     """26c: scripts.eval_e2e, reduced."""
+    from unittest import mock
+
     from ssnt_tts_tpu_torch import data as data_lib
     from ssnt_tts_tpu_torch.parallel import train as train_lib
     from ssnt_tts_tpu_torch.scripts import eval_e2e
+    from ssnt_tts_tpu_torch.utils import timing
     from ssnt_tts_tpu_torch.utils.config import ModelConfig, TrainConfig
 
     zero_counts()
     t0 = time.perf_counter()
-    record = eval_e2e.main([
-        "--steps", "8", "--corpus", str(CORPUS), "--eval-batch",
-        str(B_LARGE), "--beam", str(W), "--data-dir",
-        str(work / "eval_shards"), "--out", str(work / "eval.json")])
+    with mock.patch.object(timing, "bench_step", functools.partial(
+            timing.bench_step, repeats=BENCH_REPEATS)):
+        record = eval_e2e.main([
+            "--steps", str(EVAL_STEPS), "--corpus", str(CORPUS),
+            "--eval-batch", str(B_LARGE), "--beam", str(W), "--data-dir",
+            str(work / "eval_shards"), "--out", str(work / "eval.json")])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
@@ -3693,7 +3793,9 @@ def eval_phase(work, seed: int, dev, smi: str) -> None:
     expect_counts("26c eval (v2 decode in two arms, tone decode)",
                   {k: counts.get(k) for k in fused},
                   dict(zip(fused, (2 * T, T))))
+    lap("26c eval_e2e")
     steps_line = eval_steps(seed, dev)
+    lap("26c #14 at B=256")
     cfg = ModelConfig(**SERVE_CFG, use_duration_lattice=True)
     tcfg = TrainConfig(batch_size=B_LARGE, warmup_steps=2)
     state = train_lib.init_train_state(cfg, tcfg, seed=seed, device=dev)
@@ -3703,7 +3805,8 @@ def eval_phase(work, seed: int, dev, smi: str) -> None:
         duration_class_size=cfg.duration_class_size,
         tone_class_size=cfg.tone_class_size, seed=seed + 7).batch(B_LARGE), dev)
     split = split_step_ms(tx, state, batch)
-    log(f"[26c eval] scripts.eval_e2e --steps 8 --corpus {CORPUS} "
+    log(f"[26c eval] scripts.eval_e2e --steps {EVAL_STEPS} --corpus "
+        f"{CORPUS} "
         f"--eval-batch {B_LARGE} --beam {W} in {secs:.1f}s; launches "
         f"{counts}")
     log(steps_line)
@@ -3740,11 +3843,12 @@ def tools_phase(work, seed: int, dev) -> None:
         f"(flagship; phase 9 times the smoke width): {split['total']:.1f} "
         f"ms = forward {split['forward']:.1f} + backward "
         f"{split['backward']:.1f} + optimizer {split['optimizer']:.1f} "
-        f"(host clock, median of 3)")
+        f"(host clock, one step)")
+    lap("26d split step")
     trace_dir = work / "trace"
     for old in trace_dir.glob("*.json"):
         old.unlink()
-    with profiling.trace(str(trace_dir)) as prof:
+    with profiling.trace(str(trace_dir)):
         with profiling.annotate("ssnt_train_step"):
             train_lib.train_step(tx, state, batch)
         torch.cuda.synchronize()
@@ -3761,14 +3865,19 @@ def tools_phase(work, seed: int, dev) -> None:
     busy = sum(e.get("dur", 0) for e in kernels)
     span = max(e["ts"] + e.get("dur", 0) for e in kernels) - min(
         e["ts"] for e in kernels)
+    # The trace's own summary: key_averages() would take tens of seconds
+    # over its ~200k events.
+    names = {e["name"] for e in events if e.get("cat") in ("cpu_op",
+                                                          "kernel")}
     log(f"[26d tools] trace of one B={B} train step (ModelConfig()): "
         f"{files[0].stat().st_size / 1e6:.1f} MB, {len(kernels)} kernel "
         f"events, the lattice_bidir kernel as {bidir[0]['name'][:60]!r} "
         f"({bidir[0].get('dur', 0):.1f} us), kernel time {busy / 1e3:.1f} "
         f"ms over a {span / 1e3:.1f} ms span (busy share "
-        f"{busy / max(span, 1):.3f}); key_averages rows "
-        f"{len(prof.key_averages())}")
+        f"{busy / max(span, 1):.3f}); {len(names)} distinct operator and "
+        f"kernel names")
 
+    lap("26d trace")
     guarded = debug.guard_nans(
         lambda st, b: train_lib.train_step(tx, st, b), "train_step")
     err, _ = guarded(state, batch)
@@ -3818,10 +3927,16 @@ def utilities_phase(seed: int, dev, smi: str) -> None:
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
     cli_phase(work, dev)
+    lap("26a")
     files_phase(work, seed, dev)
+    lap("26b")
     eval_phase(work, seed, dev, smi)
+    lap("26c split step")
     tools_phase(work, seed, dev)
-    remat_compare("26e", ModelConfig(), (B, B_LARGE), seed, dev, smi)
+    lap("26d guard_nans, checks")
+    remat_compare("26e", ModelConfig(), (B,), seed, dev, smi, reps=0)
+    remat_compare("26e", ModelConfig(), (B_LARGE,), seed, dev, smi, reps=1)
+    lap("26e")
     log(f"[26 util] phase 26 in {time.time() - t0:.1f}s")
 
 
@@ -4440,13 +4555,13 @@ def triage_phase(dev) -> None:
     t_phase = time.time()
     got = {}
     rec = triage_empty_beam.main(
-        ["--steps", "4", "8", "--batch", "64", "--eval-batch", "64",
+        ["--steps", "2", "4", "--batch", "64", "--eval-batch", "64",
          "--beam", str(W), "--out",
          "build/chip_smoke/triage/triage.json"], outputs=got)
     entries = list(rec["checkpoints"].values()) + list(
         rec["sweeps_at_final"].values())
     if (tuple(rec) != TRIAGE_KEYS
-            or tuple(rec["checkpoints"]) != ("4", "8")
+            or tuple(rec["checkpoints"]) != ("2", "4")
             or tuple(rec["sweeps_at_final"]) != (
                 "allow_skip", "band_x2", "band_x4", "beam_x2", "beam_x4")
             or any(tuple(e)[:5] != TRIAGE_ENTRY_KEYS for e in entries)):
@@ -4485,12 +4600,17 @@ def triage_phase(dev) -> None:
 # the ring and of the proof's step. Cut for the run's time from JAX's
 # tool's defaults (shards 2 4 8, blocks 1 8 16 40 80 100, 6 calls; the
 # proof's 10 steps), which phase 28 run alone measured (PERF.md, section
-# 6).
-PROFILE_ROUNDS = 2
-TSHARD_DEVICES = (2, 4)
-TSHARD_BLOCKS = (1, 8, 40)
+# 6); profile_decode's chains of at most PROFILE_MAX_ITERS steps (its
+# default 5000), the triage's steps (its 10) and the proof's shard counts
+# (its 1 2 4 8) likewise.
+PROFILE_ROUNDS = 1
+PROFILE_MAX_ITERS = 1000
+TSHARD_DEVICES = (2,)
+TSHARD_BLOCKS = (1, 40)
 TSHARD_SHAPE = (400, 8, 64)
-TOOL_STEPS = 2
+TOOL_STEPS = 1
+TRIAGE_STEPS = 1
+PROOF_DEVICES = (1, 4)
 # Wrapper name -> its entry in the JSON line, for the kernels phase 28
 # launches in this process.
 TOOL_ENTRIES = {"beam_search_step_batched": "beam_v1_step",
@@ -4514,16 +4634,21 @@ def lattice_launches(rows: int, Tn: int, grad: bool) -> dict:
 
 def profile_phase(work, dev, smi: str) -> dict:
     """28a; returns the launches the phase should count, by wrapper."""
+    from unittest import mock
+
     from ssnt_tts_tpu_torch.parallel import decode
     from ssnt_tts_tpu_torch.scripts import profile_decode
 
     want = {}
     for route in profile_decode.ROUTES:
         got = {}
-        rec = profile_decode.main(
-            ["--route", route, "--rounds", str(PROFILE_ROUNDS), "--trace",
-             str(work / f"trace_{route}"), "--json",
-             str(work / f"profile_{route}.json")], outputs=got)
+        with mock.patch.object(profile_decode, "bench_step", functools.partial(
+                profile_decode.bench_step, repeats=BENCH_REPEATS)):
+            rec = profile_decode.main(
+                ["--route", route, "--rounds", str(PROFILE_ROUNDS),
+                 "--max-iters", str(PROFILE_MAX_ITERS), "--trace",
+                 str(work / f"trace_{route}"), "--json",
+                 str(work / f"profile_{route}.json")], outputs=got)
         if (tuple(rec)[:6] != profile_decode.COMPONENTS
                 + ("components_sum", "unattributed")
                 or (rec["B"], rec["W"], rec["T"], rec["U"]) != (B, W, T, U)):
@@ -4623,8 +4748,9 @@ def triage_tool_phase(work, smi: str) -> None:
     got = {}
     rec = triage.main(
         ["--devices", str(n), "--per-device-batch", str(per), "--seq",
-         str(Tn), str(Un), "--steps", "3", "--full", "--job-dir",
-         str(work / "triage"), "--json", str(work / "triage.json")],
+         str(Tn), str(Un), "--steps", str(TRIAGE_STEPS), "--full",
+         "--job-dir", str(work / "triage"), "--json",
+         str(work / "triage.json")],
         outputs=got)
     rows = {"sharded": per, "unsharded": per * n}
     routes = []
@@ -4656,8 +4782,9 @@ def proof_tool_phase(work, smi: str) -> None:
 
     got = {}
     rec = weak_scaling_proof.main(
-        ["--devices", "1", "2", "4", "--per-device-batch", "8", "--seq",
-         "32", "80", "--steps", str(TOOL_STEPS), "--full", "--job-dir",
+        ["--devices", *map(str, PROOF_DEVICES), "--per-device-batch", "8",
+         "--seq", "32", "80", "--steps", str(TOOL_STEPS), "--full",
+         "--job-dir",
          str(work / "proof"), "--json", str(work / "proof.json")],
         outputs=got)
     for run in rec["runs"]:
@@ -4671,7 +4798,8 @@ def proof_tool_phase(work, smi: str) -> None:
                                      f"launches {rank['launches']}")
     log(f"[28d weak_scaling_proof] {smi}: record: {json.dumps(rec)}")
     log(f"[28d weak_scaling_proof] {TOOL_STEPS} timed steps (JAX's 10, cut "
-        f"for time); total counted FLOPs at n = 2, 4 within "
+        f"for time); total counted FLOPs at n = "
+        f"{', '.join(map(str, PROOF_DEVICES[1:]))} within "
         f"1e-3 of n = 1's (the matrix products only: the lattice kernels "
         f"and elementwise operations are not counted); 2 all_reduces a "
         f"step; one #8 launch in each rank's counted step")
@@ -4690,9 +4818,8 @@ def tools_slice_phase(dev, smi: str) -> dict:
                      ("28b", lambda: tshard_phase(work, dev, smi)),
                      ("28c", lambda: triage_tool_phase(work, smi)),
                      ("28d", lambda: proof_tool_phase(work, smi))):
-        t0 = time.time()
         want.update(fn() or {})
-        log(f"[{name}] done in {time.time() - t0:.1f}s")
+        lap(name)
     got = read_counts()
     expect_counts("phase 28", got, want)
     log(f"[28 launches] phase 28's own path, counted apart from phases "
@@ -4722,7 +4849,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    t_start = time.time()
+    t_start = _LAP[0] = _LAP[1] = time.time()
 
     # ---- 1. device ----
     kind = torch.cuda.get_device_name(0)
@@ -4735,15 +4862,33 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
 
+    lap("1 device")
     # ---- 2. build ----
+    # nvcc runs in other processes: meanwhile this one imports
+    # torch._dynamo (which the first step through torch.utils.checkpoint
+    # would import) and makes the models and requests.
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.time()
-    _build.build_all(list(SOURCES))
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(_build.build_all, list(SOURCES))
+        importlib.import_module("torch._dynamo")
+
+        cfg = ModelConfig(**SERVE_CFG)
+        tree = convert.random_flax_tree(cfg, args.seed)
+        models = {dt: make_model(cfg, tree, name, dev) for dt, name in
+                  ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))}
+        rng = np.random.default_rng(args.seed)
+        reqs = [make_request(rng, cfg.vocab_size, dev) for _ in range(3)]
+        built.result()
     _build.fused_class_library()
     _build.fused_v1_library()
     _build.beam_step_library()
     _build.lattice_library()
     log(f"[2 build] {', '.join(f'{n}.cu' for n in SOURCES)} built/loaded "
-        f"in {time.time() - t0:.1f}s")
+        f"in {time.time() - t0:.1f}s (nvcc at once, each: "
+        + (", ".join(f"{n} {t:.1f}s" for n, t in _build.BUILD_SECONDS.items())
+           or "none, all built before") + ")")
     for name in SOURCES:
         for ln in _build.build_log(name).splitlines():
             if ("registers" in ln or "spill" in ln or "Compiling" in ln
@@ -4760,12 +4905,7 @@ def main() -> int:
                 f" B, v1 {lib_v1.ssnt_fused_v1_smem_bytes(bf16, Wn, 256, 80, 64)}"
                 f" B (16 KB weight-ring slots included)")
 
-    cfg = ModelConfig(**SERVE_CFG)
-    tree = convert.random_flax_tree(cfg, args.seed)
-    models = {dt: make_model(cfg, tree, name, dev) for dt, name in
-              ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))}
-    rng = np.random.default_rng(args.seed)
-    reqs = [make_request(rng, cfg.vocab_size, dev) for _ in range(3)]
+    lap("2 build")
 
     # ---- 3. step check ----
     option_sets = [
@@ -4784,6 +4924,7 @@ def main() -> int:
             f"bit-exact; max |dh| {worst[dt][0]:.3e} max |dnew_h| "
             f"{worst[dt][1]:.3e} (tol {TOL[dt]})")
 
+    lap("3")
     # ---- 4. serve (the main path) ----
     bf = models[torch.bfloat16]
     req_cfgs = [None, None, V2BeamConfig(final_feasible_guard=True)]
@@ -4804,6 +4945,7 @@ def main() -> int:
     if launches != 3 * T:
         raise AssertionError(f"main path: {launches} launches, not {3 * T}")
 
+    lap("4")
     # ---- 5. kernel vs plain over the whole path ----
     for dt, model in models.items():
         agree = []
@@ -4818,6 +4960,7 @@ def main() -> int:
             f"kernel vs plain, per request: "
             + ", ".join(f"{a:.3f}" for a in agree))
 
+    lap("5")
     # ---- 6. timings ----
     step_args = step_inputs(bf, reqs[0], 30, rng, dev)
     with torch.no_grad():
@@ -4863,19 +5006,30 @@ def main() -> int:
         "bound_ms": v2_bound[0], "bound_by": v2_bound[1],
         "library_ms": None,
     }]
+    lap("6")
     kernels += train_phases(args.seed, dev, smi)
+    lap("9")
     kernels += tone_phases(args.seed, dev, smi, models, reqs[0])
+    lap("13")
     kernels += v1_phases(args.seed, dev, smi, models)
+    lap("17")
     kernels += exp_phases(args.seed, dev, smi)
+    lap("20")
     kernels += banded_phases(args.seed, dev, smi)
+    lap("23")
     long_phase(args.seed, dev)
+    lap("24")
     distribution_phase(args.seed, dev, smi)
+    lap("25b witness")
     utilities_phase(args.seed, dev, smi)
     extra = wide_phase(args.seed, dev, smi, models)
+    lap("27a")
     for entry in kernels:
         entry.update(extra.get(entry["name"], {}))
     scale_phase(dev, smi)
+    lap("27b")
     triage_phase(dev)
+    lap("27c")
     extra = tools_slice_phase(dev, smi)
     for entry in kernels:
         entry.update(extra.get(entry["name"], {}))

@@ -31,9 +31,11 @@ pass #8, and the two-pass route's forward alphas #1 and backward
 gradients #5 at B=256 (float32 and bfloat16 storage) and B=128 (float32),
 with, where a root has them, their block walks at the same shapes
 (ssnt_lattice_forward_alphas_block / _backward_grads_block, which only
-this script and chip_smoke.py call), and the block walks at one thread a
-position: the betas-only pass #3 at B=32 and B=256, and #8, #1, #5, #4
-and #9 at T = chip_smoke.T_BLOCK_WALK (200), B=8. Give the roots as
+this script, chip_smoke.py and the probes call), the betas-only pass #3
+at B=32 and B=256 (its entry: the warp walk, or in a checkout from
+before it the block walk; and, where the root has
+ssnt_lattice_backward_betas_block, its block walk), and the block walks at one thread a position of #8, #1,
+#5, #4 and #9 at T = chip_smoke.T_BLOCK_WALK (200), B=8. Give the roots as
 parent, change, change, parent to compare two commits on one card. Each root's package and
 chip_smoke.py are imported afresh, so each times its own wrappers and
 kernels (built into the root's own build/ directory).
@@ -333,12 +335,17 @@ def lattice_fns(cs, rng, dev) -> dict:
                 lambda x=x: cs.block_forward_alphas(*x))
             fns[f"two-pass backward grads block walk {tag}"] = (
                 lambda x=x, bwd=bwd: cs.block_backward_grads(*x, *bwd))
-    # The block walks at one thread a position: #3 at T=80, and every log-
-    # and exp-domain kernel at T = chip_smoke.T_BLOCK_WALK (B=8).
+    # #3 at T=80 (its entry's walk, and its block walk where the root has
+    # ssnt_lattice_backward_betas_block), and the block walks at one thread
+    # a position of every log- and exp-domain kernel at T =
+    # chip_smoke.T_BLOCK_WALK (B=8).
     for Bn in (cs.B, cs.B_LARGE):
         x, (il, ol) = cs.lattice_inputs(rng, Bn, torch.float32, dev)
         fns[f"lattice_backward_betas B={Bn}"] = (
             lambda x=x, il=il, ol=ol: lk.lattice_backward_betas(*x, il, ol))
+        if hasattr(cs, "block_backward_betas"):
+            fns[f"lattice_backward_betas block walk B={Bn}"] = (
+                lambda x=x, il=il, ol=ol: cs.block_backward_betas(*x, il, ol))
     Tb = cs.T_BLOCK_WALK
     x, (il, ol) = cs.lattice_inputs(rng, 8, torch.float32, dev, Tb)
     a = lk.lattice_forward_alphas(*x)

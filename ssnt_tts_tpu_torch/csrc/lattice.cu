@@ -78,8 +78,8 @@
 // while the current ones are computed, so global-memory latency is off
 // the chain. Per cell the operations and their order do not depend on P.
 // Every log- and exp-domain kernel is a block walk above T = 128 and a
-// warp walk ("warp walks" below) up to it (lattice_backward_betas a block
-// walk at any T); the K-banded walks ("banded") are designed differently.
+// warp walk ("warp walks" below) up to it; the K-banded walks ("banded")
+// are designed differently.
 // Measured (device time under a CUDA graph, NVIDIA H100 80GB HBM3, 700 W
 // power limit; T=80, U=400, f32):
 //   - block walks (chip_smoke.py, bench_fused.py): forward alphas B=256
@@ -90,17 +90,19 @@
 //     max (a second barrier) and its division, whose fast path falls back
 //     to a subroutine for the subnormal probabilities every column meets,
 //     make it 3.7x slower per column than the log walk.
-//   - warp walks (probe_bidir.py, probe_expin.py, probe_grads.py):
-//     lattice_bidir B=32 0.0705 ms (B=64 0.0709), bound by its chain, one
-//     lae (expf + log1pf) and a shuffle or exchange word a column, ~170 ns
-//     (the chain alone 0.069); lattice_forward_alphas, the same walk with
-//     the barrier exchange, B=32 0.0499 ms (~125 ns a column), B=256
-//     0.0644; lattice_backward_grads B=32 0.080 ms, B=256 0.114 (bf16
-//     0.118); lattice_bidir_exp B=32 0.085 ms, bound by its chain (a row
-//     max and an exact division through a double reciprocal a column,
-//     ~205 ns; the chain alone 0.083), B=256 0.144 ms, bound by the exps
-//     and logs of ~4 walks an SM (0.095 without them); lattice_expin B=32
-//     0.042 ms, B=256 0.087 ms.
+//   - warp walks (probe_bidir.py, probe_expin.py, probe_grads.py,
+//     bench_fused.py): the log walks bound by their chain, one lae (expf +
+//     log1pf) and a barrier exchange a column, ~125 ns: lattice_bidir B=32
+//     0.0597 ms (B=64 0.0601; on the earlier one-way stream of exchange
+//     words 0.0712 / 0.0715), lattice_forward_alphas, its forward walk
+//     alone, B=32 0.0499 ms, B=256 0.0644, lattice_backward_betas, its
+//     backward walk alone, B=32 0.052-0.059 ms, B=256 0.0653 (its block
+//     walk 0.0819 / 0.1015); lattice_backward_grads B=32 0.080 ms, B=256
+//     0.114 (bf16 0.118); lattice_bidir_exp B=32 0.085 ms, bound by its
+//     chain (a row max and an exact division through a double reciprocal
+//     a column, ~205 ns; the chain alone 0.083), B=256 0.144 ms, bound by
+//     the exps and logs of ~4 walks an SM (0.095 without them);
+//     lattice_expin B=32 0.042 ms, B=256 0.087 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -2090,32 +2092,27 @@ __device__ __forceinline__ float div_rn(float x, double r) {
   return __double2float_rn((double)x * r);
 }
 
-// lattice_bidir's walk is split over NC chain warps (kLogVC positions a
-// lane, NC = ceil(T / (32 kLogVC))): chain warp c holds t = c * 32 VC +
-// lane * VC + j. The neighbour across two chain warps goes one way a
-// column, so it is a stream, not a barrier: forward, warp c's lane 31
-// publishes its value at t = 32 VC (c + 1) - 1 for warp c + 1's lane 0;
-// backward, warp c's lane 0 publishes its value at t = 32 VC c for warp c -
-// 1's lane 31. A published value sits in a ring of kXch 8-byte words in
-// shared memory, the value and its column's step in one word (one store,
-// read by one volatile load that checks the step), so the consumer only
-// waits when it is ahead; in the steady state each warp lags the one it
-// reads by one exchange, and no column waits for the slowest warp. A
-// producer is at most NRes + 1 rounds ahead of its consumer (the storer
-// frees a result slot once every chain warp has filled it), below kXch
-// columns.
+// The log walks are split over NC chain warps (kLogVC positions a lane,
+// NC = ceil(T / (32 kLogVC))): chain warp c holds t = c * 32 VC + lane *
+// VC + j. With one chain warp the neighbour comes from the next lane by a
+// shuffle. With several, every column goes through the barrier exchange,
+// the block walks' pattern on the chain warps alone: each position's
+// value into a double-buffered shared row, named barrier 1 over the NC
+// chain warps (the loader and the storer never wait on it), then the
+// neighbours read back. A chain warp waits for the slowest one each
+// column; on the card that costs less than the design before it, a
+// one-way stream of (value, step) words between the warps, each read by
+// a volatile load that spun until its step came (B=32 T=80 U=400: ~125 ns
+// a column against the stream's ~170, see "the two-pass route's walks").
 //
 // The walk's rounds are long (kLogRound columns, in a ring of
 // kLogInRounds input and kLogResRounds result rounds), so the chain warps
 // wait on the ring's barriers once per kLogRound columns.
-constexpr int kLogVC = 1;         // lattice_bidir: positions a chain lane holds
-constexpr int kLogRound = 16;     // its columns a round
-constexpr int kLogInRounds = 3;   // its input ring
-constexpr int kLogResRounds = 2;  // its result ring
+constexpr int kLogVC = 1;         // the log walks: positions a chain lane holds
+constexpr int kLogRound = 16;     // their columns a round
+constexpr int kLogInRounds = 3;   // their input ring
+constexpr int kLogResRounds = 2;  // their result ring
 constexpr int kMaxChains = 4;     // 128 / 32
-constexpr int kXch = 128;         // exchange words a chain warp
-static_assert((kLogResRounds + 1) * kLogRound <= kXch,
-              "a producer's lead fits its exchange words");
 
 template <int Vio, typename St = float>
 using LogRing =
@@ -2123,52 +2120,25 @@ using LogRing =
 
 // The log walk's shared memory: the ring (input rows of 32 Vio values in
 // the lattice's storage type St, the loader's and storer's lane layout;
-// float result rows), and each chain warp's exchange words.
+// float result rows) and the barrier exchange's two rows.
 template <int Vio, typename St = float> struct BidirLogSmem {
   LogRing<Vio, St> ring;
-  unsigned long long xch[kMaxChains][kXch];
-  float row[2][32 * kMaxChains + 1];  // the barrier exchange's rows
+  float row[2][32 * kMaxChains + 1];
 };
 
-// The barrier exchange (kBar below), the block walks' pattern on the chain
-// warps alone: each column's values into a double-buffered shared row,
-// then named barrier 1 over the NC chain warps, then the neighbours read.
-// #1 and #5 take it; lattice_bidir still takes the stream of exchange
-// words (edge_give / edge_take).
+// Named barrier 1 over the NC chain warps: the barrier exchange.
 template <int NC>
 __device__ __forceinline__ void chain_bar() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(32 * NC) : "memory");
-}
-
-// Publishes v as the value of column step s.
-__device__ __forceinline__ void edge_give(unsigned long long* xch, int s,
-                                          float v) {
-  *reinterpret_cast<volatile unsigned long long*>(&xch[s % kXch]) =
-      (unsigned long long)(unsigned)s << 32 | __float_as_uint(v);
-}
-
-// The value published for column step s, once it is there (every lane
-// reads the same word). A value that never comes traps (a launch error)
-// instead of hanging the card.
-__device__ __forceinline__ float edge_take(const unsigned long long* xch,
-                                           int s) {
-  const volatile unsigned long long* p =
-      reinterpret_cast<const volatile unsigned long long*>(&xch[s % kXch]);
-  unsigned long long v = *p;
-  for (uint32_t spins = 0; (unsigned)(v >> 32) != (unsigned)s; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    v = *p;
-  }
-  return __uint_as_float((unsigned)v);
 }
 
 // alpha_walk's chain on chain warp c of NC: alpha_0 = t == 0 ? lf_0 : NEG,
 // then per column u
 //   stay = alpha + le_{u-1};  moved = shift_down(alpha + ls_{u-1}), NEG
 //   into t = 0;  alpha = lf_u + lae(stay, moved).
-template <int V, int NC, int Vio, typename St, bool kBar = false>
+template <int V, int NC, int Vio, typename St>
 __device__ void log_alpha_chain(const WarpWalk& w,
-                                BidirLogSmem<Vio, St>& sm, int c) {
+                                BidirLogSmem<Vio, St>& sm) {
   constexpr int R = kLogRound;
   float alpha[V], le_prev[V], ls_prev[V];
   const float none[1] = {0.0f};
@@ -2182,7 +2152,7 @@ __device__ void log_alpha_chain(const WarpWalk& w,
       float mv[V], moved[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) mv[j] = alpha[j] + ls_prev[j];
-      if constexpr (kBar && NC > 1) {
+      if constexpr (NC > 1) {
         float* row = sm.row[s & 1];  // row[t + 1]: the value at t
 #pragma unroll
         for (int j = 0; j < V; ++j) row[w.t0 + j + 1] = mv[j];
@@ -2191,12 +2161,10 @@ __device__ void log_alpha_chain(const WarpWalk& w,
         for (int j = 0; j < V; ++j)
           moved[j] = w.t0 + j == 0 ? kNeg : row[w.t0 + j];
       } else {
-        if (c + 1 < NC && w.lane == 31) edge_give(sm.xch[c], s, mv[V - 1]);
         const float edge = __shfl_up_sync(0xffffffffu, mv[V - 1], 1);
-        const float below = c > 0 ? edge_take(sm.xch[c - 1], s) : kNeg;
 #pragma unroll
         for (int j = 0; j < V; ++j)
-          moved[j] = j == 0 ? (w.lane == 0 ? below : edge) : mv[j - 1];
+          moved[j] = j == 0 ? (w.lane == 0 ? kNeg : edge) : mv[j - 1];
       }
       const bool first = k == 0 && r == 0;
 #pragma unroll
@@ -2219,10 +2187,9 @@ __device__ void log_alpha_chain(const WarpWalk& w,
 // from beta = lf_{U} = NEG (also lattice_backward_grads' beta recursion,
 // cell for cell: there the posterior warps read the input slots too, so
 // the chain reads no round ahead, kReadAhead false).
-template <int V, int NC, int Vio, typename St, bool kReadAhead = true,
-          bool kBar = false>
+template <int V, int NC, int Vio, typename St, bool kReadAhead = true>
 __device__ void log_beta_chain(const WarpWalk& w, BidirLogSmem<Vio, St>& sm,
-                               int c, int in_len, int out_len) {
+                               int in_len, int out_len) {
   constexpr int R = kLogRound;
   float beta[V], lf_next[V];
   const float none[1] = {0.0f};
@@ -2238,7 +2205,7 @@ __device__ void log_beta_chain(const WarpWalk& w, BidirLogSmem<Vio, St>& sm,
       float cont[V], upv[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) cont[j] = lf_next[j] + beta[j];
-      if constexpr (kBar && NC > 1) {
+      if constexpr (NC > 1) {
         float* row = sm.row[s & 1];  // row[t]: the value at t
 #pragma unroll
         for (int j = 0; j < V; ++j) row[w.t0 + j] = cont[j];
@@ -2246,11 +2213,8 @@ __device__ void log_beta_chain(const WarpWalk& w, BidirLogSmem<Vio, St>& sm,
 #pragma unroll
         for (int j = 0; j < V; ++j) upv[j] = row[w.t0 + j + 1];
       } else {
-        if (c > 0 && w.lane == 0) edge_give(sm.xch[c], s, cont[0]);
         float above = __shfl_down_sync(0xffffffffu, cont[0], 1);
-        const float from_up =
-            c + 1 < NC ? edge_take(sm.xch[c + 1], s) : kNeg;
-        if (w.lane == 31) above = from_up;
+        if (w.lane == 31) above = kNeg;
 #pragma unroll
         for (int j = 0; j < V; ++j) upv[j] = j + 1 < V ? cont[j + 1] : above;
       }
@@ -2286,14 +2250,16 @@ __device__ void log_storer(const WarpWalk& w, Ring& sm,
 }
 
 // A block of a loader, NC chain warps and a storer per example
-// (blockIdx.x) and direction (blockIdx.y; lattice_forward_alphas launches
-// the forward walks alone, and a bfloat16 lattice St only those); the
-// loader and the storer hold Vio positions a lane, a chain lane VC;
-// dynamic shared memory: BidirLogSmem<Vio, St>.
-template <int VC, int NC, int Vio, bool kVec, typename St = float,
-          bool kBar = false>
+// (blockIdx.x) and direction: backward where blockIdx.y + dir0 == 1
+// (lattice_bidir: gridDim.y = 2, dir0 = 0; lattice_forward_alphas the
+// forward walks alone, dir0 = 0, and a bfloat16 lattice St only those;
+// lattice_backward_betas the backward walks alone, dir0 = 1); the loader
+// and the storer hold Vio positions a lane, a chain lane VC; dynamic
+// shared memory: BidirLogSmem<Vio, St>.
+template <int VC, int NC, int Vio, bool kVec, typename St = float>
 __global__ void __launch_bounds__(32 * (NC + 2))
-    bidir_warp_kernel(int B, int T, int U, const St* __restrict__ le,
+    bidir_warp_kernel(int dir0, int B, int T, int U,
+                      const St* __restrict__ le,
                       const St* __restrict__ ls, const St* __restrict__ lf,
                       const int* __restrict__ il, const int* __restrict__ ol,
                       float* __restrict__ alphas, float* __restrict__ betas) {
@@ -2302,10 +2268,7 @@ __global__ void __launch_bounds__(32 * (NC + 2))
   extern __shared__ float4 walk_smem[];
   Smem& sm = *reinterpret_cast<Smem*>(walk_smem);
   const int b = blockIdx.x, warp = threadIdx.x / 32;
-  const bool back = sizeof(St) == 4 && blockIdx.y == 1;
-  if constexpr (!kBar)
-    for (int i = threadIdx.x; i < kMaxChains * kXch; i += blockDim.x)
-      sm.xch[i / kXch][i % kXch] = ~0ull;
+  const bool back = sizeof(St) == 4 && blockIdx.y + dir0 == 1;
   init_ring(sm.ring, 1, NC);
   const int top = U - kLogRound;
   if (warp == 0 || warp == NC + 1) {
@@ -2327,24 +2290,24 @@ __global__ void __launch_bounds__(32 * (NC + 2))
     const int c = warp - 1;
     const WarpWalk w = make_walk(B, T, U, VC, kLogRound, top, c * 32 * VC);
     if (back)
-      log_beta_chain<VC, NC, Vio, St, true, kBar>(w, sm, c, il[b], ol[b]);
+      log_beta_chain<VC, NC, Vio, St>(w, sm, il[b], ol[b]);
     else
-      log_alpha_chain<VC, NC, Vio, St, kBar>(w, sm, c);
+      log_alpha_chain<VC, NC, Vio, St>(w, sm);
   }
 }
 
-template <int VC, int NC, int Vio, bool kVec, typename St, bool kBar>
-cudaError_t launch_log_walk(int dirs, int B, int T, int U, const St* le,
-                            const St* ls, const St* lf, const int* il,
-                            const int* ol, float* alphas, float* betas,
-                            cudaStream_t s) {
+template <int VC, int NC, int Vio, bool kVec, typename St>
+cudaError_t launch_log_walk(int dir0, int dirs, int B, int T, int U,
+                            const St* le, const St* ls, const St* lf,
+                            const int* il, const int* ol, float* alphas,
+                            float* betas, cudaStream_t s) {
   static size_t opted = 0;
   constexpr size_t smem = sizeof(BidirLogSmem<Vio, St>);
-  const auto kern = bidir_warp_kernel<VC, NC, Vio, kVec, St, kBar>;
+  const auto kern = bidir_warp_kernel<VC, NC, Vio, kVec, St>;
   cudaError_t e = opt_in(kern, smem, &opted);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(B, dirs), 32 * (NC + 2), smem, s>>>(B, T, U, le, ls, lf, il,
-                                                   ol, alphas, betas);
+  kern<<<dim3(B, dirs), 32 * (NC + 2), smem, s>>>(
+      dir0, B, T, U, le, ls, lf, il, ol, alphas, betas);
   return cudaGetLastError();
 }
 
@@ -2356,36 +2319,35 @@ constexpr bool log_chains() {
   return NC >= Vio / (2 * VC) + 1 && NC <= Vio / VC;
 }
 
-// The log walks (dirs 2: lattice_bidir; dirs 1: the forward walks alone,
-// lattice_forward_alphas) for rows of 32 Vio positions: kLogVC positions a
-// chain lane (at most Vio), NC = ceil(T / (32 VC)) chain warps.
-template <int Vio, bool kVec, typename St, bool kBar = false>
-cudaError_t launch_log_walks(int dirs, int B, int T, int U, const St* le,
-                             const St* ls, const St* lf, const int* il,
-                             const int* ol, float* alphas, float* betas,
-                             cudaStream_t s) {
+// The log walks (dir0 0, dirs 2: lattice_bidir; dirs 1: one direction
+// alone, forward at dir0 0 (lattice_forward_alphas), backward at dir0 1
+// (lattice_backward_betas)) for rows of 32 Vio positions: kLogVC
+// positions a chain lane (at most Vio), NC = ceil(T / (32 VC)) chain
+// warps.
+template <int Vio, bool kVec, typename St>
+cudaError_t launch_log_walks(int dir0, int dirs, int B, int T, int U,
+                             const St* le, const St* ls, const St* lf,
+                             const int* il, const int* ol, float* alphas,
+                             float* betas, cudaStream_t s) {
   constexpr int VC = kLogVC < Vio ? kLogVC : Vio;
-#define SSNT_LOG_ARGS dirs, B, T, U, le, ls, lf, il, ol, alphas, betas, s
+#define SSNT_LOG_ARGS dir0, dirs, B, T, U, le, ls, lf, il, ol, alphas, betas, \
+                      s
   switch ((T + 32 * VC - 1) / (32 * VC)) {
     case 1:
       if constexpr (log_chains<1, VC, Vio>())
-        return launch_log_walk<VC, 1, Vio, kVec, St, kBar>(
-            SSNT_LOG_ARGS);
+        return launch_log_walk<VC, 1, Vio, kVec, St>(SSNT_LOG_ARGS);
       break;
     case 2:
       if constexpr (log_chains<2, VC, Vio>())
-        return launch_log_walk<VC, 2, Vio, kVec, St, kBar>(
-            SSNT_LOG_ARGS);
+        return launch_log_walk<VC, 2, Vio, kVec, St>(SSNT_LOG_ARGS);
       break;
     case 3:
       if constexpr (log_chains<3, VC, Vio>())
-        return launch_log_walk<VC, 3, Vio, kVec, St, kBar>(
-            SSNT_LOG_ARGS);
+        return launch_log_walk<VC, 3, Vio, kVec, St>(SSNT_LOG_ARGS);
       break;
     case 4:
       if constexpr (log_chains<4, VC, Vio>())
-        return launch_log_walk<VC, 4, Vio, kVec, St, kBar>(
-            SSNT_LOG_ARGS);
+        return launch_log_walk<VC, 4, Vio, kVec, St>(SSNT_LOG_ARGS);
       break;
   }
 #undef SSNT_LOG_ARGS
@@ -2622,7 +2584,7 @@ cudaError_t launch_bidir_warp(bool exp_domain, int B, int T, int U,
     }
     return cudaGetLastError();
   }
-  return launch_log_walks<V, kVec, float>(2, B, T, U, le, ls, lf, il, ol,
+  return launch_log_walks<V, kVec, float>(0, 2, B, T, U, le, ls, lf, il, ol,
                                           alphas, betas, s);
 }
 
@@ -2655,8 +2617,9 @@ cudaError_t launch_bidir_warps(bool exp_domain, int B, int T, int U,
 // kWarpMaxT, the route "plain" that grad_mode takes at B * pad128(T) >
 // 8192 (the B=256 train step) and for every bfloat16-storage lattice:
 //   - #1 is lattice_bidir's forward walk alone (bidir_warp_kernel with
-//     gridDim.y = 1, rows in the lattice's storage type), so its alphas are
-//     lattice_bidir's bit for bit;
+//     gridDim.y = 1, dir0 = 0, rows in the lattice's storage type), so its
+//     alphas are lattice_bidir's bit for bit (and #3, outside this route,
+//     its backward walk alone, dir0 = 1);
 //   - #5 is a block per example of a loader warp (lattice_bidir's, rows in
 //     the storage type, rounds of kLogRound columns from u = U - 1 down),
 //     ceil(T / 32) chain warps running log_beta_chain (lattice_bidir's beta
@@ -2673,12 +2636,10 @@ cudaError_t launch_bidir_warps(bool exp_domain, int B, int T, int U,
 // three rounds would not fit two blocks to an SM at B=256), a posterior
 // lane loads its own one round ahead into registers.
 //
-// Both take the barrier exchange between their chain warps (kBar): each
-// column's values into a shared row, a named barrier over the chain warps,
-// the neighbours read back, as the block walks do. Measured
-// (probe_grads.py, NVIDIA H100 80GB HBM3, 700 W; T=80, U=400, f32): #1
-// 0.0499-0.0502 / 0.058-0.065 ms at B=32 / 256 (on lattice_bidir's
-// stream of exchange words 0.0631 / 0.0777; the block walk 0.0566 /
+// Both take the barrier exchange between their chain warps, as every log
+// walk does. Measured (probe_grads.py, NVIDIA H100 80GB HBM3, 700 W; T=80,
+// U=400, f32): #1 0.0499-0.0502 / 0.058-0.065 ms at B=32 / 256 (on the
+// earlier stream of exchange words 0.0631 / 0.0777; the block walk 0.0566 /
 // 0.063-0.070), ~125 ns a column at B=32, the stream's ~170; #5 0.074-0.080 /
 // 0.114-0.117 ms (stream 0.079-0.086 / 0.124; block walk 0.132 / 0.140;
 // bf16 B=256 0.118-0.123 against the block walk's 0.153-0.159), bit for
@@ -2799,7 +2760,7 @@ __global__ void __launch_bounds__(32 * (1 + 2 * NC))
   } else if (warp <= NC) {
     const int c = warp - 1;
     const WarpWalk w = make_walk(B, T, U, 1, kLogRound, top, c * 32);
-    log_beta_chain<1, NC, Vio, St, false, true>(w, sm, c, il[b], ol[b]);
+    log_beta_chain<1, NC, Vio, St, false>(w, sm, il[b], ol[b]);
   } else {
     const int q = warp - 1 - NC;
     const WarpWalk w = make_walk(B, T, U, 1, kLogRound, top, q * 32);
@@ -2867,28 +2828,31 @@ bool vec_rows(uintptr_t in, uintptr_t out, int T) {
   return in % (sizeof(St) * V) == 0 && out % (4 * V) == 0 && T % V == 0;
 }
 
-// The two-pass route's warp walks with rows of 32 V positions, V =
-// ceil(T / 32) rounded up to 1, 2 or 4.
+// One direction of the log walks alone, with rows of 32 V positions, V =
+// ceil(T / 32) rounded up to 1, 2 or 4: the forward walks (back 0, #1:
+// alphas to `out`; il / ol unused) or, float32 only, the backward walks
+// (back 1, #3: betas to `out`).
 template <typename St>
-cudaError_t launch_alpha_warps(int B, int T, int U, const St* le,
-                               const St* ls, const St* lf, float* alphas,
-                               cudaStream_t s) {
+cudaError_t launch_one_way_warps(int back, int B, int T, int U, const St* le,
+                                 const St* ls, const St* lf, const int* il,
+                                 const int* ol, float* out, cudaStream_t s) {
   const uintptr_t in = (uintptr_t)le | (uintptr_t)ls | (uintptr_t)lf;
-  const uintptr_t out = (uintptr_t)alphas;
-#define SSNT_FWD_ARGS 1, B, T, U, le, ls, lf, nullptr, nullptr, alphas, \
-                      nullptr, s
+  float* alphas = back ? nullptr : out;
+  float* betas = back ? out : nullptr;
+#define SSNT_ONE_WAY_ARGS back, 1, B, T, U, le, ls, lf, il, ol, alphas, \
+                          betas, s
   if (T <= 32)
-    return vec_rows<St, 1>(in, out, T)
-               ? launch_log_walks<1, true, St, true>(SSNT_FWD_ARGS)
-               : launch_log_walks<1, false, St, true>(SSNT_FWD_ARGS);
+    return vec_rows<St, 1>(in, (uintptr_t)out, T)
+               ? launch_log_walks<1, true, St>(SSNT_ONE_WAY_ARGS)
+               : launch_log_walks<1, false, St>(SSNT_ONE_WAY_ARGS);
   if (T <= 64)
-    return vec_rows<St, 2>(in, out, T)
-               ? launch_log_walks<2, true, St, true>(SSNT_FWD_ARGS)
-               : launch_log_walks<2, false, St, true>(SSNT_FWD_ARGS);
-  return vec_rows<St, 4>(in, out, T)
-             ? launch_log_walks<4, true, St, true>(SSNT_FWD_ARGS)
-             : launch_log_walks<4, false, St, true>(SSNT_FWD_ARGS);
-#undef SSNT_FWD_ARGS
+    return vec_rows<St, 2>(in, (uintptr_t)out, T)
+               ? launch_log_walks<2, true, St>(SSNT_ONE_WAY_ARGS)
+               : launch_log_walks<2, false, St>(SSNT_ONE_WAY_ARGS);
+  return vec_rows<St, 4>(in, (uintptr_t)out, T)
+             ? launch_log_walks<4, true, St>(SSNT_ONE_WAY_ARGS)
+             : launch_log_walks<4, false, St>(SSNT_ONE_WAY_ARGS);
+#undef SSNT_ONE_WAY_ARGS
 }
 
 template <typename St>
@@ -3009,12 +2973,14 @@ int forward_alphas(int block_walk, int bf16, int B, int T, int U,
   if (bf16) {
     using S = __nv_bfloat16;
     const S *e = (const S*)le, *h = (const S*)ls, *f = (const S*)lf;
-    return (int)(warps ? launch_alpha_warps<S>(B, T, U, e, h, f, a, s)
+    return (int)(warps ? launch_one_way_warps<S>(0, B, T, U, e, h, f,
+                                                 nullptr, nullptr, a, s)
                        : forward_alphas_blocks<S>(B, T, U, e, h, f, a, s));
   }
   const float *e = (const float*)le, *h = (const float*)ls,
               *f = (const float*)lf;
-  return (int)(warps ? launch_alpha_warps<float>(B, T, U, e, h, f, a, s)
+  return (int)(warps ? launch_one_way_warps<float>(0, B, T, U, e, h, f,
+                                                   nullptr, nullptr, a, s)
                      : forward_alphas_blocks<float>(B, T, U, e, h, f, a, s));
 }
 
@@ -3052,6 +3018,31 @@ int backward_grads(int block_walk, int bf16, int B, int T, int U,
                      : backward_grads_blocks<float>(B, T, U, e, h, f, al,
                                                     in_len, out_len, gg, lz,
                                                     de, dh, df, s));
+}
+
+// #3: the backward walks alone (lattice_bidir's beta direction, so its
+// betas bit for bit) for T <= kWarpMaxT (block walk = 0), else (or with
+// block walk = 1, for chip_smoke.py, bench_fused.py and the probes) the
+// block walk.
+int backward_betas(int block_walk, int B, int T, int U, const void* le,
+                   const void* ls, const void* lf, const void* il,
+                   const void* ol, void* betas, void* stream) {
+  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || U == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *e = (const float*)le, *h = (const float*)ls,
+              *f = (const float*)lf;
+  const int *in_len = (const int*)il, *out_len = (const int*)ol;
+  float* bt = (float*)betas;
+  if (!block_walk && warp_walk(B, T, U))
+    return (int)launch_one_way_warps<float>(1, B, T, U, e, h, f, in_len,
+                                            out_len, bt, s);
+  static BlockLaunch st;
+  return (int)launch_block_walk(st, backward_betas_kernel,
+                                backward_betas_kernel_p<2>,
+                                backward_betas_kernel_p<4>,
+                                backward_betas_kernel_p<8>, dim3(B), T, s, B,
+                                T, U, e, h, f, in_len, out_len, bt);
 }
 
 }  // namespace
@@ -3118,14 +3109,14 @@ int ssnt_lattice_backward_betas(int B, int T, int U, const void* le,
                                 const void* ls, const void* lf,
                                 const void* il, const void* ol, void* betas,
                                 void* stream) {
-  if (bad_shape(B, T, U)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || U == 0) return 0;
-  static BlockLaunch st;
-  return (int)launch_block_walk(
-      st, backward_betas_kernel, backward_betas_kernel_p<2>,
-      backward_betas_kernel_p<4>, backward_betas_kernel_p<8>, dim3(B), T,
-      (cudaStream_t)stream, B, T, U, (const float*)le, (const float*)ls,
-      (const float*)lf, (const int*)il, (const int*)ol, (float*)betas);
+  return backward_betas(0, B, T, U, le, ls, lf, il, ol, betas, stream);
+}
+
+int ssnt_lattice_backward_betas_block(int B, int T, int U, const void* le,
+                                      const void* ls, const void* lf,
+                                      const void* il, const void* ol,
+                                      void* betas, void* stream) {
+  return backward_betas(1, B, T, U, le, ls, lf, il, ol, betas, stream);
 }
 
 int ssnt_lattice_bidir_exp(int B, int T, int U, const void* le,

@@ -19,7 +19,9 @@ Flags: -fmad=false keeps every float32 multiply and add separately
 rounded (the beam band edges depend on it; the dot products use explicit
 fused multiply-adds; the lattice kernels follow the JAX kernels'
 operation order); --use_fast_math is never passed, so expf/log1pf are
-the accurate ones.
+the accurate ones; --split-compile=0 (the sources in SPLIT_COMPILE) runs
+the device code's optimization passes on several threads, which shortens
+the longest build, fused_v1_step.cu's, by about a third.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -37,11 +40,17 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ssnt_tts_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
+# Seconds each nvcc run of this process took, by source name.
+BUILD_SECONDS: dict = {}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Sources whose device code is optimized on several threads: the fused
+# steps' kernels time the same either way on an H100; lattice.cu's
+# exp-native walk ran ~3 % slower there so built, so it is one unit.
+SPLIT_COMPILE = ("fused_class_step", "fused_v1_step")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ssnt_fused_v2_step(compute_bf16, B, W, D, H, s, 19 inputs (the GRU
@@ -74,7 +83,8 @@ LATTICE_FWD_ARGTYPES = [_I] * 4 + [_P] * 5
 #                             g, logz, d_le, d_ls, d_lf, stream);
 # ssnt_lattice_backward_grads_block likewise
 LATTICE_BWD_ARGTYPES = [_I] * 4 + [_P] * 12
-# ssnt_lattice_backward_betas(B, T, U, le, ls, lf, il, ol, betas, stream)
+# ssnt_lattice_backward_betas(B, T, U, le, ls, lf, il, ol, betas, stream);
+# ssnt_lattice_backward_betas_block likewise
 LATTICE_BETAS_ARGTYPES = [_I] * 3 + [_P] * 7
 # ssnt_lattice_bidir_exp takes lattice_bidir's arguments.
 # ssnt_lattice_expin(B, T, U, E, S, F, mcol, il, ol, qn, bn, M, N, stream)
@@ -109,18 +119,22 @@ def build(name: str) -> Path:
     <library>.log."""
     src = CSRC / f"{name}.cu"
     nvcc = find_nvcc()
+    flags = NVCC_FLAGS + (["--split-compile=0"] if name in SPLIT_COMPILE
+                          else [])
     text = src.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [nvcc, *flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True, check=False)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -193,6 +207,8 @@ def lattice_library() -> ctypes.CDLL:
                   "ssnt_lattice_backward_grads": LATTICE_BWD_ARGTYPES,
                   "ssnt_lattice_backward_grads_block": LATTICE_BWD_ARGTYPES,
                   "ssnt_lattice_backward_betas": LATTICE_BETAS_ARGTYPES,
+                  "ssnt_lattice_backward_betas_block":
+                      LATTICE_BETAS_ARGTYPES,
                   "ssnt_lattice_bidir_exp": LATTICE_BIDIR_ARGTYPES,
                   "ssnt_lattice_expin": LATTICE_EXPIN_ARGTYPES,
                   "ssnt_lattice_forward_alphas_banded":

@@ -519,9 +519,10 @@ def lattice_bidir(le, ls, lf, input_length, output_length):
     """(U, B, T) f32 lattice + (B,) int32 lengths -> (alphas, betas)
     (U, B, T) f32. On the card: for T <= 128 (and U * B * T < 2^31) each
     walk (example, direction) runs on ceil(T / 32) warps of one position a
-    lane (shuffles between lanes, a one-way stream in shared memory
-    between warps), beside a warp that stages its inputs and one that
-    stores its outputs; otherwise one block per walk (csrc/lattice.cu)."""
+    lane (a shuffle between lanes of one warp; between several, a shared
+    row and a named barrier each column), beside a warp that stages its
+    inputs and one that stores its outputs; otherwise one block per walk
+    (csrc/lattice.cu)."""
     if le.device.type == "cpu":
         return lattice_bidir_reference(le, ls, lf, input_length,
                                        output_length)
@@ -586,7 +587,9 @@ def lattice_backward_grads(le, ls, lf, alphas, input_length, output_length,
 
 def lattice_backward_betas(le, ls, lf, input_length, output_length):
     """(U, B, T) f32 lattice + (B,) int32 lengths -> betas (U, B, T) f32,
-    bit for bit lattice_bidir's betas."""
+    bit for bit lattice_bidir's betas. On the card: for T <= 128 (and
+    U * B * T < 2^31) lattice_bidir's backward walk alone; otherwise one
+    block per example (csrc/lattice.cu)."""
     if le.device.type == "cpu":
         return lattice_backward_betas_reference(le, ls, lf, input_length,
                                                 output_length)

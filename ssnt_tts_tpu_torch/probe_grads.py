@@ -1,23 +1,23 @@
 """Where the two-pass route's warp walks (csrc/lattice.cu: #5
 lattice_backward_grads, grads_warp_kernel; #1 lattice_forward_alphas,
-lattice_bidir's forward walk alone) spend their time, and which of their
-designs is fastest.
+lattice_bidir's forward walk alone; #3 lattice_backward_betas, its
+backward walk alone) spend their time, and which of their designs is
+fastest.
 
     python3 ssnt_tts_tpu_torch/probe_grads.py [--json OUT] [--parent ROOT]
         [--designs NAME ...]
 
 Builds copies of this checkout's csrc/lattice.cu under build/probe_grads/
-(which .gitignore lists): the source as it is, the other designs (#1's
-and #5's chain warps exchanging their edge values by lattice_bidir's
-stream of exchange words instead of a shared row and a named barrier;
-every log walk in rounds of 8 columns instead of 16; the block walks' device
+(which .gitignore lists): the source as it is, the other designs (every
+log walk in rounds of 8 columns instead of 16; the block walks' device
 functions forced inline, or their shared row picked by a select instead
 of a multiply) and timing-only ablations whose outputs mean nothing:
 #5's posterior warps without their three expf or without their stores,
 or both ("#5 chain alone": the posteriors still read and free every
 slot), and #1's storer without its stores and its loader without its
 copies ("#1 chain alone"). It calls each copy's
-ssnt_lattice_backward_betas (#3, a block walk at T=80, float32),
+ssnt_lattice_backward_betas (#3, float32; its block walk too where the
+copy has ssnt_lattice_backward_betas_block),
 ssnt_lattice_backward_grads and ssnt_lattice_forward_alphas through
 ctypes at chip_smoke.py's shapes (T=80, U=400, chip_smoke.lattice_inputs)
 at B=32, 128 and 256 in float32 and at B=256 in bfloat16 storage, and
@@ -65,26 +65,13 @@ FWD_STORES = [("if (w.live) store_lane<V>(dst, x);",
               ("if (w.t0 + j < w.T) dst[j] = x[j];", KEEP.format("x[j]"))]
 FWD_COPIES = [(f"cp_async_zfill<N>(rows[{i}] + w.t0, {x} + o, n);", "")
               for i, x in enumerate("ESF")]
-# #1 and #5 on the stream (kBar false; #5's exchange words then need their
-# initial tags, as lattice_bidir's)
-EXCHANGE = [
-    ("log_beta_chain<1, NC, Vio, St, false, true>",
-     "log_beta_chain<1, NC, Vio, St, false, false>"),
-    ("  init_ring(sm.ring, 1, NC, NC, NC);",
-     "  for (int i = threadIdx.x; i < kMaxChains * kXch; i += blockDim.x)\n"
-     "    sm.xch[i / kXch][i % kXch] = ~0ull;\n"
-     "  init_ring(sm.ring, 1, NC, NC, NC);"),
-] + [(f"launch_log_walks<{v}, {b}, St, true>(SSNT_FWD_ARGS)",
-      f"launch_log_walks<{v}, {b}, St, false>(SSNT_FWD_ARGS)")
-     for v in (1, 2, 4) for b in ("true", "false")]
 INLINED = [(f"__device__ void {w}(", f"__device__ __forceinline__ void {w}(")
            for w in ("alpha_walk", "beta_walk", "exp_alpha_walk",
                      "exp_beta_walk", "expin_alpha_walk", "expin_beta_walk",
                      "grads_walk")]
 ROW_SELECT = [("  return sh + (u & 1) * (T + 1);",
                "  return (u & 1) ? sh + T + 1 : sh;")]
-DESIGNS = {"as is": [], "round 8": ROUND8, "stream exchange": EXCHANGE,
-           "walks inlined": INLINED,
+DESIGNS = {"as is": [], "round 8": ROUND8, "walks inlined": INLINED,
            "row select": ROW_SELECT}
 ABLATIONS = {"#5 no exps": POST_EXPS, "#5 no stores": POST_STORES,
              "#5 chain alone": POST_EXPS + POST_STORES,
@@ -194,6 +181,8 @@ def time_variant(name: str, path: str) -> dict:
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     kinds = (("#3", "ssnt_lattice_backward_betas",
               _build.LATTICE_BETAS_ARGTYPES),
+             ("#3 block walk", "ssnt_lattice_backward_betas_block",
+              _build.LATTICE_BETAS_ARGTYPES),
              ("#5", "ssnt_lattice_backward_grads",
               _build.LATTICE_BWD_ARGTYPES),
              ("#1", "ssnt_lattice_forward_alphas",
@@ -223,7 +212,7 @@ def time_variant(name: str, path: str) -> dict:
                 continue
             fn = getattr(lib, entry)
             fn.argtypes, fn.restype = types_, ctypes.c_int
-            if kind == "#3":
+            if kind.startswith("#3"):
                 if dt != torch.float32 or name in ABLATIONS:
                     continue
                 out = [torch.empty((U, B, T), device=dev)]
@@ -237,7 +226,7 @@ def time_variant(name: str, path: str) -> dict:
                 ptrs = [t.data_ptr() for t in (*x, *out)]
 
             def call(fn=fn, ptrs=ptrs, kind=kind):
-                lead = (B, T, U) if kind == "#3" else (bf16, B, T, U)
+                lead = (B, T, U) if kind.startswith("#3") else (bf16, B, T, U)
                 rc = fn(*lead, *ptrs, stream())
                 if rc != 0:
                     raise RuntimeError(f"{name} {kind}: cudaError {rc}")
@@ -246,7 +235,7 @@ def time_variant(name: str, path: str) -> dict:
             torch.cuda.synchronize()
             if name in DESIGNS or name == "parent":
                 ref = (want if kind.startswith("#5") else [betas]
-                       if kind == "#3" else [a])
+                       if kind.startswith("#3") else [a])
                 out_json["bit_for_bit"][f"{name} {kind} {tag}"] = all(
                     cs.same_bits(p, q) for p, q in zip(out, ref))
             out_json["times_ms"][f"{name} {kind} {tag}"] = cs.graph_ms(

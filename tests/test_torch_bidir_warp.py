@@ -1,9 +1,15 @@
 """PyTorch port, the bidirectional passes as their warp walks run them for
 T <= 128 (csrc/lattice.cu bidir_warp_kernel, #8/#7 lattice_bidir, and
-bidir_exp_warp_kernel, #4 lattice_bidir_exp): a block per (example,
-direction) of loader, chain and storer warps, emulated here lane by lane
-over the flat (U*B*T,) lattice, must equal lattice_bidir_reference /
-lattice_bidir_exp_reference bit for bit:
+bidir_exp_warp_kernel, #4 lattice_bidir_exp), and #3 lattice_backward_betas
+(bidir_warp_kernel launched for the backward walks alone): a block per
+(example, direction) of loader, chain and storer warps, emulated here
+lane by lane over the flat (U*B*T,) lattice, must equal
+lattice_bidir_reference / lattice_bidir_exp_reference /
+lattice_backward_betas_reference bit for bit:
+
+  - the launch: a grid of (B, dirs) blocks, block (b, y) walking example
+    b backward where y + dir0 == 1 (#8: dirs 2, dir0 0; #3: dirs 1, dir0
+    1, so its betas are #8's walk's);
 
   - the chain: #4 on one warp whose lane l holds the V consecutive
     positions t = l*V + j (V = 1, 2, 4 by T); #8 on ceil(T / (32 V))
@@ -16,13 +22,15 @@ lattice_bidir_exp_reference bit for bit:
     read), each lane its positions below T (a position not staged reads
     NaN); #4's loader replaces each staged value by its exp in place
     before the chain may read the round;
-  - the chain: the neighbour exchange (forward, the value at t - 1 from the
-    lane below, __shfl_up_sync, NEG (#8) or 0 (#4) into t = 0; backward, t
-    + 1 from the lane above, __shfl_down_sync, NEG or 0 from t >= T); #8's
-    edges between chain warps through each warp's exchange words (forward
-    lane 31's last value for the warp above, backward lane 0's first for
-    the warp below; a consumer reads the word of its own column step, a
-    producer having written it first), the reset at u == out_len - 1 and,
+  - the chain: the neighbour exchange (forward, the value at t - 1, NEG
+    (#8) or 0 (#4) into t = 0; backward, t + 1, NEG or 0 from t >= T):
+    with one chain warp within the lane or from the next lane
+    (__shfl_up_sync / __shfl_down_sync); with several (#8), the barrier
+    exchange: every position writes its value into row s & 1 of two
+    shared rows of 32 * 4 + 1 cells (forward at t + 1, backward at t),
+    named barrier 1 over the chain warps, then each reads its neighbour's
+    cell (forward t, backward t + 1), written in the same column step s;
+    the reset at u == out_len - 1 and,
     for #4, every column's row max (the lane's max over its positions
     below T, 0 for a lane past T, then the warp's) floored at 1e-30 and
     the division by it (the double product with the normalizer's double
@@ -50,7 +58,7 @@ LANES, TINY = 32, 1e-30
 # Columns a round, and the input and result rings in rounds: #8's (log)
 # and #4's (exp).
 RINGS = {False: (16, 3, 2), True: (4, 6, 4)}
-XCH = 64  # exchange words a chain warp
+ROW = LANES * 4 + 1  # cells of a barrier-exchange row (kMaxChains = 4)
 
 
 def lanes_v(T: int) -> int:
@@ -66,24 +74,9 @@ def log_layouts(T: int) -> list:
     return [v for v in (1, 2, 4) if v <= lanes_v(T)]
 
 
-class Exchange:
-    """The chain warps' exchange words: XCH slots a chain warp, each the
-    value last published there and its column step."""
-
-    def __init__(self, nc):
-        self.slots = [[None] * XCH for _ in range(nc)]
-
-    def give(self, c, s, v):
-        self.slots[c][s % XCH] = (s, v)
-
-    def take(self, c, s):
-        step, v = self.slots[c][s % XCH]
-        assert step == s  # published for this step, not an older one
-        return v
-
-
 class Walk:
-    """One walk's columns, its two rings and (#8) its chain warps' exchange.
+    """One walk's columns, its two rings and (#8) its chain warps' exchange
+    rows.
     column(r, k) is round r's k-th column in walk order; a ring slot holds
     a round or None once read. Chain warp c's lane l holds t = 32 V c + l V
     + j, lane rows 32 c .. 32 c + 31 of t."""
@@ -96,7 +89,11 @@ class Walk:
         self.rounds = -(-U // self.round)
         self.t = torch.arange(nc * LANES * V).view(nc * LANES, V)
         self.live = self.t < T
-        self.xch = Exchange(nc)
+        assert nc * LANES * V < ROW
+        # the barrier exchange's two rows: each cell's value and the column
+        # step that wrote it (never written: NaN, -1)
+        self.row = torch.full((2, ROW), float("nan"))
+        self.row_step = torch.full((2, ROW), -1, dtype=torch.long)
         self.inputs = [None] * self.n_in
         self.results = [None] * self.n_res
 
@@ -172,24 +169,36 @@ def div_rn(x, norm):
     return (x.double() * (1.0 / norm.double())).float()
 
 
-def chain_rows(c):
-    return slice(LANES * c, LANES * (c + 1))
+def neighbours(w, x, step, backward, V):
+    """The log walks' neighbour of each chain position in column step
+    `step`: the value at t - 1 (forward; NEG into t = 0) or at t + 1
+    (backward; NEG from t + 1 >= T). One chain warp: a shuffle. Several:
+    the barrier exchange, each position's value written into row step & 1
+    (forward at t + 1, backward at t), then every neighbour's cell read,
+    which this column step must have written."""
+    if w.nc == 1:
+        if backward:
+            return shift_in_up(w.t, w.T, x, V, NEG, NEG)
+        return shift_in_down(x, V, NEG)
+    flat, t = x.reshape(-1), w.t.reshape(-1)
+    n, off = flat.numel(), 0 if backward else 1
+    row, tag = w.row[step & 1], w.row_step[step & 1]
+    row[off:off + n] = flat
+    tag[off:off + n] = step
+    idx = t + 1 if backward else t  # the neighbour's cell
+    used = t + 1 < w.T if backward else t > 0
+    assert bool((tag[idx][used] == step).all())  # written this column
+    got = torch.where(used, row[idx], NEG)
+    return got.view_as(x)
 
 
 def log_alpha_round(w, st, cols, r, V):
-    """log_alpha_chain for one round on each chain warp (a producer before
-    its consumer): the alphas of its columns."""
+    """log_alpha_chain for one round on every chain warp: the alphas of
+    its columns."""
     out = []
     for k, (e, s, f) in enumerate(cols):
-        step = r * w.round + k
         mv = st["alpha"] + st["ls"]
-        moved = torch.empty_like(mv)
-        for c in range(w.nc):
-            m = mv[chain_rows(c)]
-            if c + 1 < w.nc:  # lane 31's last value, for warp c + 1
-                w.xch.give(c, step, m[LANES - 1, V - 1])
-            below = w.xch.take(c - 1, step) if c > 0 else NEG
-            moved[chain_rows(c)] = shift_in_down(m, V, below)
+        moved = neighbours(w, mv, r * w.round + k, False, V)
         x = f + logaddexp(st["alpha"] + st["le"], moved)
         if r == 0 and k == 0:
             x = torch.where(w.t == 0, f, NEG)
@@ -199,20 +208,12 @@ def log_alpha_round(w, st, cols, r, V):
 
 
 def log_beta_round(w, st, cols, r, in_len, out_len, V):
-    """log_beta_chain for one round on each chain warp (a producer, the
-    warp above, before its consumer): the betas of its columns."""
+    """log_beta_chain for one round on every chain warp: the betas of its
+    columns."""
     out = []
     for k, (e, s, f) in enumerate(cols):
-        step = r * w.round + k
         cont = st["lf"] + st["beta"]
-        up = torch.empty_like(cont)
-        for c in range(w.nc - 1, -1, -1):
-            rows = chain_rows(c)
-            if c > 0:  # lane 0's first value, for warp c - 1
-                w.xch.give(c, step, cont[rows][0, 0])
-            above = w.xch.take(c + 1, step) if c + 1 < w.nc else NEG
-            up[rows] = shift_in_up(w.t[rows], w.T, cont[rows], V, above,
-                                   NEG)
+        up = neighbours(w, cont, r * w.round + k, True, V)
         x = logaddexp(e + cont, s + up)
         if w.column(r, k) == out_len - 1:
             x = torch.where(w.t == in_len - 1, e, NEG)
@@ -304,19 +305,26 @@ def run_walk(w, out, in_len, out_len, V):
         acc = store_round(w, r, out, acc, out_len)
 
 
-def emulate_bidir_warp(le, ls, lf, il, ol, V, exp_domain):
-    """(alphas, betas) from the warp walks over flat buffers: #4 on one
-    chain warp, #8 on ceil(T / (32 V)) chain warps."""
+def emulate_bidir_warp(le, ls, lf, il, ol, V, exp_domain, dir0=0,
+                       dirs=2):
+    """(alphas, betas) from the warp walks over flat buffers (NaN where a
+    launch writes nothing): #4 on one chain warp, the log walks on ceil(T
+    / (32 V)) chain warps in a grid of (B, dirs) blocks, block (b, y)
+    backward where y + dir0 == 1 (#8: dir0 0, dirs 2; #3: dir0 1, dirs
+    1)."""
     U, B, T = le.shape
     nc = 1 if exp_domain else -(-T // (LANES * V))
     fields = [x.reshape(-1) for x in (le, ls, lf)]
     alphas, betas = (torch.full((U * B * T,), float("nan"))
                      for _ in range(2))
     for b in range(B):
-        run_walk(Walk(fields, b, B, T, U, V, False, exp_domain, nc), alphas,
-                 0, 0, V)
-        run_walk(Walk(fields, b, B, T, U, V, True, exp_domain, nc), betas,
-                 int(il[b]), int(ol[b]), V)
+        for y in range(dirs):
+            back = y + dir0 == 1
+            w = Walk(fields, b, B, T, U, V, back, exp_domain, nc)
+            if back:
+                run_walk(w, betas, int(il[b]), int(ol[b]), V)
+            else:
+                run_walk(w, alphas, 0, 0, V)
     return alphas.view(U, B, T), betas.view(U, B, T)
 
 
@@ -359,8 +367,7 @@ def check_walk(T, U, V, exp_domain, reference):
 @pytest.mark.parametrize("T,U,V", LOG_CASES)
 def test_log_warp_walk_equals_plain_version(T, U, V):
     """#8: the log-domain walk on ceil(T / (32 V)) chain warps, NEG at the
-    shuffles' edges, the edges between chain warps through their exchange
-    words."""
+    edges, the chain warps' neighbours through the barrier exchange."""
     alphas, betas = check_walk(T, U, V, False, lk.lattice_bidir_reference)
     assert bool((alphas > NEG / 2).any()) and bool((betas > NEG / 2).any())
 
@@ -372,6 +379,32 @@ def test_exp_warp_walk_equals_plain_version(T, U, V):
     alphas, betas = check_walk(T, U, V, True, lk.lattice_bidir_exp_reference)
     assert bool(torch.isfinite(alphas).any())
     assert bool(torch.isneginf(alphas[:, 4]).any())
+
+
+BETAS_TS = (1, 31, 32, 33, 64, 80, 100, 128)
+BETAS_CASES = [(T, U) for T in BETAS_TS for U in (3, 37, 42)]
+
+
+@pytest.mark.parametrize("T,U", BETAS_CASES)
+def test_betas_warp_walk_equals_plain_version(T, U):
+    """#3: bidir_warp_kernel launched for the backward walks alone (one
+    direction a block, dir0 = 1) on ceil(T / 32) chain warps of one
+    position a lane (kLogVC), with ragged lengths and a degenerate
+    example: every beta written once, no alpha written, bit for bit the
+    plain version and #8's betas."""
+    torch.set_num_threads(1)
+    le, ls, lf, il, ol = lattice_inputs(T * 100 + U + 3, U, T, False)
+    alphas, betas = emulate_bidir_warp(le, ls, lf, il, ol, 1, False,
+                                       dir0=1, dirs=1)
+    assert bool(torch.isnan(alphas).all())
+    assert not torch.isnan(betas).any()
+    want = lk.lattice_backward_betas_reference(le, ls, lf, il, ol)
+    assert torch.equal(betas.view(torch.int32), want.view(torch.int32))
+    _, bidir = emulate_bidir_warp(le, ls, lf, il, ol, 1, False)
+    assert torch.equal(betas.view(torch.int32), bidir.view(torch.int32))
+    assert bool((betas > NEG / 2).any())
+    if T > 1:  # example 4 has no path (ol < il): beta_0 at t = 0 is NEG
+        assert int(ol[4]) < int(il[4]) and float(betas[0, 4, 0]) <= NEG / 2
 
 
 def test_double_reciprocal_division_is_correctly_rounded():

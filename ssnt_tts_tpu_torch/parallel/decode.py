@@ -22,6 +22,16 @@ A step is, as in the JAX package, one of three routes:
   - plain (fuse_model=False, use_pallas=False): the per-beam decode step,
     then the plain beam step and state gather on any device.
 
+Spans (utils/profiling.annotate: recorded only while a torch profiler
+records) mark each layer of a decode, whichever the route:
+ssnt.v1.decode / ssnt.v2.decode / ssnt.tone.decode around the call, and
+inside it ssnt.encode, ssnt.weights and ssnt.paths (the fused route's
+hoisted work), ssnt.steps (the step loop) around one ssnt.step a step, and
+ssnt.postprocess (the stacks and the post-processing) around
+ssnt.backtrace and ssnt.mel_gather (v1) or ssnt.upsample (v2). The
+benchmark's per-layer readers (perfbench/program_spans.py) match these
+names letter for letter.
+
 Outputs keep the JAX layouts. v2: prediction/beam_branch (B, T, W),
 ordered_beam_branch/durations (B, W, T), output_length (B, W),
 source_indexes (B, W, max_frames), log_prob/total_duration/is_finished
@@ -39,6 +49,7 @@ from ssnt_tts_tpu_torch.models import stepmath
 from ssnt_tts_tpu_torch.ops import backtrace, beam_fused, beam_kernels
 from ssnt_tts_tpu_torch.ops import beam_v2, upsample
 from ssnt_tts_tpu_torch.utils.config import V2BeamConfig
+from ssnt_tts_tpu_torch.utils.profiling import annotate
 
 
 def _ordered(preds, branches):
@@ -62,13 +73,15 @@ def v2_postprocess(preds, branches, duration_table, input_length,
                    ) -> Dict[str, torch.Tensor]:
     """preds/branches (B, T, W) -> alignment outputs (decode.py:233)."""
     T = preds.shape[1]
-    ordered, pred_classes = _ordered(preds, branches)
+    with annotate("ssnt.backtrace"):
+        ordered, pred_classes = _ordered(preds, branches)
     durations = duration_table.to(preds.device)[pred_classes.long()]
     durations = torch.where(_within(input_length, T), durations,
                             0).to(torch.int32)
     out_len = durations.sum(dim=-1, dtype=torch.int32)  # (B, W)
-    src = upsample.upsample_source_indexes(durations, out_len, -1,
-                                           max_u=max_frames)
+    with annotate("ssnt.upsample"):
+        src = upsample.upsample_source_indexes(durations, out_len, -1,
+                                               max_u=max_frames)
     return {
         "prediction": preds, "beam_branch": branches,
         "ordered_beam_branch": ordered, "durations": durations,
@@ -83,7 +96,8 @@ def tone_postprocess(preds, branches, input_length, empty_tone_id: int,
     each beam's tone along its ancestry, empty_tone_id past the
     utterance's length."""
     T = preds.shape[1]
-    _, tones = _ordered(preds, branches)
+    with annotate("ssnt.backtrace"):
+        _, tones = _ordered(preds, branches)
     tones = torch.where(_within(input_length, T), tones, empty_tone_id)
     return {"tones": tones, "prediction": preds, "beam_branch": branches,
             "log_prob": lp}
@@ -119,75 +133,85 @@ def v2_duration_decode(
     each utterance's first emptying step (0 if none), and first_empty_t
     (B,) int32, its source position (-1 if none).
     """
-    B, T = tokens.shape
-    W = beam_width
-    dev = tokens.device
-    i32 = torch.int32
-    dtab = torch.as_tensor(duration_table, dtype=i32, device=dev)
-    il = input_length.to(device=dev, dtype=i32).contiguous()
-    ol = output_length.to(device=dev, dtype=i32)
-    if test_mode:
-        ol = torch.zeros_like(ol)
-    ol = ol.contiguous()
-    kw = dict(zero_duration_id=zero_duration_id, allow_skip=allow_skip,
-              test_mode=test_mode, config=config)
+    with annotate("ssnt.v2.decode"):
+        B, T = tokens.shape
+        W = beam_width
+        dev = tokens.device
+        i32 = torch.int32
+        dtab = torch.as_tensor(duration_table, dtype=i32, device=dev)
+        il = input_length.to(device=dev, dtype=i32).contiguous()
+        ol = output_length.to(device=dev, dtype=i32)
+        if test_mode:
+            ol = torch.zeros_like(ol)
+        ol = ol.contiguous()
+        kw = dict(zero_duration_id=zero_duration_id, allow_skip=allow_skip,
+                  test_mode=test_mode, config=config)
 
-    enc = model.encode(tokens, il)
-    zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
-    lp, fin = zeros(torch.float32), zeros(torch.bool)
-    tot, t, u, pc = zeros(i32), zeros(i32), zeros(i32), zeros(i32)
-    state = torch.zeros(B, W, model.config.decoder_dim, device=dev)
-    emptied = torch.zeros(B, dtype=torch.bool, device=dev)
-    first_counts = torch.zeros(B, 4, dtype=i32, device=dev)
-    first_t = torch.full((B,), -1, dtype=i32, device=dev)
-    if collect_diagnostics:
-        def step(s):
-            nonlocal first_counts, first_t
-            h, new_h = model.duration_decode_step(enc, t, state, pc)
-            *o, counts, n = beam_v2.beam_search_decode(
-                h, lp, fin, tot, dtab, t, u, il, ol,
-                return_diagnostics=True, **kw)
-            new = (n == 0) & ~emptied
-            first_counts = torch.where(new[:, None], counts, first_counts)
-            first_t = torch.where(new, t[:, 0], first_t)
-            return beam_fused.V2Step(*o, n, emptied | (n == 0),
-                                     beam_fused.reorder_state(new_h, o[6]))
-    elif fuse_model is not False:
-        w = model.duration_step_weights()
-        xin_path, base_path = stepmath.class_decode_paths(
-            w, enc, il, model.dtype, kind="v2")
-        fw = beam_fused.prepare_fused_weights(w, model.dtype)
+        with annotate("ssnt.encode"):
+            enc = model.encode(tokens, il)
+        zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
+        lp, fin = zeros(torch.float32), zeros(torch.bool)
+        tot, t, u, pc = zeros(i32), zeros(i32), zeros(i32), zeros(i32)
+        state = torch.zeros(B, W, model.config.decoder_dim, device=dev)
+        emptied = torch.zeros(B, dtype=torch.bool, device=dev)
+        first_counts = torch.zeros(B, 4, dtype=i32, device=dev)
+        first_t = torch.full((B,), -1, dtype=i32, device=dev)
+        if collect_diagnostics:
+            def step(s):
+                nonlocal first_counts, first_t
+                h, new_h = model.duration_decode_step(enc, t, state, pc)
+                *o, counts, n = beam_v2.beam_search_decode(
+                    h, lp, fin, tot, dtab, t, u, il, ol,
+                    return_diagnostics=True, **kw)
+                new = (n == 0) & ~emptied
+                first_counts = torch.where(new[:, None], counts,
+                                           first_counts)
+                first_t = torch.where(new, t[:, 0], first_t)
+                return beam_fused.V2Step(
+                    *o, n, emptied | (n == 0),
+                    beam_fused.reorder_state(new_h, o[6]))
+        elif fuse_model is not False:
+            w = model.duration_step_weights()
+            with annotate("ssnt.paths"):
+                xin_path, base_path = stepmath.class_decode_paths(
+                    w, enc, il, model.dtype, kind="v2")
+            with annotate("ssnt.weights"):
+                fw = beam_fused.prepare_fused_weights(w, model.dtype)
 
-        def step(s):
-            return beam_fused.fused_class_beam_step(
-                s, xin_path, base_path, fw, pc, state, lp, fin, tot, t, u,
-                il, ol, dtab, emptied, **kw)
-    else:
-        beam_step = (beam_kernels.v2_beam_search_decode_reference
-                     if use_pallas is False
-                     else beam_kernels.v2_beam_search_decode)
+            def step(s):
+                return beam_fused.fused_class_beam_step(
+                    s, xin_path, base_path, fw, pc, state, lp, fin, tot, t,
+                    u, il, ol, dtab, emptied, **kw)
+        else:
+            beam_step = (beam_kernels.v2_beam_search_decode_reference
+                         if use_pallas is False
+                         else beam_kernels.v2_beam_search_decode)
 
-        def step(s):
-            h, new_h = model.duration_decode_step(enc, t, state, pc)
-            o = beam_step(h, lp, fin, tot, dtab, t, u, il, ol, state=new_h,
-                          **kw)
-            return beam_fused.V2Step(*o[:8], emptied | (o.num_survivors == 0),
-                                     o.state)
+            def step(s):
+                h, new_h = model.duration_decode_step(enc, t, state, pc)
+                o = beam_step(h, lp, fin, tot, dtab, t, u, il, ol,
+                              state=new_h, **kw)
+                return beam_fused.V2Step(
+                    *o[:8], emptied | (o.num_survivors == 0), o.state)
 
-    preds, branches = [], []
-    for s in range(T):
-        o = step(s)
-        lp, fin, tot = o.log_prob, o.is_finished, o.total_duration
-        t, u, pc, state, emptied = (o.next_t, o.next_u, o.prediction,
-                                    o.state, o.emptied)
-        preds.append(o.prediction)
-        branches.append(o.branch)
-    out = v2_postprocess(torch.stack(preds, 1), torch.stack(branches, 1),
-                         dtab, il, max_frames, lp, tot, fin, emptied)
-    if collect_diagnostics:
-        out["first_empty_prune_counts"] = first_counts
-        out["first_empty_t"] = first_t
-    return out
+        preds, branches = [], []
+        with annotate("ssnt.steps"):
+            for s in range(T):
+                with annotate("ssnt.step"):
+                    o = step(s)
+                lp, fin, tot = o.log_prob, o.is_finished, o.total_duration
+                t, u, pc, state, emptied = (o.next_t, o.next_u, o.prediction,
+                                            o.state, o.emptied)
+                preds.append(o.prediction)
+                branches.append(o.branch)
+        with annotate("ssnt.postprocess"):
+            out = v2_postprocess(torch.stack(preds, 1),
+                                 torch.stack(branches, 1), dtab, il,
+                                 max_frames, lp, tot, fin, emptied)
+        if collect_diagnostics:
+            out["first_empty_prune_counts"] = first_counts
+            out["first_empty_t"] = first_t
+        return out
 
 
 @torch.no_grad()
@@ -205,46 +229,54 @@ def tone_decode(
     conditioning (each beam's h follows its own tone history); the eval
     pairs it with ops/edit_distance. The route follows fuse_model and
     use_pallas (module docstring)."""
-    B, T = tokens.shape
-    W = beam_width
-    dev = tokens.device
-    i32 = torch.int32
-    il = input_length.to(device=dev, dtype=i32).contiguous()
+    with annotate("ssnt.tone.decode"):
+        B, T = tokens.shape
+        W = beam_width
+        dev = tokens.device
+        i32 = torch.int32
+        il = input_length.to(device=dev, dtype=i32).contiguous()
 
-    enc = model.encode(tokens, il)
-    zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
-    lp, fin = zeros(torch.float32), zeros(torch.bool)
-    t, u, pc = zeros(i32), zeros(i32), zeros(i32)
-    state = torch.zeros(B, W, model.config.decoder_dim, device=dev)
-    if fuse_model is not False:
-        w = model.tone_step_weights()
-        xin_path, base_path = stepmath.class_decode_paths(
-            w, enc, il, model.dtype, kind="tone")
-        fw = beam_fused.prepare_fused_weights(w, model.dtype)
+        with annotate("ssnt.encode"):
+            enc = model.encode(tokens, il)
+        zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
+        lp, fin = zeros(torch.float32), zeros(torch.bool)
+        t, u, pc = zeros(i32), zeros(i32), zeros(i32)
+        state = torch.zeros(B, W, model.config.decoder_dim, device=dev)
+        if fuse_model is not False:
+            w = model.tone_step_weights()
+            with annotate("ssnt.paths"):
+                xin_path, base_path = stepmath.class_decode_paths(
+                    w, enc, il, model.dtype, kind="tone")
+            with annotate("ssnt.weights"):
+                fw = beam_fused.prepare_fused_weights(w, model.dtype)
 
-        def step(s):
-            return beam_fused.fused_tone_step(
-                s, xin_path, base_path, fw, pc, state, lp, fin, t, u, il,
-                empty_tone_id=empty_tone_id)
-    else:
-        beam_step = (beam_kernels.tone_beam_search_decode_reference
-                     if use_pallas is False
-                     else beam_kernels.tone_beam_search_decode)
+            def step(s):
+                return beam_fused.fused_tone_step(
+                    s, xin_path, base_path, fw, pc, state, lp, fin, t, u, il,
+                    empty_tone_id=empty_tone_id)
+        else:
+            beam_step = (beam_kernels.tone_beam_search_decode_reference
+                         if use_pallas is False
+                         else beam_kernels.tone_beam_search_decode)
 
-        def step(s):
-            h, new_h = model.tone_decode_step(enc, t, state, pc)
-            return beam_step(h, lp, fin, t, u, il, state=new_h,
-                             empty_tone_id=empty_tone_id)
+            def step(s):
+                h, new_h = model.tone_decode_step(enc, t, state, pc)
+                return beam_step(h, lp, fin, t, u, il, state=new_h,
+                                 empty_tone_id=empty_tone_id)
 
-    preds, branches = [], []
-    for s in range(T):
-        o = step(s)
-        lp, fin, t, u = o.log_prob, o.is_finished, o.next_t, o.next_u
-        pc, state = o.prediction, o.state
-        preds.append(o.prediction)
-        branches.append(o.branch)
-    return tone_postprocess(torch.stack(preds, 1), torch.stack(branches, 1),
-                            il, empty_tone_id, lp)
+        preds, branches = [], []
+        with annotate("ssnt.steps"):
+            for s in range(T):
+                with annotate("ssnt.step"):
+                    o = step(s)
+                lp, fin, t, u = o.log_prob, o.is_finished, o.next_t, o.next_u
+                pc, state = o.prediction, o.state
+                preds.append(o.prediction)
+                branches.append(o.branch)
+        with annotate("ssnt.postprocess"):
+            return tone_postprocess(torch.stack(preds, 1),
+                                    torch.stack(branches, 1), il,
+                                    empty_tone_id, lp)
 
 
 def v1_postprocess(branches, t_hists, mels, preds, lp, u
@@ -254,11 +286,14 @@ def v1_postprocess(branches, t_hists, mels, preds, lp, u
     slot 0 the best) and its mel frames."""
     B, U, W, M = mels.shape
     best_final = torch.zeros(B, dtype=torch.int32, device=mels.device)
-    best_branch, best_t = backtrace.extract_best_beam_branch(
-        best_final, branches, t_hists)
-    idx = best_branch.long()[:, :, None, None].expand(B, U, 1, M)
+    with annotate("ssnt.backtrace"):
+        best_branch, best_t = backtrace.extract_best_beam_branch(
+            best_final, branches, t_hists)
+    with annotate("ssnt.mel_gather"):
+        idx = best_branch.long()[:, :, None, None].expand(B, U, 1, M)
+        mel = torch.gather(mels, 2, idx)[:, :, 0]
     return {
-        "mel": torch.gather(mels, 2, idx)[:, :, 0], "alignment": best_t,
+        "mel": mel, "alignment": best_t,
         "beam_branch": branches, "t_history": t_hists, "prediction": preds,
         "log_prob": lp, "num_frames": u[:, 0],
     }
@@ -312,48 +347,58 @@ def beam_decode(
     prediction (B, max_frames, W), log_prob (B, W) final cumulative
     log-probs (slot 0 the best), num_frames (B,) frames of the best beam.
     """
-    B, T = tokens.shape
-    W = beam_width
-    dev = tokens.device
-    cfg = model.config
-    H, M = cfg.decoder_dim, cfg.mel_dim
-    i32 = torch.int32
-    il = input_length.to(device=dev, dtype=i32).contiguous()
+    with annotate("ssnt.v1.decode"):
+        B, T = tokens.shape
+        W = beam_width
+        dev = tokens.device
+        cfg = model.config
+        H, M = cfg.decoder_dim, cfg.mel_dim
+        i32 = torch.int32
+        il = input_length.to(device=dev, dtype=i32).contiguous()
 
-    enc = model.encode(tokens, il)
-    zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
-    t, u, lp, fin = zeros(i32), zeros(i32), zeros(torch.float32), zeros(
-        torch.bool)
-    state = torch.zeros(B, W, H, device=dev)
-    prev_mel = torch.zeros(B, W, M, device=dev)
-    if fuse_model is not False:
-        w = model.v1_step_weights()
-        fw = beam_fused.prepare_v1_fused_weights(w, model.dtype)
-        enc_pack = stepmath.v1_enc_pack(w, enc, model.dtype).contiguous()
+        with annotate("ssnt.encode"):
+            enc = model.encode(tokens, il)
+        zeros = lambda dt: torch.zeros(B, W, dtype=dt, device=dev)
+        t, u, lp, fin = zeros(i32), zeros(i32), zeros(torch.float32), zeros(
+            torch.bool)
+        state = torch.zeros(B, W, H, device=dev)
+        prev_mel = torch.zeros(B, W, M, device=dev)
+        if fuse_model is not False:
+            w = model.v1_step_weights()
+            with annotate("ssnt.weights"):
+                fw = beam_fused.prepare_v1_fused_weights(w, model.dtype)
+            with annotate("ssnt.paths"):
+                enc_pack = stepmath.v1_enc_pack(w, enc,
+                                                model.dtype).contiguous()
 
-        def step():
-            return beam_fused.fused_v1_beam_step(
-                enc_pack, t, u, lp, fin, il, prev_mel, state, fw)
-    else:
-        beam_step = (beam_kernels.beam_search_step_reorder_reference
-                     if use_pallas is False
-                     else beam_kernels.beam_search_step_reorder)
+            def step():
+                return beam_fused.fused_v1_beam_step(
+                    enc_pack, t, u, lp, fin, il, prev_mel, state, fw)
+        else:
+            beam_step = (beam_kernels.beam_search_step_reorder_reference
+                         if use_pallas is False
+                         else beam_kernels.beam_search_step_reorder)
 
-        def step():
-            return v1_beam_only_step(model, enc, il, t, u, lp, fin, state,
-                                     prev_mel, beam_step)
+            def step():
+                return v1_beam_only_step(model, enc, il, t, u, lp, fin,
+                                         state, prev_mel, beam_step)
 
-    branches, t_hists, mels, preds = [], [], [], []
-    for _ in range(max_frames):
-        o = step()
-        t, u, lp, fin = o.next_t, o.next_u, o.log_prob, o.is_finished
-        state, prev_mel = o.state, o.mel
-        branches.append(o.branch)
-        t_hists.append(o.t_history)
-        mels.append(o.mel)
-        preds.append(o.prediction)
-    return v1_postprocess(torch.stack(branches, 1), torch.stack(t_hists, 1),
-                          torch.stack(mels, 1), torch.stack(preds, 1), lp, u)
+        branches, t_hists, mels, preds = [], [], [], []
+        with annotate("ssnt.steps"):
+            for _ in range(max_frames):
+                with annotate("ssnt.step"):
+                    o = step()
+                t, u, lp, fin = o.next_t, o.next_u, o.log_prob, o.is_finished
+                state, prev_mel = o.state, o.mel
+                branches.append(o.branch)
+                t_hists.append(o.t_history)
+                mels.append(o.mel)
+                preds.append(o.prediction)
+        with annotate("ssnt.postprocess"):
+            return v1_postprocess(torch.stack(branches, 1),
+                                  torch.stack(t_hists, 1),
+                                  torch.stack(mels, 1), torch.stack(preds, 1),
+                                  lp, u)
 
 
 def greedy_decode(model, tokens, input_length, *, max_frames: int,

@@ -55,7 +55,7 @@ def main(argv):
         if fault is None:
             line = reading(args.workload, spec, seed, args.seconds)
         else:
-            with faults.FAULTS[fault](spec["mix"]["entry"], spec["cfg"]):
+            with faults.FAULTS[fault](spec):
                 line = reading(args.workload, spec, seed, args.seconds,
                                fault)
         print(json.dumps(line), flush=True)

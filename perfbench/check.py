@@ -2,10 +2,11 @@
 against the plain reference (perfbench/reference), and the control.
 
 A beam decode's outputs are choices, so the reference follows them. For
-each sampled utterance it starts from the same zero state, runs its own
-model math along the ancestry that the program's parent pointers and
-predictions give, step by step, and at every step judges the program's
-selection among the candidates that the reference itself works out:
+each sampled utterance it starts from its architecture's first state
+(perfbench/arch.py), runs its own model math along the ancestry that the
+program's parent pointers and predictions give, step by step, and at
+every step judges the program's selection among the candidates that the
+reference itself works out:
 
   sel_gap     v2, nats: the most by which a candidate that the program
               left out scores above one it kept, by the reference's
@@ -16,8 +17,10 @@ selection among the candidates that the reference itself works out:
   lp_err      v2, nats: the most by which a final cumulative log-prob
               differs from the reference's along the same ancestry;
   lp_rel      v1: the same over the reference's log-prob (_scale);
-  mel_err     v1: the most by which a best-path mel value differs from
-              the reference's, over the reference's RMS;
+  mel_err     v1: the most by which a value of the program's mel
+              differs from the reference's (its architecture's
+              v1_output of the best path's frames), over the reference's
+              RMS;
   mismatches  integer outputs that differ from what the reference derives
               from the same choices: v1 the source position of each slot,
               the predictions, the frame count and the best path's
@@ -40,7 +43,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from perfbench.reference import beam, model
+from perfbench.reference import beam
+from perfbench.reference.numerics import Num
 
 V1_FIELDS = ("pred", "nt", "nu", "fin")
 V2_FIELDS = ("pred", "nt", "nu", "fin", "tot")
@@ -134,21 +138,23 @@ def _relabel(label, par, k, K):
 
 
 class Judge:
-    """Holds the reference and the control over the sampled rows."""
+    """Holds the reference (`ref`, an architecture's reference module) and
+    the control over the sampled rows."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: dict, device,
-                 control: bool, limits: Dict[str, float]):
+    def __init__(self, ref, params: Dict[str, torch.Tensor], cfg: dict,
+                 device, control: bool, limits: Dict[str, float]):
+        self.ref = ref
         self.P = {k: v.to(device=device, dtype=torch.float32)
                   for k, v in params.items()}
         self.cfg = cfg
         self.device = device
         self.limits = limits
-        self.nums = {"ref": model.Num(DTYPES[cfg["dtype"]])}
+        self.nums = {"ref": Num(DTYPES[cfg["dtype"]])}
         if control:
-            self.nums["ctl"] = model.Num(LOWER[cfg["dtype"]])
+            self.nums["ctl"] = Num(LOWER[cfg["dtype"]])
 
     def encode(self, toks, il):
-        return {k: model.encode(self.P, self.cfg, toks, il, n)
+        return {k: self.ref.encode(self.P, self.cfg, toks, il, n)
                 for k, n in self.nums.items()}
 
     def v1(self, rows: List[dict], W: int) -> Dict[str, dict]:
@@ -159,12 +165,13 @@ class Judge:
         t_hist = _stack(rows, "t_history", dev).long()
         preds = _stack(rows, "prediction", dev).long()
         R, U, _ = branches.shape
-        H, M = self.cfg["decoder_dim"], self.cfg["mel_dim"]
+        M = self.cfg["mel_dim"]
         enc = self.encode(toks, il)
-        side = {k: model.v1_enc_side(self.P, enc[k], n)
+        side = {k: self.ref.v1_enc_side(self.P, enc[k], n)
                 for k, n in self.nums.items()}
         z = lambda *s: torch.zeros(R, W, *s, device=dev)
-        state = {k: z(H) for k in self.nums}
+        state = {k: self.ref.v1_state(self.cfg, R, W, dev)
+                 for k in self.nums}
         prev = {k: z(M) for k in self.nums}
         hist = {k: z() for k in self.nums}
         t = torch.zeros(R, W, dtype=torch.long, device=dev)
@@ -178,7 +185,8 @@ class Judge:
                          for _ in range(2))
         rix = torch.arange(R, device=dev)[:, None]
         for s in range(U):
-            out = {k: model.v1_step(self.P, side[k], t, state[k], prev[k], n)
+            out = {k: self.ref.v1_step(self.P, side[k], t, state[k], prev[k],
+                                       n)
                    for k, n in self.nums.items()}
             cand = {k: beam.v1_candidates(hist[k], out[k][0], t, u, fin, il)
                     for k in self.nums}
@@ -230,8 +238,10 @@ class Judge:
                                                device=dev), branches, t_hist)
         mism += (ts != _stack(rows, "alignment", dev).long()).sum()
         mism += (u[:, 0] != _stack(rows, "num_frames", dev).long()).sum()
-        best = {key: mels[key][rix, torch.arange(U, device=dev)[None],
-                               slots] for key in self.nums}
+        best = {key: self.ref.v1_output(
+            self.P, self.cfg,
+            mels[key][rix, torch.arange(U, device=dev)[None], slots],
+            u[:, 0], n) for key, n in self.nums.items()}
         scale = best["ref"].square().mean().sqrt().clamp(min=1e-12)
         prog_mel = _stack(rows, "mel", dev).float()
         prog_lp = _stack(rows, "log_prob", dev).float()
@@ -275,11 +285,11 @@ class Judge:
         dtab = torch.as_tensor(duration_table, device=dev).long()
         R, T, _ = branches.shape
         D = dtab.shape[0]
-        H = self.cfg["decoder_dim"]
         enc = self.encode(toks, il)
-        side = {k: model.v2_enc_side(self.P, enc[k], n)
+        side = {k: self.ref.v2_enc_side(self.P, enc[k], n)
                 for k, n in self.nums.items()}
-        state = {k: torch.zeros(R, W, H, device=dev) for k in self.nums}
+        state = {k: self.ref.v2_state(self.cfg, R, W, dev)
+                 for k in self.nums}
         hist = {k: torch.zeros(R, W, device=dev) for k in self.nums}
         zl = lambda: torch.zeros(R, W, dtype=torch.long, device=dev)
         t, u, tot, pc, label = zl(), zl(), zl(), zl(), zl()
@@ -293,7 +303,7 @@ class Judge:
         for s in range(T):
             pos = torch.minimum(torch.tensor(s, device=dev), il - 1)
             pos = pos[:, None].expand(R, W)
-            out = {k: model.v2_step(self.P, side[k], pos, state[k], pc, n)
+            out = {k: self.ref.v2_step(self.P, side[k], pos, state[k], pc, n)
                    for k, n in self.nums.items()}
             cand = {k: beam.v2_candidates(hist[k], out[k][0], t, u, tot,
                                           fin, dtab, il, ol)
@@ -385,18 +395,19 @@ class Judge:
         return {"program": prog, "control": ctl}
 
 
-def judge(entry: str, params, cfg: dict, rows: List[dict], workload: dict,
-          traffic: dict, device, control: bool = False) -> Dict[str, dict]:
+def judge(ref, entry: str, params, cfg: dict, rows: List[dict],
+          workload: dict, traffic: dict, device, control: bool = False
+          ) -> Dict[str, dict]:
     """The program's numbers over the sampled rows and, with `control`,
-    the control's; the reference's float32 matrix products without
-    TF32."""
+    the control's, by `ref`, the architecture's reference module; the
+    reference's float32 matrix products without TF32."""
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.no_grad():
-            j = Judge(params, cfg, device, control, workload["limits"])
+            j = Judge(ref, params, cfg, device, control, workload["limits"])
             if entry == "v1":
                 return j.v1(rows, traffic["beam"])
             return j.v2(rows, traffic["beam"], traffic["max_frames"],

@@ -1,4 +1,6 @@
-"""Operations and bytes of the decode's work, from a configuration's shapes.
+"""Operations and bytes of the SSNT-TTS architecture's decode ("ssnt",
+perfbench/reference/ssnt.py), from a configuration's shapes, as
+perfbench/arch.py asks of an architecture's counts.
 
 Operations are 2 x the multiply-adds of the matrix products. Bytes count
 each input byte read once and each output byte written once: a step's
@@ -9,13 +11,7 @@ rows its beams gather. Nothing that a kernel reads again is counted twice.
 
 from __future__ import annotations
 
-import json
-from pathlib import Path
-
-F32, I32, BOOL = 4, 4, 1
-DTYPE_BYTES = {"bfloat16": 2, "float32": 4}
-PEAKS = json.loads((Path(__file__).resolve().parent / "peaks.json")
-                   .read_text())
+from perfbench.counts.roofline import BOOL, DTYPE_BYTES, F32, I32
 
 
 def encoder_flops(cfg: dict, B: int, T: int) -> float:
@@ -75,18 +71,3 @@ def decode_flops(entry: str, cfg: dict, mix: dict, B: int, W: int) -> float:
     total += 2.0 * B * T * (He * H + He * He + He * D)
     return total + T * v2_step_flops(cfg, B, W)
 
-
-def bound_s(flops: float, nbytes: float, cfg: dict, kind: str):
-    """The least time the card could take: the larger of operations over
-    the peak rate of the compute dtype and bytes over the memory rate;
-    None for a card the table lacks."""
-    peak = PEAKS.get(kind)
-    if peak is None:
-        return None
-    return max(flops / peak[cfg["dtype"] + "_flops"],
-               nbytes / peak["bytes_per_s"])
-
-
-def peak_flops(cfg: dict, kind: str):
-    peak = PEAKS.get(kind)
-    return None if peak is None else peak[cfg["dtype"] + "_flops"]

@@ -1,10 +1,10 @@
 """Faults planted in the timed path underneath the harness, for the tests
 (perfbench/tests, a tiny size on the CPU) and for their readings at a
 cell's own size on the card (perfbench/calibrate.py). Each is a context
-manager for an entry ("v1" or "v2") that breaks the program's decode
-while inside and mends it on leaving:
+manager for a cell's spec (harness.cell_spec) that breaks the program's
+decode while inside and mends it on leaving:
 
-  state_unchanged     every fused step returns the state it was given
+  state_unchanged     every step returns the state it was given
   half_batch          half of the batch left out: the decode runs the
                       first half, the second half's outputs are copies
   prediction_altered  every seventh step alters the first slot's
@@ -14,6 +14,18 @@ while inside and mends it on leaving:
                       below ones it drops, and they carry the swapped
                       log-probs
 
+The step is the cell's (spec["step"]): its span file
+perfbench/spans/<step>.json names the program's callable and, under
+"fault", what the faults need of it:
+  args      {"state": ..., "log_prob": ...} the names of the step's
+            arguments that hold the beams' state and their log-probs
+  outputs   {"prediction": ..., "state": ...} the names of the fields of
+            the step's output (a named tuple) that hold them
+  classes   the number of classes a prediction takes: a number, or the
+            key of the configuration that holds it
+half_batch wraps the entry's decode call (harness.ENTRIES), whatever step
+it takes.
+
 The cells run on one card: there is no exchange between cards to leave
 out.
 """
@@ -22,15 +34,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 import itertools
 
 import torch
 
-# entry -> (the fused step, the index of its state and of its log-prob
-# arguments)
-STEPS = {"v1": ("fused_v1_beam_step", 7, 3),
-         "v2": ("fused_class_beam_step", 5, 6)}
-CLASSES = {"v1": lambda cfg: 2, "v2": lambda cfg: cfg["duration_class_size"]}
+from perfbench import trace
 
 
 @contextlib.contextmanager
@@ -45,28 +54,44 @@ def _replaced(owner, key, new, item=False):
         put(key, old)
 
 
-def _step(entry, change):
-    """Replaces the entry's fused step by change(step, args, kwargs, n),
-    n counting the calls from 1."""
-    from ssnt_tts_tpu_torch.ops import beam_fused
+def _fields(spec) -> dict:
+    """The "fault" fields of the cell's step's span file."""
+    return trace.span_specs()[spec["step"]]["fault"]
+
+
+def _step(spec, change):
+    """Replaces the cell's step by change(step, bound arguments, n), n
+    counting the calls from 1."""
+    owner, attr = trace.owner_of(trace.span_specs()[spec["step"]])
     calls = itertools.count(1)
 
     def wrap(orig):
+        sig = inspect.signature(orig)
+
         def step(*a, **k):
-            return change(orig, list(a), k, next(calls))
+            return change(orig, sig.bind(*a, **k), next(calls))
         # The step counts its launches on its own attribute, which the
         # module's name then finds on the replacement.
         return functools.update_wrapper(step, orig)
 
-    return _replaced(beam_fused, STEPS[entry][0], wrap)
+    return _replaced(owner, attr, wrap)
 
 
-def state_unchanged(entry, cfg):
-    idx = STEPS[entry][1]
-    return _step(entry, lambda f, a, k, n: f(*a, **k)._replace(state=a[idx]))
+def _call(f, bound):
+    return f(*bound.args, **bound.kwargs)
 
 
-def half_batch(entry, cfg):
+def state_unchanged(spec):
+    f = _fields(spec)
+
+    def change(step, bound, n):
+        out = {f["outputs"]["state"]: bound.arguments[f["args"]["state"]]}
+        return _call(step, bound)._replace(**out)
+
+    return _step(spec, change)
+
+
+def half_batch(spec):
     from perfbench import harness
 
     def wrap(pair):
@@ -80,33 +105,37 @@ def half_batch(entry, cfg):
 
         return half, frames
 
-    return _replaced(harness.ENTRIES, entry, wrap, item=True)
+    return _replaced(harness.ENTRIES, spec["mix"]["entry"], wrap, item=True)
 
 
-def prediction_altered(entry, cfg):
-    classes = CLASSES[entry](cfg)
+def prediction_altered(spec):
+    f = _fields(spec)
+    classes = f["classes"]
+    if isinstance(classes, str):
+        classes = spec["cfg"][classes]
+    name = f["outputs"]["prediction"]
 
-    def change(f, a, k, n):
-        o = f(*a, **k)
+    def change(step, bound, n):
+        o = _call(step, bound)
         if n % 7 != 3:
             return o
-        pred = o.prediction.clone()
+        pred = getattr(o, name).clone()
         pred[:, 0] = (pred[:, 0] + 1) % classes
-        return o._replace(prediction=pred)
+        return o._replace(**{name: pred})
 
-    return _step(entry, change)
+    return _step(spec, change)
 
 
-def scores_swapped(entry, cfg):
-    idx = STEPS[entry][2]
+def scores_swapped(spec):
+    name = _fields(spec)["args"]["log_prob"]
 
-    def change(f, a, k, n):
-        lp = a[idx].clone()
+    def change(step, bound, n):
+        lp = bound.arguments[name].clone()
         lp[:, [0, 1]] = lp[:, [1, 0]]
-        a[idx] = lp
-        return f(*a, **k)
+        bound.arguments[name] = lp
+        return _call(step, bound)
 
-    return _step(entry, change)
+    return _step(spec, change)
 
 
 FAULTS = {f.__name__: f for f in (state_unchanged, half_batch,

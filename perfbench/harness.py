@@ -6,11 +6,14 @@ metric is a file found by its name in BENCHMARK.json:
   perfbench/workloads/<cell>.json   the check's sample and the limits of
                                     its numbers
   perfbench/configs/<config>.json   the model's sizes (ModelConfig fields)
+                                    and its architecture (perfbench/arch.py)
   perfbench/traffic/<traffic>.json  the mix: batch, beams, lengths
                                     (perfbench/traffic_gen.py)
   perfbench/spans/<span>.json       a program call traced as a span
   perfbench/metrics/<metric>.py     read(run) -> the metric, or None
-The traffic's `entry` names the decode it drives (ENTRIES).
+The traffic's `entry` names the decode it drives (ENTRIES); the workload
+file may name the span of the step that the decode takes ("step", by
+default DEFAULT_STEP's), where perfbench/faults.py plants its faults.
 
 A closed loop with one client: each batch is sent when the last one's
 outputs are on the host. The window runs until the first batch that ends
@@ -33,7 +36,7 @@ import torch
 
 from perfbench import check, trace, weights
 from perfbench import traffic_gen
-from perfbench.reference import params as ref_params
+from perfbench.arch import architecture
 from perfbench.traffic_gen import subseed
 
 HERE = Path(__file__).resolve().parent
@@ -48,7 +51,8 @@ def load_json(path: Path) -> dict:
 
 
 def cell_spec(name: str, bench: dict = None) -> dict:
-    """The cell's entry in BENCHMARK.json with its files, and the metrics
+    """The cell's entry in BENCHMARK.json with its files, its
+    configuration's architecture, the span of its step, and the metrics
     that it reports."""
     bench = bench or load_json(ROOT / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -57,23 +61,34 @@ def cell_spec(name: str, bench: dict = None) -> dict:
                          f"{sorted(cells)}")
     cell = cells[name]
     applies = lambda m: name in m.get("workloads", [name])
+    workload = load_json(HERE / "workloads" / f"{name}.json")
+    cfg = load_json(HERE / "configs" / f"{cell['config']}.json")
+    mix = traffic_gen.load(cell["traffic"])
+    metrics = {kind: [m for m in bench[kind] if applies(m)]
+               for kind in ("end_to_end", "per_layer")}
+    counts = {n for ms in metrics.values() for m in ms
+              for n in getattr(reader_module(m["name"]), "COUNTS", ())}
     return {
-        "cell": cell,
-        "workload": load_json(HERE / "workloads" / f"{name}.json"),
-        "cfg": load_json(HERE / "configs" / f"{cell['config']}.json"),
-        "mix": traffic_gen.load(cell["traffic"]),
-        "end_to_end": [m for m in bench["end_to_end"] if applies(m)],
-        "per_layer": [m for m in bench["per_layer"] if applies(m)],
+        "cell": cell, "workload": workload, "cfg": cfg, "mix": mix,
+        "arch": architecture(cfg, mix["entry"], sorted(counts)),
+        "step": workload.get("step", DEFAULT_STEP[mix["entry"]]),
+        **metrics,
     }
 
 
-def reader(metric: str):
+def reader_module(metric: str):
+    """perfbench/metrics/<metric>.py: its read(run), and in COUNTS the
+    names it takes from the architecture's counts."""
     path = HERE / "metrics" / f"{metric}.py"
     spec = importlib.util.spec_from_file_location(
         "perfbench_metric_" + metric.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    return reader_module(metric).read
 
 
 # ------------------------------------------------------------------ entries
@@ -108,6 +123,9 @@ def _v2_frames(host):
 
 # entry -> (the decode call, the frames of a completed batch's utterances)
 ENTRIES = {"v1": (_v1, _v1_frames), "v2": (_v2, _v2_frames)}
+# entry -> the span (perfbench/spans) of the step its decode takes, where
+# the workload file names none
+DEFAULT_STEP = {"v1": "v1_step", "v2": "v2_step"}
 
 
 def model_config(cfg: dict):
@@ -119,15 +137,15 @@ def model_config(cfg: dict):
     return ModelConfig(**kw)
 
 
-def make_weights(cfg: dict, mix: dict, seed: int, device) -> dict:
-    spec = ref_params.param_shapes(cfg, mix.get("frames_per_token"))
+def make_weights(arch, cfg: dict, mix: dict, seed: int, device) -> dict:
+    spec = arch.ref.param_shapes(cfg, mix.get("frames_per_token"))
     return weights.make(spec, seed, device)
 
 
-def build_model(cfg: dict, mix: dict, seed: int, device):
+def build_model(arch, cfg: dict, mix: dict, seed: int, device):
     from ssnt_tts_tpu_torch.models.ssnt import SSNTModel
     model = SSNTModel(model_config(cfg), device=device)
-    w = make_weights(cfg, mix, seed, device)
+    w = make_weights(arch, cfg, mix, seed, device)
     model.load_state_dict(w, strict=True)
     return model.eval()
 
@@ -169,13 +187,13 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
     (the tests' small cells); `control` also reads the control's numbers
     (the calibration of the limits, never a benchmark run)."""
     spec = spec or cell_spec(name)
-    w, cfg, mix = spec["workload"], spec["cfg"], spec["mix"]
+    w, cfg, mix, arch = (spec[k] for k in ("workload", "cfg", "mix", "arch"))
     call, frames_of = ENTRIES[mix["entry"]]
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    model = build_model(cfg, mix, seed, device)
+    model = build_model(arch, cfg, mix, seed, device)
     traffic = traffic_gen.Traffic(mix, cfg["vocab_size"], seed, device)
 
     def run_batch(batch):
@@ -224,19 +242,20 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
     limits = w["limits"]
     check_start = time.perf_counter()
     if rows:
-        ref_w = make_weights(cfg, mix, seed, device)
-        numbers = check.judge(mix["entry"], ref_w, cfg, rows, w, mix, device,
-                              control)
+        ref_w = make_weights(arch, cfg, mix, seed, device)
+        numbers = check.judge(arch.ref, mix["entry"], ref_w, cfg, rows, w,
+                              mix, device, control)
     else:
         numbers = {"program": {k: float("inf") for k in limits},
                    "control": {}}
     correct = check.verdict(numbers["program"], limits) and not failed
     check_s = time.perf_counter() - check_start
 
-    run = {"entry": mix["entry"], "cfg": cfg, "mix": mix, "workload": w,
-           "batches": batches, "window_s": window_s, "setup_s": setup_s,
-           "trace": tr, "kind": (torch.cuda.get_device_name(device)
-                                 if device.type == "cuda" else "cpu")}
+    run = {"entry": mix["entry"], "cfg": cfg, "arch": arch, "mix": mix,
+           "workload": w, "batches": batches, "window_s": window_s,
+           "setup_s": setup_s, "trace": tr,
+           "kind": (torch.cuda.get_device_name(device)
+                    if device.type == "cuda" else "cpu")}
     metrics = {}
     for m in (spec["per_layer"] if traced else spec["end_to_end"]):
         value = reader(m["name"])(run)

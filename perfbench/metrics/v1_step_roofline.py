@@ -4,6 +4,8 @@ took, in percent."""
 
 from perfbench import trace
 
+COUNTS = ("v1_step_flops", "v1_step_bytes")
+
 
 def read(run):
     return trace.roofline_share(run, "v1_step", "v1")

@@ -4,6 +4,8 @@ took, in percent."""
 
 from perfbench import trace
 
+COUNTS = ("v2_step_flops", "v2_step_bytes")
+
 
 def read(run):
     return trace.roofline_share(run, "v2_step", "v2")

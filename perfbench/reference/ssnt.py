@@ -1,60 +1,117 @@
-"""The plain reference of the SSNT-TTS decode math, in PyTorch.
+"""The plain reference of the SSNT-TTS architecture ("ssnt", the default
+of a configuration that names none), in PyTorch: its parameters, its
+encoder and its v1 and v2 decode steps, as perfbench/arch.py asks of an
+architecture.
 
 It imports nothing of the program. Its parameters are a dict of float32
-tensors by name (`params.param_shapes`), the weights the benchmark makes
-from the seed and hands to both sides; everything the program derives from
-them (fused and packed weights, the hoisted encoder-side paths of the class
-step, the v1 step's encoder pack) is worked out here again.
+tensors by name (`param_shapes`), the weights the benchmark makes from
+the seed and hands to both sides; everything the program derives from
+them (fused and packed weights, the hoisted encoder-side paths of the
+class step, the v1 step's encoder pack) is worked out here again. The
+rounding to the compute dtype is perfbench/reference/numerics.py's.
 
-Every operation runs in float32, and the points where the model rounds to
-its compute dtype are explicit: `Num(dtype).rnd`. With `bfloat16` this is
-the configuration's own arithmetic (operands rounded, products accumulated
-in float32, results rounded, as a low-precision dense layer does); with
-`float8_e4m3fn` the same code is the control, one precision below.
+Parameters. Kernels and embeddings are normal with standard deviation
+fan_in ** -0.5 (LeCun normal), biases and log_sigma zero, LayerNorm
+scales one. Dense kernels are (out, in), convolutions (out, in, width),
+the GRU's packed [r|z|n] kernels (in, 3H).
+
+One bias is set: the transition joint's encoder bias, EMIT_BIAS for emit
+and -EMIT_BIAS for shift. Random weights put the emit/shift preference
+where chance puts it: under some seeds the best v1 beam shifts at every
+frame and finishes after about one frame a token, under others it runs
+to the frame limit, so the audio of a batch would swing with the seed.
+With the bias every seed emits first (the v1 decode's frames per batch
+stay B x max_frames); the v2 decode does not read the transition joint.
+
+For the v2 traffic, the duration AR head's output bias is DURATION_BIAS
+on the class that lasts the traffic's frames a token, zero elsewhere.
+Random weights put the duration preference where chance puts it, the
+same at every source position: a beam that keeps a class shorter or
+longer than the target's rate drifts to the edge of the band and cannot
+land on the target at the last position, so each seed emptied its own
+share of utterances (0-100 % at B=16, eight seeds on the CPU). With the
+bias every utterance of sixteen seeds lands at B=64, W=8 (a bias of 5
+emptied 2 % of one seed's), and the class log-probs keep some entropy:
+-0.01 to -0.33 nats a step on the best path.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from perfbench.reference.numerics import (Num, dense32, layer_norm,
+                                          log_softmax)
 
-class Num:
-    """Rounding to one compute dtype, with float32 arithmetic between."""
-
-    def __init__(self, dtype: torch.dtype):
-        self.dtype = dtype
-        self.min = torch.finfo(dtype).min
-
-    def rnd(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype).float()
-
-    def mm(self, a, b):
-        """a (..., K) @ b (K, N): operands and result rounded."""
-        return self.rnd(torch.matmul(self.rnd(a), self.rnd(b)))
-
-    def dense(self, x, k, b):
-        """A dense layer in the compute dtype: k (in, out)."""
-        return self.rnd(self.mm(x, k) + self.rnd(b))
+# name -> (shape, init): init is a fan-in for a normal draw, "zeros",
+# "ones", or a list of the values.
+Spec = Dict[str, Tuple[Tuple[int, ...], object]]
+EMIT_BIAS = 4.0
+DURATION_BIAS = 6.0
 
 
-def dense32(x, k, b):
-    """A dense layer kept in float32."""
-    return torch.matmul(x.float(), k.float()) + b.float()
+def param_shapes(cfg: dict, frames_per_token: Optional[int] = None) -> Spec:
+    He, H, M, R = (cfg["encoder_dim"], cfg["decoder_dim"], cfg["mel_dim"],
+                   cfg["joint_rank"])
+    spec: Spec = {}
 
+    def dense(name, i, o):
+        spec[name + ".weight"] = ((o, i), i)
+        spec[name + ".bias"] = ((o,), "zeros")
 
-def log_softmax(x):
-    shifted = x - x.amax(dim=-1, keepdim=True)
-    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+    def norm(name, d):
+        spec[name + ".weight"] = ((d,), "ones")
+        spec[name + ".bias"] = ((d,), "zeros")
 
+    def gru(name, i, h):
+        spec[name + ".wi"] = ((i, 3 * h), i)
+        spec[name + ".bi"] = ((3 * h,), "zeros")
+        spec[name + ".wh"] = ((h, 3 * h), h)
+        spec[name + ".bhn"] = ((h,), "zeros")
 
-def layer_norm(x, w, b, eps=1e-6):
-    """eps 1e-6, float32 statistics, variance E[x^2] - E[x]^2 clipped."""
-    mu = x.mean(-1, keepdim=True)
-    var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
-    return (x - mu) * (torch.rsqrt(var + eps) * w) + b
+    spec["encoder.embed"] = ((cfg["vocab_size"], He), He)
+    for i in range(3):
+        spec[f"encoder.prenet.convs.{i}.weight"] = ((He, He, 5), 5 * He)
+        spec[f"encoder.prenet.convs.{i}.bias"] = ((He,), "zeros")
+    for i in range(3):
+        norm(f"encoder.prenet.norms.{i}", He)
+    for i in range(cfg["encoder_layers"]):
+        pre = f"encoder.blocks.{i}."
+        norm(pre + "norm1", He)
+        for n in ("query", "key", "value", "out"):
+            dense(pre + "attn." + n, He, He)
+        norm(pre + "norm2", He)
+        dense(pre + "ff.fc1", He, 4 * He)
+        dense(pre + "ff.fc2", 4 * He, He)
+    norm("encoder.norm", He)
+    dense("ar_cell.prenet.fc1", M, H)
+    dense("ar_cell.prenet.fc2", H, H)
+    gru("ar_cell.cell", H, H)
+    dense("transition.enc_proj", He, 2 * R)
+    dense("transition.dec_pre", H, R)
+    dense("transition.dec_proj", R, 2 * R)
+    dense("transition.enc_bias", He, 2)
+    spec["transition.enc_bias.bias"] = ((2,), [EMIT_BIAS, -EMIT_BIAS])
+    dense("transition.dec_bias", H, 2)
+    spec["frame.log_sigma"] = ((), "zeros")
+    dense("frame.enc_mel", He, M)
+    dense("frame.dec_mel", H, M)
+    for kind, D in (("duration", cfg["duration_class_size"]),
+                    ("tone", cfg["tone_class_size"])):
+        dense(f"{kind}_head.h1", He, He)
+        dense(f"{kind}_head.out", He, D)
+        spec[f"{kind}_ar.embed"] = ((D, H), H)
+        dense(f"{kind}_ar.enc_in", He, H)
+        gru(f"{kind}_ar.cell", H, H)
+        dense(f"{kind}_ar.out", H, D)
+    if frames_per_token is not None:
+        bias = [0.0] * cfg["duration_class_size"]
+        bias[cfg["duration_table"].index(frames_per_token)] = DURATION_BIAS
+        spec["duration_ar.out.bias"] = ((len(bias),), bias)
+    return spec
 
 
 def positions(length: int, dim: int, device) -> torch.Tensor:
@@ -125,6 +182,11 @@ def gru(num: Num, wi, bi, wh, bhn, state, x):
     return num.rnd(num.rnd(1.0 - z) * n) + z * state
 
 
+def _zero_carry(cfg: dict, R: int, W: int, device):
+    """The GRU carry of every beam at the first step: (R, W, H) zeros."""
+    return torch.zeros(R, W, cfg["decoder_dim"], device=device)
+
+
 # ------------------------------------------------------------------- v1
 
 def v1_enc_side(P, enc, num: Num):
@@ -138,6 +200,9 @@ def v1_enc_side(P, enc, num: Num):
     em = num.dense(enc, P["frame.enc_mel.weight"].T,
                    P["frame.enc_mel.bias"])
     return p, eb, em
+
+
+v1_state = _zero_carry
 
 
 def v1_step(P, side, t, state, prev_mel, num: Num):
@@ -170,6 +235,12 @@ def v1_step(P, side, t, state, prev_mel, num: Num):
     return h, mel, new_h
 
 
+def v1_output(P, cfg: dict, frames, num_frames, num: Num):
+    """The program's `mel` from the best path's frames (B, U, M): the
+    frames themselves (this architecture has no postnet)."""
+    return frames
+
+
 # ------------------------------------------------------------------- v2
 
 def v2_enc_side(P, enc, num: Num):
@@ -183,6 +254,9 @@ def v2_enc_side(P, enc, num: Num):
     base = dense32(h1, P["duration_head.out.weight"].T,
                    P["duration_head.out.bias"])
     return xin, base
+
+
+v2_state = _zero_carry
 
 
 def v2_step(P, side, pos, state, prev_class, num: Num):

@@ -2,6 +2,7 @@
 utterances, driven through the harness as a benchmark run would."""
 
 from perfbench import harness
+from perfbench.arch import architecture
 
 TINY = dict(vocab_size=32, mel_dim=8, encoder_dim=32, encoder_layers=1,
             encoder_heads=2, decoder_dim=32, joint_rank=8,
@@ -10,7 +11,7 @@ TINY = dict(vocab_size=32, mel_dim=8, encoder_dim=32, encoder_layers=1,
 
 
 def spec(entry: str, *, cfg=None, batch=4, beam=3, frames=30, pad_to=12,
-         limits=None):
+         limits=None, step=None):
     """A cell spec like harness.cell_spec's."""
     mix = dict(entry=entry, batch=batch, beam=beam, pad_to=pad_to,
                min_len=pad_to // 2, max_len=pad_to, max_frames=frames,
@@ -29,10 +30,14 @@ def spec(entry: str, *, cfg=None, batch=4, beam=3, frames=30, pad_to=12,
              keep_per_batch=batch - 1, traced_batches=1, limits=limits)
     e2e = [{"name": n, "unit": "u"} for n in
            ("audio_s_per_s", "request_ms_p95", "setup_s")]
-    return dict(cell={"chips": 1}, workload=w, cfg=dict(cfg or TINY),
-                mix=mix, end_to_end=e2e, per_layer=[])
+    cfg = dict(cfg or TINY)
+    return dict(cell={"chips": 1}, workload=w, cfg=cfg, mix=mix,
+                arch=architecture(cfg, entry),
+                step=step or harness.DEFAULT_STEP[entry],
+                end_to_end=e2e, per_layer=[])
 
 
-def run(entry, seconds=0.5, control=False, **kw):
+def run(cell: dict, seconds=0.5, control=False):
+    """One run of the small cell `cell` (spec's) on the CPU."""
     return harness.run_cell("small", 1234567890123, seconds, False, "cpu",
-                            t0=0.0, spec=spec(entry, **kw), control=control)
+                            t0=0.0, spec=cell, control=control)

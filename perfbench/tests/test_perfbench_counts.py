@@ -1,7 +1,8 @@
 """The counts of operations and bytes against hand counts at a tiny
 shape (B=1, W=2; H=4, M=2, R=1, He=4, D=3, bf16)."""
 
-from perfbench.counts import ssnt
+from perfbench.arch import architecture
+from perfbench.counts import roofline, ssnt
 
 CFG = dict(vocab_size=8, mel_dim=2, encoder_dim=4, encoder_layers=1,
            encoder_heads=2, decoder_dim=4, joint_rank=1,
@@ -43,9 +44,9 @@ def test_encoder_flops():
 
 def test_bound_takes_the_larger():
     kind = "NVIDIA H100 80GB HBM3"
-    assert ssnt.bound_s(989e12, 0, CFG, kind) == 1.0
-    assert ssnt.bound_s(0, 3.35e12, CFG, kind) == 1.0
-    assert ssnt.bound_s(1, 1, CFG, "another card") is None
+    assert roofline.bound_s(989e12, 0, CFG, kind) == 1.0
+    assert roofline.bound_s(0, 3.35e12, CFG, kind) == 1.0
+    assert roofline.bound_s(1, 1, CFG, "another card") is None
 
 
 def test_step_readers_from_a_trace():
@@ -56,10 +57,10 @@ def test_step_readers_from_a_trace():
     ops = [{"dur": d, "spans": frozenset(s)} for d, s in
            ((150, {"v1_step"}), (50, {"v1_step"}), (999, set()))]
     run = {"trace": {"ops": ops, "spans": sp}, "cfg": CFG, "kind": card,
-           "mix": {"batch": 1, "beam": 2}}
+           "arch": architecture(CFG), "mix": {"batch": 1, "beam": 2}}
     assert trace.step_device_us(run, "v1_step") == 100.0
-    bound = ssnt.bound_s(ssnt.v1_step_flops(CFG, 1, 2),
-                         ssnt.v1_step_bytes(CFG, 1, 2), CFG, card)
+    bound = roofline.bound_s(ssnt.v1_step_flops(CFG, 1, 2),
+                             ssnt.v1_step_bytes(CFG, 1, 2), CFG, card)
     assert trace.roofline_share(run, "v1_step", "v1") == 100.0 * bound / (
         100.0 * 1e-6)
     assert trace.roofline_share(run, "v2_step", "v2") is None

@@ -11,7 +11,7 @@ import pytest
 
 from perfbench import harness, trace
 from perfbench import traffic_gen as traffic
-from perfbench.reference import params
+from perfbench.arch import architecture
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -78,8 +78,46 @@ def test_configs(config):
             assert (list(got) if isinstance(got, tuple) else got) == value
     if "parameters" in cfg:
         total = sum(math.prod(s) for s, _ in
-                    params.param_shapes(cfg).values())
+                    architecture(cfg).ref.param_shapes(cfg).values())
         assert total == cfg["parameters"]
+
+
+@pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
+def test_architecture_resolves(config):
+    cfg = json.loads((ROOT / config["file"]).read_text())
+    arch = architecture(cfg)
+    for kind, mod in (("reference", arch.ref), ("counts", arch.counts)):
+        assert Path(mod.__file__) == ROOT / "perfbench" / kind / \
+            f"{arch.name}.py"
+
+
+def fault_fields_hold(span: str, cfg: dict):
+    """The step's span carries what perfbench/faults.py needs, and it
+    names the step's arguments and output fields."""
+    import inspect
+    import typing
+    f = trace.span_specs()[span]["fault"]
+    assert set(f) == {"args", "outputs", "classes"}
+    assert set(f["args"]) == {"state", "log_prob"}
+    assert set(f["outputs"]) == {"prediction", "state"}
+    owner, attr = trace.owner_of(trace.span_specs()[span])
+    step = getattr(owner, attr)
+    assert set(f["args"].values()) <= set(inspect.signature(step).parameters)
+    out = typing.get_type_hints(step)["return"]
+    assert set(f["outputs"].values()) <= set(out._fields)
+    classes = f["classes"]
+    assert isinstance(classes, int) or isinstance(cfg[classes], int)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_step_carries_the_fault_fields(cell):
+    spec = harness.cell_spec(cell, BENCH)
+    fault_fields_hold(spec["step"], spec["cfg"])
+
+
+def test_beam_only_step_carries_the_fault_fields():
+    from perfbench.tests.small import TINY
+    fault_fields_hold("v1_beam_step", TINY)
 
 
 def test_spans_name_program_calls():

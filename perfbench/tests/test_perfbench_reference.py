@@ -4,7 +4,9 @@ widths in bfloat16: the same weights, the same inputs."""
 import torch
 
 from perfbench import weights
-from perfbench.reference import beam, model, params
+from perfbench.arch import architecture
+from perfbench.reference import beam, ssnt
+from perfbench.reference.numerics import Num
 from perfbench.tests import small
 
 CFG = small.TINY
@@ -13,11 +15,12 @@ MIX = {"frames_per_token": 3}
 
 def port_model():
     from perfbench import harness
-    return harness.build_model(CFG, MIX, 99, torch.device("cpu"))
+    return harness.build_model(architecture(CFG), CFG, MIX, 99,
+                               torch.device("cpu"))
 
 
 def ref_params():
-    return weights.make(params.param_shapes(CFG, 3), 99, "cpu")
+    return weights.make(ssnt.param_shapes(CFG, 3), 99, "cpu")
 
 
 def inputs(B=3, T=9):
@@ -41,8 +44,8 @@ def test_weights_are_the_ones_loaded():
 
 def test_encoder():
     toks, il = inputs()
-    bf16 = model.Num(torch.bfloat16)
-    ref = model.encode(ref_params(), CFG, toks, il, bf16)
+    bf16 = Num(torch.bfloat16)
+    ref = ssnt.encode(ref_params(), CFG, toks, il, bf16)
     with torch.no_grad():
         port = port_model().encode(toks, il)
     assert close(ref, port)
@@ -53,15 +56,15 @@ def test_v1_step():
     toks, il = inputs()
     m = port_model()
     P = ref_params()
-    bf16 = model.Num(torch.bfloat16)
+    bf16 = Num(torch.bfloat16)
     enc = m.encode(toks, il)
     W = 2
     g = torch.Generator().manual_seed(5)
     t = torch.randint(0, 9, (3, W), generator=g)
     state = torch.randn(3, W, CFG["decoder_dim"], generator=g)
     prev = torch.randn(3, W, CFG["mel_dim"], generator=g)
-    h, mel, new = model.v1_step(P, model.v1_enc_side(P, enc, bf16), t, state,
-                                prev, bf16)
+    h, mel, new = ssnt.v1_step(P, ssnt.v1_enc_side(P, enc, bf16), t, state,
+                               prev, bf16)
     w = m.v1_step_weights()
     pack = stepmath.v1_enc_pack(w, enc, torch.bfloat16)
     gath = torch.gather(pack, 1, t[..., None].expand(-1, -1, pack.shape[2]))
@@ -75,15 +78,15 @@ def test_v2_step():
     toks, il = inputs()
     m = port_model()
     P = ref_params()
-    bf16 = model.Num(torch.bfloat16)
+    bf16 = Num(torch.bfloat16)
     enc = m.encode(toks, il)
     W = 2
     g = torch.Generator().manual_seed(6)
     pos = torch.randint(0, 9, (3, W), generator=g)
     state = torch.randn(3, W, CFG["decoder_dim"], generator=g)
     prev = torch.randint(0, CFG["duration_class_size"], (3, W), generator=g)
-    h, new = model.v2_step(P, model.v2_enc_side(P, enc, bf16), pos, state,
-                           prev, bf16)
+    h, new = ssnt.v2_step(P, ssnt.v2_enc_side(P, enc, bf16), pos, state,
+                          prev, bf16)
     enc_t = torch.gather(enc, 1, pos[..., None].expand(-1, -1, enc.shape[2]))
     ph, pnew = stepmath.class_step_math(m.duration_step_weights(), enc_t,
                                         state, prev, torch.bfloat16)
@@ -115,7 +118,7 @@ def test_whole_decodes_read_zero_against_the_plain_route():
     # The CPU runs the fused steps' plain versions: the same arithmetic as
     # the reference, so every number reads (nearly) nothing.
     for entry in ("v1", "v2"):
-        res = small.run(entry)
+        res = small.run(small.spec(entry))
         nums = res["numbers"]["program"]
         assert res["correct"], nums
         assert nums["mismatches"] == 0 and nums["invalid"] == 0
@@ -127,9 +130,9 @@ def test_whole_decodes_read_zero_against_the_plain_route():
 def test_duration_bias_on_the_target_class():
     w = ref_params()
     bias = w["duration_ar.out.bias"]
-    assert float(bias[3]) == params.DURATION_BIAS
-    assert float(bias.abs().sum()) == params.DURATION_BIAS
-    assert float(weights.make(params.param_shapes(CFG), 99, "cpu")[
+    assert float(bias[3]) == ssnt.DURATION_BIAS
+    assert float(bias.abs().sum()) == ssnt.DURATION_BIAS
+    assert float(weights.make(ssnt.param_shapes(CFG), 99, "cpu")[
         "duration_ar.out.bias"].abs().sum()) == 0.0
 
 

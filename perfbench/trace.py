@@ -3,7 +3,8 @@ trace of the device, and its reduction to what the per-layer readers
 read.
 
 Each span is a file perfbench/spans/<name>.json naming a callable of the
-program ({"module": ..., "attr": "func" or "Class.method"}); while traced,
+program ({"module": ..., "attr": "func" or "Class.method"}; a step's span
+also carries the fields perfbench/faults.py reads); while traced,
 the harness wraps that callable in a `torch.profiler.record_function` of
 the span's name, and the harness's own "request" span covers each batch
 from its send until its outputs are on the host. A device operation is
@@ -24,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from perfbench.counts import roofline
+
 HERE = Path(__file__).resolve().parent
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -35,16 +38,22 @@ def span_specs() -> dict:
             for p in sorted((HERE / "spans").glob("*.json"))}
 
 
+def owner_of(spec: dict):
+    """(the object that holds a span's callable, the callable's name)."""
+    owner = importlib.import_module(spec["module"])
+    *path, attr = spec["attr"].split(".")
+    for part in path:
+        owner = getattr(owner, part)
+    return owner, attr
+
+
 @contextlib.contextmanager
 def spans():
     """Wrap every span's callable in a record_function while inside."""
     undo = []
     try:
         for name, spec in span_specs().items():
-            owner = importlib.import_module(spec["module"])
-            *path, attr = spec["attr"].split(".")
-            for part in path:
-                owner = getattr(owner, part)
+            owner, attr = owner_of(spec)
             fn = getattr(owner, attr)
 
             def wrapped(*a, _fn=fn, _name=name, **k):
@@ -159,17 +168,17 @@ def step_device_us(run: dict, span: str):
 
 
 def roofline_share(run: dict, span: str, kind: str):
-    """The share of its roofline, in percent, that a call of `span` (the
-    fused step of `kind`, "v1" or "v2") reached: the least time the card
-    could take for one step (perfbench/counts) over the device time a
-    call took; None where either is missing."""
-    from perfbench.counts import ssnt
+    """The share of its roofline, in percent, that a call of `span` (a
+    step whose counts are the architecture's <kind>_step_flops and
+    <kind>_step_bytes, perfbench/counts) reached: the least time the card
+    could take for one step over the device time a call took; None where
+    either is missing."""
     us = step_device_us(run, span)
     B, W = run["mix"]["batch"], run["mix"]["beam"]
-    cfg = run["cfg"]
-    flops = getattr(ssnt, f"{kind}_step_flops")(cfg, B, W)
-    nbytes = getattr(ssnt, f"{kind}_step_bytes")(cfg, B, W)
-    bound = ssnt.bound_s(flops, nbytes, cfg, run["kind"])
+    cfg, counts = run["cfg"], run["arch"].counts
+    flops = getattr(counts, f"{kind}_step_flops")(cfg, B, W)
+    nbytes = getattr(counts, f"{kind}_step_bytes")(cfg, B, W)
+    bound = roofline.bound_s(flops, nbytes, cfg, run["kind"])
     if not us or bound is None:
         return None
     return 100.0 * bound / (us * 1e-6)

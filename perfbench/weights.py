@@ -11,7 +11,8 @@ from perfbench.traffic_gen import subseed
 
 
 def make(spec: dict, seed: int, device) -> dict:
-    """spec: name -> (shape, init) (reference/params.param_shapes). One
+    """spec: name -> (shape, init) (an architecture's param_shapes,
+    perfbench/arch.py). One
     standard normal draw of every drawn element, cut into the kernels and
     scaled by fan_in ** -0.5; zeros, ones or the values where the spec
     says."""
